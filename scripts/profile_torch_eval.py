@@ -1,0 +1,134 @@
+"""Where the time of the port's eval step goes, on one CUDA device.
+
+    python scripts/profile_torch_eval.py
+
+Builds the predict pipeline of ``exp=vlgae`` (random weights from seed 0)
+on the synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50,
+36 boxes of 2048-d features, dev batches of 64), then prints JSON lines:
+
+  - the wall time of an eval step (host clock, synchronised),
+  - the same under ``torch.profiler``: device-busy ms per step, the device's
+    idle share and the kernel launches per step,
+  - the 20 kernels with the most device time per step,
+  - device and host ms of each stage of the forward, loss and decode (CUDA
+    events, a synchronise between stages),
+
+and, last, the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from synth_data import make_corpus  # noqa: E402
+from vlgae_tpu_torch.predict import build_pipeline  # noqa: E402
+from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2  # noqa: E402
+
+N_STEPS = 4
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def run_steps(pipe, batches):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for xp in batches:
+        pipe.eval_step(xp)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def stage_times(model, inputs):
+    """Device and host ms of each stage of one eval forward + loss + decode
+    (the order of ``DependencyBoxRel.forward``)."""
+    stages = {}
+
+    def timed(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        result = fn()
+        end.record()
+        end.synchronize()
+        stages[name] = {"device_ms": start.elapsed_time(end),
+                        "host_ms": (time.perf_counter() - t0) * 1e3}
+        return result
+
+    token = inputs["token"]
+    mask = (torch.arange(token.shape[1], device=token.device)[None]
+            < inputs["seq_len"][:, None])
+    dep = model.dependency
+    vis_enc = timed("vis_encoder", lambda: model.vis_encoder(inputs))
+    emb, aux = timed("embedding (BERT + tag)", lambda: dep.embedding(inputs))
+    enc = timed("encoder", lambda: dep.encoder(emb, mask))
+    enc = timed("fuse_with_matching",
+                lambda: model.fuse_with_matching(inputs, vis_enc, enc, mask))
+    out = timed("DiscriminativeNDMV scores", lambda: dict(dep(inputs, enc, (emb, aux))))
+    vis = timed("vis_feat", lambda: model.vis_feat(inputs, vis_enc))
+    *txt, reuse = timed("lang_feat_max_tree (2x K1)",
+                        lambda: model.lang_feat_max_tree(inputs, enc, out, mask))
+    out.update({"vis_packed": vis, "txt_packed": tuple(txt), "dep_reuse": reuse})
+    out["match_reduced"] = timed("gather_logit_train (K5)",
+                                 lambda: model.gather_logit_train(vis, tuple(txt)))
+    out["match_logit"] = out["match_reduced"][0]
+    zero = torch.zeros((), device=token.device)
+    timed("val/loss (factor CE)", lambda: model.loss(out, inputs, zero, 0.5))
+    timed("decode_grounding (top-5)", lambda: model.decode_grounding_device(out, inputs))
+    return stages
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_torch_eval: no CUDA device", file=sys.stderr)
+        return 2
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
+                    n_box=36, len_range=(3, 50), seed=0)
+        pipe = build_pipeline(chip_smoke._corpus_overrides(tmp) + [
+            "datamodule.dev_dataloader.num_bucket=1"], device="cuda", init_seed=0)
+        batches = [pad_batch_pow2(x)[0]
+                   for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
+        run_steps(pipe, batches)  # warm-up
+        emit({"wall_ms_per_step": run_steps(pipe, batches) * 1e3 / len(batches)})
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = run_steps(pipe, batches)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        emit({"profiled_wall_ms_per_step": wall * 1e3 / len(batches),
+              "device_busy_ms_per_step": busy_us / 1e3 / len(batches),
+              "idle_share": 1 - busy_us / 1e6 / wall,
+              "kernels_per_step": len(kernels) / len(batches)})
+        by_name = defaultdict(lambda: [0.0, 0])
+        for e in kernels:
+            by_name[e.name[:80]][0] += e.time_range.elapsed_us()
+            by_name[e.name[:80]][1] += 1
+        for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+            emit({"kernel": name, "device_ms_per_step": us / 1e3 / len(batches),
+                  "launches_per_step": n / len(batches)})
+        with torch.no_grad():
+            inputs = _to_device(batches[0], pipe.device)
+            stage_times(pipe.model, inputs)  # warm-up
+            emit({"stages_B64": stage_times(pipe.model, inputs)})
+    print(chip_smoke.nvidia_smi_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""Carry weights between the JAX package's params and the port's modules.
+
+The JAX params come as a flat dict of numpy arrays keyed by ``/``-joined
+flax paths (the ``.npz`` that ``scripts/export_jax_params.py`` writes; a
+leading ``params/`` is accepted). The port names its modules after the
+flax paths, so a key maps mechanically:
+
+* a flax ``Dense`` ``kernel [in, out]`` is the transposed ``weight`` of
+  ``nn.Linear``; a ``LayerNorm`` ``scale`` is its ``weight``;
+* the ``Dense_0`` inside ``MLP`` / ``MLPEncoder`` is ``linear``;
+* the bottleneck pair ``<NAME>_down`` / ``<NAME>_up`` of
+  ``DMVSkipConnectEncoder`` is the ``Sequential`` ``<NAME>.0`` / ``<NAME>.1``;
+* every other parameter (``arc_encoder_w1``, ``rel_fc_bias``, embedding
+  tables, the BERT tree under ``.../transformer/bert/...``) keeps its path.
+
+Both directions raise on a missing or an unused key.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_BOTTLENECK = ("HASCHILD", "NOCHILD", "LEFT", "RIGHT")
+
+
+def _flax_to_torch_key(path: str):
+    """(torch key, transpose?) for one flax path."""
+    parts = path.split("/")
+    if parts[0] == "params":
+        parts = parts[1:]
+    out = []
+    for p in parts[:-1]:
+        if p == "Dense_0":
+            out.append("linear")
+        elif p.endswith(("_down", "_up")) and p.rsplit("_", 1)[0] in _BOTTLENECK:
+            name, end = p.rsplit("_", 1)
+            out += [name, "0" if end == "down" else "1"]
+        else:
+            out.append(p)
+    leaf = parts[-1]
+    if leaf == "kernel":
+        return ".".join(out + ["weight"]), True
+    if leaf == "scale":
+        return ".".join(out + ["weight"]), False
+    return ".".join(out + [leaf]), False
+
+
+def _torch_to_flax_key(key: str, ndim: int) -> str:
+    parts = key.split(".")
+    out = []
+    i = 0
+    while i < len(parts) - 1:
+        p = parts[i]
+        if p == "linear":
+            out.append("Dense_0")
+        elif (p in _BOTTLENECK and i + 1 < len(parts) - 1
+              and parts[i + 1] in ("0", "1")):
+            out.append(f"{p}_{'down' if parts[i + 1] == '0' else 'up'}")
+            i += 1
+        else:
+            out.append(p)
+        i += 1
+    leaf = parts[-1]
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 2 else "scale"
+    return "/".join(out + [leaf])
+
+
+def flax_to_torch(flat: Dict[str, np.ndarray], model: torch.nn.Module):
+    """Flat flax params -> a ``state_dict`` for ``model`` (strict)."""
+    want = model.state_dict()
+    state = {}
+    for path, value in flat.items():
+        key, transpose = _flax_to_torch_key(path)
+        if key not in want:
+            raise KeyError(f"flax param {path!r} has no counterpart ({key!r})")
+        arr = np.asarray(value)
+        if transpose:
+            arr = arr.T
+        t = torch.from_numpy(np.array(arr)).to(want[key].dtype)
+        if t.shape != want[key].shape:
+            raise ValueError(
+                f"{path!r}: shape {tuple(t.shape)} != {tuple(want[key].shape)}")
+        state[key] = t
+    missing = sorted(set(want) - set(state))
+    if missing:
+        raise KeyError(f"params missing for: {missing}")
+    return state
+
+
+def torch_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A port ``state_dict`` -> flat flax params (``/``-joined paths,
+    without the ``params/`` root)."""
+    flat = {}
+    for key, value in state.items():
+        arr = value.detach().cpu().numpy()
+        path = _torch_to_flax_key(key, arr.ndim)
+        if path.endswith("/kernel"):
+            arr = arr.T
+        if path in flat:
+            raise KeyError(f"two torch keys map to {path!r}")
+        flat[path] = np.ascontiguousarray(arr)
+    return flat

@@ -1,0 +1,86 @@
+"""Per-image detection-feature loading and batch packing (NumPy).
+
+A copy of the NumPy path of ``vlgae_tpu/data/features.py``: per-image
+``det_feats/<img_id>.npy`` files of shape [n_box, feat_dim + 4]
+(Faster-RCNN features + box coords) are loaded at batch time, optionally
+subsampled to ``sample`` boxes for training, and packed into arrays padded
+to a fixed box count (``pad_boxes``).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+class DetFeatureLoader:
+    """Loads det_feats/<img_id>.npy and packs padded batches."""
+
+    def __init__(self, root, sg_data: Optional[dict] = None, sample: int = 35,
+                 gold: bool = False, pad_boxes: int = 36,
+                 feat_dim: Optional[int] = None, seed: int = 0):
+        self.root = Path(root)
+        self.sg_data = sg_data or {}
+        self.sample = sample
+        self.gold = gold
+        self.pad_boxes = pad_boxes
+        self.feat_dim = feat_dim
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, img_ids: List[int]) -> Dict[str, np.ndarray]:
+        B = len(img_ids)
+        P = self.pad_boxes
+        if self.feat_dim is None:  # infer from the first feature file
+            first = np.load(str(self.root / f"{img_ids[0]}.npy"),
+                            mmap_mode="r")
+            self.feat_dim = first.shape[1] - 4
+        feats = np.zeros((B, P, self.feat_dim), np.float32)
+        boxes = np.zeros((B, P, 4), np.float32)
+        masks = np.zeros((B, P), bool)
+        rel_masks = np.zeros((B, P, P), bool)
+        for i, img_id in enumerate(img_ids):
+            path = self.root / f"{img_id}.npy"
+            if not path.exists():
+                raise FileNotFoundError(str(path))
+            feat = np.load(str(path))
+            if 0 < self.sample < len(feat):
+                sample_id = self.rng.choice(len(feat), self.sample,
+                                            replace=False)
+                feat = feat[sample_id]
+            else:
+                feat = feat[:P]
+                sample_id = np.arange(len(feat))
+            n = len(feat)
+            feats[i, :n] = feat[:, :-4]
+            boxes[i, :n] = feat[:, -4:]
+            if self.gold:
+                m, rm = self._gold_mask(img_id, sample_id)
+                masks[i, : len(m)] = m
+                rel_masks[i, : rm.shape[0], : rm.shape[1]] = rm
+            else:
+                masks[i, :n] = True
+        return {
+            "vis_box_feat": feats,
+            "vis_box_mask": masks,
+            "vis_rel_mask": rel_masks,
+            "vis_available": masks[:, 0].copy(),
+            "vis_box": boxes,
+            "vis_box_index": np.tile(np.arange(P)[None], (B, 1)),
+        }
+
+    def _gold_mask(self, img_id, sample_id):
+        """Gold scene-graph masks."""
+        sg = self.sg_data.get(img_id)
+        if sg is None or len(sg["obj"]) == 0:
+            return np.zeros(0, bool), np.zeros((0, 0), bool)
+        n_obj = len(sg["obj"])
+        mask = np.ones(min(len(sample_id), n_obj), bool)
+        rel = np.zeros((n_obj, n_obj), bool)
+        for item in sg["rel"]:
+            rel[item["subj"], item["obj"]] = True
+        sid = np.asarray(sample_id)
+        sid = sid[sid < n_obj] if len(sid) and sid.max() >= n_obj else sid
+        rel = rel[np.ix_(sid, sid)] if len(sid) else rel[:0, :0]
+        return mask, rel

@@ -1,0 +1,286 @@
+"""Composite embeddings: static tag items and the subword BERT item
+(counterpart of vlgae_tpu/models/embedding.py, eval forward).
+
+The JAX package runs transformers' ``FlaxBertModule``; the card has no
+``transformers``, so :class:`Bert` is a small BERT encoder written here
+with the same parameter tree (``embeddings``, ``encoder.layer.<k>``):
+word + position + token-type embeddings and LayerNorm, then layers of
+self-attention and a GELU feed-forward, each closed by a residual
+LayerNorm. Flax's conventions are kept: LayerNorm eps 1e-12, exact GELU,
+masked keys get the bias ``finfo(f32).min``. Attention is a plain matmul
+and softmax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .nn import ScalarMix
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingItemCfg:
+    """One embedding item."""
+
+    name: str
+    field: str
+    kind: str  # 'static' | 'transformer'
+    n_vocab: int = 0
+    embedding_dim: int = 100
+    mode: str = "basic"
+    # transformer-only (frozen at eval)
+    n_layers: int = 1
+    n_out: int = 0
+    pooling: str = "mean"  # first | last | mean
+    stride: int = 256
+
+    @property
+    def embed_size(self) -> int:
+        if self.kind == "transformer":
+            return self.n_out if self.n_out else self.embedding_dim
+        return self.embedding_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """The random-init BERT of ``exp=vlgae`` when no local checkpoint
+    directory exists (vlgae_tpu/training/factory.py ``_bert_config``)."""
+
+    vocab_size: int = 8192
+    hidden_size: int = 128
+    num_hidden_layers: int = 2
+    num_attention_heads: int = 2
+    intermediate_size: int = 256
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+
+
+class StaticItem(nn.Module):
+    """Lookup table (``mode='basic'``)."""
+
+    def __init__(self, cfg: EmbeddingItemCfg):
+        super().__init__()
+        if cfg.mode != "basic":
+            raise NotImplementedError(f"embedding mode {cfg.mode!r} is not ported")
+        self.embedding = nn.Parameter(torch.randn(cfg.n_vocab, cfg.embedding_dim))
+
+    def forward(self, ids):
+        return F.embedding(ids.long(), self.embedding)
+
+
+class _Table(nn.Module):
+    def __init__(self, n, d):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.randn(n, d) * 0.02)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.embedding)
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.word_embeddings = _Table(c.vocab_size, c.hidden_size)
+        self.position_embeddings = _Table(c.max_position_embeddings, c.hidden_size)
+        self.token_type_embeddings = _Table(c.type_vocab_size, c.hidden_size)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, ids, position_ids, token_type_ids):
+        h = (self.word_embeddings(ids) + self.token_type_embeddings(token_type_ids)
+             + self.position_embeddings(position_ids))
+        return self.LayerNorm(h)
+
+
+class _Attention(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        H = c.hidden_size
+        self.query = nn.Linear(H, H)
+        self.key = nn.Linear(H, H)
+        self.value = nn.Linear(H, H)
+
+
+class _Dense(nn.Module):
+    def __init__(self, n_in, n_out, eps=None):
+        super().__init__()
+        self.dense = nn.Linear(n_in, n_out)
+        if eps is not None:
+            self.LayerNorm = nn.LayerNorm(n_out, eps=eps)
+
+
+class BertAttention(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.n_heads = c.num_attention_heads
+        # flax names this submodule ``self``
+        self.add_module("self", _Attention(c))
+        self.output = _Dense(c.hidden_size, c.hidden_size, c.layer_norm_eps)
+
+    def forward(self, h, bias):
+        att = getattr(self, "self")
+        B, S, H = h.shape
+        hd = H // self.n_heads
+
+        def heads(x):
+            return x.view(B, S, self.n_heads, hd).transpose(1, 2)
+
+        q = heads(att.query(h)) / (hd ** 0.5)
+        k, v = heads(att.key(h)), heads(att.value(h))
+        w = torch.softmax(q @ k.transpose(-1, -2) + bias, dim=-1)
+        ctx = (w @ v).transpose(1, 2).reshape(B, S, H)
+        return self.output.LayerNorm(self.output.dense(ctx) + h)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.attention = BertAttention(c)
+        self.intermediate = _Dense(c.hidden_size, c.intermediate_size)
+        self.output = _Dense(c.intermediate_size, c.hidden_size, c.layer_norm_eps)
+
+    def forward(self, h, bias):
+        h = self.attention(h, bias)
+        x = F.gelu(self.intermediate.dense(h))  # exact GELU
+        return self.output.LayerNorm(self.output.dense(x) + h)
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayer(c) for _ in range(c.num_hidden_layers))
+
+
+class Bert(nn.Module):
+    """BERT without the pooler; returns all hidden states (embeddings
+    first), like ``output_hidden_states=True``."""
+
+    def __init__(self, c: BertConfig):
+        super().__init__()
+        self.config = c
+        self.embeddings = BertEmbeddings(c)
+        self.encoder = BertEncoder(c)
+
+    def forward(self, ids, mask):
+        B, S = ids.shape
+        pos = torch.arange(S, device=ids.device)[None].expand(B, S)
+        h = self.embeddings(ids, pos, torch.zeros_like(ids))
+        bias = torch.where(mask[:, None, None, :], 0.0,
+                           torch.finfo(torch.float32).min)
+        states = [h]
+        for layer in self.encoder.layer:
+            h = layer(h, bias)
+            states.append(h)
+        return states
+
+
+class TransformerItem(nn.Module):
+    """Frozen BERT subword encoder with ScalarMix, stride windows for
+    inputs longer than the position limit, and pooling of each word's
+    subword span [first, last]."""
+
+    def __init__(self, cfg: EmbeddingItemCfg, bert_config: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = Bert(bert_config)
+        if cfg.n_layers > 1:
+            self.scalar_mix = ScalarMix(cfg.n_layers)
+        if cfg.n_out:
+            self.projection = nn.Linear(bert_config.hidden_size, cfg.n_out)
+
+    def _encode(self, ids, mask):
+        layers = self.bert(ids, mask)[-self.cfg.n_layers:]
+        if self.cfg.n_layers > 1:
+            return self.scalar_mix(layers)
+        return layers[-1]
+
+    def forward(self, subword, subword_mask, subword_first, subword_last=None):
+        cfg = self.cfg
+        subword = subword.long()
+        B, S = subword.shape
+        max_len = self.bert.config.max_position_embeddings
+        if S <= max_len:
+            h = self._encode(subword, subword_mask)
+        else:
+            # window 0 keeps [0, max_len); window k > 0 keeps its last
+            # ``stride`` positions
+            stride = min(int(cfg.stride) or max_len // 2, max_len)
+            n_win = -(-(S - max_len) // stride) + 1
+            pad_to = max_len + (n_win - 1) * stride
+            ids = F.pad(subword, (0, pad_to - S))
+            msk = F.pad(subword_mask, (0, pad_to - S))
+            win_ids = torch.stack([ids[:, k * stride: k * stride + max_len]
+                                   for k in range(n_win)], 1)
+            win_msk = torch.stack([msk[:, k * stride: k * stride + max_len]
+                                   for k in range(n_win)], 1)
+            hw = self._encode(win_ids.view(B * n_win, max_len),
+                              win_msk.view(B * n_win, max_len))
+            hw = hw.view(B, n_win, max_len, -1)
+            parts = [hw[:, 0]] + [hw[:, k, max_len - stride:]
+                                  for k in range(1, n_win)]
+            h = torch.cat(parts, 1)[:, :S]
+        first = subword_first.long()
+        last = first if subword_last is None else subword_last.long()
+        if cfg.pooling == "first":
+            h_words = torch.gather(h, 1, first[..., None].expand(-1, -1, h.shape[-1]))
+        elif cfg.pooling == "last":
+            h_words = torch.gather(h, 1, last[..., None].expand(-1, -1, h.shape[-1]))
+        elif cfg.pooling == "mean":
+            csum = torch.cat([torch.zeros_like(h[:, :1]), torch.cumsum(h, 1)], 1)
+            D = h.shape[-1]
+            tot = (torch.gather(csum, 1, (last + 1)[..., None].expand(-1, -1, D))
+                   - torch.gather(csum, 1, first[..., None].expand(-1, -1, D)))
+            n_sub = torch.clamp_min(last - first + 1, 1).to(h.dtype)
+            h_words = tot / n_sub[..., None]
+        else:
+            raise ValueError(f"unknown pooling: {cfg.pooling!r}")
+        if cfg.n_out:
+            h_words = self.projection(h_words)
+        return h_words
+
+
+class CompositeEmbedding(nn.Module):
+    """Concatenation of embedding items (each registered under its flax
+    name, so parameter paths match the JAX package)."""
+
+    def __init__(self, items: Tuple[EmbeddingItemCfg, ...],
+                 bert_config: Optional[BertConfig] = None):
+        super().__init__()
+        self.items = items
+        for cfg in items:
+            if cfg.kind == "transformer":
+                mod = TransformerItem(cfg, bert_config)
+            elif cfg.kind == "static":
+                mod = StaticItem(cfg)
+            else:
+                raise NotImplementedError(f"embedding kind {cfg.kind!r} is not ported")
+            self.add_module(cfg.name, mod)
+
+    @property
+    def embed_size(self) -> int:
+        return sum(cfg.embed_size for cfg in self.items)
+
+    def embed_item(self, name: str, ids):
+        """Embed raw ids with one item's table (used for token_emb)."""
+        return getattr(self, name)(ids)
+
+    def forward(self, inputs):
+        embs, aux = [], {}
+        for cfg in self.items:
+            mod = getattr(self, cfg.name)
+            if cfg.kind == "transformer":
+                h = mod(inputs["subword"], inputs["subword_mask"],
+                        inputs["subword_first"], inputs.get("subword_last"))
+            else:
+                h = mod(inputs[cfg.field])
+            aux[cfg.name] = h
+            embs.append(h)
+        seq_len = max(e.shape[1] for e in embs)
+        embs = [e.expand(e.shape[0], seq_len, e.shape[2]) if e.shape[1] == 1
+                else e for e in embs]
+        return torch.cat(embs, -1), aux

@@ -1,0 +1,463 @@
+"""DependencyBoxRel, the joint vision-language grounding model: its eval /
+predict path (counterpart of vlgae_tpu/models/joint.py).
+
+Eval forward: visual factors, the attention fusion of matched visual
+features into the text encoding, the dependency scores, the language
+factors from the Viterbi tree (two DP passes, log and max, through the
+fused kernel K1 on the card), the reduced matching maxes (kernel K5 under
+``precision=bf16``), the factor-CE grounding loss for ``val/loss``, and
+the grounding decode with the exact top-5. No ``[B, A, Q, V]`` tensor is
+built on this path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from bisect import bisect_left
+from itertools import accumulate
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.match import match_maxes
+from ..ops.topk import exact_top_k
+from ..struct import dmv_value_and_grads
+from .ldndmv import DiscriminativeNDMV, LDNDMVConfig
+from .nn import MLP
+
+# POS prior sets (the reference's joint.py)
+OBJ_POS = ["NN", "NNS", "PRP", "NNP", "WDT", "WP", "NNPS"]
+REL_POS = ["IN", "VBZ", "VBG", "VBN", "TO", "VB", "RB", "RP", "VBD", "CC",
+           "VBP", "EX", "POS", "FW", "WRB", "MD", "RBR"]
+ATTR_POS = ["DT", "JJ", "CD", "PRP$", "JJR", "JJS", "PDT"]
+
+INF = 1e9  # matching mask fill
+LN_EPS = 1e-6  # flax LayerNorm default
+
+
+@dataclasses.dataclass(frozen=True)
+class DependencyBoxRelConfig:
+    """The strategy strings of the JAX config that the predict path
+    supports; any other value raises."""
+
+    add_rel: bool = True
+    add_attr: bool = True
+    add_image: bool = True
+    add_marginal: bool = True
+    language_factor_mode: str = "word+maxdep"
+    match_hidden: int = 128
+    feat_fuse_mode: str = "attention"
+    fuse_aug_with_matching: bool = True
+    gather_logit_mode: str = "simple"
+    loss_grounding_mode: str = "factor|ce"
+    loss_use_pos_prior: bool = True
+    loss_vis2txt: float = 1.0
+    decode_grounding_mode: str = "on_factor"
+    decode_use_pos_prior: bool = True
+    decode_use_heuristic: bool = True
+    grounding_interpolation: float = 0.5
+    eval_match_chunk: int = 128
+    bf16_matmul: bool = False
+
+    def __post_init__(self):
+        supported = {
+            "language_factor_mode": ("word+maxdep",),
+            "feat_fuse_mode": ("none", "attention"),
+            "gather_logit_mode": ("simple",),
+            "loss_grounding_mode": ("factor|ce",),
+            "decode_grounding_mode": ("on_factor",),
+        }
+        for name, allowed in supported.items():
+            v = getattr(self, name)
+            if v not in allowed:
+                raise NotImplementedError(
+                    f"{name}={v!r} is not ported (supported: {allowed})")
+        if self.eval_match_chunk <= 0:
+            raise ValueError("eval_match_chunk must be positive")
+
+
+def _check_match_budget(B, Q, chunk, cfg):
+    """Loud gate on the f32 stream's [B, A, Q, chunk] block: fail with the
+    mode and the shape instead of an opaque out-of-memory error."""
+    est_bytes = B * B * Q * chunk * 4
+    budget = int(float(os.environ.get("VLGAE_MATCH_EINSUM_BUDGET_GB", "4"))
+                 * 2**30)
+    if est_bytes > budget:
+        raise ValueError(
+            f"matching stream would materialize a [B={B}, A={B}, Q={Q}, "
+            f"chunk={chunk}] f32 block (~{est_bytes / 2**30:.1f} GiB > budget "
+            f"{budget / 2**30:.1f} GiB) under language_factor_mode="
+            f"{cfg.language_factor_mode!r}; lower model.eval_match_chunk, "
+            f"reduce the batch, or raise VLGAE_MATCH_EINSUM_BUDGET_GB")
+
+
+class DependencyBoxRel(nn.Module):
+    def __init__(self, cfg: DependencyBoxRelConfig, dep_cfg: LDNDMVConfig,
+                 dependency: DiscriminativeNDMV, vis_encoder, n_enc: int,
+                 n_vis: int, pos_for_obj=(), pos_for_rel=(), pos_for_attr=()):
+        super().__init__()
+        self.cfg = cfg
+        self.dep_cfg = dep_cfg
+        self.dependency = dependency
+        self.vis_encoder = vis_encoder
+        H = cfg.match_hidden
+        self.word_encoder = MLP(n_enc, H, activate=False)
+        self.vis_mlp_pre_matching = nn.Linear(n_vis, H, bias=False)
+        self.child_encoder = MLP(n_enc, H)
+        self.parent_encoder = MLP(n_enc, H)
+        self.arc_encoder_w1 = nn.Parameter(torch.zeros(H, H, H))
+        self.arc_encoder_w2 = nn.Parameter(torch.zeros(H, H))
+        self.arc_encoder_b = nn.Parameter(torch.zeros(H))
+        if cfg.feat_fuse_mode == "attention":
+            self.feat_layernorm = nn.LayerNorm(n_enc, eps=LN_EPS)
+        for name, ids in (("obj", pos_for_obj), ("rel", pos_for_rel),
+                          ("attr", pos_for_attr)):
+            self.register_buffer(f"pos_for_{name}", torch.tensor(ids, dtype=torch.long),
+                                 persistent=False)
+
+    @property
+    def vis_factor_names(self):
+        names = ["obj"]
+        if self.cfg.add_rel:
+            names.append("rel")
+        if self.cfg.add_attr:
+            names.append("attr")
+        if self.cfg.add_image:
+            names.append("img")
+        return names
+
+    # -- vis_feat ----------------------------------------------------------
+    def vis_feat(self, inputs, vis_encoded, return_mid: bool = False):
+        cfg = self.cfg
+        box_mask = inputs["vis_box_mask"]
+        B, P = box_mask.shape
+        feat, mask, split = [vis_encoded["box"]], [box_mask], [P]
+        if cfg.add_rel:
+            rel = vis_encoded["rel"]
+            feat.append(rel)
+            rel_mask = box_mask[:, None, :] & box_mask[:, :, None]
+            mask.append(torch.triu(rel_mask, 1).reshape(B, -1))
+            split.append(rel.shape[1])
+        if cfg.add_attr:
+            feat.append(vis_encoded["attr"])
+            mask.append(box_mask)
+            split.append(P)
+        if cfg.add_image:
+            feat.append(vis_encoded["box"].mean(1, keepdim=True))
+            mask.append(torch.ones(B, 1, dtype=torch.bool, device=box_mask.device))
+            split.append(1)
+        mid = torch.cat(feat, 1)
+        vis = self.vis_mlp_pre_matching(mid)
+        vis_mask = torch.cat(mask, 1)
+        if return_mid:
+            return vis, vis_mask, tuple(split), mid
+        return vis, vis_mask, tuple(split)
+
+    # -- lang_feat -----------------------------------------------------------
+    @staticmethod
+    def _root_prepended(x, mask, seq_len):
+        root = (torch.where(mask[..., None], x, 0.0).sum(1)
+                / torch.clamp_min(seq_len, 1)[:, None])[:, None]
+        return torch.cat([root, x], 1)
+
+    def lang_feat_word_only(self, inputs, encoded, mask):
+        B = mask.shape[0]
+        q_mask = torch.cat([mask.new_zeros(B, 1), mask], 1)
+        x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
+        return self.word_encoder(x), q_mask
+
+    def lang_feat_max_tree(self, inputs, encoded, lang_score, mask):
+        """Words + arcs of the Viterbi tree."""
+        B, L = mask.shape
+        q_mask = torch.cat([mask.new_zeros(B, 1), mask], 1)
+        txt_mask = torch.cat([q_mask, q_mask], 1)
+        mdec = lang_score["merged_dec"].detach()
+        mattach = lang_score["merged_attach"].detach()
+        lengths = inputs["seq_len"]
+        vlog, gd_log, marg = dmv_value_and_grads(mdec, mattach, lengths, "log")
+        arc_margin = marg.sum(-1)  # [B, L+1, L+1]
+        vmax, gd_max, ga_max = dmv_value_and_grads(mdec, mattach, lengths, "max")
+        dep_reuse = {"log": (vlog, gd_log, marg), "max": (vmax, gd_max, ga_max)}
+        ind = ga_max.sum(-1)
+        predicted = torch.cat(
+            [torch.zeros(B, 1, dtype=torch.long, device=mask.device),
+             torch.argmax(ind[:, :, 1:], dim=1)], 1)  # head of each position
+        if self.cfg.add_marginal:
+            # row q reads marg[q, head(q)]: the marginal of the REVERSED arc
+            # (q -> head(q)), a quirk of the reference kept bit-for-bit
+            arc_margin = torch.gather(arc_margin, 2, predicted[..., None])[..., 0]
+        else:
+            arc_margin = q_mask.float()
+        txt_marginal = torch.cat([q_mask.to(arc_margin.dtype), arc_margin], 1)
+
+        x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
+        word_repr = self.word_encoder(x)
+        child_repr = self.child_encoder(x)
+        parent_x = torch.gather(x, 1, predicted[..., None].expand(-1, -1, x.shape[-1]))
+        parent_repr = self.parent_encoder(parent_x)
+        arc_repr = (
+            torch.einsum("bcx,xhy,bcy->bch", child_repr, self.arc_encoder_w1,
+                         parent_repr)
+            + (child_repr + parent_repr) @ self.arc_encoder_w2
+            + self.arc_encoder_b
+        )
+        txt = torch.cat([word_repr, arc_repr], 1)
+        return txt, txt_mask, txt_marginal, dep_reuse
+
+    # -- reduced matching ----------------------------------------------------
+    def gather_logit_train(self, vis, txt):
+        """``(logit [B, A, Q], logit_v [B, A, V])``: maxima of the pairwise
+        matching product without a ``[B, A, Q, V]`` tensor. The relation
+        group is compacted to its strict upper triangle (the only pairs the
+        mask keeps) and expanded back (-INF) afterwards. Under bf16 the
+        fused kernel K5 computes it; at f32 a factor-chunked stream, as in
+        the JAX package, which also computes that case outside any kernel.
+        """
+        keep, inv = self._rel_tri_maps(vis[2], vis[0].device)
+        vis_feat, vis_mask = vis[0][:, keep], vis[1][:, keep]
+        txt_feat, txt_mask = txt[0], txt[1]
+        B, V = vis_mask.shape
+        Q = txt_mask.shape[1]
+        vb = -INF * (1.0 - vis_mask.float())
+        tb = -INF * (1.0 - txt_mask.float())
+        if self.cfg.bf16_matmul:
+            logit, _, logit_v, _ = match_maxes(
+                vis_feat.to(torch.bfloat16).contiguous(),
+                txt_feat.to(torch.bfloat16).contiguous(),
+                vb.contiguous(), tb.contiguous())
+        else:
+            chunk = min(V, self.cfg.eval_match_chunk)
+            _check_match_budget(B, Q, chunk, self.cfg)
+            logit, logit_v = self._match_maxes_chunked(
+                vis_feat.float(), txt_feat.float(), vb, tb, chunk)
+        return logit, self._expand_rel_tri(logit_v, inv)
+
+    @staticmethod
+    def _match_maxes_chunked(vis, txt, vb, tb, chunk):
+        """f32 maxes streamed over factor chunks (``[B, A, Q, chunk]`` at a
+        time): max over v carried across chunks, max over q per chunk."""
+        A, V, _ = vis.shape
+        run = None
+        parts = []
+        for v0 in range(0, V, chunk):
+            att = torch.einsum("bqd,avd->baqv", txt, vis[:, v0:v0 + chunk])
+            att = att + vb[None, :, None, v0:v0 + chunk] + tb[:, None, :, None]
+            m = att.amax(-1)
+            run = m if run is None else torch.maximum(run, m)
+            parts.append(att.amax(-2))
+        return run, torch.cat(parts, -1)
+
+    def _rel_tri_maps(self, split, device):
+        """(keep, inv) index maps compacting the relation group to its
+        strict upper triangle; dropped slots map to a sentinel column.
+        Built on ``device`` (no host copy in the step)."""
+        P = split[0]
+        starts = [0] + list(accumulate(split))
+        keep = []
+        for name, s0, w in zip(self.vis_factor_names, starts, split):
+            if name == "rel":
+                ti, tj = torch.triu_indices(P, P, 1, device=device)
+                keep.append(s0 + ti * P + tj)
+            else:
+                keep.append(torch.arange(s0, s0 + w, device=device))
+        keep = torch.cat(keep)
+        inv = torch.full((int(sum(split)),), keep.numel(), dtype=torch.long,
+                         device=device)
+        inv[keep] = torch.arange(keep.numel(), device=device)
+        return keep, inv
+
+    @staticmethod
+    def _expand_rel_tri(logit_v, inv):
+        pad = logit_v.new_full(logit_v.shape[:-1] + (1,), -INF)
+        return torch.cat([logit_v, pad], -1)[..., inv]
+
+    def _diag_att(self, out, inputs, with_pen: bool):
+        """Own-image [B, Q, V] matching block (f32) with masks and,
+        optionally, the POS-prior penalty."""
+        vis_feat, vis_mask, vis_split = out["vis_packed"][:3]
+        txt_feat, txt_mask = out["txt_packed"][:2]
+        att = torch.einsum("bvd,bqd->bqv", vis_feat.float(), txt_feat.float())
+        att = torch.where(vis_mask[:, None, :], att, -INF)
+        att = torch.where(txt_mask[:, :, None], att, -INF)
+        if with_pen:
+            att = att + self._pos_prior_mask(att, inputs["tag"], vis_split)
+        return att
+
+    def fuse_with_matching(self, inputs, vis_encoded, encoded, mask):
+        """Soft-match every word against the visual factors and add the
+        matched (pre-projection) features back into the text encoding."""
+        vis = self.vis_feat(inputs, vis_encoded, return_mid=True)
+        word, _ = self.lang_feat_word_only(inputs, encoded, mask)
+        fuse_logits = torch.einsum("bvd,bqd->bqv", vis[0], word[:, 1:])
+        attmap = torch.softmax(fuse_logits, 2)
+        x_aug = torch.einsum("bqv,bvh->bqh", attmap, vis[3])
+        return {**encoded, "x": self.feat_layernorm(encoded["x"] + x_aug)}
+
+    # -- forward --------------------------------------------------------------
+    def forward(self, inputs: Dict[str, Any]):
+        cfg = self.cfg
+        token = inputs["token"]
+        mask = (torch.arange(token.shape[1], device=token.device)[None, :]
+                < inputs["seq_len"][:, None])
+        vis_encoded = self.vis_encoder(inputs)
+        emb, aux = self.dependency.embedding(inputs)
+        encoded = self.dependency.encoder(emb, mask)
+        if cfg.feat_fuse_mode == "attention" and cfg.fuse_aug_with_matching:
+            encoded = self.fuse_with_matching(inputs, vis_encoded, encoded, mask)
+        out = dict(self.dependency(inputs, encoded, (emb, aux)))
+        vis = self.vis_feat(inputs, vis_encoded)
+        *txt, dep_reuse = self.lang_feat_max_tree(inputs, encoded, out, mask)
+        txt = tuple(txt)
+        out.update({"vis_packed": vis, "txt_packed": txt, "dep_reuse": dep_reuse})
+        out["match_reduced"] = self.gather_logit_train(vis, txt)
+        out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
+        return out
+
+    # -- grounding loss -----------------------------------------------------
+    def _pos_prior_mask(self, attmap, tag, vis_split, scale: float = 100.0):
+        """Subtract ``scale`` on the word rows (1..L) of tokens in a POS
+        prior set, for every factor column outside that set's group."""
+        L = tag.shape[1]
+        Q, V = attmap.shape[-2], attmap.shape[-1]
+        v_pos = torch.arange(V, device=attmap.device)
+        pen = attmap.new_zeros((tag.shape[0], Q, V))
+        offset = 0
+        for name, width in zip(self.vis_factor_names, vis_split):
+            if name == "img":
+                offset += width
+                continue
+            in_prior = torch.isin(tag, getattr(self, f"pos_for_{name}").to(tag.dtype))
+            outside = (v_pos < offset) | (v_pos >= offset + width)  # [V]
+            token_in_prior = torch.zeros(tag.shape[0], Q, dtype=torch.bool,
+                                         device=tag.device)
+            token_in_prior[:, 1:L + 1] = in_prior
+            pen = pen - scale * (token_in_prior[:, :, None]
+                                 & outside[None, None, :]).to(attmap.dtype)
+            offset += width
+        return pen
+
+    def loss_grounding_factor_ce(self, out, inputs):
+        cfg = self.cfg
+        txt_marginal = out["txt_packed"][2]
+        vis_mask = out["vis_packed"][1]
+        logit, logit_v = out["match_reduced"]
+        B = logit.shape[0]
+        att_d = self._diag_att(out, inputs, with_pen=cfg.loss_use_pos_prior)
+        eye = torch.eye(B, dtype=torch.bool, device=logit.device)
+        logit = torch.where(eye[:, :, None], att_d.amax(-1)[:, None, :], logit)
+        logit_v = torch.where(eye[:, :, None], att_d.amax(-2)[:, None, :], logit_v)
+        # filler rows of the batch padding are masked out of both axes
+        row = inputs["seq_len"] > 0
+        num_token = inputs["seq_len"].sum()
+        logit = torch.where(row[None, :, None], logit, -INF)
+        logit = torch.log_softmax(logit, 1)
+        diag = torch.diagonal(logit, 0, 0, 1).T  # [B, Q]
+        txt2vis = -(diag * txt_marginal * row[:, None]).sum()
+        loss = {"txt2vis": txt2vis / (txt2vis + 1e-6) * num_token}
+        if cfg.loss_vis2txt > 0:
+            logit_v = torch.where(row[:, None, None], logit_v, -INF)
+            logit_v = torch.log_softmax(logit_v, 0)
+            diag_v = torch.diagonal(logit_v, 0, 0, 1).T  # [B, V]
+            vis2txt = -(diag_v * vis_mask * row[:, None]).sum()
+            loss["mt_vis2txt"] = (cfg.loss_vis2txt * vis2txt
+                                  / (vis2txt + 1e-6) * num_token)
+        return sum(loss.values()), loss
+
+    def loss(self, out, inputs, dep_loss, alpha=None):
+        """Interpolated joint objective (eval value)."""
+        if alpha is None:
+            alpha = self.cfg.grounding_interpolation
+        mt_loss, _ = self.loss_grounding_factor_ce(out, inputs)
+        real_avail = inputs["vis_available"] & (inputs["seq_len"] > 0)
+        enough = (real_avail.sum() >= 2).to(mt_loss.dtype)
+        mt_loss = mt_loss * enough * float(alpha > 0)
+        return alpha * mt_loss + (1 - alpha) * dep_loss
+
+    # -- grounding decode (device part) -------------------------------------
+    def decode_grounding_device(self, out, inputs, topk: int = 5):
+        factor2img = out["match_logit"].argmax(1)  # [B, Q]
+        logit = self.decode_grounding_logits(out, inputs)
+        _, top_idx = exact_top_k(logit, topk)  # [B, Q, k]
+        return {"txt_to_factor_idx": top_idx, "txt_to_img": factor2img}
+
+    def decode_grounding_logits(self, out, inputs):
+        """Diagonal decode logits [B, Q, V]: deep mask at -1e20, POS priors
+        at -1e10, then the best-box heuristics."""
+        cfg = self.cfg
+        _, vis_mask, vis_split = out["vis_packed"][:3]
+        logit = self._diag_att(out, inputs, with_pen=False)
+        txt_mask = out["txt_packed"][1]
+        logit = torch.where(vis_mask[:, None, :] & txt_mask[:, :, None], logit,
+                            torch.tensor(-1e20, dtype=logit.dtype, device=logit.device))
+        if cfg.decode_use_pos_prior:
+            logit = logit + self._pos_prior_mask(logit, inputs["tag"], vis_split,
+                                                 scale=1e10)
+        if cfg.decode_use_heuristic:
+            logit = self._decode_heuristic(logit, vis_split, inputs["token"].shape[1])
+        return logit
+
+    def _decode_heuristic(self, logit, vis_split, L):
+        """Constrain rel/attr to best-aligned boxes."""
+        names = self.vis_factor_names
+        P = vis_split[0]
+        box_logit = logit[..., :P]
+        aligned_value = logit.amax(-1)  # [B, Q]
+        box_max_val = box_logit.amax(-1)
+        box_max_ind = box_logit.argmax(-1)
+        B, Q = box_max_val.shape
+        allowed = (box_max_val == aligned_value) & (box_max_val > -1e5)
+        allowed_word = allowed.clone()
+        allowed_word[:, L + 1:] = False
+        onehot = nn.functional.one_hot(box_max_ind, P).bool()
+        out_parts = [box_logit]
+        offset = P
+        for name, width in zip(names[1:], vis_split[1:]):
+            part = logit[..., offset:offset + width]
+            if name == "rel":
+                am = (onehot & allowed_word[..., None]).any(1)  # [B, P]
+                am2 = (am[:, :, None] & am[:, None, :]).reshape(B, 1, P * P)
+                part = torch.where(am2, part, part - 100.0)
+                part = part.reshape(B, Q, P, P)
+                eye = torch.eye(P, dtype=torch.bool, device=logit.device)
+                part = torch.where(eye[None, None], -1e10, part)
+                part = part.reshape(B, Q, P * P)
+            elif name == "attr":
+                am = (onehot & allowed[..., None]).any(1)  # [B, P]
+                part = torch.where(am[:, None, :], part, -1e10)
+            out_parts.append(part)
+            offset += width
+        return torch.cat(out_parts, -1)
+
+    # -- host-side formatting -------------------------------------------------
+    def format_grounding(self, top_idx, vis_split, seq_len, box_index, txt_mask):
+        """Map flat factor indices to (factor_name, box ids) lists."""
+        names = self.vis_factor_names
+        start_points = [0] + list(accumulate(vis_split))
+        results = []
+        top_idx = np.asarray(top_idx)
+        txt_mask = np.asarray(txt_mask)
+        for b in range(top_idx.shape[0]):
+            inst = []
+            for q in range(top_idx.shape[1]):
+                if not txt_mask[b, q]:
+                    continue
+                token_out = []
+                for idx in top_idx[b, q].tolist():
+                    g = bisect_left(start_points, idx)
+                    if g == len(start_points) or start_points[g] != idx:
+                        g -= 1
+                    name = names[g]
+                    idx -= start_points[g]
+                    if name == "rel":
+                        P = vis_split[0]
+                        token_out.append(
+                            (name, (int(box_index[b][idx // P]),
+                                    int(box_index[b][idx % P]))))
+                    else:
+                        token_out.append((name, int(box_index[b][idx])))
+                inst.append(token_out)
+            results.append(inst)
+        return results

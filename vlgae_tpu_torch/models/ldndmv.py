@@ -1,0 +1,184 @@
+"""Discriminative neural DMV (counterpart of vlgae_tpu/models/ldndmv.py):
+the eval forward, the NLL value through the reused DP results, and the
+Viterbi decode."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..struct import NEGINF, dmv_merge, dmv_value_and_grads
+from ..struct.dmv import LEFT, RIGHT
+from .nn import MLP, DMVFactorizedBilinear, DMVSkipConnectEncoder
+
+# POS tags whose words may not act as heads
+FUNCTION_POS = ("ADP", "AUX", "CCONJ", "SCONJ", "CONJ", "DET", "PART")
+
+
+@dataclasses.dataclass(frozen=True)
+class LDNDMVConfig:
+    """The subset of vlgae_tpu's ``LDNDMVConfig`` the predict path reads."""
+
+    context_mode: str = "mean"  # mean | none
+    strict_pad_context: bool = False
+    viterbi_training: bool = True
+    mbr_decoding: bool = False
+    extended_valence: bool = True
+    function_mask: bool = False
+    variational_mode: str = "none"
+    hidden_size: int = 256
+    mid_bottleneck: int = 0
+    mid_n_mid: int = 0
+    attach_rank: int = 16
+    dec_rank: int = 16
+    root_rank: int = 16
+    root_emb_dim: int = 10
+    dec_emb_dim: int = 10
+
+    def __post_init__(self):
+        if self.context_mode not in ("mean", "none"):
+            raise NotImplementedError(
+                f"context_mode={self.context_mode!r} is not ported")
+        if self.variational_mode != "none":
+            raise NotImplementedError(
+                f"variational_mode={self.variational_mode!r} is not ported")
+
+
+class DiscriminativeNDMV(nn.Module):
+    def __init__(self, cfg: LDNDMVConfig, embedding, encoder, n_enc: int,
+                 token2word: Optional[Tuple[int, ...]] = None,
+                 token2tag: Optional[Tuple[int, ...]] = None,
+                 function_mask_ids: Tuple[int, ...] = ()):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = embedding
+        self.encoder = encoder
+        H = cfg.hidden_size
+        n_tok = sum(item.embed_size for item in embedding.items
+                    if (item.name == "word_embedding" and token2word is not None)
+                    or (item.name == "tag_embedding" and token2tag is not None))
+        n_head_in = embedding.embed_size + (n_enc if cfg.context_mode != "none" else 0)
+        self.head_ff = MLP(n_head_in, H)
+        self.child_ff = MLP(n_tok, H)
+        self.root_ff = MLP(cfg.root_emb_dim, H)
+        self.dec_ff = MLP(cfg.dec_emb_dim, H)
+        self.mid_ff = DMVSkipConnectEncoder(H, cfg.mid_bottleneck, cfg.mid_n_mid)
+        self.attach_scorer = DMVFactorizedBilinear(H, cfg.attach_rank)
+        self.dec_scorer = DMVFactorizedBilinear(H, cfg.dec_rank)
+        self.root_scorer = DMVFactorizedBilinear(H, cfg.root_rank)
+        self.root_emb = nn.Parameter(torch.randn(1, cfg.root_emb_dim))
+        self.dec_emb = nn.Parameter(torch.randn(2, cfg.dec_emb_dim))
+        self.register_buffer(
+            "token2word", None if token2word is None
+            else torch.tensor(token2word, dtype=torch.long), persistent=False)
+        self.register_buffer(
+            "token2tag", None if token2tag is None
+            else torch.tensor(token2tag, dtype=torch.long), persistent=False)
+        self.register_buffer(
+            "function_mask_ids", torch.tensor(function_mask_ids, dtype=torch.long),
+            persistent=False)
+
+    def token_emb(self):
+        """Vocab-level token embeddings."""
+        parts = []
+        if self.token2word is not None:
+            parts.append(self.embedding.embed_item("word_embedding", self.token2word))
+        if self.token2tag is not None:
+            parts.append(self.embedding.embed_item("tag_embedding", self.token2tag))
+        return torch.cat(parts, -1)
+
+    def extract_sent_repr(self, encoded, mask):
+        cfg = self.cfg
+        if cfg.context_mode == "none":
+            return None
+        x = encoded["x"]
+        B, L, _ = x.shape
+        if cfg.strict_pad_context:
+            context = x.mean(1, keepdim=True)
+        else:
+            denom = torch.clamp_min(mask.sum(-1, keepdim=True), 1)
+            context = (torch.where(mask[..., None], x, 0.0).sum(1, keepdim=True)
+                       / denom[..., None])
+        if L > 1:
+            context = context.expand(B, L, context.shape[-1])
+        return context
+
+    def forward(self, inputs: Dict[str, Any], encoded, emb_aux):
+        cfg = self.cfg
+        token = inputs["token"].long()
+        b, n = token.shape
+        mask = (torch.arange(n, device=token.device)[None, :]
+                < inputs["seq_len"][:, None])
+        emb, aux = emb_aux
+        out: Dict[str, Any] = {"encoded": encoded, "emb": emb}
+        context = self.extract_sent_repr(encoded, mask)
+        h = emb if context is None else torch.cat([emb, context], -1)
+
+        h_parent = self.mid_ff(self.head_ff(h))
+        h_child = self.mid_ff(self.child_ff(self.token_emb()))[None]
+        h_root = self.mid_ff(self.root_ff(self.root_emb))[None]
+        h_dec = self.mid_ff(self.dec_ff(self.dec_emb))[None]
+
+        # attach: [b, n, dir, val, n_token] -> gather child tokens
+        attach_rule_t = torch.log_softmax(
+            self.attach_scorer(h_parent, h_child, tokens_last=True), -1)
+        if not cfg.extended_valence:
+            attach_rule_t = torch.cat(
+                [attach_rule_t[:, :, :, :1], attach_rule_t[:, :, :, :1]], 3)
+        idx = token[:, None, None, None, :].expand(b, n, 2, 2, n)
+        attach_prob = torch.gather(attach_rule_t, -1, idx).permute(0, 1, 4, 2, 3)
+        ones = torch.ones(n, n, device=token.device)
+        left_mask = torch.tril(ones, -1)[None, :, :, None]
+        right_mask = torch.triu(ones, 1)[None, :, :, None]
+        attach_prob = (attach_prob[..., LEFT, :] * left_mask
+                       + attach_prob[..., RIGHT, :] * right_mask)
+        if cfg.function_mask and self.function_mask_ids.numel():
+            bad = torch.isin(inputs["tag"], self.function_mask_ids)
+            attach_prob = torch.where(bad[:, :, None, None], NEGINF, attach_prob)
+        out["attach"] = attach_prob
+
+        dec_prob = torch.log_softmax(
+            self.dec_scorer(h_parent, h_dec, tokens_last=True), -1)
+        out["dec"] = dec_prob
+
+        root_prob = torch.log_softmax(
+            self.root_scorer(h_root, h_child).sum((-1, -2)), -1)[:, 0]
+        root_prob = root_prob.expand(b, root_prob.shape[-1])
+        out["root"] = torch.gather(root_prob, 1, token)
+
+        out["merged_dec"], out["merged_attach"] = dmv_merge(
+            out["dec"], out["attach"], out["root"])
+        return out
+
+
+def loss_nll(scores, lengths, viterbi: bool):
+    """-(max or marginal) log-likelihood, value only. With
+    ``scores['dep_reuse']`` the per-sentence totals of the language
+    factors' DP passes are reused (the JAX package's straight-through
+    linearization has exactly this value); zero-length rows are masked."""
+    reuse = (scores.get("dep_reuse") or {}).get("max" if viterbi else "log")
+    if reuse is not None:
+        total = reuse[0]
+    else:
+        total, _, _ = dmv_value_and_grads(
+            scores["merged_dec"], scores["merged_attach"], lengths,
+            "max" if viterbi else "log")
+    nll = -torch.where(lengths > 0, total, 0.0).sum()
+    return nll, {"nll": nll}
+
+
+def decode(scores, lengths, mbr: bool):
+    """Tree decode: heads [B, L] from the Viterbi indicators."""
+    if mbr:
+        raise NotImplementedError(
+            "mbr_decoding (Eisner over the marginals) is not ported yet; it is "
+            "the MBR/Eisner slice of ROADMAP.md, after the training step")
+    r = (scores.get("dep_reuse") or {}).get("max")
+    if r is None:
+        r = dmv_value_and_grads(scores["merged_dec"], scores["merged_attach"],
+                                lengths, "max")
+    ind = r[2].sum(-1)  # [B, N1, N1] arc indicators
+    return torch.argmax(ind[:, :, 1:], dim=1)

@@ -1,0 +1,83 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
+by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``vlgae_tpu_torch/_build/lib<name>.so``, then loaded with
+``ctypes``. The library is rebuilt when its source is newer. Pointers and
+the stream pass as ``c_void_p``; each launcher returns the CUDA error code,
+and :func:`check` raises on a non-zero one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "_build")
+ARCH = "arch=compute_90a,code=sm_90a"
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
+
+
+def build(name: str, verbose: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` (when stale) and return the .so path."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    out = os.path.join(BUILD, f"lib{name}.so")
+    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+        return out
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, src]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for {src} (rc {res.returncode}):\n{res.stderr}")
+    if verbose and res.stderr:
+        print(res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first call)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,138 @@
+"""First-order DMV (with valence) inside pass, plain PyTorch.
+
+Counterpart of ``vlgae_tpu/struct/dmv.py`` for the Log and Max semirings.
+This is the plain version of the fused CUDA kernel in
+``csrc/dmv_fused.cu``: the CPU tests and ``chip_smoke.py``'s comparison
+phase use it, the wrapper in :mod:`vlgae_tpu_torch.struct.distributions`
+takes it only for tensors that lie on the CPU.
+
+Chart semantics and recursions are those of the reference
+(NC/HC = NOCHILD/HASCHILD, ⊗/⊕ = semiring mul/sum):
+
+  Il[w,i,v] = (⊕_t Cr[t,i,NC] ⊗ Cl[w-1-t,i+1+t,HC]) ⊗ attach[i+w,i,v] ⊗ dec[i+w,L,v,GO]
+  Ir[w,i,v] = (⊕_t Cr[t,i,HC] ⊗ Cl[w-1-t,i+1+t,NC]) ⊗ attach[i,i+w,v] ⊗ dec[i,R,v,GO]
+  Cl[w,i,v] = ⊕_t Il[w-t,i+t,v] ⊗ Cl[t,i,NC]
+  Cr[w,i,v] = ⊕_t Ir[t+1,i,v] ⊗ Cr[w-1-t,i+1+t,NC]
+
+with seeds ``Cr[0,i,v] = dec[i,R,v,STOP]``, ``Cl[0,i,v] = dec[i,L,v,STOP]``,
+the single-root constraint (``Cr[w,0]`` is semiring-zero unless
+``w == length``) and the total ``Cr[length,0,NC]``.
+
+Each chart is kept as a list of per-width rows ``[B, N1, 2]`` indexed by
+span start, plus an end-indexed twin (``E[w][e] = S[w][e-w]``), so every
+split-point reduction of a width is one stack of earlier rows and one
+shifted slice — the same trick as the reference's diagonal-major layout.
+Gradients come from autograd: ``amax`` splits exact ties evenly, like
+``jax.grad`` of ``jnp.max``, while the CUDA kernel marks every cell of
+every best tree with 1; exact ties are outside the contract between the
+two.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# Constants of the reference (vlgae_tpu/struct/dmv.py, semirings.py).
+NOCHILD = 1
+HASCHILD = 0
+LEFT = 0
+RIGHT = 1
+GO = 0
+STOP = 1
+NEGINF = -1e12
+
+
+def _shift(rows, k):
+    """``out[:, e] = rows[:, e - k]`` (k > 0) or ``rows[:, e + |k|]``
+    (k < 0) along dim 1, filling with the semiring zero."""
+    if k == 0:
+        return rows
+    if k > 0:
+        return F.pad(rows[:, :-k], (0, 0, k, 0), value=NEGINF)
+    return F.pad(rows[:, -k:], (0, 0, 0, -k), value=NEGINF)
+
+
+def _reduce(x, kind):
+    if kind == "log":
+        return torch.logsumexp(x, dim=0)
+    return torch.amax(x, dim=0)
+
+
+def dmv_total(dec, attach, lengths, kind: str = "log"):
+    """Per-sentence semiring total ``[B]`` (log Z or the Viterbi score).
+
+    ``dec [B, N1, 2, 2, 2]`` and ``attach [B, N1, N1, 2]`` are merged
+    (root at position 0) f32 log-potentials, ``lengths [B]`` word counts.
+    """
+    if kind not in ("log", "max"):
+        raise ValueError(f"kind must be 'log' or 'max', got {kind!r}")
+    dec = dec.float()
+    attach = attach.float()
+    B, N1 = dec.shape[:2]
+    dev = dec.device
+    lengths = lengths.to(device=dev, dtype=torch.long)
+    att_r = attach + dec[:, :, None, RIGHT, :, GO]  # head i -> child c
+    att_l = attach + dec[:, :, None, LEFT, :, GO]
+    ar = torch.arange(N1, device=dev)
+
+    def diag(table, w, left):
+        i = ar[: N1 - w]
+        rows = table[:, i + w, i] if left else table[:, i, i + w]
+        return F.pad(rows, (0, 0, 0, w), value=NEGINF)  # [B, N1, 2]
+
+    Cr = [dec[:, :, RIGHT, :, STOP]]
+    Cl = [dec[:, :, LEFT, :, STOP]]
+    CrE, ClE = list(Cr), list(Cl)
+    Ir, IrE = [None], [None]
+    Il, IlE = [None], [None]
+    for w in range(1, N1):
+        valid = (ar < N1 - w)[None, :, None]
+        # incomplete spans: A[i] = ⊕_t Cr[t,i,·] ⊗ Cl[w-1-t,i+1+t,·]
+        crs = torch.stack(Cr[:w])  # [t, B, N1, 2]
+        cle = _shift(
+            torch.stack([ClE[w - 1 - t] for t in range(w)]).flatten(0, 1), -w
+        ).view(w, B, N1, 2)  # [t, B, i, v] = Cl[w-1-t, i+1+t, v]
+        a_l = _reduce(crs[..., NOCHILD] + cle[..., HASCHILD], kind)
+        a_r = _reduce(crs[..., HASCHILD] + cle[..., NOCHILD], kind)
+        il = torch.where(valid, a_l[..., None] + diag(att_l, w, True), NEGINF)
+        ir = torch.where(valid, a_r[..., None] + diag(att_r, w, False), NEGINF)
+        Il.append(il)
+        Ir.append(ir)
+        IlE.append(_shift(il, w))
+        IrE.append(_shift(ir, w))
+        # complete spans
+        ile = _shift(
+            torch.stack([IlE[w - t] for t in range(w)]).flatten(0, 1), -w
+        ).view(w, B, N1, 2)  # [t, B, i, v] = Il[w-t, i+t, v]
+        cls = torch.stack(Cl[:w])[..., NOCHILD, None]
+        cl = _reduce(ile + cls, kind)
+        irs = torch.stack(Ir[1 : w + 1])  # [t, B, i, v] = Ir[t+1, i, v]
+        cre = _shift(
+            torch.stack([CrE[w - 1 - t] for t in range(w)]).flatten(0, 1), -w
+        ).view(w, B, N1, 2)[..., NOCHILD, None]  # Cr[w-1-t, i+1+t, NC]
+        cr = _reduce(irs + cre, kind)
+        keep_root = (ar[None, :] != 0) | (lengths[:, None] == w)
+        cr = torch.where(keep_root[..., None] & valid, cr, NEGINF)
+        cl = torch.where(valid, cl, NEGINF)
+        Cr.append(cr)
+        Cl.append(cl)
+        CrE.append(_shift(cr, w))
+        ClE.append(_shift(cl, w))
+    root = torch.stack(Cr)[:, :, 0, NOCHILD]  # [w, B]
+    return root.gather(0, lengths[None, :])[0]
+
+
+def dmv_value_and_grads_plain(dec, attach, lengths, kind: str = "log"):
+    """``(per_sentence [B], d total/d dec, d total/d attach)``.
+
+    Marginals (log) or Viterbi-tree indicators (max) through autograd
+    of :func:`dmv_total`; no graph is kept for the caller.
+    """
+    with torch.enable_grad():
+        d = dec.detach().float().requires_grad_(True)
+        a = attach.detach().float().requires_grad_(True)
+        per = dmv_total(d, a, lengths, kind)
+        # with n1 = 1 (no words) attach takes no part: its gradient is 0
+        gd, ga = torch.autograd.grad(per.sum(), (d, a), allow_unused=True)
+    return per.detach(), gd, torch.zeros_like(a) if ga is None else ga

@@ -1,0 +1,155 @@
+"""Model factory (counterpart of vlgae_tpu/training/factory.py): build the
+joint model of ``exp=vlgae`` from a composed config. ``_target_`` strings
+are matched by class name, as in the JAX package."""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..models.embedding import BertConfig, CompositeEmbedding, EmbeddingItemCfg
+from ..models.joint import (ATTR_POS, OBJ_POS, REL_POS, DependencyBoxRel,
+                            DependencyBoxRelConfig)
+from ..models.ldndmv import FUNCTION_POS, DiscriminativeNDMV, LDNDMVConfig
+from ..models.text_encoder import MLPEncoder
+from ..models.vis_encoder import VisBoxRelSimpleEncoder
+
+
+def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
+    items = []
+    if emb_cfg.get("use_word", True):
+        raise NotImplementedError(
+            "embedding.use_word (the GloVe word table) is not ported; "
+            "exp=vlgae uses subword + tag embeddings")
+    if emb_cfg.get("use_tag", True) and "tag" in dm.vocabs:
+        args = (emb_cfg.get("tag_embedding", {}) or {}).get("args", {}) or {}
+        items.append(EmbeddingItemCfg(
+            "tag_embedding", "tag", "static", n_vocab=len(dm.vocabs["tag"]),
+            embedding_dim=int(args.get("embedding_dim", 100))))
+    bert_config = None
+    if emb_cfg.get("use_subword", False):
+        args = (emb_cfg.get("transformer", {}) or {}).get("args", {}) or {}
+        model_name = args.get("model", "bert-base-cased")
+        if os.path.isdir(str(model_name)):
+            raise NotImplementedError(
+                "a local pretrained BERT directory is not ported; the port "
+                "builds the random-init BERT of the JAX package")
+        bert_config = BertConfig()
+        items.append(EmbeddingItemCfg(
+            "transformer", "subword", "transformer",
+            embedding_dim=bert_config.hidden_size,
+            n_layers=int(args.get("n_layers", 1)),
+            n_out=int(args.get("n_out", 0) or 0),
+            pooling=str(args.get("pooling", "mean")),
+            stride=int(args.get("stride", 256))))
+    return CompositeEmbedding(tuple(items), bert_config)
+
+
+def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
+    mid = mcfg.get("mid_ff", {}) or {}
+    return LDNDMVConfig(
+        context_mode=mcfg.get("context_mode", "mean"),
+        strict_pad_context=bool(mcfg.get("strict_pad_context", False)),
+        viterbi_training=bool(mcfg.get("viterbi_training", True)),
+        mbr_decoding=bool(mcfg.get("mbr_decoding", False)),
+        extended_valence=bool(mcfg.get("extended_valence", True)),
+        function_mask=bool(mcfg.get("function_mask", False)),
+        variational_mode=mcfg.get("variational_mode", "none"),
+        hidden_size=int((mcfg.get("head_ff", {}) or {}).get("n_hidden", 256)),
+        mid_bottleneck=int(mid.get("n_bottleneck", 0) or 0),
+        mid_n_mid=int(mid.get("n_mid", 0) or 0),
+        attach_rank=int(mcfg.get("attach_rank", 16)),
+        dec_rank=int(mcfg.get("dec_rank", 16)),
+        root_rank=int(mcfg.get("root_rank", 16)),
+        root_emb_dim=int(mcfg.get("root_emb_dim", 10)),
+        dec_emb_dim=int(mcfg.get("dec_emb_dim", 10)),
+    )
+
+
+def build_ldndmv(cfg: Dict[str, Any], dm, mcfg: Dict[str, Any]):
+    embedding = build_embedding(cfg.get("embedding", {}), dm)
+    enc_cfg = cfg.get("encoder", {})
+    if "MLPEncoder" not in str(enc_cfg.get("_target_", "")):
+        raise NotImplementedError(
+            f"encoder {enc_cfg.get('_target_')!r} is not ported (MLPEncoder only)")
+    n_enc = int(enc_cfg.get("n_hidden", 256))
+    encoder = MLPEncoder(embedding.embed_size, n_enc)
+    dep_cfg = _ldndmv_cfg(mcfg)
+    fmask = ()
+    if dep_cfg.function_mask and "tag" in dm.vocabs:
+        fmask = tuple(dm.vocabs["tag"][t] for t in FUNCTION_POS
+                      if t in dm.vocabs["tag"])
+    dep = DiscriminativeNDMV(
+        dep_cfg, embedding, encoder, n_enc,
+        token2word=tuple(dm.token2word) if dm.token2word else None,
+        token2tag=tuple(dm.token2tag) if dm.token2tag else None,
+        function_mask_ids=fmask)
+    return dep, n_enc
+
+
+def _bf16(cfg: Dict[str, Any]) -> bool:
+    prec = str(cfg.get("trainer", {}).get("precision", 32))
+    return prec in ("16", "bf16", "bfloat16")
+
+
+def build_vis_encoder(cfg: Optional[Dict[str, Any]], dtype=None):
+    if not cfg:
+        raise NotImplementedError("the joint model needs a vis_encoder config")
+    target = str(cfg.get("_target_", ""))
+    if not target.endswith("VisBoxRelSimpleEncoder"):
+        raise NotImplementedError(f"vis_encoder {target!r} is not ported")
+    return VisBoxRelSimpleEncoder(
+        n_in=int(cfg.get("n_in", 2048)),
+        n_hidden=int(cfg.get("n_hidden", 256)),
+        activate=bool(cfg.get("activate", True)),
+        use_attr=bool(cfg.get("use_attr", True)),
+        use_img=bool(cfg.get("use_img", False)),
+        img_feat=bool(cfg.get("img_feat", True)),
+        dtype=dtype)
+
+
+def build_joint(cfg: Dict[str, Any], dm) -> DependencyBoxRel:
+    mcfg = cfg.get("model", {})
+    dep, n_enc = build_ldndmv(cfg, dm, mcfg.get("dep_model_cfg", {}))
+    bf16 = _bf16(cfg)
+    vcfg = cfg.get("vis_encoder")
+    vis_encoder = build_vis_encoder(vcfg, torch.bfloat16 if bf16 else None)
+    sub = lambda k: mcfg.get(k, {}) or {}  # noqa: E731
+    interp = mcfg.get("grounding_interpolation", 0.5)
+    jcfg = DependencyBoxRelConfig(
+        add_rel=bool(mcfg.get("add_rel", True)),
+        add_attr=bool(mcfg.get("add_attr", True)),
+        add_image=bool(mcfg.get("add_image", True)),
+        add_marginal=bool(mcfg.get("add_marginal", True)),
+        language_factor_mode=mcfg.get("language_factor_mode", "word+maxdep"),
+        match_hidden=int(sub("visual_factor_cfg").get("n_hidden", 128)),
+        feat_fuse_mode=mcfg.get("feat_fuse_mode", "attention"),
+        fuse_aug_with_matching=bool(sub("feat_fuse_args").get("aug_with_matching", True)),
+        gather_logit_mode=mcfg.get("gather_logit_mode", "simple"),
+        loss_grounding_mode=mcfg.get("loss_grounding_mode", "factor|ce"),
+        loss_use_pos_prior=bool(sub("loss_grounding_args").get("use_pos_prior", True)),
+        loss_vis2txt=float(sub("loss_grounding_args").get("vis2txt", 1.0)),
+        decode_grounding_mode=mcfg.get("decode_grounding_mode", "on_factor"),
+        decode_use_pos_prior=bool(sub("decode_grounding_args").get("use_pos_prior", True)),
+        decode_use_heuristic=bool(sub("decode_grounding_args").get("use_heuristic", True)),
+        grounding_interpolation=float(interp) if not isinstance(interp, str) else 0.5,
+        eval_match_chunk=int(mcfg.get("eval_match_chunk", 128)),
+        bf16_matmul=bf16,
+    )
+    tag_vocab = dm.vocabs["tag"]
+    to_ids = lambda tags: tuple(tag_vocab[t] for t in tags if t in tag_vocab)  # noqa: E731
+    n_vis = int(vcfg.get("n_hidden", 256))
+    return DependencyBoxRel(
+        jcfg, dep.cfg, dep, vis_encoder, n_enc, n_vis,
+        pos_for_obj=to_ids(OBJ_POS), pos_for_rel=to_ids(REL_POS),
+        pos_for_attr=to_ids(ATTR_POS))
+
+
+def build_model(cfg: Dict[str, Any], dm):
+    target = cfg.get("model", {}).get("_target_", "")
+    if "DependencyBoxRel" in target:
+        return build_joint(cfg, dm)
+    raise NotImplementedError(
+        f"model {target!r} is not ported (DependencyBoxRel only)")
