@@ -3,16 +3,30 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. env    - torch / CUDA / nvcc versions and the card (nvidia-smi)
-  2. build  - compile every kernel of the predict path from csrc/
-  3. k1     - the fused DMV kernel against its plain version (log + max),
-              at B=64 with ragged lengths 1..50, a batch with lengths up
-              to 80 and n1 < 10
-  4. k5     - the matching-max kernel against its plain version at
-              A=B=64, Q=102, V=703, D=128 (bf16)
-  5. slice  - ``vlgae_tpu_torch.predict`` (exp=vlgae, init_seed=0,
-              device=cuda) on a synthetic corpus at the recipe's widths,
-              then ``eval.py`` on the dev predictions
+  1. env       - torch / CUDA / nvcc versions and the card (nvidia-smi)
+  2. build     - compile every kernel from csrc/ (one nvcc per source, in
+                 parallel)
+  3. k1        - the fused DMV kernel against its plain version (log + max),
+                 at B=64 with ragged lengths 1..50, a batch with lengths up
+                 to 80 and n1 < 10
+  4. k5        - the matching-max kernel against its plain version at
+                 A=B=64, Q=102, V=703, D=128 (bf16)
+  5. k6        - the matching backward against its plain version at the
+                 training shape A=B=64, Q=102, V=739, D=128 (its K5 forward
+                 held against the plain version too), exactly at a ragged
+                 shape, and exactly where the bf16 rounding of the summed
+                 cell weight shows
+  6. reference - the card against the CPU on a small corpus (predictions)
+  7. train_reference - one joint train step, the card against the CPU, at
+                 small widths and precision=32 (loss and every gradient)
+  8. slice     - ``vlgae_tpu_torch.predict`` (exp=vlgae, init_seed=0,
+                 device=cuda) on a synthetic corpus at the recipe's widths,
+                 then ``eval.py`` on the dev predictions
+  9. train     - ``vlgae_tpu_torch.train`` on that corpus at the recipe's
+                 widths and bf16: one warm-up and one joint epoch, the
+                 checkpoints, ``eval.py`` on the test predictions, K5 and
+                 K6 on a joint step's own tensors, and the train-step time
+                 at B=64
 Then the card's name and power limit, the per-kernel table and, as the
 last line, ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that line. Needs one CUDA device.
@@ -40,6 +54,11 @@ KERNELS = {
         "source": "vlgae_tpu_torch/csrc/match_fwd.cu",
         "replaces": "vlgae_tpu/ops/match_pallas.py:195",
     },
+    "match_bwd": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/csrc/match_bwd.cu",
+        "replaces": "vlgae_tpu/ops/match_pallas.py:267",
+    },
 }
 # tolerances of the kernel/plain comparisons (f32, different sum orders)
 K1_TOTAL_ATOL, K1_TOTAL_RTOL = 1e-3, 1e-5
@@ -47,6 +66,12 @@ K1_TOTAL_ATOL, K1_TOTAL_RTOL = 1e-3, 1e-5
 # log-domain sums carry a few ulp of |log Z| (~100 at length 50)
 K1_GRAD_ATOL, K1_GRAD_RTOL = 5e-4, 1e-4
 K5_ATOL, K5_RTOL = 1e-3, 1e-6
+# K6: exact bf16 x bf16 products summed in f32 in different orders, then
+# rounded to bf16: one bf16 ulp (2^-8 relative) plus f32 order noise
+K6_ATOL, K6_RTOL = 1e-4, 2.0 ** -7
+# card vs CPU train step at precision=32 (f32, different summation orders)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
 
 
 def close(got, want, atol, rtol):
@@ -101,14 +126,21 @@ def phase_build(state):
 
     from vlgae_tpu_torch.ops import _build
 
+    from concurrent.futures import ThreadPoolExecutor
+
     # always from the sources: drop libraries left by an earlier run
     shutil.rmtree(_build.BUILD, ignore_errors=True)
-    out = {}
-    for name in KERNELS:
+
+    def one(name):
         t0 = time.perf_counter()
         _build.build(name, verbose=True)
-        out[name] = round(time.perf_counter() - t0, 3)
-    emit({"phase": "build", "seconds": out})
+        return round(time.perf_counter() - t0, 3)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        out = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    emit({"phase": "build", "seconds": out,
+          "wall_s": round(time.perf_counter() - t0, 3)})
 
 
 def _dmv_inputs(rng, lengths, n1, device):
@@ -182,6 +214,48 @@ def phase_k1(state):
     }
 
 
+def _check_k5(args, exact, what):
+    """K5 against its plain version on ``args`` = (vis, txt, vis_bias,
+    txt_bias): all four outputs equal when ``exact``; otherwise values
+    within tolerance, and an index may differ only where the two winners
+    tie within tolerance. Returns the kernel's outputs, the max value
+    errors and the index mismatch counts."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_maxes_cuda, match_maxes_plain
+
+    vis, txt, vb, tb = args
+    with torch.no_grad():
+        k = match_maxes_cuda(*args)
+        p = match_maxes_plain(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, kv, pv in (("logit", k[0], p[0]), ("logit_v", k[2], p[2])):
+        errs[name] = float((kv - pv).abs().max())
+        if not (torch.equal(kv, pv) if exact else close(kv, pv, K5_ATOL, K5_RTOL)):
+            raise AssertionError(f"K5 {name} disagrees {what}: max err {errs[name]}")
+
+    def att_at(b, a, q, v):
+        x = (txt.float()[b, q] * vis.float()[a, v]).sum(-1)
+        return x + vb[a, v] + tb[b, q]
+
+    off = {}
+    bb, aa, qq = torch.nonzero(k[1] != p[1], as_tuple=True)
+    x1, x2 = att_at(bb, aa, qq, k[1][bb, aa, qq]), att_at(bb, aa, qq, p[1][bb, aa, qq])
+    ok_q = bool(((x1 - x2).abs() <= K5_ATOL + K5_RTOL * x2.abs()).all())
+    off["logit_idx"] = int(bb.numel())
+    bb, aa, vv = torch.nonzero(k[3] != p[3], as_tuple=True)
+    x1 = att_at(bb, aa, k[3][bb, aa, vv], vv)
+    x2 = att_at(bb, aa, p[3][bb, aa, vv], vv)
+    ok_v = bool(((x1 - x2).abs() <= K5_ATOL + K5_RTOL * x2.abs()).all())
+    off["logit_v_idx"] = int(bb.numel())
+    if exact and any(off.values()):
+        raise AssertionError(f"K5 indices disagree {what}: {off}")
+    if not (ok_q and ok_v):
+        raise AssertionError(f"K5 indices disagree beyond ties {what}: {off}")
+    return k, errs, off
+
+
 def phase_k5(state):
     import numpy as np
     import torch
@@ -206,37 +280,8 @@ def phase_k5(state):
                           device=dev).bfloat16() for s in ((5, 65, 130), (62, 202, 130))]
     small += [torch.tensor(np.where(rng.random(s) < 0.3, -1e9, 0.0),
                            dtype=torch.float32, device=dev) for s in ((5, 65), (62, 202))]
-    for g, w in zip(match_maxes_cuda(*small), match_maxes_plain(*small)):
-        if not bool((g == w).all()):
-            raise AssertionError("K5 disagrees at A=5, V=65, B=62, Q=202, D=130")
-    k = match_maxes_cuda(vis, txt, vb, tb)
-    p = match_maxes_plain(vis, txt, vb, tb)
-    torch.cuda.synchronize()
-    errs, off = {}, {}
-    worst = 0.0
-    for name, kv, pv in (("logit", k[0], p[0]), ("logit_v", k[2], p[2])):
-        d = (kv - pv).abs()
-        if not close(kv, pv, K5_ATOL, K5_RTOL):
-            raise AssertionError(f"K5 {name} disagrees: max err {float(d.max())}")
-        errs[name] = float(d.max())
-        worst = max(worst, errs[name])
-
-    def att_at(b, a, q, v):
-        x = (txt.float()[b, q] * vis.float()[a, v]).sum(-1)
-        return x + vb[a, v] + tb[b, q]
-
-    # an index may differ only where the two winners tie within tolerance
-    bb, aa, qq = torch.nonzero(k[1] != p[1], as_tuple=True)
-    x1, x2 = att_at(bb, aa, qq, k[1][bb, aa, qq]), att_at(bb, aa, qq, p[1][bb, aa, qq])
-    ok_q = bool(((x1 - x2).abs() <= K5_ATOL + K5_RTOL * x2.abs()).all())
-    off["logit_idx"] = int(bb.numel())
-    bb, aa, vv = torch.nonzero(k[3] != p[3], as_tuple=True)
-    x1 = att_at(bb, aa, k[3][bb, aa, vv], vv)
-    x2 = att_at(bb, aa, p[3][bb, aa, vv], vv)
-    ok_v = bool(((x1 - x2).abs() <= K5_ATOL + K5_RTOL * x2.abs()).all())
-    off["logit_v_idx"] = int(bb.numel())
-    if not (ok_q and ok_v):
-        raise AssertionError(f"K5 indices disagree beyond ties: {off}")
+    _check_k5(small, True, "at A=5, V=65, B=62, Q=202, D=130")
+    _, errs, off = _check_k5((vis, txt, vb, tb), False, f"at V={V}")
     ms = time_ms(lambda: match_maxes_cuda(vis, txt, vb, tb))
     plain_ms = time_ms(lambda: match_maxes_plain(vis, txt, vb, tb), reps=5,
                        warmup=1)
@@ -244,7 +289,112 @@ def phase_k5(state):
           "exact_at": {"A": 5, "V": 65, "B": 62, "Q": 202, "D": 130},
           "max_abs_err": errs, "index_mismatch_within_tol": off,
           "tolerance": [K5_ATOL, K5_RTOL], "ms": ms, "plain_ms": plain_ms})
-    state["match_fwd"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    state["match_fwd"] = {"max_abs_err": max(errs.values()), "ms": ms,
+                          "plain_ms": plain_ms}
+
+
+def _match_bwd_inputs(rng, A, V, B, Q, D, dev, kind):
+    """bf16 operands, -1e9 masks, indices from a K5 forward (held against
+    its plain version), f32 cotangents. ``kind``: "random" (normal
+    operands and cotangents), "quarter" (quarter-integers in [-2, 2]:
+    every product and sum exact, every weight bf16-exact) or "dyadic"
+    (quarter-integer operands, cotangents k·2^-10 with |k| < 2048: still
+    exact at small shapes, but the two directions' sum needs up to 13
+    bits, so rounding the weight to bf16 shows)."""
+    import numpy as np
+    import torch
+
+    def draw(*shape):
+        if kind == "random":
+            return rng.standard_normal(shape)
+        return rng.integers(-8, 9, shape) * 0.25
+
+    def cot(*shape):
+        if kind == "dyadic":
+            return rng.integers(-2047, 2048, shape) * 2.0 ** -10
+        return draw(*shape)
+
+    vis = torch.tensor(draw(A, V, D), dtype=torch.float32, device=dev).bfloat16()
+    txt = torch.tensor(draw(B, Q, D), dtype=torch.float32, device=dev).bfloat16()
+    vb = torch.tensor(np.where(rng.random((A, V)) < 0.2, -1e9, 0.0),
+                      dtype=torch.float32, device=dev)
+    tb = torch.tensor(np.where(rng.random((B, Q)) < 0.3, -1e9, 0.0),
+                      dtype=torch.float32, device=dev)
+    (_, li, _, lvi), _, _ = _check_k5((vis, txt, vb, tb), kind != "random",
+                                      f"at A={A}, V={V}, B={B}, Q={Q}, D={D}")
+    dm = torch.tensor(cot(B, A, Q), dtype=torch.float32, device=dev)
+    dmv = torch.tensor(cot(B, A, V), dtype=torch.float32, device=dev)
+    return vis, txt, li, lvi, dm, dmv
+
+
+def _check_k6(args, exact, what):
+    """K6 against its plain version on ``args``; returns the max error."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_maxes_bwd_cuda, match_maxes_bwd_plain
+
+    with torch.no_grad():
+        got = match_maxes_bwd_cuda(*args)
+        want = match_maxes_bwd_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("dvis", "dtxt"), got, want):
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        ok = bool((g == w).all()) if exact else close(g, w, K6_ATOL, K6_RTOL)
+        if not ok:
+            raise AssertionError(f"K6 {name} disagrees {what}: max err "
+                                 f"{float((g - w).abs().max())}")
+    return err
+
+
+def phase_k6(state):
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_maxes_bwd_cuda, match_maxes_bwd_plain
+
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    exact_shape = dict(A=5, V=65, B=62, Q=202, D=130)
+    _check_k6(_match_bwd_inputs(rng, *exact_shape.values(), dev, "quarter"), True,
+              f"at {exact_shape}")
+    # the cell weight is rounded to bf16 AFTER the two directions add: a
+    # cell that wins both ways gets bf16(dm + dmv) = 1.109375 here, where
+    # bf16(dm) + bf16(dmv) would give 1.1171875
+    one = torch.ones(1, 1, 1, dtype=torch.bfloat16, device=dev)
+    win = torch.zeros(1, 1, 1, dtype=torch.int32, device=dev)
+    dm = torch.full((1, 1, 1), float.fromhex("0x1.1de51cp+0"), device=dev)
+    dmv = torch.full((1, 1, 1), float.fromhex("-0x1.e92802p-9"), device=dev)
+    pair = [float(g) for g in match_maxes_bwd_cuda(one, one, win, win, dm, dmv)]
+    if pair != [1.109375, 1.109375]:
+        raise AssertionError(f"K6 rounds the summed weight wrongly: {pair}")
+    # the same on cotangents that are not bf16-exact, at a shape small
+    # enough for every f32 sum to stay exact (see _match_bwd_inputs)
+    round_shape = dict(A=4, V=33, B=6, Q=31, D=16)
+    args = _match_bwd_inputs(rng, *round_shape.values(), dev, "dyadic")
+    _check_k6(args, True, f"at {round_shape} (12-bit cotangents)")
+    vis, txt, li, lvi, dm, dmv = args
+    separate = match_maxes_bwd_plain(vis, txt, li, lvi, dm.bfloat16().float(),
+                                     dmv.bfloat16().float())
+    if all(torch.equal(a, b) for a, b in zip(match_maxes_bwd_plain(*args), separate)):
+        raise AssertionError("the 12-bit case does not tell the two roundings apart")
+    shape = dict(A=64, V=739, B=64, Q=102, D=128)
+    args = _match_bwd_inputs(rng, *shape.values(), dev, "random")
+    err = _check_k6(args, False, f"at {shape}")
+    first = match_maxes_bwd_cuda(*args)
+    again = match_maxes_bwd_cuda(*args)
+    identical = all(bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+                    for a, b in zip(first, again))
+    if not identical:
+        raise AssertionError("K6 gave different bits on two runs")
+    ms = time_ms(lambda: match_maxes_bwd_cuda(*args))
+    plain_ms = time_ms(lambda: match_maxes_bwd_plain(*args), reps=5, warmup=1)
+    emit({"phase": "k6", "shape": shape, "exact_at": exact_shape,
+          "exact_12bit_cotangents_at": round_shape, "rounded_pair": pair,
+          "max_abs_err": err, "tolerance": [K6_ATOL, K6_RTOL],
+          "bit_identical_reruns": identical, "ms": ms, "plain_ms": plain_ms})
+    state["match_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def _check_dmv_on_path(out, lengths):
@@ -387,7 +537,7 @@ def phase_slice(state):
               "sentences_per_s_B64": 64 / step_s,
               "shape": {"len": "3-49", "B": 64, "P": 36, "feat": 2048}})
         for name, n in launches.items():
-            state.setdefault(name, {})["launches"] = n
+            state.setdefault(name, {})["launches_predict"] = n
         state["eval_step_ms"] = step_s * 1e3
 
 
@@ -427,8 +577,191 @@ def phase_reference(state):
             raise AssertionError("the card and the CPU disagree on the small corpus")
 
 
+def _small_overrides(root):
+    return _corpus_overrides(root) + [
+        "datamodule.pad_boxes=6", "datamodule.sample_boxes=0", "_hidden_size=32",
+        "_match_hidden_size=16", "_rank=4", "vis_encoder.n_in=16",
+        "vis_encoder.n_hidden=32", "trainer.precision=32",
+        "encoder.dropout=0", "model.word_encoder.dropout=0",
+        "model.dep_model_cfg.head_ff.dropout=0",
+        "model.dep_model_cfg.mid_ff.dropout=0"]
+
+
+def phase_train_reference(state):
+    """One joint train step from the same weights on the card and on the
+    CPU (precision=32, every dropout 0): the loss and every gradient. Where
+    a sentence's Viterbi tree is tied, the card's K1 marks every best tree
+    while the CPU's plain version splits the gradient; the seed here gives
+    tie-free batches, and the tie count is printed."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.predict import build_datamodule, compose
+    from vlgae_tpu_torch.training.factory import build_model
+    from vlgae_tpu_torch.training.pipeline import Pipeline, init_params, pad_batch_pow2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=8, feat_dim=16,
+                    n_box=6, len_range=(3, 12), seed=1)
+        cfg = compose(_small_overrides(tmp))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            dm = build_datamodule(cfg)
+            model = build_model(cfg, dm)
+            init_params(model, 0)
+            pipe = Pipeline(model, dm, cfg, device=dev, workdir=tmp)
+            pipe.setup_optimizer()
+            x, y = next(dm.batches("train", shuffle=False))
+            x, y = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
+            loss, _ = pipe.grad_step(x, y, False, 0.5)
+            with torch.no_grad():
+                ind = pipe.model.eval()(
+                    {k: torch.as_tensor(v).to(pipe.device) for k, v in x.items()}
+                )["dep_reuse"]["max"][2]
+            res[dev] = (float(loss), {n: p.grad.detach().cpu() for n, p in
+                                      pipe.model.named_parameters() if p.grad is not None},
+                        int(((ind.cpu() % 1) != 0).flatten(1).any(1).sum()))
+        (lc, gc, ties_c), (lg, gg, _) = res["cpu"], res["cuda"]
+        if ties_c:
+            raise AssertionError(f"{ties_c} tied Viterbi trees in the reference batch")
+        worst, worst_name = 0.0, None
+        if sorted(gc) != sorted(gg):
+            raise AssertionError("the card and the CPU differ in which params get grads")
+        for n in gc:
+            err = float((gc[n] - gg[n]).abs().max())
+            if err > worst:
+                worst, worst_name = err, n
+            if not close(gg[n], gc[n], TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL):
+                raise AssertionError(f"train step gradient {n}: max err {err}")
+        emit({"phase": "train_reference", "loss": {"cpu": lc, "cuda": lg},
+              "loss_rel_diff": abs(lc - lg) / abs(lc), "n_params": len(gc),
+              "max_grad_abs_err": worst, "worst_param": worst_name,
+              "tied_sentences_cpu_split": ties_c,
+              "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad": [TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL]}})
+        if abs(lc - lg) > TRAIN_LOSS_RTOL * abs(lc):
+            raise AssertionError(f"train step loss: cpu {lc} cuda {lg}")
+
+
+def phase_train(state):
+    """``vlgae_tpu_torch.train`` at the recipe's widths and bf16 on the
+    corpus of phase ``slice``: one warm-up and one joint epoch."""
+    import json as _json
+    import math
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import train
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
+                    n_box=36, len_range=(3, 50), seed=0)
+        run = os.path.join(tmp, "run")
+        overrides = _corpus_overrides(tmp) + [
+            f"datamodule.{s}_dataloader.num_bucket=1"
+            for s in ("train", "dev", "test")] + [
+            "trainer.max_epochs=2", "model.init_epoch=1", f"workdir={run}",
+            "init_seed=0", "device=cuda"]
+        dmv_cuda.n_launches = match.n_launches = match.n_bwd_launches = 0
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            pipe, test = train.main(overrides)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {"dmv_fused": dmv_cuda.n_launches, "match_fwd": match.n_launches,
+                    "match_bwd": match.n_bwd_launches}
+        if not all(launches.values()):
+            raise AssertionError(f"a kernel of the path never launched: {launches}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            lines = [_json.loads(line) for line in f]
+        losses = {k: v for rec in lines for k, v in rec.items()
+                  if "loss" in k or k.endswith(("nll", "enll", "txt2vis", "vis2txt"))}
+        bad = [k for rec in lines for k, v in rec.items()
+               if ("loss" in k or k.endswith(("nll", "enll")))
+               and not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"non-finite losses: {bad}")
+        for name in ("best", "last"):
+            if not os.path.exists(os.path.join(run, "checkpoint", f"{name}.pt")):
+                raise AssertionError(f"checkpoint {name} was not written")
+        ckpt = torch.load(os.path.join(run, "checkpoint", "last.pt"),
+                          map_location="cpu", weights_only=True)
+        pipe.model.load_state_dict(ckpt["model"], strict=True)
+        test_file = os.path.join(run, "test.predict.txt")
+        ev = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "eval.py"), "--file", test_file,
+             "--dataroot", os.path.join(tmp, "vlparse")],
+            capture_output=True, text=True)
+        if ev.returncode != 0:
+            raise AssertionError(f"eval.py rc {ev.returncode}: {ev.stderr[-2000:]}")
+
+        # joint train steps at B = 64, timed on the host clock (upload,
+        # forward, backward, update, the loss on the host); the first
+        # step's K5 and K6 calls are held against their plain versions
+        captured = {}
+        orig = {"fwd": match.match_maxes, "bwd": match.match_maxes_bwd}
+
+        def capturing(key):
+            def call(*args):
+                captured.setdefault(key, tuple(a.detach() for a in args))
+                return orig[key](*args)
+            return call
+
+        match.match_maxes = capturing("fwd")
+        match.match_maxes_bwd = capturing("bwd")
+        times = []
+        try:
+            while len(times) < 7:
+                full = [b for b in pipe.dm.batches("train") if len(b[0]["seq_len"]) == 64]
+                if not full:
+                    raise AssertionError("no training batch of 64 captions")
+                for x, y in full[:7 - len(times)]:
+                    t0 = time.perf_counter()
+                    xp, _ = pad_batch_pow2(x)
+                    yp, _ = pad_batch_pow2(y)
+                    loss, _ = pipe.train_step(xp, yp, False, 0.5)
+                    float(loss)
+                    times.append(time.perf_counter() - t0)
+        finally:
+            match.match_maxes, match.match_maxes_bwd = orig["fwd"], orig["bwd"]
+        step_s = statistics.median(times[1:])
+        _, k5_err, k5_off = _check_k5(captured["fwd"], False,
+                                      "on a joint step's tensors")
+        path_err = _check_k6(captured["bwd"], False, "on a joint step's tensors")
+        vis, txt = captured["bwd"][:2]
+        emit({"phase": "train", "train_s": round(t_train, 3), "launches": launches,
+              "test": test, "epochs": len([r for r in lines if "train/loss" in r]),
+              "losses": losses, "eval_py_tail": ev.stdout.strip().splitlines()[-1],
+              "k5_on_path": {"max_abs_err": k5_err, "index_mismatch_within_tol": k5_off,
+                             "vis": list(captured["fwd"][0].shape),
+                             "txt": list(captured["fwd"][1].shape)},
+              "k6_on_path": {"max_abs_err": path_err, "vis": list(vis.shape),
+                             "txt": list(txt.shape)},
+              "train_step_ms_median_B64": step_s * 1e3,
+              "train_step_ms_B64": [round(t * 1e3, 3) for t in times],
+              "sentences_per_s_B64": 64 / step_s,
+              "shape": {"len": "3-50", "B": 64, "P": 36, "feat": 2048,
+                        "precision": "bf16"}})
+        for name, n in launches.items():
+            state.setdefault(name, {})["launches"] = n
+        state["train_step_ms"] = step_s * 1e3
+
+
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
-          "k5": phase_k5, "reference": phase_reference, "slice": phase_slice}
+          "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
+          "train_reference": phase_train_reference, "slice": phase_slice,
+          "train": phase_train}
 
 
 def main():

@@ -1,17 +1,20 @@
-"""Where the time of the port's eval step goes, on one CUDA device.
+"""Where the time of the port's eval step or train step goes, on one
+CUDA device.
 
-    python scripts/profile_torch_eval.py
+    python scripts/profile_torch_eval.py [eval|train]
 
-Builds the predict pipeline of ``exp=vlgae`` (random weights from seed 0)
-on the synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50,
-36 boxes of 2048-d features, dev batches of 64), then prints JSON lines:
+Builds the pipeline of ``exp=vlgae`` (random weights from seed 0) on the
+synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50, 36
+boxes of 2048-d features, batches of 64). ``eval`` (the default) runs dev
+eval steps; ``train`` runs joint train steps (bf16, dropout on: upload,
+forward, backward, clip, Adam). Prints JSON lines:
 
-  - the wall time of an eval step (host clock, synchronised),
+  - the wall time of a step (host clock, synchronised),
   - the same under ``torch.profiler``: device-busy ms per step, the device's
     idle share and the kernel launches per step,
   - the 20 kernels with the most device time per step,
-  - device and host ms of each stage of the forward, loss and decode (CUDA
-    events, a synchronise between stages),
+  - device and host ms of each stage of the step (CUDA events, a
+    synchronise between stages),
 
 and, last, the card's name and power limit.
 """
@@ -34,8 +37,11 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from synth_data import make_corpus  # noqa: E402
-from vlgae_tpu_torch.predict import build_pipeline  # noqa: E402
-from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2  # noqa: E402
+from vlgae_tpu_torch.predict import (build_datamodule, build_pipeline,  # noqa: E402
+                                     compose)
+from vlgae_tpu_torch.training.factory import build_model  # noqa: E402
+from vlgae_tpu_torch.training.pipeline import (Pipeline, _to_device,  # noqa: E402
+                                               init_params, pad_batch_pow2)
 
 N_STEPS = 4
 
@@ -44,20 +50,16 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def run_steps(pipe, batches):
+def run_steps(step, batches):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for xp in batches:
-        pipe.eval_step(xp)
+    for b in batches:
+        step(b)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def stage_times(model, inputs):
-    """Device and host ms of each stage of one eval forward + loss + decode
-    (the order of ``DependencyBoxRel.forward``)."""
-    stages = {}
-
+def _timer(stages):
     def timed(name, fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -70,6 +72,29 @@ def stage_times(model, inputs):
         stages[name] = {"device_ms": start.elapsed_time(end),
                         "host_ms": (time.perf_counter() - t0) * 1e3}
         return result
+    return timed
+
+
+def train_stage_times(pipe, batch):
+    """Device and host ms of the stages of one joint train step."""
+    stages = {}
+    timed = _timer(stages)
+    x, y = batch
+    pipe.model.train()
+    inputs = timed("upload", lambda: _to_device(x, pipe.device))
+    gold = _to_device(y, pipe.device)
+    loss, _ = timed("forward + loss", lambda: pipe.compute_loss(inputs, gold, False, 0.5))
+    timed("backward (K6, the DP tables, autograd)", loss.backward)
+    timed("clip + Adam", lambda: pipe.optimizer.step(pipe.step))
+    pipe.optimizer.zero_grad()
+    return stages
+
+
+def stage_times(model, inputs):
+    """Device and host ms of each stage of one eval forward + loss + decode
+    (the order of ``DependencyBoxRel.forward``)."""
+    stages = {}
+    timed = _timer(stages)
 
     token = inputs["token"]
     mask = (torch.arange(token.shape[1], device=token.device)[None]
@@ -89,27 +114,57 @@ def stage_times(model, inputs):
                                  lambda: model.gather_logit_train(vis, tuple(txt)))
     out["match_logit"] = out["match_reduced"][0]
     zero = torch.zeros((), device=token.device)
-    timed("val/loss (factor CE)", lambda: model.loss(out, inputs, zero, 0.5))
+    timed("val/loss (factor CE)", lambda: model.loss(out, inputs, zero, alpha=0.5))
     timed("decode_grounding (top-5)", lambda: model.decode_grounding_device(out, inputs))
     return stages
 
 
-def main():
+def _train_setup(tmp):
+    """A training pipeline and N_STEPS joint batches of 64 captions."""
+    cfg = compose(chip_smoke._corpus_overrides(tmp) + [
+        "datamodule.train_dataloader.num_bucket=1"])
+    dm = build_datamodule(cfg)
+    model = build_model(cfg, dm)
+    init_params(model, 0)
+    pipe = Pipeline(model, dm, cfg, device="cuda", workdir=tmp)
+    pipe.setup_optimizer()
+    batches = [(pad_batch_pow2(x)[0], pad_batch_pow2(y)[0])
+               for x, y in dm.batches("train") if len(x["seq_len"]) == 64][:N_STEPS]
+
+    def step(b):
+        loss, _ = pipe.train_step(*b, False, 0.5)
+        float(loss)
+    return pipe, batches, step
+
+
+def main(mode="eval"):
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device", file=sys.stderr)
         return 2
+    if mode not in ("eval", "train"):
+        print(f"profile_torch_eval: unknown mode {mode!r}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
                     n_box=36, len_range=(3, 50), seed=0)
-        pipe = build_pipeline(chip_smoke._corpus_overrides(tmp) + [
-            "datamodule.dev_dataloader.num_bucket=1"], device="cuda", init_seed=0)
-        batches = [pad_batch_pow2(x)[0]
-                   for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
-        run_steps(pipe, batches)  # warm-up
-        emit({"wall_ms_per_step": run_steps(pipe, batches) * 1e3 / len(batches)})
+        if mode == "train":
+            pipe, batches, step = _train_setup(tmp)
+        else:
+            pipe = build_pipeline(chip_smoke._corpus_overrides(tmp) + [
+                "datamodule.dev_dataloader.num_bucket=1"], device="cuda", init_seed=0)
+            batches = [pad_batch_pow2(x)[0]
+                       for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
+            step = pipe.eval_step
+        emit({"mode": mode, "batches": len(batches), "B": 64})
+        run_steps(step, batches)  # warm-up
+        emit({"wall_ms_per_step": run_steps(step, batches) * 1e3 / len(batches)})
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall = run_steps(pipe, batches)
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            wall = run_steps(step, batches)
+        # device work only: not the annotation ranges (Optimizer.step#...)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
         busy_us = sum(e.time_range.elapsed_us() for e in kernels)
         emit({"profiled_wall_ms_per_step": wall * 1e3 / len(batches),
               "device_busy_ms_per_step": busy_us / 1e3 / len(batches),
@@ -122,13 +177,17 @@ def main():
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
             emit({"kernel": name, "device_ms_per_step": us / 1e3 / len(batches),
                   "launches_per_step": n / len(batches)})
-        with torch.no_grad():
-            inputs = _to_device(batches[0], pipe.device)
-            stage_times(pipe.model, inputs)  # warm-up
-            emit({"stages_B64": stage_times(pipe.model, inputs)})
+        if mode == "train":
+            train_stage_times(pipe, batches[0])  # warm-up
+            emit({"stages_B64": train_stage_times(pipe, batches[0])})
+        else:
+            with torch.no_grad():
+                inputs = _to_device(batches[0], pipe.device)
+                stage_times(pipe.model, inputs)  # warm-up
+                emit({"stages_B64": stage_times(pipe.model, inputs)})
     print(chip_smoke.nvidia_smi_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))

@@ -11,7 +11,15 @@ K1 (``dmv_fused``): tie-free random potentials at n1 = 1, 2, 3, 5, 9, 51
 ulp of |log Z|); max-semiring totals and indicators exact. K5
 (``match_fwd``): bf16-exact quarter-integer operands with -1e9 masks, so
 values and first-winner indices are exact, at shapes with ragged tiles
-(V, B, D not multiples of the tiles) and Q over one 128-row chunk.
+(V, B, D not multiples of the tiles) and Q over one 128-row chunk. K6
+(``match_bwd``): indices from a real K5 forward and quarter-integer
+cotangents, so every product and sum is exact and the gradients must be
+EQUAL to the plain version's, at Q > 128, V and Q not multiples of the
+32-row tile, B = 1 and the recipe's training shape (V = 739); two runs
+must give identical bits. Quarter-integer cotangents are bf16-exact, so
+the bf16 rounding of the summed cell weight is pinned apart: by the 1x1x1
+pair of the CPU test and, exactly, by 12-bit dyadic cotangents at shapes
+small enough for every f32 sum to stay exact, up to D = 384.
 """
 
 import numpy as np
@@ -105,3 +113,121 @@ def test_match_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         match_maxes_cuda(vis, txt, vb[:, :4], tb)
     with pytest.raises(ValueError):
         match_maxes_cuda(vis.transpose(1, 2).contiguous().transpose(1, 2), txt, vb, tb)
+
+
+def _match_case(A, V, B, Q, D, device, seed=0, dyadic=False):
+    """Quarter-integer operands in [-2, 2] and -1e9 masks; cotangents
+    quarter-integers too, or with ``dyadic`` k·2^-10 (|k| < 2048), which
+    are not bf16-exact, so the bf16 rounding of the summed cell weight
+    shows, while at shapes with few terms per output row (|sum| < 2^12)
+    every product and f32 sum stays exact."""
+    rng = np.random.default_rng(seed + A + V + B)
+    vis = torch.tensor(rng.integers(-8, 9, (A, V, D)) * 0.25, device=device).bfloat16()
+    txt = torch.tensor(rng.integers(-8, 9, (B, Q, D)) * 0.25, device=device).bfloat16()
+    vb = torch.tensor(np.where(rng.random((A, V)) < 0.3, -1e9, 0.0),
+                      dtype=torch.float32, device=device)
+    tb = torch.tensor(np.where(rng.random((B, Q)) < 0.3, -1e9, 0.0),
+                      dtype=torch.float32, device=device)
+
+    def cot(shape):
+        if dyadic:
+            return rng.integers(-2047, 2048, shape) * 2.0 ** -10
+        return rng.integers(-8, 9, shape) * 0.25
+
+    dm = torch.tensor(cot((B, A, Q)), dtype=torch.float32, device=device)
+    dmv = torch.tensor(cot((B, A, V)), dtype=torch.float32, device=device)
+    return vis, txt, vb, tb, dm, dmv
+
+
+@pytest.mark.parametrize("A,V,B,Q,D", [
+    (3, 10, 4, 5, 7), (5, 65, 62, 202, 130), (4, 33, 1, 129, 128),
+    (1, 40, 6, 31, 16), (64, 739, 64, 102, 128)])
+def test_match_bwd_matches_plain_and_is_deterministic(cuda, A, V, B, Q, D):
+    from vlgae_tpu_torch.ops import match
+    from vlgae_tpu_torch.ops.match import (match_maxes, match_maxes_bwd,
+                                           match_maxes_bwd_plain)
+
+    vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda)
+    _, li, _, lvi = match_maxes(vis, txt, vb, tb)
+    before = match.n_bwd_launches
+    got = match_maxes_bwd(vis, txt, li, lvi, dm, dmv)
+    again = match_maxes_bwd(vis, txt, li, lvi, dm, dmv)
+    assert match.n_bwd_launches == before + 2
+    want = match_maxes_bwd_plain(vis, txt, li, lvi, dm, dmv)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+
+
+def test_match_bwd_rounds_the_weight_after_the_two_directions_add(cuda):
+    """The CPU pair of test_torch_match_bwd.py on the card: bf16(dm + dmv),
+    not bf16(dm) + bf16(dmv) = 1.1171875."""
+    from vlgae_tpu_torch.ops.match import match_maxes_bwd_cuda
+
+    one = torch.ones(1, 1, 1, dtype=torch.bfloat16, device=cuda)
+    win = torch.zeros(1, 1, 1, dtype=torch.int32, device=cuda)
+    dm = torch.full((1, 1, 1), float.fromhex("0x1.1de51cp+0"), device=cuda)
+    dmv = torch.full((1, 1, 1), float.fromhex("-0x1.e92802p-9"), device=cuda)
+    dvis, dtxt = match_maxes_bwd_cuda(one, one, win, win, dm, dmv)
+    assert float(dvis) == float(dtxt) == 1.109375
+
+
+@pytest.mark.parametrize("A,V,B,Q,D", [
+    (3, 10, 4, 5, 7), (4, 33, 1, 129, 128), (1, 40, 6, 31, 16),
+    (2, 20, 3, 9, 384)])
+def test_match_bwd_is_exact_on_12_bit_cotangents(cuda, A, V, B, Q, D):
+    """Cotangents that are not bf16-exact, so a K6 that skipped the
+    rounding of the summed weight, or rounded each direction apart, would
+    differ; D = 384 is the kernel's largest feature width."""
+    from vlgae_tpu_torch.ops.match import match_maxes, match_maxes_bwd_cuda
+    from vlgae_tpu_torch.ops.match import match_maxes_bwd_plain as plain
+
+    vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda, dyadic=True)
+    _, li, _, lvi = match_maxes(vis, txt, vb, tb)
+    got = match_maxes_bwd_cuda(vis, txt, li, lvi, dm, dmv)
+    want = plain(vis, txt, li, lvi, dm, dmv)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    separate = plain(vis, txt, li, lvi, dm.bfloat16().float(), dmv.bfloat16().float())
+    assert not all(torch.equal(w, s) for w, s in zip(want, separate))
+
+
+def test_match_autograd_on_the_card_launches_k5_and_k6(cuda, monkeypatch):
+    from vlgae_tpu_torch.ops import match
+    from vlgae_tpu_torch.ops.match import MatchMaxesFn
+
+    def refuse(*_):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(match, "match_maxes_plain", refuse)
+    monkeypatch.setattr(match, "match_maxes_bwd_plain", refuse)
+    vis, txt, vb, tb, dm, dmv = _match_case(4, 37, 8, 21, 16, cuda)
+    vf = vis.float().requires_grad_(True)
+    tf = txt.float().requires_grad_(True)
+    f0, b0 = match.n_launches, match.n_bwd_launches
+    m, _, mv, _ = MatchMaxesFn.apply(vf.bfloat16(), tf.bfloat16(), vb, tb)
+    ((m * dm).sum() + (mv * dmv).sum()).backward()
+    assert (match.n_launches, match.n_bwd_launches) == (f0 + 1, b0 + 1)
+    assert vf.grad is not None and tf.grad is not None
+
+
+def test_match_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from vlgae_tpu_torch.ops.match import match_maxes, match_maxes_bwd_cuda
+
+    vis, txt, vb, tb, dm, dmv = _match_case(2, 9, 3, 6, 8, cuda)
+    _, li, _, lvi = match_maxes(vis, txt, vb, tb)
+    with pytest.raises(TypeError):
+        match_maxes_bwd_cuda(vis.float(), txt, li, lvi, dm, dmv)
+    with pytest.raises(TypeError):
+        match_maxes_bwd_cuda(vis, txt, li.long(), lvi, dm, dmv)
+    with pytest.raises(TypeError):
+        match_maxes_bwd_cuda(vis, txt, li, lvi, dm.double(), dmv)
+    with pytest.raises(ValueError):
+        match_maxes_bwd_cuda(vis, txt, li, lvi, dm[:, :, :5], dmv)
+    with pytest.raises(RuntimeError):
+        match_maxes_bwd_cuda(vis, txt, li, lvi, dm.cpu(), dmv)
+    wide = torch.zeros(2, 9, 385, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 384"):
+        match_maxes_bwd_cuda(wide, torch.zeros(3, 6, 385, device=cuda,
+                                               dtype=torch.bfloat16), li, lvi, dm, dmv)

@@ -164,7 +164,7 @@ def test_export_script_writes_the_npz_predict_reads(pair, tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
-        "import sys, vlgae_tpu_torch, vlgae_tpu_torch.predict\n"
+        "import sys, vlgae_tpu_torch, vlgae_tpu_torch.predict, vlgae_tpu_torch.train\n"
         "roots = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots\n"
         "       or m == 'vlgae_tpu' or m.startswith('vlgae_tpu.')]\n"

@@ -48,7 +48,7 @@ def _flax_to_torch_key(path: str):
     return ".".join(out + [leaf]), False
 
 
-def _torch_to_flax_key(key: str, ndim: int) -> str:
+def torch_to_flax_key(key: str, ndim: int) -> str:
     parts = key.split(".")
     out = []
     i = 0
@@ -97,7 +97,7 @@ def torch_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     flat = {}
     for key, value in state.items():
         arr = value.detach().cpu().numpy()
-        path = _torch_to_flax_key(key, arr.ndim)
+        path = torch_to_flax_key(key, arr.ndim)
         if path.endswith("/kernel"):
             arr = arr.T
         if path in flat:

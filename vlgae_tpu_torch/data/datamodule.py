@@ -1,9 +1,11 @@
 """Data modules: dependency CoNLL and VLParse (captions + region features).
 
 A copy of ``vlgae_tpu/data/datamodule.py`` (NumPy host code): datasets are
-lists of instance dicts; batches are padded NumPy dicts ``(x, y)``. The
-warm-up rule targets of training (``include_init_rules``) and the ViT
-pixel source are not carried: the port runs the predict path.
+lists of instance dicts; batches are padded NumPy dicts ``(x, y)``. With
+``include_init_rules`` set (by the pipeline, during the warm-up epochs)
+the collate of the training splits adds the rule-count targets of
+``generate_rule_1o``, computed once per instance and cached on it. The
+ViT pixel source is not carried.
 """
 
 from __future__ import annotations
@@ -181,6 +183,26 @@ class DataModule:
             yield self.collate(name, [ds[i] for i in batch_idx],
                                sampler.pad_len(batch_idx))
 
+    def train_state(self) -> dict:
+        """The host RNG state of the training splits: sampler epochs (they
+        seed the shuffles) and the box-sampling generators, so a resumed
+        run draws what the uninterrupted run would have."""
+        state = {"sampler_epoch": {}, "loader_rng": {}}
+        for name in ("train", "train_init"):
+            if name not in self.datasets:
+                continue
+            state["sampler_epoch"][name] = self.sampler(name).epoch
+            loader = getattr(self, "_feat_loaders", {}).get(name)
+            if loader is not None:
+                state["loader_rng"][name] = loader.rng.bit_generator.state
+        return state
+
+    def load_train_state(self, state: dict) -> None:
+        for name, epoch in state.get("sampler_epoch", {}).items():
+            self.sampler(name).set_epoch(epoch)
+        for name, rng_state in state.get("loader_rng", {}).items():
+            self._feat_loaders[name].rng.bit_generator.state = rng_state
+
     def collate(self, name, insts, pad_len):
         raise NotImplementedError
 
@@ -209,6 +231,7 @@ class DepDataModule(DataModule):
         self.num_token = num_token
         super().__init__(**kw)
         self.vocabs["token"] = None  # manual init
+        self.include_init_rules = False
         self.token2word = None
         self.token2tag = None
         if self.use_tag and self.num_lex > 0:
@@ -324,6 +347,23 @@ class DepDataModule(DataModule):
             if self.use_tag:
                 x["tag"][b, :n] = inst["_tag_ids"]
             y["arc"][b, :n] = inst["arc"]
+        if self.include_init_rules and name in ("train", "train_init"):
+            from ..models.dmv_init import generate_rule_1o
+
+            y["dec_rule"] = np.zeros((B, L, 2, 2, 2), np.float32)
+            y["attach_rule"] = np.zeros((B, L, L, 2), np.float32)
+            y["root_rule"] = np.zeros((B, L), np.float32)
+            for b, inst in enumerate(insts):
+                n = inst["seq_len"]
+                if n == 0:
+                    continue
+                rules = inst.get("_init_rules")
+                if rules is None:
+                    rules = generate_rule_1o(list(inst["arc"]))
+                    inst["_init_rules"] = rules
+                y["dec_rule"][b, :n] = rules["dec_rule"]
+                y["attach_rule"][b, :n, :n] = rules["attach_rule"]
+                y["root_rule"][b, :n] = rules["root_rule"]
         return x, y
 
 

@@ -141,6 +141,12 @@ class ConstantTokenNumSampler:
         self._refresh()
         yield from out
 
+    def set_epoch(self, epoch: int) -> None:
+        """Restore the state after ``epoch`` reshuffles (see ``_refresh``)."""
+        if self.shuffle:
+            self.epoch = epoch - 1
+            self._refresh()
+
     def __len__(self):
         return len(self._batches)
 
@@ -182,6 +188,10 @@ class BasicSampler:
 
     def __len__(self):
         return math.ceil(len(self.seq_len) / self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Restore the state after ``epoch`` iterations."""
+        self.epoch = epoch
 
     def _process_batch(self, batch):
         singles = []

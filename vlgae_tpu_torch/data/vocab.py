@@ -61,6 +61,11 @@ class Vocabulary:
     def __len__(self) -> int:
         return len(self.idx2word)
 
+    def save(self, path):
+        with open(path, "w", encoding="utf-8") as f:
+            for w in self.idx2word:
+                f.write(w + "\n")
+
 
 class TokenVocabulary(Vocabulary):
     """``word:tag`` vocab with ``<unk>:tag`` backoff (ref: vocabulary.py:5-18)."""

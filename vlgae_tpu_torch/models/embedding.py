@@ -1,5 +1,6 @@
 """Composite embeddings: static tag items and the subword BERT item
-(counterpart of vlgae_tpu/models/embedding.py, eval forward).
+(counterpart of vlgae_tpu/models/embedding.py), with the independent
+dropout across items in training.
 
 The JAX package runs transformers' ``FlaxBertModule``; the card has no
 ``transformers``, so :class:`Bert` is a small BERT encoder written here
@@ -8,7 +9,9 @@ word + position + token-type embeddings and LayerNorm, then layers of
 self-attention and a GELU feed-forward, each closed by a residual
 LayerNorm. Flax's conventions are kept: LayerNorm eps 1e-12, exact GELU,
 masked keys get the bias ``finfo(f32).min``. Attention is a plain matmul
-and softmax.
+and softmax. A frozen BERT (``requires_grad: false``, the recipe) runs
+under ``torch.no_grad()``, as the JAX package stops its gradient, and its
+parameters stay out of the optimizer.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nn import ScalarMix
+from .nn import Dropping, ScalarMix, independent_dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,11 +36,15 @@ class EmbeddingItemCfg:
     n_vocab: int = 0
     embedding_dim: int = 100
     mode: str = "basic"
-    # transformer-only (frozen at eval)
+    normalize_method: str = "mean+std"
+    normalize_time: str = "nowhere"  # nowhere | begin | epoch | batch
+    # transformer-only
     n_layers: int = 1
     n_out: int = 0
+    requires_grad: bool = False
     pooling: str = "mean"  # first | last | mean
     stride: int = 256
+    layer_dropout: float = 0.0  # ScalarMix layer dropout
 
     @property
     def embed_size(self) -> int:
@@ -180,7 +187,7 @@ class Bert(nn.Module):
 
 
 class TransformerItem(nn.Module):
-    """Frozen BERT subword encoder with ScalarMix, stride windows for
+    """BERT subword encoder (frozen unless ``requires_grad``) with ScalarMix, stride windows for
     inputs longer than the position limit, and pooling of each word's
     subword span [first, last]."""
 
@@ -189,7 +196,7 @@ class TransformerItem(nn.Module):
         self.cfg = cfg
         self.bert = Bert(bert_config)
         if cfg.n_layers > 1:
-            self.scalar_mix = ScalarMix(cfg.n_layers)
+            self.scalar_mix = ScalarMix(cfg.n_layers, cfg.layer_dropout)
         if cfg.n_out:
             self.projection = nn.Linear(bert_config.hidden_size, cfg.n_out)
 
@@ -200,6 +207,12 @@ class TransformerItem(nn.Module):
         return layers[-1]
 
     def forward(self, subword, subword_mask, subword_first, subword_last=None):
+        with torch.set_grad_enabled(self.cfg.requires_grad and torch.is_grad_enabled()):
+            h = self._hidden(subword, subword_mask)
+        return self._pool(h, subword_first, subword_last)
+
+    def _hidden(self, subword, subword_mask):
+        """Mixed BERT states of every subword position [B, S, H]."""
         cfg = self.cfg
         subword = subword.long()
         B, S = subword.shape
@@ -224,6 +237,11 @@ class TransformerItem(nn.Module):
             parts = [hw[:, 0]] + [hw[:, k, max_len - stride:]
                                   for k in range(1, n_win)]
             h = torch.cat(parts, 1)[:, :S]
+        return h
+
+    def _pool(self, h, subword_first, subword_last):
+        """Pool each word's subword span [first, last]; project."""
+        cfg = self.cfg
         first = subword_first.long()
         last = first if subword_last is None else subword_last.long()
         if cfg.pooling == "first":
@@ -244,14 +262,17 @@ class TransformerItem(nn.Module):
         return h_words
 
 
-class CompositeEmbedding(nn.Module):
+class CompositeEmbedding(Dropping):
     """Concatenation of embedding items (each registered under its flax
-    name, so parameter paths match the JAX package)."""
+    name, so parameter paths match the JAX package), with the independent
+    dropout across items in training."""
 
     def __init__(self, items: Tuple[EmbeddingItemCfg, ...],
-                 bert_config: Optional[BertConfig] = None):
+                 bert_config: Optional[BertConfig] = None,
+                 dropout: float = 0.0):
         super().__init__()
         self.items = items
+        self.dropout = dropout
         for cfg in items:
             if cfg.kind == "transformer":
                 mod = TransformerItem(cfg, bert_config)
@@ -280,7 +301,43 @@ class CompositeEmbedding(nn.Module):
                 h = mod(inputs[cfg.field])
             aux[cfg.name] = h
             embs.append(h)
+        if self.active(self.dropout) and embs:
+            keeps = [self.keep_mask(e.shape[:2], self.dropout, e) for e in embs]
+            embs = independent_dropout(embs, self.dropout, keeps)
         seq_len = max(e.shape[1] for e in embs)
         embs = [e.expand(e.shape[0], seq_len, e.shape[2]) if e.shape[1] == 1
                 else e for e in embs]
         return torch.cat(embs, -1), aux
+
+
+@torch.no_grad()
+def normalize_embedding_(table, method: str = "mean+std", counts=None):
+    """Re-whiten one embedding table in place (counterpart of
+    ``normalize_embedding_params``). With ``counts`` (token frequencies by
+    row) a count-weighted scalar mean and std; otherwise per-dimension
+    statistics over rows 1.. (the padding row kept), Bessel-corrected and
+    without an epsilon."""
+    if counts is not None:
+        w = torch.as_tensor(counts, dtype=torch.float32, device=table.device)
+        w = (w / torch.clamp_min(w.sum(), 1.0))[:, None]
+        mean = (table * w).sum()
+        std = torch.sqrt((((table - mean) ** 2) * w).sum() + 1e-6)
+        data = table
+        if method in ("mean", "mean+std"):
+            data = data - mean
+        if method in ("std", "mean+std"):
+            data = data / std
+        table.copy_(data)
+        return
+    data = table[1:]
+    mean = data.mean(0, keepdim=True)
+    std = data.std(0, keepdim=True, unbiased=True)
+    if method == "mean":
+        data = data - mean
+    elif method == "std":
+        data = data / std
+    elif method == "mean+std":
+        data = (data - mean) / std
+    else:
+        raise ValueError(method)
+    table[1:] = data

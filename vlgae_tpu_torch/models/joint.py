@@ -1,18 +1,24 @@
-"""DependencyBoxRel, the joint vision-language grounding model: its eval /
-predict path (counterpart of vlgae_tpu/models/joint.py).
+"""DependencyBoxRel, the joint vision-language grounding model
+(counterpart of vlgae_tpu/models/joint.py).
 
-Eval forward: visual factors, the attention fusion of matched visual
-features into the text encoding, the dependency scores, the language
-factors from the Viterbi tree (two DP passes, log and max, through the
-fused kernel K1 on the card), the reduced matching maxes (kernel K5 under
-``precision=bf16``), the factor-CE grounding loss for ``val/loss``, and
-the grounding decode with the exact top-5. No ``[B, A, Q, V]`` tensor is
-built on this path.
+Forward: visual factors, the attention fusion of matched visual features
+into the text encoding, the dependency scores, the language factors from
+the Viterbi tree (two DP passes, log and max, through the fused kernel K1
+on the card), the reduced matching maxes (kernels K5 forward and K6
+backward under ``precision=bf16``), the factor-CE grounding loss, and at
+eval the grounding decode with the exact top-5. No ``[B, A, Q, V]`` tensor
+is built under bf16.
+
+In ``.train()`` mode the dropouts act and the relation group is built
+compactly: the inclusive upper triangle of box pairs (rel(i, j) ==
+rel(j, i)), with +ln 2 on the off-diagonal pairs in the fusion softmax so
+that it equals the full-axis softmax; eval uses the full ``P * P`` axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from bisect import bisect_left
 from itertools import accumulate
@@ -22,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.match import match_maxes
+from ..ops.match import MatchMaxesFn
 from ..ops.topk import exact_top_k
 from ..struct import dmv_value_and_grads
 from .ldndmv import DiscriminativeNDMV, LDNDMVConfig
@@ -40,8 +46,8 @@ LN_EPS = 1e-6  # flax LayerNorm default
 
 @dataclasses.dataclass(frozen=True)
 class DependencyBoxRelConfig:
-    """The strategy strings of the JAX config that the predict path
-    supports; any other value raises."""
+    """The strategy strings of the JAX config that the port supports;
+    any other value raises."""
 
     add_rel: bool = True
     add_attr: bool = True
@@ -60,6 +66,8 @@ class DependencyBoxRelConfig:
     decode_use_heuristic: bool = True
     grounding_interpolation: float = 0.5
     eval_match_chunk: int = 128
+    compact_rel_train: bool = True
+    word_encoder_dropout: float = 0.33
     bf16_matmul: bool = False
 
     def __post_init__(self):
@@ -104,10 +112,11 @@ class DependencyBoxRel(nn.Module):
         self.dependency = dependency
         self.vis_encoder = vis_encoder
         H = cfg.match_hidden
-        self.word_encoder = MLP(n_enc, H, activate=False)
+        p = cfg.word_encoder_dropout
+        self.word_encoder = MLP(n_enc, H, activate=False, dropout=p)
         self.vis_mlp_pre_matching = nn.Linear(n_vis, H, bias=False)
-        self.child_encoder = MLP(n_enc, H)
-        self.parent_encoder = MLP(n_enc, H)
+        self.child_encoder = MLP(n_enc, H, dropout=p)
+        self.parent_encoder = MLP(n_enc, H, dropout=p)
         self.arc_encoder_w1 = nn.Parameter(torch.zeros(H, H, H))
         self.arc_encoder_w2 = nn.Parameter(torch.zeros(H, H))
         self.arc_encoder_b = nn.Parameter(torch.zeros(H))
@@ -138,8 +147,15 @@ class DependencyBoxRel(nn.Module):
         if cfg.add_rel:
             rel = vis_encoded["rel"]
             feat.append(rel)
-            rel_mask = box_mask[:, None, :] & box_mask[:, :, None]
-            mask.append(torch.triu(rel_mask, 1).reshape(B, -1))
+            if rel.shape[1] == P * P:
+                rel_mask = box_mask[:, None, :] & box_mask[:, :, None]
+                rel_mask = torch.triu(rel_mask, 1).reshape(B, -1)
+            else:
+                # compact inclusive triangle: the strict i < j visibility
+                # of the full axis (diagonal pairs masked)
+                ti, tj = self._rel_incl_pairs(P, box_mask.device)
+                rel_mask = box_mask[:, ti] & box_mask[:, tj] & (ti != tj)[None]
+            mask.append(rel_mask)
             split.append(rel.shape[1])
         if cfg.add_attr:
             feat.append(vis_encoded["attr"])
@@ -155,6 +171,23 @@ class DependencyBoxRel(nn.Module):
         if return_mid:
             return vis, vis_mask, tuple(split), mid
         return vis, vis_mask, tuple(split)
+
+    @staticmethod
+    def _rel_incl_pairs(P, device):
+        """Inclusive-triangle (i <= j) box-pair indices ``(ti, tj)``."""
+        return tuple(torch.triu_indices(P, P, 0, device=device))
+
+    def _rel_logmult(self, split, device):
+        """[V] log-multiplicity of the compact factor axis: ln 2 on the
+        off-diagonal pairs (each stands for two full-axis entries)."""
+        parts = []
+        for name, w in zip(self.vis_factor_names, split):
+            if name == "rel":
+                ti, tj = self._rel_incl_pairs(split[0], device)
+                parts.append((ti != tj).float() * math.log(2.0))
+            else:
+                parts.append(torch.zeros(w, device=device))
+        return torch.cat(parts)
 
     # -- lang_feat -----------------------------------------------------------
     @staticmethod
@@ -210,30 +243,34 @@ class DependencyBoxRel(nn.Module):
     # -- reduced matching ----------------------------------------------------
     def gather_logit_train(self, vis, txt):
         """``(logit [B, A, Q], logit_v [B, A, V])``: maxima of the pairwise
-        matching product without a ``[B, A, Q, V]`` tensor. The relation
-        group is compacted to its strict upper triangle (the only pairs the
-        mask keeps) and expanded back (-INF) afterwards. Under bf16 the
-        fused kernel K5 computes it; at f32 a factor-chunked stream, as in
-        the JAX package, which also computes that case outside any kernel.
+        matching product without a ``[B, A, Q, V]`` tensor. A full-axis
+        relation group is compacted to its strict upper triangle (the only
+        pairs the mask keeps) and expanded back (-INF) afterwards; the
+        compact training axis is used as it is. Under bf16 the fused
+        kernels compute it (:class:`MatchMaxesFn`: K5, and K6 for the
+        gradient); at f32 a factor-chunked stream under autograd, as in the
+        JAX package, which also computes that case outside any kernel.
         """
-        keep, inv = self._rel_tri_maps(vis[2], vis[0].device)
-        vis_feat, vis_mask = vis[0][:, keep], vis[1][:, keep]
+        maps = self._rel_tri_maps(vis[2], vis[0].device)
+        vis_feat, vis_mask = vis[0], vis[1]
+        if maps is not None:
+            vis_feat, vis_mask = vis_feat[:, maps[0]], vis_mask[:, maps[0]]
         txt_feat, txt_mask = txt[0], txt[1]
         B, V = vis_mask.shape
         Q = txt_mask.shape[1]
         vb = -INF * (1.0 - vis_mask.float())
         tb = -INF * (1.0 - txt_mask.float())
         if self.cfg.bf16_matmul:
-            logit, _, logit_v, _ = match_maxes(
-                vis_feat.to(torch.bfloat16).contiguous(),
-                txt_feat.to(torch.bfloat16).contiguous(),
-                vb.contiguous(), tb.contiguous())
+            args = (vis_feat.to(torch.bfloat16).contiguous(),
+                    txt_feat.to(torch.bfloat16).contiguous(),
+                    vb.contiguous(), tb.contiguous())
+            logit, _, logit_v, _ = MatchMaxesFn.apply(*args)
         else:
             chunk = min(V, self.cfg.eval_match_chunk)
             _check_match_budget(B, Q, chunk, self.cfg)
             logit, logit_v = self._match_maxes_chunked(
                 vis_feat.float(), txt_feat.float(), vb, tb, chunk)
-        return logit, self._expand_rel_tri(logit_v, inv)
+        return logit, self._expand_rel_tri(logit_v, maps)
 
     @staticmethod
     def _match_maxes_chunked(vis, txt, vb, tb, chunk):
@@ -253,7 +290,10 @@ class DependencyBoxRel(nn.Module):
     def _rel_tri_maps(self, split, device):
         """(keep, inv) index maps compacting the relation group to its
         strict upper triangle; dropped slots map to a sentinel column.
-        Built on ``device`` (no host copy in the step)."""
+        Built on ``device`` (no host copy in the step). ``None`` without a
+        relation group or when the axis is already compact (training)."""
+        if "rel" not in self.vis_factor_names or split[1] != split[0] ** 2:
+            return None
         P = split[0]
         starts = [0] + list(accumulate(split))
         keep = []
@@ -270,9 +310,11 @@ class DependencyBoxRel(nn.Module):
         return keep, inv
 
     @staticmethod
-    def _expand_rel_tri(logit_v, inv):
+    def _expand_rel_tri(logit_v, maps):
+        if maps is None:
+            return logit_v
         pad = logit_v.new_full(logit_v.shape[:-1] + (1,), -INF)
-        return torch.cat([logit_v, pad], -1)[..., inv]
+        return torch.cat([logit_v, pad], -1)[..., maps[1]]
 
     def _diag_att(self, out, inputs, with_pen: bool):
         """Own-image [B, Q, V] matching block (f32) with masks and,
@@ -286,28 +328,41 @@ class DependencyBoxRel(nn.Module):
             att = att + self._pos_prior_mask(att, inputs["tag"], vis_split)
         return att
 
-    def fuse_with_matching(self, inputs, vis_encoded, encoded, mask):
+    def fuse_with_matching(self, inputs, vis_encoded, encoded, mask,
+                           compact: bool = False):
         """Soft-match every word against the visual factors and add the
         matched (pre-projection) features back into the text encoding."""
         vis = self.vis_feat(inputs, vis_encoded, return_mid=True)
         word, _ = self.lang_feat_word_only(inputs, encoded, mask)
         fuse_logits = torch.einsum("bvd,bqd->bqv", vis[0], word[:, 1:])
+        if compact:
+            fuse_logits = fuse_logits + self._rel_logmult(vis[2], vis[0].device)
         attmap = torch.softmax(fuse_logits, 2)
         x_aug = torch.einsum("bqv,bvh->bqh", attmap, vis[3])
         return {**encoded, "x": self.feat_layernorm(encoded["x"] + x_aug)}
 
     # -- forward --------------------------------------------------------------
-    def forward(self, inputs: Dict[str, Any]):
+    def forward(self, inputs: Dict[str, Any], with_grounding: bool = True):
+        """The score dict; ``with_grounding=False`` stops after the
+        dependency scores (the warm-up loss reads nothing else)."""
         cfg = self.cfg
         token = inputs["token"]
         mask = (torch.arange(token.shape[1], device=token.device)[None, :]
                 < inputs["seq_len"][:, None])
-        vis_encoded = self.vis_encoder(inputs)
+        compact = self.training and cfg.add_rel and cfg.compact_rel_train
+        rel_pairs = None
+        if compact:
+            rel_pairs = self._rel_incl_pairs(inputs["vis_box_mask"].shape[1],
+                                             token.device)
+        vis_encoded = self.vis_encoder(inputs, rel_pairs=rel_pairs)
         emb, aux = self.dependency.embedding(inputs)
         encoded = self.dependency.encoder(emb, mask)
         if cfg.feat_fuse_mode == "attention" and cfg.fuse_aug_with_matching:
-            encoded = self.fuse_with_matching(inputs, vis_encoded, encoded, mask)
+            encoded = self.fuse_with_matching(inputs, vis_encoded, encoded, mask,
+                                              compact=compact)
         out = dict(self.dependency(inputs, encoded, (emb, aux)))
+        if not with_grounding:
+            return out
         vis = self.vis_feat(inputs, vis_encoded)
         *txt, dep_reuse = self.lang_feat_max_tree(inputs, encoded, out, mask)
         txt = tuple(txt)
@@ -356,25 +411,30 @@ class DependencyBoxRel(nn.Module):
         logit = torch.log_softmax(logit, 1)
         diag = torch.diagonal(logit, 0, 0, 1).T  # [B, Q]
         txt2vis = -(diag * txt_marginal * row[:, None]).sum()
-        loss = {"txt2vis": txt2vis / (txt2vis + 1e-6) * num_token}
+        # each term is normalised by a detached copy of itself: the value
+        # is num_token, the gradient that of the term / its value
+        loss = {"txt2vis": txt2vis / (txt2vis.detach() + 1e-6) * num_token}
         if cfg.loss_vis2txt > 0:
             logit_v = torch.where(row[:, None, None], logit_v, -INF)
             logit_v = torch.log_softmax(logit_v, 0)
             diag_v = torch.diagonal(logit_v, 0, 0, 1).T  # [B, V]
             vis2txt = -(diag_v * vis_mask * row[:, None]).sum()
             loss["mt_vis2txt"] = (cfg.loss_vis2txt * vis2txt
-                                  / (vis2txt + 1e-6) * num_token)
+                                  / (vis2txt.detach() + 1e-6) * num_token)
         return sum(loss.values()), loss
 
-    def loss(self, out, inputs, dep_loss, alpha=None):
-        """Interpolated joint objective (eval value)."""
+    def loss(self, out, inputs, dep_loss, dep_aux=None, alpha=None):
+        """Interpolated joint objective ``(total, per-term dict)``, the
+        same in training and at eval for ``factor|ce``; the grounding term
+        counts only when two real captions have images."""
         if alpha is None:
             alpha = self.cfg.grounding_interpolation
-        mt_loss, _ = self.loss_grounding_factor_ce(out, inputs)
+        mt_loss, mt_aux = self.loss_grounding_factor_ce(out, inputs)
         real_avail = inputs["vis_available"] & (inputs["seq_len"] > 0)
         enough = (real_avail.sum() >= 2).to(mt_loss.dtype)
         mt_loss = mt_loss * enough * float(alpha > 0)
-        return alpha * mt_loss + (1 - alpha) * dep_loss
+        return (alpha * mt_loss + (1 - alpha) * dep_loss,
+                {**(dep_aux or {}), **mt_aux})
 
     # -- grounding decode (device part) -------------------------------------
     def decode_grounding_device(self, out, inputs, topk: int = 5):

@@ -1,6 +1,7 @@
 """Discriminative neural DMV (counterpart of vlgae_tpu/models/ldndmv.py):
-the eval forward, the NLL value through the reused DP results, and the
-Viterbi decode."""
+the forward (with the dropouts of its scorer stack in training), the NLL
+as a straight-through linearisation around the reused DP results, the
+warm-up loss against rule-count targets, and the Viterbi decode."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..struct import NEGINF, dmv_merge, dmv_value_and_grads
+from ..struct import NEGINF, DMVTotalFn, dmv_merge, dmv_value_and_grads
 from ..struct.dmv import LEFT, RIGHT
 from .nn import MLP, DMVFactorizedBilinear, DMVSkipConnectEncoder
 
@@ -20,10 +21,12 @@ FUNCTION_POS = ("ADP", "AUX", "CCONJ", "SCONJ", "CONJ", "DET", "PART")
 
 @dataclasses.dataclass(frozen=True)
 class LDNDMVConfig:
-    """The subset of vlgae_tpu's ``LDNDMVConfig`` the predict path reads."""
+    """The subset of vlgae_tpu's ``LDNDMVConfig`` that ``exp=vlgae`` reads."""
 
     context_mode: str = "mean"  # mean | none
     strict_pad_context: bool = False
+    init_method: str = "y"  # 'y' | 'none'
+    init_epoch: int = 0
     viterbi_training: bool = True
     mbr_decoding: bool = False
     extended_valence: bool = True
@@ -32,6 +35,8 @@ class LDNDMVConfig:
     hidden_size: int = 256
     mid_bottleneck: int = 0
     mid_n_mid: int = 0
+    mid_dropout: float = 0.0
+    ff_dropout: float = 0.33
     attach_rank: int = 16
     dec_rank: int = 16
     root_rank: int = 16
@@ -45,6 +50,9 @@ class LDNDMVConfig:
         if self.variational_mode != "none":
             raise NotImplementedError(
                 f"variational_mode={self.variational_mode!r} is not ported")
+        if self.init_method not in ("y", "none"):
+            raise NotImplementedError(
+                f"init_method={self.init_method!r} (a pretrained DMV) is not ported")
 
 
 class DiscriminativeNDMV(nn.Module):
@@ -61,11 +69,13 @@ class DiscriminativeNDMV(nn.Module):
                     if (item.name == "word_embedding" and token2word is not None)
                     or (item.name == "tag_embedding" and token2tag is not None))
         n_head_in = embedding.embed_size + (n_enc if cfg.context_mode != "none" else 0)
-        self.head_ff = MLP(n_head_in, H)
-        self.child_ff = MLP(n_tok, H)
-        self.root_ff = MLP(cfg.root_emb_dim, H)
-        self.dec_ff = MLP(cfg.dec_emb_dim, H)
-        self.mid_ff = DMVSkipConnectEncoder(H, cfg.mid_bottleneck, cfg.mid_n_mid)
+        p = cfg.ff_dropout
+        self.head_ff = MLP(n_head_in, H, dropout=p)
+        self.child_ff = MLP(n_tok, H, dropout=p)
+        self.root_ff = MLP(cfg.root_emb_dim, H, dropout=p)
+        self.dec_ff = MLP(cfg.dec_emb_dim, H, dropout=p)
+        self.mid_ff = DMVSkipConnectEncoder(H, cfg.mid_bottleneck, cfg.mid_n_mid,
+                                            cfg.mid_dropout)
         self.attach_scorer = DMVFactorizedBilinear(H, cfg.attach_rank)
         self.dec_scorer = DMVFactorizedBilinear(H, cfg.dec_rank)
         self.root_scorer = DMVFactorizedBilinear(H, cfg.root_rank)
@@ -155,19 +165,35 @@ class DiscriminativeNDMV(nn.Module):
 
 
 def loss_nll(scores, lengths, viterbi: bool):
-    """-(max or marginal) log-likelihood, value only. With
-    ``scores['dep_reuse']`` the per-sentence totals of the language
-    factors' DP passes are reused (the JAX package's straight-through
-    linearization has exactly this value); zero-length rows are masked."""
+    """-(max or marginal) log-likelihood; zero-length rows are masked.
+
+    With ``scores['dep_reuse']`` (the language factors' DP passes on
+    detached copies of the same potentials) the loss is a straight-through
+    linearisation: the value is the reused total, the gradient with respect
+    to the potentials the reused tables, so no third DP runs. Without it,
+    :class:`~vlgae_tpu_torch.struct.DMVTotalFn` runs one DP whose backward
+    scales its tables."""
+    md, ma = scores["merged_dec"], scores["merged_attach"]
     reuse = (scores.get("dep_reuse") or {}).get("max" if viterbi else "log")
     if reuse is not None:
-        total = reuse[0]
+        per, gd, ga = reuse
+        # (x - x.detach()) is exactly 0; it routes d loss/d x = the tables
+        lin = (((md - md.detach()) * gd).sum(tuple(range(1, md.dim())))
+               + ((ma - ma.detach()) * ga).sum(tuple(range(1, ma.dim()))))
+        total = per.detach() + lin
     else:
-        total, _, _ = dmv_value_and_grads(
-            scores["merged_dec"], scores["merged_attach"], lengths,
-            "max" if viterbi else "log")
+        total = DMVTotalFn.apply(md, ma, lengths, "max" if viterbi else "log")
     nll = -torch.where(lengths > 0, total, 0.0).sum()
     return nll, {"nll": nll}
+
+
+def loss_init_rules(scores, gold):
+    """Count-matching warm-up loss of ``init_method='y'``: the scores
+    against the per-sentence rule-count targets of ``generate_rule_1o``."""
+    enll = (-(gold["dec_rule"] * scores["dec"]).sum()
+            - (gold["attach_rule"] * scores["attach"]).sum()
+            - (gold["root_rule"] * scores["root"]).sum())
+    return enll, {"enll": enll}
 
 
 def decode(scores, lengths, mbr: bool):

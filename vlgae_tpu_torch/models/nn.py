@@ -1,9 +1,14 @@
 """Neural building blocks (counterpart of vlgae_tpu/models/nn.py).
 
-Eval-only forward passes: dropout is off at eval and not ported here.
 Flax defaults are set explicitly: ``leaky_relu`` slope 0.01; a Dense
 layer's ``kernel [in, out]`` is the transposed ``Linear.weight`` (see
 :mod:`vlgae_tpu_torch.convert`).
+
+Dropout acts only in ``.train()`` mode and draws its masks from an
+explicit ``torch.Generator`` that the owner of the model hands to every
+dropping module (:func:`set_dropout_generator`); the formulas are those of
+the JAX package, written as functions of a given keep mask so the tests
+can feed both packages the same mask.
 """
 
 from __future__ import annotations
@@ -19,6 +24,51 @@ def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
+def shared_dropout(x, p: float, keep):
+    """``x * keep / (1 - p)`` with ``keep`` of shape ``(x.shape[0], 1,
+    *x.shape[2:])``: one mask per (row, feature), shared along dim 1."""
+    return x * keep / (1 - p)
+
+
+def shared_keep_shape(x):
+    return (x.shape[0], 1) + tuple(x.shape[2:])
+
+
+def independent_dropout(items, p: float, keeps):
+    """Mutually compensating dropout across embedding items: item ``i``
+    is scaled by ``keeps[i] * n_items / max(sum(keeps), 1)`` (per-item
+    ``[B, L]`` keep masks)."""
+    total = sum(keeps)
+    scale = len(items) / torch.clamp_min(total, 1.0)
+    return [x * (m * scale)[..., None] for x, m in zip(items, keeps)]
+
+
+class Dropping(nn.Module):
+    """Base of the modules that drop in training: keeps the generator the
+    masks come from."""
+
+    generator = None
+
+    def keep_mask(self, shape, p: float, like):
+        """A float 0/1 mask with P(1) = 1 - p, drawn from the generator."""
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__} drops in training mode but has no "
+                "generator; call set_dropout_generator(model, generator)")
+        return torch.empty(shape, dtype=like.dtype, device=like.device).bernoulli_(
+            1 - p, generator=self.generator)
+
+    def active(self, p: float) -> bool:
+        return self.training and p > 0
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Hand ``generator`` to every dropping module of ``model``."""
+    for m in model.modules():
+        if isinstance(m, Dropping):
+            m.generator = generator
+
+
 def linear(x, layer: nn.Linear, dtype=None):
     """``layer(x)``; with ``dtype`` (bf16) operands and bias are cast to it
     and the output returns as f32 (flax ``Dense(dtype=...)`` + astype)."""
@@ -28,31 +78,42 @@ def linear(x, layer: nn.Linear, dtype=None):
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias).float()
 
 
-class MLP(nn.Module):
-    """Linear -> LeakyReLU (dropout only in training)."""
+class MLP(Dropping):
+    """Linear -> LeakyReLU -> shared dropout (in training)."""
 
     def __init__(self, n_in: int, n_hidden: int, activate: bool = True,
-                 dtype=None):
+                 dtype=None, dropout: float = 0.0):
         super().__init__()
         self.linear = nn.Linear(n_in, n_hidden)
         self.activate = activate
         self.dtype = dtype
+        self.dropout = dropout
 
     def forward(self, x):
         x = linear(x, self.linear, self.dtype)
-        return leaky_relu(x) if self.activate else x
+        if self.activate:
+            x = leaky_relu(x)
+        if self.active(self.dropout):
+            x = shared_dropout(x, self.dropout,
+                               self.keep_mask(shared_keep_shape(x), self.dropout, x))
+        return x
 
 
-class ScalarMix(nn.Module):
-    """Softmax-weighted layer mixture with gamma."""
+class ScalarMix(Dropping):
+    """Softmax-weighted layer mixture with gamma; layer dropout in
+    training (a dropped layer's weight is 0, the kept ones / (1 - p))."""
 
-    def __init__(self, n_layers: int):
+    def __init__(self, n_layers: int, dropout: float = 0.0):
         super().__init__()
         self.weights = nn.Parameter(torch.zeros(n_layers))
         self.gamma = nn.Parameter(torch.ones(1))
+        self.dropout = dropout
 
     def forward(self, tensors):
         nw = torch.softmax(self.weights, 0)
+        if self.active(self.dropout):
+            keep = self.keep_mask(nw.shape, self.dropout, nw)
+            nw = torch.where(keep.bool(), nw / (1 - self.dropout), 0.0)
         return self.gamma * sum(w * t for w, t in zip(nw, tensors))
 
 
@@ -63,7 +124,7 @@ def _bottleneck(n_hidden, n_bottleneck):
                          nn.Linear(n_bottleneck, n_hidden))
 
 
-class DMVSkipConnectEncoder(nn.Module):
+class DMVSkipConnectEncoder(Dropping):
     """Expand token reps to [..., dir, val, hidden] with skip connections.
 
     Valence axis order HASCHILD=0, NOCHILD=1; direction LEFT=0, RIGHT=1.
@@ -73,10 +134,11 @@ class DMVSkipConnectEncoder(nn.Module):
     """
 
     def __init__(self, hidden_size: int, n_bottleneck: int = 0,
-                 n_mid: int = 0):
+                 n_mid: int = 0, dropout: float = 0.0):
         super().__init__()
         H = hidden_size
         self.n_bottleneck = n_bottleneck
+        self.dropout = dropout
         self.HASCHILD = _bottleneck(H, n_bottleneck)
         self.NOCHILD = _bottleneck(H, n_bottleneck)
         self.valence = nn.Linear(H, H)
@@ -96,6 +158,9 @@ class DMVSkipConnectEncoder(nn.Module):
         right = self.RIGHT(h) + x_
         h = torch.stack([left, right], dim=-3)
         h = leaky_relu(self.direction(leaky_relu(h)))
+        if self.active(self.dropout):
+            # element-wise (full-shape) mask
+            h = h * self.keep_mask(h.shape, self.dropout, h) / (1 - self.dropout)
         h = self.mid1(h)
         return self.mid2(leaky_relu(h))
 

@@ -1,13 +1,17 @@
-"""Matching maxes: the plain version and the wrapper of kernel K5
+"""Matching maxes: the plain versions and the wrappers of kernels K5
 (``csrc/match_fwd.cu``, replacing ``_fwd_kernel`` of
-vlgae_tpu/ops/match_pallas.py).
+vlgae_tpu/ops/match_pallas.py) and K6 (``csrc/match_bwd.cu``, replacing
+``_bwd_kernel``), and :class:`MatchMaxesFn`, the autograd function that
+joins them.
 
     att[b, a, q, v] = txt[b, q] . vis[a, v] + vis_bias[a, v] + txt_bias[b, q]
     logit[b, a, q]   = max_v att   (int32 index of the first maximal v)
     logit_v[b, a, v] = max_q att   (int32 index of the first maximal q)
 
 Operands are bf16, products and sums f32, biases f32 (the -1e9 visibility
-masks). No ``[B, A, Q, V]`` tensor is stored by the kernel.
+masks). No ``[B, A, Q, V]`` tensor is stored by either kernel. The
+backward routes each cotangent to its first winner only (the TPU kernel's
+contract); the biases get no gradient.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import torch
 
 from . import _build
 
-# launches of the kernel in this process (chip_smoke resets and reads it)
+# launches of K5 / K6 in this process (chip_smoke resets and reads them)
 n_launches = 0
+n_bwd_launches = 0
 
 _lib = None
+_bwd_lib = None
 # elements of one plain-version [B, a-chunk, Q, V] f32 block
 _PLAIN_BLOCK = 1 << 26
 
@@ -97,3 +103,128 @@ def match_maxes(vis, txt, vis_bias, txt_bias):
     if vis.device.type != "cpu":
         raise RuntimeError(f"match_maxes: unsupported device {vis.device}")
     return match_maxes_plain(vis, txt, vis_bias, txt_bias)
+
+
+def match_maxes_bwd_plain(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    """``(dvis [A,V,D], dtxt [B,Q,D])`` in plain PyTorch, in the dtypes of
+    ``vis``/``txt``: the cell weight ``bf16(dlogit·[logit_idx==v] +
+    dlogit_v·[logit_v_idx==q])`` (rounded after the sum), f32 products,
+    chunked over images."""
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    vis_f, txt_f = vis.float(), txt.float()
+    dm, dmv = dlogit.float(), dlogit_v.float()
+    li, lvi = logit_idx.long(), logit_v_idx.long()
+    step = max(1, _PLAIN_BLOCK // max(1, B * Q * V))
+    dvis = []
+    dtxt = torch.zeros(B, Q, D, dtype=torch.float32, device=txt.device)
+    for a0 in range(0, A, step):
+        sl = slice(a0, a0 + step)
+        n = min(step, A - a0)
+        w = torch.zeros(B, n, Q, V, dtype=torch.float32, device=vis.device)
+        w.scatter_(3, li[:, sl, :, None], dm[:, sl, :, None])
+        wq = torch.zeros_like(w)
+        wq.scatter_(2, lvi[:, sl, None, :], dmv[:, sl, None, :])
+        w = (w + wq).to(torch.bfloat16).float()
+        dvis.append(torch.einsum("baqv,bqd->avd", w, txt_f))
+        dtxt += torch.einsum("baqv,avd->bqd", w, vis_f[sl])
+    return torch.cat(dvis).to(vis.dtype), dtxt.to(txt.dtype)
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load("match_bwd")
+        lib.match_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.match_bwd_launch.restype = ctypes.c_int
+        lib.match_bwd_workspace.argtypes = [ctypes.c_int] * 5
+        lib.match_bwd_workspace.restype = ctypes.c_longlong
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+_BWD_MAX_D = 384  # csrc/match_bwd.cu kMaxD (shared-memory accumulator)
+
+
+def match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    """Launch K6. Same outputs as :func:`match_maxes_bwd_plain`."""
+    global n_bwd_launches
+    A, V, D = vis.shape
+    B, Q, D2 = txt.shape
+    tensors = (vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
+    if not all(t.is_cuda and t.device == vis.device for t in tensors):
+        raise RuntimeError("match_maxes_bwd_cuda takes CUDA tensors on one device")
+    if vis.dtype != torch.bfloat16 or txt.dtype != torch.bfloat16:
+        raise TypeError(f"match operands must be bf16, got {vis.dtype}/{txt.dtype}")
+    if logit_idx.dtype != torch.int32 or logit_v_idx.dtype != torch.int32:
+        raise TypeError("match winner indices must be int32")
+    if dlogit.dtype != torch.float32 or dlogit_v.dtype != torch.float32:
+        raise TypeError("match cotangents must be f32")
+    if (D != D2 or tuple(logit_idx.shape) != (B, A, Q)
+            or tuple(dlogit.shape) != (B, A, Q)
+            or tuple(logit_v_idx.shape) != (B, A, V)
+            or tuple(dlogit_v.shape) != (B, A, V)):
+        raise ValueError(
+            f"match bwd shapes: vis {tuple(vis.shape)} txt {tuple(txt.shape)} "
+            f"idx {tuple(logit_idx.shape)} vidx {tuple(logit_v_idx.shape)} "
+            f"dlogit {tuple(dlogit.shape)} dlogit_v {tuple(dlogit_v.shape)}")
+    if D > _BWD_MAX_D:
+        raise ValueError(f"match_maxes_bwd_cuda takes D <= {_BWD_MAX_D}, got {D}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("match_maxes_bwd_cuda takes contiguous tensors")
+    lib = _bwd_library()
+    dvis = torch.empty_like(vis)
+    dtxt = torch.empty_like(txt)
+    # f32 partial sums of the split-K slices (see the .cu)
+    work = torch.empty(max(1, lib.match_bwd_workspace(A, V, D, B, Q)),
+                       dtype=torch.float32, device=vis.device)
+    with torch.cuda.device(vis.device):
+        err = lib.match_bwd_launch(
+            _build.ptr(vis), _build.ptr(txt), _build.ptr(logit_idx),
+            _build.ptr(logit_v_idx), _build.ptr(dlogit), _build.ptr(dlogit_v),
+            _build.ptr(dvis), _build.ptr(dtxt), _build.ptr(work), A, V, D, B, Q,
+            _build.stream_ptr(vis.device))
+    _build.check(err, "match_bwd_launch")
+    n_bwd_launches += 1
+    return dvis, dtxt
+
+
+def match_maxes_bwd(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    """Dispatch: CUDA tensors launch K6 (or raise), CPU tensors take the
+    plain version."""
+    if vis.is_cuda:
+        return match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx,
+                                    dlogit, dlogit_v)
+    if vis.device.type != "cpu":
+        raise RuntimeError(f"match_maxes_bwd: unsupported device {vis.device}")
+    return match_maxes_bwd_plain(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
+
+
+class MatchMaxesFn(torch.autograd.Function):
+    """``(logit, logit_idx, logit_v, logit_v_idx)`` of :func:`match_maxes`
+    with the argmax-routed backward of :func:`match_maxes_bwd` (K5 forward,
+    K6 backward on the card). The indices are not differentiable; the
+    biases (visibility masks) get no gradient."""
+
+    @staticmethod
+    def forward(ctx, vis, txt, vis_bias, txt_bias):
+        logit, logit_idx, logit_v, logit_v_idx = match_maxes(
+            vis, txt, vis_bias, txt_bias)
+        ctx.save_for_backward(vis, txt, logit_idx, logit_v_idx)
+        ctx.mark_non_differentiable(logit_idx, logit_v_idx)
+        return logit, logit_idx, logit_v, logit_v_idx
+
+    @staticmethod
+    def backward(ctx, dlogit, _didx, dlogit_v, _dvidx):
+        vis, txt, logit_idx, logit_v_idx = ctx.saved_tensors
+        if dlogit is None:
+            dlogit = torch.zeros(logit_idx.shape, dtype=torch.float32,
+                                 device=vis.device)
+        if dlogit_v is None:
+            dlogit_v = torch.zeros(logit_v_idx.shape, dtype=torch.float32,
+                                   device=vis.device)
+        dvis, dtxt = match_maxes_bwd(
+            vis, txt, logit_idx, logit_v_idx,
+            dlogit.float().contiguous(), dlogit_v.float().contiguous())
+        return dvis, dtxt, None, None

@@ -40,6 +40,24 @@ def setup_device(name: str) -> torch.device:
     return device
 
 
+def compose(overrides) -> dict:
+    """``configs/config_train`` (or ``$VLGAE_CONFIG_DIR``) with overrides."""
+    return resolve(ConfigComposer(os.environ.get("VLGAE_CONFIG_DIR", CONFIG_DIR))
+                   .compose("config_train", list(overrides)))
+
+
+def build_datamodule(cfg) -> VLParseDataModule:
+    """The set-up VLParse datamodule of ``cfg`` (with the subword cache)."""
+    dm_cfg = dict(cfg["datamodule"])
+    target = dm_cfg.pop("_target_", "VLParseDataModule")
+    if "VLParse" not in target:
+        raise NotImplementedError(f"datamodule {target!r} is not ported")
+    dm = VLParseDataModule(**dm_cfg).setup()
+    if cfg.get("embedding", {}).get("use_subword"):
+        attach_subwords(dm, HashSubwordTokenizer())
+    return dm
+
+
 def build_pipeline(overrides, device="cuda", checkpoint=None, weights=None,
                    init_seed=None):
     """Compose the config, build data + model, load or draw the weights."""
@@ -54,15 +72,8 @@ def build_pipeline(overrides, device="cuda", checkpoint=None, weights=None,
         if os.path.exists(path):
             with open(path) as f:
                 saved = json.load(f)
-    cfg = resolve(ConfigComposer(os.environ.get("VLGAE_CONFIG_DIR", CONFIG_DIR))
-                  .compose("config_train", saved + list(overrides)))
-    dm_cfg = dict(cfg["datamodule"])
-    target = dm_cfg.pop("_target_", "VLParseDataModule")
-    if "VLParse" not in target:
-        raise NotImplementedError(f"datamodule {target!r} is not ported")
-    dm = VLParseDataModule(**dm_cfg).setup()
-    if cfg.get("embedding", {}).get("use_subword"):
-        attach_subwords(dm, HashSubwordTokenizer())
+    cfg = compose(saved + list(overrides))
+    dm = build_datamodule(cfg)
     model = build_model(cfg, dm)
     if init_seed is not None:
         init_params(model, int(init_seed))

@@ -1,8 +1,11 @@
 """DMV potentials and the DP dispatch (counterpart of
 ``vlgae_tpu/struct/distributions.py``: ``dmv_merge`` and
-``dmv_value_and_grads_fast``)."""
+``dmv_value_and_grads_fast``), and :class:`DMVTotalFn`, the
+differentiable DP total."""
 
 from __future__ import annotations
+
+import torch
 
 from .dmv import NEGINF, NOCHILD, RIGHT, dmv_value_and_grads_plain
 
@@ -41,3 +44,26 @@ def dmv_value_and_grads(dec, attach, lengths, kind: str = "log"):
     if dec.device.type != "cpu":
         raise RuntimeError(f"dmv_value_and_grads: unsupported device {dec.device}")
     return dmv_value_and_grads_plain(dec, attach, lengths, kind)
+
+
+class DMVTotalFn(torch.autograd.Function):
+    """Per-sentence DP total ``[B]`` with a gradient: the forward runs one
+    pass of :func:`dmv_value_and_grads` (the fused kernel K1 on the card,
+    the plain version on the CPU) and keeps both tables; the backward is
+    those tables scaled by the cotangent (the fused path of
+    vlgae_tpu/ops/dmv_pallas.py ``_make_dmv_total``). Lengths get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, dec, attach, lengths, kind="log"):
+        total, g_dec, g_attach = dmv_value_and_grads(
+            dec.detach(), attach.detach(), lengths, kind)
+        ctx.save_for_backward(g_dec, g_attach)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        g_dec, g_attach = ctx.saved_tensors
+        g = g.to(g_dec.dtype)
+        return (g.view(-1, 1, 1, 1, 1) * g_dec,
+                g.view(-1, 1, 1, 1) * g_attach, None, None)

@@ -24,10 +24,13 @@ def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
             "embedding.use_word (the GloVe word table) is not ported; "
             "exp=vlgae uses subword + tag embeddings")
     if emb_cfg.get("use_tag", True) and "tag" in dm.vocabs:
-        args = (emb_cfg.get("tag_embedding", {}) or {}).get("args", {}) or {}
+        tcfg = emb_cfg.get("tag_embedding", {}) or {}
+        args = tcfg.get("args", {}) or {}
         items.append(EmbeddingItemCfg(
             "tag_embedding", "tag", "static", n_vocab=len(dm.vocabs["tag"]),
-            embedding_dim=int(args.get("embedding_dim", 100))))
+            embedding_dim=int(args.get("embedding_dim", 100)),
+            normalize_method=tcfg.get("normalize_method", "mean+std"),
+            normalize_time=tcfg.get("normalize_time", "nowhere")))
     bert_config = None
     if emb_cfg.get("use_subword", False):
         args = (emb_cfg.get("transformer", {}) or {}).get("args", {}) or {}
@@ -42,9 +45,12 @@ def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
             embedding_dim=bert_config.hidden_size,
             n_layers=int(args.get("n_layers", 1)),
             n_out=int(args.get("n_out", 0) or 0),
+            requires_grad=bool(args.get("requires_grad", False)),
             pooling=str(args.get("pooling", "mean")),
-            stride=int(args.get("stride", 256))))
-    return CompositeEmbedding(tuple(items), bert_config)
+            stride=int(args.get("stride", 256)),
+            layer_dropout=float(args.get("dropout", 0.0) or 0.0)))
+    return CompositeEmbedding(tuple(items), bert_config,
+                              dropout=float(emb_cfg.get("dropout", 0.0) or 0.0))
 
 
 def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
@@ -52,6 +58,8 @@ def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
     return LDNDMVConfig(
         context_mode=mcfg.get("context_mode", "mean"),
         strict_pad_context=bool(mcfg.get("strict_pad_context", False)),
+        init_method=str(mcfg.get("init_method", "y")),
+        init_epoch=int(mcfg.get("init_epoch", 0)),
         viterbi_training=bool(mcfg.get("viterbi_training", True)),
         mbr_decoding=bool(mcfg.get("mbr_decoding", False)),
         extended_valence=bool(mcfg.get("extended_valence", True)),
@@ -60,6 +68,8 @@ def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
         hidden_size=int((mcfg.get("head_ff", {}) or {}).get("n_hidden", 256)),
         mid_bottleneck=int(mid.get("n_bottleneck", 0) or 0),
         mid_n_mid=int(mid.get("n_mid", 0) or 0),
+        mid_dropout=float(mid.get("dropout", 0.0) or 0.0),
+        ff_dropout=float((mcfg.get("head_ff", {}) or {}).get("dropout", 0.33) or 0.0),
         attach_rank=int(mcfg.get("attach_rank", 16)),
         dec_rank=int(mcfg.get("dec_rank", 16)),
         root_rank=int(mcfg.get("root_rank", 16)),
@@ -75,7 +85,9 @@ def build_ldndmv(cfg: Dict[str, Any], dm, mcfg: Dict[str, Any]):
         raise NotImplementedError(
             f"encoder {enc_cfg.get('_target_')!r} is not ported (MLPEncoder only)")
     n_enc = int(enc_cfg.get("n_hidden", 256))
-    encoder = MLPEncoder(embedding.embed_size, n_enc)
+    encoder = MLPEncoder(embedding.embed_size, n_enc,
+                         dropout=float(enc_cfg.get("dropout", 0.0)),
+                         shared_dropout=float(enc_cfg.get("shared_dropout", 0.0) or 0.0))
     dep_cfg = _ldndmv_cfg(mcfg)
     fmask = ()
     if dep_cfg.function_mask and "tag" in dm.vocabs:
@@ -107,7 +119,8 @@ def build_vis_encoder(cfg: Optional[Dict[str, Any]], dtype=None):
         use_attr=bool(cfg.get("use_attr", True)),
         use_img=bool(cfg.get("use_img", False)),
         img_feat=bool(cfg.get("img_feat", True)),
-        dtype=dtype)
+        dtype=dtype,
+        dropout=float(cfg.get("dropout", 0.0)))
 
 
 def build_joint(cfg: Dict[str, Any], dm) -> DependencyBoxRel:
@@ -136,6 +149,8 @@ def build_joint(cfg: Dict[str, Any], dm) -> DependencyBoxRel:
         decode_use_heuristic=bool(sub("decode_grounding_args").get("use_heuristic", True)),
         grounding_interpolation=float(interp) if not isinstance(interp, str) else 0.5,
         eval_match_chunk=int(mcfg.get("eval_match_chunk", 128)),
+        compact_rel_train=bool(mcfg.get("compact_rel_train", True)),
+        word_encoder_dropout=float(sub("word_encoder").get("dropout", 0.33)),
         bf16_matmul=bf16,
     )
     tag_vocab = dm.vocabs["tag"]

@@ -1,0 +1,204 @@
+"""Adam with regex parameter groups, learning-rate schedules, global-norm
+clipping and ReduceLROnPlateau (counterpart of
+vlgae_tpu/training/optim.py, which builds the same with optax).
+
+Parameters are matched by regex against their flax path joined with dots
+(``params.dependency.embedding.transformer.bert...``), so the patterns of
+the JAX configs select the same tensors. Frozen parameters stay out of the
+optimizer. Every parameter of the optimizer steps on every update (a
+parameter that received no gradient steps with a zero one), so the
+bias corrections of Adam count updates as optax's global count does, and
+the learning rate of update ``k`` (0-based) is ``schedule(k)``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..convert import torch_to_flax_key
+
+
+def _linear(init: float, end: float, steps: int):
+    """optax.linear_schedule: ``init`` -> ``end`` over ``steps``, then flat."""
+    if steps <= 0:
+        return lambda count: init
+
+    def f(count):
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    return f
+
+
+def _join(schedules, boundaries):
+    """optax.join_schedules: schedule ``i`` from boundary ``i - 1`` on,
+    counted from that boundary."""
+
+    def f(count):
+        out = schedules[0](count)
+        for b, s in zip(boundaries, schedules[1:]):
+            if count >= b:
+                out = s(count - b)
+        return out
+
+    return f
+
+
+def make_schedule(args: Dict[str, Any], base_lr: float, steps_per_epoch: int = 1):
+    """A step -> learning-rate function from reference-style scheduler
+    args (``gamma: "0.75**(1/2000)"``, ``"N epoch"`` step counts)."""
+    target = args.get("_target_", "")
+
+    def resolve(v):
+        if isinstance(v, str) and v.endswith(" epoch"):
+            return int(v.split()[0]) * steps_per_epoch
+        if isinstance(v, str):
+            return float(eval(v, {"__builtins__": {}}, {}))
+        return v
+
+    if "exponential" in target:
+        gamma = resolve(args["gamma"])
+        return lambda step: base_lr * gamma ** step
+    if "linear_schedule_with_warmup" in target or "linear" in target:
+        warmup = int(resolve(args.get("num_warmup_steps", 0)))
+        total = int(resolve(args.get("num_training_steps", 10 ** 9)))
+        up = _linear(0.0, base_lr, warmup)
+        if total <= warmup:
+            return up
+        return _join([up, _linear(base_lr, 0.0, max(total - warmup, 1))], [warmup])
+    if "constant_schedule_with_warmup" in target:
+        warmup = int(resolve(args.get("num_warmup_steps", 0)))
+        return _join([_linear(0.0, base_lr, warmup), lambda count: base_lr], [warmup])
+    return lambda count: base_lr
+
+
+class ReduceLROnPlateau:
+    """Host-side plateau scaling of the learning rate: after more than
+    ``patience`` validations without improvement the scale shrinks by
+    ``factor`` (not below ``min_lr / base_lr``)."""
+
+    def __init__(self, mode="min", factor=0.5, patience=2, min_lr=0.0):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.best = None
+        self.bad = 0
+        self.scale = 1.0
+
+    def step(self, value: float, base_lr: float) -> float:
+        better = (self.best is None
+                  or (value < self.best if self.mode == "min" else value > self.best))
+        if better:
+            self.best = value
+            self.bad = 0
+        else:
+            self.bad += 1
+            if self.bad > self.patience:
+                self.scale = max(self.scale * self.factor,
+                                 self.min_lr / max(base_lr, 1e-30))
+                self.bad = 0
+        return self.scale
+
+    def state_dict(self):
+        return {"best": self.best, "bad": self.bad, "scale": self.scale}
+
+    def load_state_dict(self, state):
+        self.best, self.bad, self.scale = state["best"], state["bad"], state["scale"]
+
+
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """Scale every gradient by ``max_norm / norm`` when the global norm of
+    all of them is at least ``max_norm`` (``optax.clip_by_global_norm``: no
+    epsilon, unlike ``clip_grad_norm_``). Returns the norm; no host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class Optimizer:
+    """``torch.optim.Adam`` (``AdamW`` with weight decay) over regex
+    groups, each with its own schedule, a global-norm clip before the
+    update and an optional plateau scale on every learning rate."""
+
+    def __init__(self, model: torch.nn.Module, optimizer_cfg: Dict[str, Any],
+                 scheduler_cfg: Optional[Dict[str, Any]] = None,
+                 steps_per_epoch: int = 1, gradient_clip_val: float = 0.0,
+                 frozen_patterns: Optional[List[str]] = None):
+        args = dict(optimizer_cfg.get("args", {"lr": 1e-3}))
+        args.pop("_target_", None)
+        self.base_lr = float(args.pop("lr", 1e-3))
+        betas = args.pop("betas", (0.9, 0.999))
+        eps = float(args.pop("eps", 1e-12))
+        wd = float(args.pop("weight_decay", 0.0))
+        self.clip = float(gradient_clip_val or 0.0)
+        self.plateau = None
+        sched_args = None
+        if scheduler_cfg:
+            sched_args = dict(scheduler_cfg.get("args", {}))
+            target = str(sched_args.get("_target_", ""))
+            if "ReduceLROnPlateau" in target or "plateau" in target.lower():
+                self.plateau = ReduceLROnPlateau(**{
+                    k: v for k, v in sched_args.items()
+                    if k in ("mode", "factor", "patience", "min_lr")})
+                sched_args = None
+
+        groups = list(optimizer_cfg.get("groups") or [])
+        frozen = list(frozen_patterns or [])
+        buckets: List[List[torch.nn.Parameter]] = [[] for _ in range(len(groups) + 1)]
+        for name, p in model.named_parameters():
+            path = "params." + torch_to_flax_key(name, p.dim()).replace("/", ".")
+            if any(re.search(pat, path) for pat in frozen):
+                continue
+            idx = next((i + 1 for i, g in enumerate(groups)
+                        if re.search(g["pattern"], path)), 0)
+            buckets[idx].append(p)
+        lrs = [self.base_lr] + [float(g.get("lr", self.base_lr)) for g in groups]
+        self.schedules = [
+            make_schedule(sched_args, lr, steps_per_epoch) if sched_args
+            else (lambda count, lr=lr: lr) for lr in lrs]
+        self.params = [p for b in buckets for p in b]
+        param_groups = [{"params": b, "lr": lr} for b, lr in zip(buckets, lrs) if b]
+        self._sched_of_group = [s for b, s in zip(buckets, self.schedules) if b]
+        cls = torch.optim.AdamW if wd > 0 else torch.optim.Adam
+        kw = {"weight_decay": wd} if wd > 0 else {}
+        self.opt = cls(param_groups, betas=(float(betas[0]), float(betas[1])),
+                       eps=eps, **kw)
+
+    def lr_at(self, step: int) -> float:
+        """The learning rate of the default group at update ``step``."""
+        scale = self.plateau.scale if self.plateau is not None else 1.0
+        return float(self.schedules[0](step)) * scale
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self, step: int) -> None:
+        """Clip, set each group's learning rate for update ``step``, and
+        apply Adam."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.clip > 0:
+            clip_by_global_norm_(self.params, self.clip)
+        scale = self.plateau.scale if self.plateau is not None else 1.0
+        for group, sched in zip(self.opt.param_groups, self._sched_of_group):
+            group["lr"] = float(sched(step)) * scale
+        self.opt.step()
+
+    def state_dict(self):
+        return {"adam": self.opt.state_dict(),
+                "plateau": self.plateau.state_dict() if self.plateau else None}
+
+    def load_state_dict(self, state):
+        self.opt.load_state_dict(state["adam"])
+        if self.plateau is not None and state.get("plateau"):
+            self.plateau.load_state_dict(state["plateau"])

@@ -1,20 +1,29 @@
-"""Evaluation pipeline (counterpart of the eval half of
-vlgae_tpu/training/pipeline.py): batches -> eval step -> metrics and the
-CoNLL+ALIGN prediction writer. No optimizer and no train loop yet.
+"""Training and evaluation pipeline (counterpart of
+vlgae_tpu/training/pipeline.py): the train step (forward, backward, clip,
+Adam) and its accumulation form, the epoch loop with the warm-up phase,
+the per-epoch grounding coefficient, mid-epoch validation and device-side
+loss sums, checkpoints with ``torch.save``, the eval step, metrics and the
+CoNLL+ALIGN prediction writer.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..data.conll import write_conll_rows
+from ..models.embedding import normalize_embedding_
 from ..models.ldndmv import decode as ldndmv_decode
-from ..models.ldndmv import loss_nll
+from ..models.ldndmv import loss_init_rules, loss_nll
+from ..models.nn import set_dropout_generator
+from ..utils.fn import coeff_at, parse_coeff_schedule, reduce_loss
 from . import metrics as metrics_mod
+from .optim import Optimizer
 
 
 def pad_batch_pow2(batch: dict, min_b: int = 8):
@@ -66,20 +75,40 @@ def _to_device(x: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 class Pipeline:
-    """Owns the model, the datamodule and the metrics."""
+    """Owns the model, the datamodule, the optimizer, the dropout
+    generator and the metrics (dev and test)."""
 
-    def __init__(self, model, dm, cfg: Dict[str, Any], device="cpu"):
+    def __init__(self, model, dm, cfg: Dict[str, Any], device="cpu",
+                 workdir: str = ".", seed: int = 0):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.dm = dm
         self.cfg = cfg
+        self.workdir = workdir
         self.dep_cfg = model.dep_cfg
-        self.metrics = [self._build_metric_node(cfg.get("metric") or {})]
+        self.loss_reduction_mode = (cfg.get("pipeline") or {}).get(
+            "loss_reduction_mode", "token")
+        self.metrics = [self._build_metric_node(cfg.get("metric") or {})
+                        for _ in range(2)]
         interp = (cfg.get("model", {}) or {}).get("grounding_interpolation", 0.5)
-        if isinstance(interp, str):
-            raise NotImplementedError(
-                "a scheduled grounding_interpolation is not ported")
-        self.alpha = float(interp)
+        self.alpha_schedule = (parse_coeff_schedule(interp)
+                               if isinstance(interp, str) else None)
+        self.alpha = float(interp) if self.alpha_schedule is None else None
+        # dropout masks of every module come from this device generator
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        set_dropout_generator(self.model, self.generator)
+        self.optimizer: Optional[Optimizer] = None
+        self.step = 0
+        self.epoch = 0
+        self.best = None
+        self.watch_field = cfg.get("watch_field", "val/loss")
+        self.watch_mode = cfg.get("watch_mode", "min")
+        # per-term loss means of the latest mid-epoch training window
+        self.window_train_terms: Dict[str, float] = {}
+        emb = self.model.dependency.embedding
+        self._batch_normalize = any(
+            item.kind == "static" and item.normalize_time == "batch"
+            for item in emb.items)
         # seconds of each eval step of the last evaluate(): batch upload,
         # forward, loss and decode, ending when the results reach the host
         self.step_times: List[float] = []
@@ -103,10 +132,41 @@ class Pipeline:
         return cls(**{k: v for k, v in node.items()
                       if k != "_target_" and not isinstance(v, dict)})
 
-    # -- weights -------------------------------------------------------------
+    # -- setup -----------------------------------------------------------------
+    def setup_optimizer(self) -> Optimizer:
+        """Adam over the trainable parameters; a frozen transformer item's
+        BERT stays out."""
+        train_cfg = self.cfg.get("datamodule", {}).get("train_dataloader", {}) or {}
+        n_batches = max(1, len(self.dm.datasets.get("train", [1]))
+                        // max(int(train_cfg.get("batch_size", 32)), 1))
+        frozen = [rf"\b{item.name}\b.*bert"
+                  for item in self.model.dependency.embedding.items
+                  if item.kind == "transformer" and not item.requires_grad]
+        self.optimizer = Optimizer(
+            self.model, self.cfg.get("optimizer", {"args": {"lr": 1e-3}}),
+            self.cfg.get("scheduler"), steps_per_epoch=n_batches,
+            gradient_clip_val=self.cfg.get("trainer", {}).get("gradient_clip_val", 0.0),
+            frozen_patterns=frozen)
+        return self.optimizer
+
+    def normalize_embeddings(self, when: str) -> None:
+        """Re-whiten the static embedding tables scheduled for ``when``
+        (begin | epoch | batch), count-weighted where the vocab counts."""
+        emb = self.model.dependency.embedding
+        for item in emb.items:
+            if item.kind != "static" or item.normalize_time != when:
+                continue
+            vocab = getattr(self.dm, "vocabs", {}).get(item.field)
+            counts = None
+            if vocab is not None and getattr(vocab, "word_count", None):
+                counts = [vocab.word_count.get(w, 1) for w in vocab.idx2word]
+            normalize_embedding_(getattr(emb, item.name).embedding,
+                                 item.normalize_method, counts)
+
     def load_weights(self, path: str) -> None:
-        """A port checkpoint (``torch.save`` of the state_dict, ``.pt``) or
-        the JAX package's params as a flat ``.npz`` of flax paths."""
+        """A port checkpoint (``.pt``: the ``torch.save`` of a training
+        checkpoint or of a bare ``state_dict``) or the JAX package's params
+        as a flat ``.npz`` of flax paths; only the weights are read."""
         if str(path).endswith(".npz"):
             from ..convert import flax_to_torch
 
@@ -115,17 +175,201 @@ class Pipeline:
             state = flax_to_torch(flat, self.model)
         else:
             state = torch.load(path, map_location="cpu", weights_only=True)
+            state = state.get("model", state)
         self.model.load_state_dict(state, strict=True)
+
+    def current_lr(self) -> float:
+        if self.optimizer is not None:
+            return self.optimizer.lr_at(self.step)
+        return float(self.cfg.get("optimizer", {}).get("args", {}).get("lr", 1e-3))
+
+    def plateau_step(self, value) -> None:
+        """Feed the watched metric to ReduceLROnPlateau, if configured."""
+        plateau = self.optimizer.plateau if self.optimizer is not None else None
+        if plateau is None or value is None:
+            return
+        plateau.step(float(value), self.optimizer.base_lr)
+
+    def _alpha(self, epoch: int) -> float:
+        if self.alpha_schedule is not None:
+            return float(coeff_at(self.alpha_schedule, epoch))
+        return self.alpha
+
+    # -- loss and the train step ----------------------------------------------
+    def compute_loss(self, inputs, gold, init_phase: bool, alpha: float):
+        """The training objective ``(total, per-term dict)``, reduced per
+        the configured mode: in the warm-up phase the dependency scores
+        against the rule counts, else the NLL interpolated with the
+        grounding loss."""
+        model = self.model
+        out = model(inputs, with_grounding=not init_phase)
+        lengths = inputs["seq_len"]
+        if init_phase:
+            total, aux = loss_init_rules(out, gold)
+        else:
+            dep_loss, dep_aux = loss_nll(out, lengths,
+                                         viterbi=self.dep_cfg.viterbi_training)
+            total, aux = model.loss(out, inputs, dep_loss, dep_aux, alpha)
+        num_token = torch.clamp_min(lengths.sum(), 1)
+        n_sent = torch.clamp_min((lengths > 0).sum(), 1)
+        mode = self.loss_reduction_mode
+        total = reduce_loss(total, num_token, n_sent, mode)
+        aux = {k: reduce_loss(v, num_token, n_sent, mode) for k, v in aux.items()}
+        return total, aux
+
+    def grad_step(self, x, y, init_phase: bool, alpha: float):
+        """Upload a padded batch, run forward and backward (gradients add
+        into ``.grad``). Returns the detached loss and terms on the device."""
+        self.model.train()
+        inputs = _to_device(x, self.device)
+        gold = _to_device(y, self.device)
+        loss, aux = self.compute_loss(inputs, gold, init_phase, alpha)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def apply_step(self, n_accumulated: int = 1) -> None:
+        """Average the accumulated gradients, clip, update, clear."""
+        if n_accumulated > 1:
+            for p in self.optimizer.params:
+                if p.grad is not None:
+                    p.grad.mul_(1.0 / n_accumulated)
+        self.optimizer.step(self.step)
+        self.optimizer.zero_grad()
+        self.step += 1
+
+    def train_step(self, x, y, init_phase: bool, alpha: float):
+        """One update on one padded batch; returns the loss and terms as
+        device tensors (no host sync)."""
+        loss, aux = self.grad_step(x, y, init_phase, alpha)
+        self.apply_step()
+        return loss, aux
+
+    def train_epoch(self, epoch: int, val_fn: Optional[Callable] = None,
+                    val_check_interval: float = 1.0):
+        """One training epoch: the warm-up split and rule targets while
+        ``epoch < init_epoch`` (``init_method='y'``), the epoch's grounding
+        coefficient, batches padded to a power of two (x and y), loss sums
+        kept on the device and read once per validation window and at the
+        end, and ``val_fn()`` every ``val_check_interval`` of the epoch."""
+        if self.optimizer is None:
+            self.setup_optimizer()
+        self.epoch = epoch
+        init_phase = (epoch < self.dep_cfg.init_epoch
+                      and self.dep_cfg.init_method == "y")
+        split = ("train_init" if init_phase and "train_init" in self.dm.datasets
+                 else "train")
+        # rule targets only in the warm-up; then drop the per-instance caches
+        if self.dm.include_init_rules and not init_phase:
+            for ds in self.dm.datasets.values():
+                for inst in ds:
+                    inst.pop("_init_rules", None)
+        self.dm.include_init_rules = init_phase
+        alpha = self._alpha(epoch)
+        trainer = self.cfg.get("trainer", {}) or {}
+        loss_sum, loss_n = None, 0
+        aux_sums: Dict[str, torch.Tensor] = {}
+        win_sums: Dict[str, torch.Tensor] = {}
+        win_n = 0
+        t0 = time.time()
+        sampler_len = len(self.dm.sampler(split))
+        val_every = (max(1, int(sampler_len * val_check_interval))
+                     if val_fn is not None and 0 < val_check_interval < 1 else None)
+        fast_dev_run = int(trainer.get("fast_dev_run", 0) or 0)
+        accum = int(trainer.get("accumulate_grad_batches", 1) or 1)
+        pending = 0
+        for i, (x, y) in enumerate(self.dm.batches(split)):
+            if fast_dev_run and i >= fast_dev_run:
+                break
+            if val_every and i > 0 and i % val_every == 0:
+                self.window_train_terms = {
+                    f"train/{k}": float(v) / max(win_n, 1) for k, v in win_sums.items()}
+                win_sums, win_n = {}, 0
+                val_fn()
+            if self._batch_normalize:
+                self.normalize_embeddings("batch")
+            if init_phase and "dec_rule" not in y:
+                raise RuntimeError(
+                    "init_method='y' warm-up needs dec_rule/attach_rule/root_rule "
+                    "in the batch; set dm.include_init_rules")
+            x, _ = pad_batch_pow2(x)
+            y, _ = pad_batch_pow2(y)
+            if accum <= 1:
+                loss, aux = self.train_step(x, y, init_phase, alpha)
+            else:
+                loss, aux = self.grad_step(x, y, init_phase, alpha)
+                pending += 1
+                if pending == accum:
+                    self.apply_step(pending)
+                    pending = 0
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            loss_n += 1
+            for k, v in aux.items():
+                aux_sums[k] = v if k not in aux_sums else aux_sums[k] + v
+                win_sums[k] = v if k not in win_sums else win_sums[k] + v
+            win_n += 1
+        if pending:
+            self.apply_step(pending)
+        stats = {"train/loss": float(loss_sum) / loss_n if loss_n else 0.0,
+                 "train/time": time.time() - t0,
+                 "train/init_phase": init_phase}
+        for k, v in aux_sums.items():
+            stats[f"train/{k}"] = float(v) / loss_n
+        return stats
+
+    # -- checkpoints -------------------------------------------------------------
+    def save_checkpoint(self, name: str = "last") -> str:
+        """``<workdir>/checkpoint/<name>.pt``: weights, Adam and plateau
+        state, the dropout generator, step, epoch, best, and the host RNG
+        state of the training data (sampler epochs, box sampling)."""
+        folder = os.path.join(self.workdir, "checkpoint")
+        os.makedirs(folder, exist_ok=True)
+        path = os.path.join(folder, f"{name}.pt")
+        state = {
+            "model": self.model.state_dict(),
+            "optimizer": (self.optimizer.state_dict()
+                          if self.optimizer is not None else None),
+            "generator": self.generator.get_state(),
+            "step": self.step, "epoch": self.epoch, "best": self.best,
+            "data": self.dm.train_state(),
+        }
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def load_checkpoint(self, path: str, load_training_state: bool = False):
+        """Restore the weights (strict) and, for a resume, everything else
+        :meth:`save_checkpoint` wrote."""
+        if not load_training_state:
+            self.load_weights(path)
+            return
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state["model"], strict=True)
+        if self.optimizer is None:
+            self.setup_optimizer()
+        if state.get("optimizer") is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
+        self.step, self.epoch, self.best = state["step"], state["epoch"], state["best"]
+        self.dm.load_train_state(state["data"])
+
+    def is_better(self, value) -> bool:
+        if value is None or not math.isfinite(float(value)):
+            return False
+        if self.best is None:
+            return True
+        return value < self.best if self.watch_mode == "min" else value > self.best
 
     # -- eval step ------------------------------------------------------------
     @torch.no_grad()
-    def eval_step(self, x: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        model = self.model
+    def eval_step(self, x: Dict[str, np.ndarray], alpha: float = 0.5
+                  ) -> Dict[str, np.ndarray]:
+        model = self.model.eval()
         inputs = _to_device(x, self.device)
         out = model(inputs)
         lengths = inputs["seq_len"]
         dep_loss, _ = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
-        total = model.loss(out, inputs, dep_loss, self.alpha)
+        total, _ = model.loss(out, inputs, dep_loss, alpha=alpha)
         heads = ldndmv_decode(out, lengths, mbr=self.dep_cfg.mbr_decoding)
         g = model.decode_grounding_device(out, inputs)
         res = {"arc": heads, "loss": total, "txt_to_img": g["txt_to_img"],
@@ -135,16 +379,18 @@ class Pipeline:
         res["vis_split"] = np.asarray(out["vis_packed"][2])
         return res
 
-    def evaluate(self, split: str = "dev"):
-        metric = self.metrics[0]
+    def evaluate(self, split: str = "dev", metric_idx: int = 0):
+        metric = self.metrics[metric_idx]
         metric.reset()
+        # the epoch's grounding coefficient: val/loss is the trained objective
+        alpha = self._alpha(self.epoch)
         loss_sum, token_sum = 0.0, 0
         all_outputs = {}
         self.step_times, self.step_sizes = [], []
         for x, y in self.dm.batches(split, shuffle=False):
             xp, real = pad_batch_pow2(x)
             t0 = time.perf_counter()
-            res = self.eval_step(xp)
+            res = self.eval_step(xp, alpha)
             self.step_times.append(time.perf_counter() - t0)
             self.step_sizes.append(real)
             res = {k: v[:real] if (v.ndim > 0 and v.shape[0] >= real
