@@ -27,8 +27,32 @@ Phases, each printing one JSON line:
                  checkpoints, ``eval.py`` on the test predictions, K5 and
                  K6 on a joint step's own tensors, and the train-step time
                  at B=64
-Then the card's name and power limit, the per-kernel table and, as the
-last line, ``{"ok": true, "device": {...}}``. Any failure raises and the
+ 10. k2        - the value-only inside kernel against ``dmv_total`` (log +
+                 max) at B=64 with ragged lengths, in its three mappings: a
+                 warp per sentence (n1 = 2, 3, 5, 9), a block per sentence
+                 with charts in shared memory (n1 = 10, 17, 51) and in
+                 global memory (n1 = 101); exact in the max semiring on
+                 quarter-integer potentials
+ 11. k3        - the chart-saving inside kernel against the plain charts,
+                 the outside kernel against its plain version under a
+                 cotangent with zeros (on the kernel's charts and on the
+                 plain charts uploaded), the pair against K1 scaled by the
+                 cotangent, reruns bit-identical; the same n1 groups
+ 12. lang_only_reference - ``exp=lang_only`` at small widths and
+                 precision=32: the card and the CPU write the same dev
+                 predictions and take the same NLL train step
+ 13. lang_only - ``vlgae_tpu_torch.train`` then ``.predict`` with
+                 ``exp=lang_only`` at the recipe's widths on a synthetic
+                 corpus (captions of 3-49 words, training ones up to 10):
+                 one warm-up and one NLL epoch, which kernels each step
+                 launched, the kernels on a training and an eval batch's
+                 own tensors, the checkpoint, step times at B=64; then
+                 ``predict`` on a small corpus of captions of 86-99 words
+                 (charts beyond shared memory)
+Then the card's name and power limit, the per-kernel table (launches on the
+main paths, error, time, the plain version's time, the bound the card's
+peaks set for the same work, a library call's time where one exists) and, as
+the last line, ``{"ok": true, "device": {...}}``. Any failure raises and the
 script exits non-zero without that line. Needs one CUDA device.
 """
 
@@ -43,11 +67,40 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SOURCES = ("dmv_fused", "dmv_inside", "dmv_outside", "match_fwd", "match_bwd")
 KERNELS = {
     "dmv_fused": {
         "route": "cuda",
         "source": "vlgae_tpu_torch/csrc/dmv_fused.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:878",
+    },
+    # the inside pass alone: a block per sentence, charts in shared memory
+    "dmv_inside": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
+        "replaces": "vlgae_tpu/ops/dmv_pallas.py:546",
+    },
+    "dmv_inside_save": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
+        "replaces": "vlgae_tpu/ops/dmv_pallas.py:555",
+    },
+    "dmv_outside": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/csrc/dmv_outside.cu",
+        "replaces": "vlgae_tpu/ops/dmv_pallas.py:861",
+    },
+    # the same two inside functions in the warp mapping (n1 <= 9) ...
+    "dmv_inside_small": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
+        "replaces": "vlgae_tpu/ops/dmv_pallas.py:569",
+    },
+    # ... and with charts in global memory (beyond shared memory)
+    "dmv_inside_long": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
+        "replaces": "vlgae_tpu/ops/dmv_pallas.py:590",
     },
     "match_fwd": {
         "route": "cuda",
@@ -72,6 +125,52 @@ K6_ATOL, K6_RTOL = 1e-4, 2.0 ** -7
 # card vs CPU train step at precision=32 (f32, different summation orders)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+# peaks of one H100 SXM (NVIDIA's data sheet, dense): the bound of a kernel
+# is the larger of its bytes over the memory rate and its operations over
+# the peak rate of their type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+
+
+def bound(n_bytes, n_ops, dtype):
+    """``{"bound_ms", "bound_by"}``: the least time the card could take to
+    read each input once, write each output once and do ``n_ops`` operations
+    of ``dtype``."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
+
+
+def dmv_inside_ops(lengths):
+    """Operations of the inside pass for these lengths: a span of width w
+    has 6 split-point sums (two incomplete, two complete of each valence) of
+    w terms, each term one semiring product and one semiring sum."""
+    total = 0
+    for length in lengths:
+        n = int(length) + 1
+        total += sum(12 * w * (n - w) for w in range(1, n))
+    return total
+
+
+def dmv_bound(lengths, n1, what):
+    """The bound of a DMV kernel at this batch. ``what``: "inside" (the
+    total alone), "save" (plus the charts written), "outside" (charts,
+    cotangent and total read, both tables written; its operations counted
+    as twice the inside pass's, each split term having two adjoint terms)
+    or "fused" (inside + outside, the tables written)."""
+    B = len(lengths)
+    potentials = 4 * B * (n1 * 8 + n1 * n1 * 2) + 4 * B
+    charts = 4 * B * 4 * n1 * n1 * 2
+    ops = dmv_inside_ops(lengths)
+    n_bytes, n_ops = {
+        "inside": (potentials + 4 * B, ops),
+        "save": (potentials + 4 * B + charts, ops),
+        "outside": (2 * potentials - 4 * B + charts + 8 * B, 2 * ops),
+        "fused": (2 * potentials, 3 * ops),
+    }[what]
+    return bound(n_bytes, n_ops, "f32")
 
 
 def close(got, want, atol, rtol):
@@ -98,6 +197,30 @@ def time_ms(fn, reps=7, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, n=20, reps=5):
+    """Median device time of one ``fn()`` in ms when ``n`` calls are queued
+    behind a busy device: the card first spins for some milliseconds while
+    the host enqueues the calls, so the time between the two events holds
+    the kernels back to back and none of the host's enqueueing (a call
+    through a wrapper costs the host more than a small kernel runs)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # about 10 ms of spinning
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -137,23 +260,28 @@ def phase_build(state):
         return round(time.perf_counter() - t0, 3)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        out = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        out = dict(zip(SOURCES, pool.map(one, SOURCES)))
     emit({"phase": "build", "seconds": out,
           "wall_s": round(time.perf_counter() - t0, 3)})
 
 
-def _dmv_inputs(rng, lengths, n1, device):
+def _dmv_inputs(rng, lengths, n1, device, quarter=False):
+    """Merged potentials of a batch: standard normal (tie-free), or with
+    ``quarter`` quarter-integers in [-2, 2] (every sum of the max semiring
+    exact, ties common)."""
     import numpy as np
     import torch
 
     from vlgae_tpu_torch.struct import dmv_merge
 
     B, n = len(lengths), n1 - 1
-    dec = torch.tensor(rng.standard_normal((B, n, 2, 2, 2)), dtype=torch.float32)
-    attach = torch.tensor(rng.standard_normal((B, n, n, 2)), dtype=torch.float32)
-    root = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32)
-    mdec, mattach = dmv_merge(dec, attach, root)
+
+    def draw(*shape):
+        x = rng.integers(-8, 9, shape) * 0.25 if quarter else rng.standard_normal(shape)
+        return torch.tensor(x, dtype=torch.float32)
+
+    mdec, mattach = dmv_merge(draw(B, n, 2, 2, 2), draw(B, n, n, 2), draw(B, n))
     return (mdec.to(device), mattach.to(device),
             torch.tensor(np.asarray(lengths), dtype=torch.int32, device=device))
 
@@ -199,6 +327,7 @@ def phase_k1(state):
     for kind in ("log", "max"):
         timing[kind] = {
             "ms": time_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+            "queued_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
             "plain_ms": time_ms(
                 lambda: dmv_value_and_grads_plain(dec, attach, lens, kind),
                 reps=5, warmup=1),
@@ -207,10 +336,17 @@ def phase_k1(state):
     result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
                            "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL]}
     emit(result)
+    # one launch of each semiring, as the joint model's language factors run
+    both = dmv_bound(recipe, 51, "fused")
     state["dmv_fused"] = {
         "max_abs_err": worst,
         "ms": timing["log"]["ms"] + timing["max"]["ms"],
         "plain_ms": timing["log"]["plain_ms"] + timing["max"]["plain_ms"],
+        **both, "bound_ms": 2 * both["bound_ms"], "library_ms": None,
+        "ms_log": timing["log"]["ms"], "ms_max": timing["max"]["ms"],
+        "queued_ms_log": timing["log"]["queued_ms"],
+        "queued_ms_max": timing["max"]["queued_ms"],
+        "dependent_steps": 4 * 50,
     }
 
 
@@ -289,8 +425,13 @@ def phase_k5(state):
           "exact_at": {"A": 5, "V": 65, "B": 62, "Q": 202, "D": 130},
           "max_abs_err": errs, "index_mismatch_within_tol": off,
           "tolerance": [K5_ATOL, K5_RTOL], "ms": ms, "plain_ms": plain_ms})
+    # inputs read once (bf16 operands, f32 masks), four [B, A, Q|V] outputs
+    # written once; one multiply-add per (a, b, q, v, d) at the bf16 peak
     state["match_fwd"] = {"max_abs_err": max(errs.values()), "ms": ms,
-                          "plain_ms": plain_ms}
+                          "plain_ms": plain_ms, "library_ms": None,
+                          **bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q)
+                                  + 8 * B * A * (Q + V),
+                                  2 * A * B * Q * V * D, "bf16")}
 
 
 def _match_bwd_inputs(rng, A, V, B, Q, D, dev, kind):
@@ -394,7 +535,20 @@ def phase_k6(state):
           "exact_12bit_cotangents_at": round_shape, "rounded_pair": pair,
           "max_abs_err": err, "tolerance": [K6_ATOL, K6_RTOL],
           "bit_identical_reruns": identical, "ms": ms, "plain_ms": plain_ms})
-    state["match_bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # what this run's winners need: one multiply-add per feature and output
+    # (dvis, dtxt) for each distinct winning cell (b, a, q, v)
+    vis, txt, li, lvi, dm, dmv = args
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    ba = torch.arange(B * A, device=dev).view(B, A, 1)
+    q_side = (ba * Q + torch.arange(Q, device=dev)) * V + li.long()
+    v_side = (ba * Q + lvi.long()) * V + torch.arange(V, device=dev)
+    cells = int(torch.unique(torch.cat([q_side.flatten(), v_side.flatten()])).numel())
+    state["match_bwd"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "winning_cells": cells,
+        **bound(2 * 2 * (A * V + B * Q) * D + 8 * B * A * (Q + V),
+                4 * cells * D, "bf16")}
 
 
 def _check_dmv_on_path(out, lengths):
@@ -537,7 +691,8 @@ def phase_slice(state):
               "sentences_per_s_B64": 64 / step_s,
               "shape": {"len": "3-49", "B": 64, "P": 36, "feat": 2048}})
         for name, n in launches.items():
-            state.setdefault(name, {})["launches_predict"] = n
+            state.setdefault(name, {}).setdefault("launches_by_path", {})[
+                "vlgae_predict"] = n
         state["eval_step_ms"] = step_s * 1e3
 
 
@@ -754,14 +909,573 @@ def phase_train(state):
               "shape": {"len": "3-50", "B": 64, "P": 36, "feat": 2048,
                         "precision": "bf16"}})
         for name, n in launches.items():
-            state.setdefault(name, {})["launches"] = n
+            state.setdefault(name, {}).setdefault("launches_by_path", {})[
+                "vlgae_train"] = n
         state["train_step_ms"] = step_s * 1e3
+
+
+# n1 of the batches that hold the separate inside/outside kernels against
+# their plain versions, by the mapping of dmv_inside.cu they take
+INSIDE_GROUPS = {"warp": (2, 3, 5, 9), "smem": (10, 17, 51), "global": (101,)}
+TIMED_N1 = (9, 17, 51, 101)
+
+
+def _ragged(rng, n1, B=64):
+    """B lengths in [1, n1-1] with the longest, a one-word sentence and a
+    zero-length filler among them (what fits)."""
+    import numpy as np
+
+    lengths = rng.integers(1, n1, B) if n1 > 2 else np.ones(B, np.int64)
+    lengths[:3] = (n1 - 1, 1, 0)
+    if n1 > 86:  # every sentence beyond the shared-memory limit's length
+        lengths[3:] = rng.integers(86, n1, B - 3)
+    return lengths
+
+
+def _gout(B, device):
+    """A cotangent that is not all ones and has zeros in it; multiples of
+    1/8, so that a sum of equal terms is exact in either order."""
+    import torch
+
+    g = (torch.arange(B, device=device) % 13 + 1) * 0.125
+    g[2::7] = 0.0
+    return g
+
+
+def phase_k2(state):
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused, dmv_inside
+    from vlgae_tpu_torch.struct import dmv_total
+
+    rng = np.random.default_rng(3)
+    dev = torch.device("cuda")
+    result = {"phase": "k2", "cases": {}, "timing_B64": {}}
+    worst = dict.fromkeys(INSIDE_GROUPS, 0.0)
+    for mapping, sizes in INSIDE_GROUPS.items():
+        for n1 in sizes:
+            lengths = _ragged(rng, n1)
+            for kind in ("log", "max"):
+                dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
+                before = dmv_cuda.n_inside_launches[mapping]
+                got = dmv_inside(dec, attach, lens, kind)
+                if dmv_cuda.n_inside_launches[mapping] != before + 1:
+                    raise AssertionError(f"K2 n1={n1} did not take the {mapping} mapping")
+                want = dmv_total(dec, attach, lens, kind)
+                fused = dmv_fused(dec, attach, lens, kind)[0]
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                result["cases"][f"n1={n1}/{kind}"] = {
+                    "mapping": mapping, "total": err,
+                    "vs_fused": float((got - fused).abs().max())}
+                worst[mapping] = max(worst[mapping], err)
+                ok = (torch.equal(got, want) and torch.equal(got, fused)
+                      if kind == "max" else
+                      close(got, want, K1_TOTAL_ATOL, K1_TOTAL_RTOL))
+                if not ok:
+                    emit(result)
+                    raise AssertionError(f"K2 n1={n1}/{kind} disagrees: {err}")
+            # exact on quarter-integer potentials (ties included)
+            dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev, quarter=True)
+            if not torch.equal(dmv_inside(dec, attach, lens, "max"),
+                               dmv_total(dec, attach, lens, "max")):
+                raise AssertionError(f"K2 n1={n1}: max total not exact on quarter-integers")
+    for n1 in TIMED_N1:
+        lengths = _ragged(rng, n1)
+        dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
+        timing = {}
+        for kind in ("log", "max"):
+            timing[kind] = {
+                "ms": device_ms(lambda: dmv_inside(dec, attach, lens, kind)),
+                "call_ms": time_ms(lambda: dmv_inside(dec, attach, lens, kind)),
+                "plain_ms": time_ms(lambda: dmv_total(dec, attach, lens, kind),
+                                    reps=3, warmup=1),
+                "fused_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind))}
+        result["timing_B64"][f"n1={n1}"] = {
+            **timing, **dmv_bound(lengths, n1, "inside"),
+            "dependent_steps": 2 * (n1 - 1)}
+    result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL], "max": "exact"}
+    emit(result)
+    for name, mapping, n1 in (("dmv_inside", "smem", 51), ("dmv_inside_small", "warp", 9),
+                              ("dmv_inside_long", "global", 101)):
+        t = result["timing_B64"][f"n1={n1}"]
+        # the recipe trains and evaluates in the max semiring (Viterbi)
+        state[name] = {
+            "max_abs_err": worst[mapping], "ms": t["max"]["ms"],
+            "plain_ms": t["max"]["plain_ms"], "library_ms": None,
+            "ms_log": t["log"]["ms"], "call_ms": t["max"]["call_ms"], "timed_at": {"B": 64, "n1": n1, "kind": "max"},
+            **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
+                                 "dependent_steps")}}
+
+
+def phase_k3(state):
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused, dmv_inside_save, dmv_outside
+    from vlgae_tpu_torch.struct import dmv_inside_charts_plain, dmv_outside_plain
+
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    result = {"phase": "k3", "cases": {}, "timing_B64": {}}
+    worst = {"charts": 0.0, "outside": 0.0}
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    for mapping, sizes in INSIDE_GROUPS.items():
+        for n1 in sizes:
+            lengths = _ragged(rng, n1)
+            gout = _gout(len(lengths), dev)
+            for kind in ("log", "max"):
+                dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
+                before = dmv_cuda.n_inside_save_launches[mapping]
+                total, charts = dmv_inside_save(dec, attach, lens, kind)
+                if dmv_cuda.n_inside_save_launches[mapping] != before + 1:
+                    raise AssertionError(f"K3a n1={n1} did not take the {mapping} mapping")
+                p_total, p_charts = dmv_inside_charts_plain(dec, attach, lens, kind)
+                off = p_charts == -1e12
+                got = dmv_outside(dec, attach, lens, gout, total, charts, kind)
+                again = dmv_outside(dec, attach, lens, gout, total, charts, kind)
+                on_plain = dmv_outside(dec, attach, lens, gout, p_total,
+                                       p_charts.contiguous(), kind)
+                want = dmv_outside_plain(dec, attach, lens, gout, total, charts, kind)
+                _, fd, fa = dmv_fused(dec, attach, lens, kind)
+                fused = (gout.view(-1, 1, 1, 1, 1) * fd, gout.view(-1, 1, 1, 1) * fa)
+                torch.cuda.synchronize()
+                errs = {
+                    "mapping": mapping,
+                    "total": float((total - p_total).abs().max()),
+                    "charts": float((charts[~off] - p_charts[~off]).abs().max()),
+                    "outside": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                    "outside_on_plain_charts": max(
+                        float((g - w).abs().max()) for g, w in zip(on_plain, want)),
+                    "pair_vs_fused": max(
+                        float((g - f).abs().max()) for g, f in zip(got, fused))}
+                result["cases"][f"n1={n1}/{kind}"] = errs
+                worst["charts"] = max(worst["charts"], errs["charts"])
+                worst["outside"] = max(worst["outside"], errs["outside"])
+                exact = kind == "max"
+                same = (lambda a, b, at, rt: torch.equal(a, b) if exact  # noqa: E731
+                        else close(a, b, at, rt))
+                ok = (bool((charts[off] == -1e12).all())
+                      and same(total, p_total, K1_TOTAL_ATOL, K1_TOTAL_RTOL)
+                      and same(charts[~off], p_charts[~off], K1_TOTAL_ATOL, K1_TOTAL_RTOL)
+                      and all(same(g, w, K1_GRAD_ATOL, K1_GRAD_RTOL)
+                              and same(p, w, K1_GRAD_ATOL, K1_GRAD_RTOL)
+                              and same(g, f, K1_GRAD_ATOL, K1_GRAD_RTOL)
+                              and torch.equal(bits(g), bits(a))
+                              for g, a, p, w, f in zip(got, again, on_plain, want, fused))
+                      and all(bool((g[gout == 0] == 0).all()) for g in got))
+                if not ok:
+                    emit(result)
+                    raise AssertionError(f"K3 n1={n1}/{kind} disagrees: {errs}")
+            # quarter-integers tie often: the pair must mark every best tree
+            # as K1 does (the plain version splits ties, so it is no judge)
+            dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev, quarter=True)
+            total, charts = dmv_inside_save(dec, attach, lens, "max")
+            got = dmv_outside(dec, attach, lens, gout, total, charts, "max")
+            ft, fd, fa = dmv_fused(dec, attach, lens, "max")
+            if not (torch.equal(total, ft)
+                    and torch.equal(got[0], gout.view(-1, 1, 1, 1, 1) * fd)
+                    and torch.equal(got[1], gout.view(-1, 1, 1, 1) * fa)):
+                raise AssertionError(f"K3 n1={n1}: the pair and K1 differ on tied trees")
+    for n1 in TIMED_N1:
+        lengths = _ragged(rng, n1)
+        gout = _gout(len(lengths), dev)
+        dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
+        timing = {}
+        for kind in ("log", "max"):
+            total, charts = dmv_inside_save(dec, attach, lens, kind)
+            timing[kind] = {
+                "save_ms": device_ms(lambda: dmv_inside_save(dec, attach, lens, kind)),
+                "outside_ms": device_ms(
+                    lambda: dmv_outside(dec, attach, lens, gout, total, charts, kind)),
+                "fused_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+                "save_call_ms": time_ms(
+                    lambda: dmv_inside_save(dec, attach, lens, kind)),
+                "outside_call_ms": time_ms(
+                    lambda: dmv_outside(dec, attach, lens, gout, total, charts, kind)),
+                "fused_call_ms": time_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+                "save_plain_ms": time_ms(
+                    lambda: dmv_inside_charts_plain(dec, attach, lens, kind),
+                    reps=3, warmup=1),
+                "outside_plain_ms": time_ms(
+                    lambda: dmv_outside_plain(dec, attach, lens, gout, total, charts, kind),
+                    reps=3, warmup=1)}
+            timing[kind]["pair_ms"] = timing[kind]["save_ms"] + timing[kind]["outside_ms"]
+        result["timing_B64"][f"n1={n1}"] = {
+            **timing, "save_bound": dmv_bound(lengths, n1, "save"),
+            "outside_bound": dmv_bound(lengths, n1, "outside"),
+            "fused_bound": dmv_bound(lengths, n1, "fused"),
+            "dependent_steps": {"save": 2 * (n1 - 1), "outside": 2 * (n1 - 1)}}
+    result["tolerance"] = {"total_and_charts": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
+                           "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL], "max": "exact"}
+    emit(result)
+    t = result["timing_B64"]["n1=51"]
+    keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
+    state["dmv_inside_save"] = {
+        "max_abs_err": worst["charts"], "ms": t["max"]["save_ms"],
+        "plain_ms": t["max"]["save_plain_ms"], "library_ms": None,
+        "ms_log": t["log"]["save_ms"], "timed_at": {"B": 64, "n1": 51, "kind": "max"},
+        **{k: t["save_bound"][k] for k in keys}, "dependent_steps": 100}
+    state["dmv_outside"] = {
+        "max_abs_err": worst["outside"], "ms": t["max"]["outside_ms"],
+        "plain_ms": t["max"]["outside_plain_ms"], "library_ms": None,
+        "ms_log": t["log"]["outside_ms"], "timed_at": {"B": 64, "n1": 51, "kind": "max"},
+        **{k: t["outside_bound"][k] for k in keys}, "dependent_steps": 100}
+    # the warp and the global mapping serve both inside functions: their
+    # rows keep the value-only time and add the chart-saving one
+    for name, n1 in (("dmv_inside_small", 9), ("dmv_inside_long", 101)):
+        state[name]["save_ms"] = result["timing_B64"][f"n1={n1}"]["max"]["save_ms"]
+
+
+def _lang_overrides(root, small):
+    ov = _corpus_overrides(root)
+    ov[0] = "exp=lang_only"
+    if small:
+        ov += ["_hidden_size=32", "_rank=4", "encoder.hidden_size=16",
+               "model.root_emb_dim=8", "model.dec_emb_dim=8", "trainer.precision=32",
+               "datamodule.max_len.train=12",
+               "datamodule.train_dataloader.num_bucket=1"]
+    return ov
+
+
+# images of the lang_only corpus: ``max_len.train: 10`` keeps about one
+# training caption in seven, and full batches of 64 are wanted at both
+# padded lengths
+LANG_N_IMGS = 1000
+LANG_NO_DROPOUT = ["_dropout=0", "encoder.lstm_dropout=0", "encoder.pre_dropout=0",
+                   "encoder.pre_shared_dropout=0", "encoder.post_dropout=0",
+                   "encoder.post_shared_dropout=0"]
+
+
+def phase_lang_only_reference(state):
+    """``exp=lang_only`` at small widths and precision=32, the card (K2/K4,
+    K1-max, the K3 pair) against the CPU (plain versions): the same dev
+    predictions, and the same NLL train step from the same weights with
+    every dropout 0 (loss and every gradient). Where a sentence's Viterbi
+    tree is tied the card marks every best tree and the CPU splits; the seed
+    gives a tie-free training batch, and the tie count is checked."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.predict import build_datamodule, compose
+    from vlgae_tpu_torch.struct import dmv_value_and_grads_plain
+    from vlgae_tpu_torch.training.factory import build_model
+    from vlgae_tpu_torch.training.pipeline import Pipeline, init_params, pad_batch_pow2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=8, feat_dim=4, n_box=3,
+                    len_range=(3, 12), seed=1)
+        files, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            _, res = _run_predict(tmp, _lang_overrides(tmp, True) + [
+                "init_seed=0", f"device={dev}", f"name={dev}"])
+            with open(os.path.join(tmp, f"{dev}_dev.conll")) as f:
+                files[dev] = f.read()
+            losses[dev] = res["dev"]["loss"]
+        dloss = abs(losses["cpu"] - losses["cuda"])
+        cfg = compose(_lang_overrides(tmp, True) + LANG_NO_DROPOUT)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            dm = build_datamodule(cfg)
+            model = build_model(cfg, dm)
+            init_params(model, 0)
+            pipe = Pipeline(model, dm, cfg, device=dev, workdir=tmp)
+            pipe.setup_optimizer()
+            x, y = next(dm.batches("train", shuffle=False))
+            x, y = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
+            loss, _ = pipe.grad_step(x, y, False, 0.5)
+            grads = {n: p.grad.detach().cpu() for n, p in pipe.model.named_parameters()
+                     if p.grad is not None}
+            ties = 0
+            if dev == "cpu":
+                with torch.no_grad():
+                    inputs = {k: torch.as_tensor(v) for k, v in x.items()}
+                    out = pipe.model.eval()(inputs)
+                    ind = dmv_value_and_grads_plain(
+                        out["merged_dec"], out["merged_attach"], inputs["seq_len"], "max")[2]
+                ties = int(((ind % 1) != 0).flatten(1).any(1).sum())
+            res[dev] = (float(loss), grads, ties)
+        (lc, gc, ties), (lg, gg, _) = res["cpu"], res["cuda"]
+        worst, worst_name = 0.0, None
+        for n in gc:
+            err = float((gc[n] - gg[n]).abs().max())
+            if err > worst:
+                worst, worst_name = err, n
+        emit({"phase": "lang_only_reference",
+              "identical_dev_file": files["cpu"] == files["cuda"],
+              "dev_loss": losses, "loss_abs_diff": dloss,
+              "train_loss": {"cpu": lc, "cuda": lg},
+              "train_loss_rel_diff": abs(lc - lg) / abs(lc), "n_params": len(gc),
+              "max_grad_abs_err": worst, "worst_param": worst_name,
+              "tied_sentences_cpu_split": ties,
+              "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad": [TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL]}})
+        if files["cpu"] != files["cuda"] or dloss > 1e-4 * (1 + abs(losses["cpu"])):
+            raise AssertionError("lang_only: the card and the CPU predict differently")
+        if ties:
+            raise AssertionError(f"{ties} tied Viterbi trees in the reference batch")
+        if sorted(gc) != sorted(gg):
+            raise AssertionError("the card and the CPU differ in which params get grads")
+        for n in gc:
+            if not close(gg[n], gc[n], TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL):
+                raise AssertionError(f"lang_only train step gradient {n}")
+        if abs(lc - lg) > TRAIN_LOSS_RTOL * abs(lc):
+            raise AssertionError(f"lang_only train step loss: cpu {lc} cuda {lg}")
+
+
+def _check_lang_batch(pipe, x, train):
+    """The DMV kernels on one batch's own potentials (max semiring, as the
+    recipe trains and decodes) against their plain versions. The potentials
+    of a real batch tie, so the indicator tables are held to the plain
+    version's on the untied sentences and to its support on all, and the
+    pair to K1 exactly."""
+    import torch
+
+    from vlgae_tpu_torch.ops.dmv_cuda import (dmv_fused, dmv_inside, dmv_inside_save,
+                                              dmv_outside)
+    from vlgae_tpu_torch.struct import (dmv_inside_charts_plain, dmv_total,
+                                        dmv_value_and_grads_plain)
+    from vlgae_tpu_torch.training.pipeline import _to_device
+
+    with torch.no_grad():
+        inputs = _to_device(x, pipe.device)
+        out = pipe.model.eval()(inputs)
+    dec, attach, lens = out["merged_dec"], out["merged_attach"], inputs["seq_len"]
+    want_total, want_gd, want_ga = dmv_value_and_grads_plain(dec, attach, lens, "max")
+    tied = ((want_ga % 1) != 0).flatten(1).any(1)
+    errs = {"n1": int(dec.shape[1]), "B": int(dec.shape[0]),
+            "tied_sentences": int(tied.sum())}
+
+    def same_tables(got_d, got_a, scale):
+        for g, w in ((got_d, want_gd), (got_a, want_ga)):
+            sc = scale.view(-1, *([1] * (g.dim() - 1)))
+            if not bool(((g != 0) == ((w * sc) != 0)).all()):
+                return False
+            if not torch.equal(g[~tied], (w * sc)[~tied]):
+                return False
+        return True
+
+    if train:
+        gout = torch.where(lens > 0, -torch.ones_like(want_total), 0.0)
+        total, charts = dmv_inside_save(dec, attach, lens, "max")
+        p_total, p_charts = dmv_inside_charts_plain(dec, attach, lens, "max")
+        off = p_charts == -1e12
+        gd, ga = dmv_outside(dec, attach, lens, gout, total, charts, "max")
+        _, fd, fa = dmv_fused(dec, attach, lens, "max")
+        ok = (torch.equal(total, p_total) and torch.equal(charts[~off], p_charts[~off])
+              and bool((charts[off] == -1e12).all()) and same_tables(gd, ga, gout)
+              and torch.equal(gd, gout.view(-1, 1, 1, 1, 1) * fd)
+              and torch.equal(ga, gout.view(-1, 1, 1, 1) * fa))
+    else:
+        total = dmv_inside(dec, attach, lens, "max")
+        _, fd, fa = dmv_fused(dec, attach, lens, "max")
+        ok = (torch.equal(total, dmv_total(dec, attach, lens, "max"))
+              and torch.equal(total, want_total)
+              and same_tables(fd, fa, torch.ones_like(total)))
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"lang_only: a DMV kernel disagrees on a batch's tensors: {errs}")
+    return errs
+
+
+def phase_lang_only(state):
+    """``exp=lang_only`` at the recipe's widths (BiLSTM 2 x 200, scorer
+    hidden 500, rank 32, word + tag 100-d, 200 lexicalised words, batch 64,
+    training captions up to 10 words, Viterbi training) through the port's
+    ``train`` and ``predict`` entry points. The corpus has many more images
+    than phase ``slice``'s because ``max_len.train: 10`` keeps about one
+    training caption in seven; its region features are tiny, as the recipe
+    reads none."""
+    import json as _json
+    import math
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import train
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    def counts():
+        c = dmv_cuda.launch_counts()
+        return {"dmv_fused": c["fused"], "dmv_inside": c["inside"]["smem"],
+                "dmv_inside_save": c["inside_save"]["smem"],
+                "dmv_outside": c["outside"],
+                "dmv_inside_small": c["inside"]["warp"] + c["inside_save"]["warp"],
+                "dmv_inside_long": c["inside"]["global"] + c["inside_save"]["global"],
+                "match_fwd": match.n_launches, "match_bwd": match.n_bwd_launches}
+
+    def reset():
+        dmv_cuda.reset_launch_counts()
+        match.n_launches = match.n_bwd_launches = 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=LANG_N_IMGS, feat_dim=4,
+                    n_box=3, len_range=(3, 50), seed=0)
+        t_corpus = time.perf_counter() - t0
+        run = os.path.join(tmp, "run")
+        overrides = _lang_overrides(tmp, False) + [
+            "trainer.max_epochs=2", "model.init_epoch=1", f"workdir={run}",
+            "init_seed=0", "device=cuda"]
+        reset()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            pipe, test = train.main(overrides)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        raw = dmv_cuda.launch_counts()
+        launches = counts()
+        n_save, n_value = sum(raw["inside_save"].values()), sum(raw["inside"].values())
+        # training: the chart-saving inside and the outside, once per NLL
+        # step, tiny charts (L = 8) through the warp mapping and L = 16
+        # through the block mapping; evaluation: the value-only inside for
+        # the loss and K1 (max) for the decode, once per step; no matching
+        if not (n_save == raw["outside"] > 0 and raw["inside_save"]["warp"] > 0
+                and raw["inside_save"]["smem"] > 0 and raw["inside_save"]["global"] == 0
+                and n_value == raw["fused"] > 0 and raw["inside"]["warp"] > 0
+                and raw["inside"]["smem"] > 0
+                and launches["match_fwd"] == launches["match_bwd"] == 0):
+            raise AssertionError(f"lang_only train: unexpected launches {raw}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            lines = [_json.loads(line) for line in f]
+        losses = {k: v for rec in lines for k, v in rec.items()
+                  if "loss" in k or k.endswith(("nll", "enll"))}
+        bad = [k for rec in lines for k, v in rec.items()
+               if ("loss" in k or k.endswith(("nll", "enll")))
+               and not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"lang_only: non-finite losses: {bad}")
+        if not any(r.get("mid_epoch") for r in lines):
+            raise AssertionError("lang_only: no mid-epoch validation ran")
+        ckpt = torch.load(os.path.join(run, "checkpoint", "last.pt"),
+                          map_location="cpu", weights_only=True)
+        pipe.model.load_state_dict(ckpt["model"], strict=True)
+
+        # NLL train steps at B = 64 on the host clock (upload, forward,
+        # backward, update, the loss on the host), by padded length. The
+        # recipe's sampler cuts a length bucket into equal batches of at most
+        # 64, so a batch of exactly 64 is collated here from the training set
+        ds = pipe.dm.datasets["train"]
+        sizes = sorted({len(x["seq_len"]) for x, _ in pipe.dm.batches("train")})
+        by_len = {}
+        for L, keep in ((8, lambda n: n <= 8), (16, lambda n: n > 8)):
+            insts = [i for i in ds if keep(i["seq_len"])]
+            if len(insts) < 128:
+                raise AssertionError(f"lang_only: {len(insts)} training captions at L={L}")
+            by_len[L] = [pipe.dm.collate("train", insts[k:k + 64], L) for k in (0, 64)]
+        train_ms, path_checks = {}, {}
+        for L, full in by_len.items():
+            reset()
+            times = []
+            for k in range(7):
+                x, y = full[k % len(full)]
+                t0 = time.perf_counter()
+                xp, _ = pad_batch_pow2(x)
+                yp, _ = pad_batch_pow2(y)
+                loss, _ = pipe.train_step(xp, yp, False, 0.5)
+                float(loss)
+                times.append(time.perf_counter() - t0)
+            c = dmv_cuda.launch_counts()
+            mapping = "warp" if L + 1 <= 9 else "smem"
+            if not (c["fused"] == 0 and c["inside_save"][mapping] == 7 == c["outside"]
+                    and sum(c["inside_save"].values()) == 7
+                    and sum(c["inside"].values()) == 0):
+                raise AssertionError(f"lang_only train step at L={L}: launches {c}")
+            train_ms[f"L={L}"] = {"median": statistics.median(times[1:]) * 1e3,
+                                  "all": [round(t * 1e3, 3) for t in times]}
+            path_checks[f"train_L={L}"] = _check_lang_batch(
+                pipe, pad_batch_pow2(full[0][0])[0], train=True)
+
+        # eval steps at B = 64 over the dev batches, and the launches of one
+        reset()
+        pipe.evaluate("dev")
+        c = dmv_cuda.launch_counts()
+        n_steps = len(pipe.step_times)
+        if not (c["fused"] == n_steps == sum(c["inside"].values())
+                and sum(c["inside_save"].values()) == 0 == c["outside"]):
+            raise AssertionError(f"lang_only eval: launches {c} over {n_steps} steps")
+        # dev batches that pad to 64 rows (the sampler's equal cuts hold 33-64)
+        full = [(t, n) for t, n in zip(pipe.step_times, pipe.step_sizes) if n > 32]
+        steps = [t for t, _ in full]
+        eval_s = statistics.median(steps)
+        eval_sent_s = statistics.median(n / t for t, n in full)
+        x, _ = next(pipe.dm.batches("dev", shuffle=False))
+        path_checks["eval"] = _check_lang_batch(pipe, pad_batch_pow2(x)[0], train=False)
+
+        # predict from the checkpoint: dev and test files
+        reset()
+        t0 = time.perf_counter()
+        ppipe, results = _run_predict(tmp, [
+            f"checkpoint={os.path.join(run, 'checkpoint', 'last.pt')}", "device=cuda"])
+        torch.cuda.synchronize()
+        t_predict = time.perf_counter() - t0
+        predict_launches = counts()
+        for split in ("dev", "test"):
+            with open(os.path.join(tmp, f"unnamed_{split}.conll")) as f:
+                n_sent = f.read().count("\n\n")
+            if n_sent != len(ppipe.dm.datasets[split]) or not math.isfinite(
+                    float(results[split]["loss"])):
+                raise AssertionError(f"lang_only predict {split}: {n_sent} sentences")
+
+    # captions beyond the shared-memory limit (n1 > 85): the same entry
+    # point on a small corpus of 86-99 word captions, weights from a seed
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=16, feat_dim=4, n_box=3,
+                    len_range=(86, 100), seed=2)
+        reset()
+        _, long_results = _run_predict(tmp, _lang_overrides(tmp, False) + [
+            "datamodule.max_len.train=100", "init_seed=0", "device=cuda"])
+        torch.cuda.synchronize()
+        long_launches = counts()
+        if not (long_launches["dmv_inside_long"] > 0
+                and all(math.isfinite(float(r["loss"])) for r in long_results.values())):
+            raise AssertionError(f"lang_only long captions: {long_launches}")
+
+    emit({"phase": "lang_only", "corpus_s": round(t_corpus, 3),
+          "train_s": round(t_train, 3), "predict_s": round(t_predict, 3),
+          "launches_train": launches, "launches_by_mapping_train": raw,
+          "launches_predict": predict_launches,
+          "launches_long_predict": long_launches,
+          "test": test, "predict": {k: results[k] for k in ("dev", "test")},
+          "uas": {"test_after_training": test["uas"],
+                  "long_captions_random_weights": long_results["dev"]["uas"]},
+          "epochs": len([r for r in lines if "train/loss" in r]), "losses": losses,
+          "kernels_on_batches": path_checks,
+          "train_step_ms_B64": train_ms,
+          "train_captions": len(ds), "train_batch_sizes_of_the_sampler": sizes,
+          "eval_step_ms_median_B64": eval_s * 1e3,
+          "eval_step_ms_B64": [round(t * 1e3, 3) for t in steps],
+          "eval_real_sentences_B64": [n for _, n in full],
+          "sentences_per_s_B64": {"train_L=8": 64e3 / train_ms["L=8"]["median"],
+                                  "train_L=16": 64e3 / train_ms["L=16"]["median"],
+                                  "eval": eval_sent_s},
+          "shape": {"len": "3-49 (training captions up to 10)", "B": 64,
+                    "lstm": "2 x 200", "hidden": 500, "rank": 32}})
+    for name in KERNELS:
+        by_path = {"lang_only_train": launches[name],
+                   "lang_only_predict": predict_launches[name],
+                   "lang_only_long_predict": long_launches[name]}
+        state.setdefault(name, {}).setdefault("launches_by_path", {}).update(by_path)
 
 
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
-          "train": phase_train}
+          "train": phase_train, "k2": phase_k2, "k3": phase_k3,
+          "lang_only_reference": phase_lang_only_reference,
+          "lang_only": phase_lang_only}
 
 
 def main():
@@ -783,8 +1497,18 @@ def main():
         phase(state)
     print(nvidia_smi_line())
     rows = []
+    required = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
     for name, info in KERNELS.items():
         row = {"name": name, **info, **state.get(name, {})}
+        # each main path was driven with the counts at 0 just before it and
+        # read just after; a kernel's launches are those of all of them
+        row["launches"] = sum(row.get("launches_by_path", {}).values())
+        missing = [k for k in required if k not in row]
+        if missing:
+            raise AssertionError(f"kernel row {name} lacks {missing}")
+        if row["launches"] <= 0:
+            raise AssertionError(f"kernel {name} was never launched on a main path")
         rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

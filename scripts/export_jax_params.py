@@ -7,7 +7,8 @@ port reads (``python -m vlgae_tpu_torch.predict weights=<npz>``).
 Like ``test.py``, it composes the run's saved ``overrides.json`` with the
 given overrides, builds the model and restores the params with
 ``Pipeline.load_checkpoint``; it then writes every param under its
-``/``-joined flax path (``params/...``). Runs under JAX.
+``/``-joined flax path (``params/...``). Any recipe the JAX package builds
+works (``exp=vlgae``, ``exp=lang_only``). Runs under JAX.
 """
 
 from __future__ import annotations

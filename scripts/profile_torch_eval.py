@@ -1,13 +1,16 @@
 """Where the time of the port's eval step or train step goes, on one
 CUDA device.
 
-    python scripts/profile_torch_eval.py [eval|train]
+    python scripts/profile_torch_eval.py [eval|train|lang_only_eval|lang_only_train]
 
 Builds the pipeline of ``exp=vlgae`` (random weights from seed 0) on the
 synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50, 36
 boxes of 2048-d features, batches of 64). ``eval`` (the default) runs dev
 eval steps; ``train`` runs joint train steps (bf16, dropout on: upload,
-forward, backward, clip, Adam). Prints JSON lines:
+forward, backward, clip, Adam). The ``lang_only_*`` modes do the same for
+``exp=lang_only`` at its recipe's widths on the corpus of ``chip_smoke.py``'s
+``lang_only`` phase (training captions up to 10 words, so full batches pad
+to L = 8 or 16; dev captions of 3-49 words). Prints JSON lines:
 
   - the wall time of a step (host clock, synchronised),
   - the same under ``torch.profiler``: device-busy ms per step, the device's
@@ -119,6 +122,66 @@ def stage_times(model, inputs):
     return stages
 
 
+def lang_train_stage_times(pipe, batch):
+    """Device and host ms of the stages of one ``exp=lang_only`` NLL step."""
+    stages = {}
+    timed = _timer(stages)
+    x, y = batch
+    pipe.model.train()
+    inputs = timed("upload", lambda: _to_device(x, pipe.device))
+    gold = _to_device(y, pipe.device)
+    loss, _ = timed("forward + loss (BiLSTM, scores, saving inside)",
+                    lambda: pipe.compute_loss(inputs, gold, False, 0.5))
+    timed("backward (outside kernel, autograd)", loss.backward)
+    timed("clip + Adam", lambda: pipe.optimizer.step(pipe.step))
+    pipe.optimizer.zero_grad()
+    return stages
+
+
+def lang_stage_times(model, inputs):
+    """Device and host ms of each stage of one ``exp=lang_only`` eval step."""
+    from vlgae_tpu_torch.models.ldndmv import decode, loss_nll
+
+    stages = {}
+    timed = _timer(stages)
+    token = inputs["token"]
+    mask = (torch.arange(token.shape[1], device=token.device)[None]
+            < inputs["seq_len"][:, None])
+    emb, aux = timed("embedding (word + tag)", lambda: model.embedding(inputs))
+    enc = timed("encoder (BiLSTM)", lambda: model.encoder(emb, mask))
+    out = timed("DiscriminativeNDMV scores", lambda: model(inputs, enc, (emb, aux)))
+    timed("loss (value-only inside)",
+          lambda: loss_nll(out, inputs["seq_len"], model.cfg.viterbi_training))
+    timed("decode (K1 max)", lambda: decode(out, inputs["seq_len"], False))
+    return stages
+
+
+def _lang_setup(tmp, mode):
+    """The ``exp=lang_only`` pipeline, batches of 64 and the step to time."""
+    cfg = compose(chip_smoke._lang_overrides(tmp, False))
+    dm = build_datamodule(cfg)
+    model = build_model(cfg, dm)
+    init_params(model, 0)
+    pipe = Pipeline(model, dm, cfg, device="cuda", workdir=tmp)
+    pipe.setup_optimizer()
+    if mode == "lang_only_eval":
+        # the sampler cuts a length bucket into equal batches of 33-64 rows
+        batches = [pad_batch_pow2(x)[0] for x, _ in pipe.dm.batches("dev", shuffle=False)
+                   if len(x["seq_len"]) > 32]
+        return pipe, batches[:: max(1, len(batches) // N_STEPS)][:N_STEPS], pipe.eval_step
+    # batches of exactly 64 training captions at each padded length
+    ds = dm.datasets["train"]
+    batches = []
+    for L, keep in ((8, lambda n: n <= 8), (16, lambda n: n > 8)):
+        insts = [i for i in ds if keep(i["seq_len"])]
+        batches += [dm.collate("train", insts[k:k + 64], L) for k in (0, 64)]
+
+    def step(b):
+        loss, _ = pipe.train_step(*b, False, 0.5)
+        float(loss)
+    return pipe, batches, step
+
+
 def _train_setup(tmp):
     """A training pipeline and N_STEPS joint batches of 64 captions."""
     cfg = compose(chip_smoke._corpus_overrides(tmp) + [
@@ -141,23 +204,31 @@ def main(mode="eval"):
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device", file=sys.stderr)
         return 2
-    if mode not in ("eval", "train"):
+    if mode not in ("eval", "train", "lang_only_eval", "lang_only_train"):
         print(f"profile_torch_eval: unknown mode {mode!r}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    lang = mode.startswith("lang_only")
     with tempfile.TemporaryDirectory() as tmp:
-        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
-                    n_box=36, len_range=(3, 50), seed=0)
-        if mode == "train":
-            pipe, batches, step = _train_setup(tmp)
+        if lang:
+            make_corpus(os.path.join(tmp, "vlparse"), n_imgs=chip_smoke.LANG_N_IMGS,
+                        feat_dim=4, n_box=3, len_range=(3, 50), seed=0)
+            pipe, batches, step = _lang_setup(tmp, mode)
         else:
-            pipe = build_pipeline(chip_smoke._corpus_overrides(tmp) + [
-                "datamodule.dev_dataloader.num_bucket=1"], device="cuda", init_seed=0)
-            batches = [pad_batch_pow2(x)[0]
-                       for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
-            step = pipe.eval_step
-        emit({"mode": mode, "batches": len(batches), "B": 64})
+            make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
+                        n_box=36, len_range=(3, 50), seed=0)
+            if mode == "train":
+                pipe, batches, step = _train_setup(tmp)
+            else:
+                pipe = build_pipeline(chip_smoke._corpus_overrides(tmp) + [
+                    "datamodule.dev_dataloader.num_bucket=1"], device="cuda", init_seed=0)
+                batches = [pad_batch_pow2(x)[0]
+                           for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
+                step = pipe.eval_step
+        emit({"mode": mode, "batches": len(batches), "B": 64,
+              "padded_len": [int((b[0] if isinstance(b, tuple) else b)["word"].shape[1])
+                             for b in batches]})
         run_steps(step, batches)  # warm-up
         emit({"wall_ms_per_step": run_steps(step, batches) * 1e3 / len(batches)})
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -177,7 +248,19 @@ def main(mode="eval"):
         for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
             emit({"kernel": name, "device_ms_per_step": us / 1e3 / len(batches),
                   "launches_per_step": n / len(batches)})
-        if mode == "train":
+        if mode == "lang_only_train":
+            for b in {b[0]["word"].shape[1]: b for b in batches}.values():
+                lang_train_stage_times(pipe, b)  # warm-up
+                emit({"padded_len": int(b[0]["word"].shape[1]),
+                      "stages_B64": lang_train_stage_times(pipe, b)})
+        elif mode == "lang_only_eval":
+            with torch.no_grad():
+                for b in batches:
+                    inputs = _to_device(b, pipe.device)
+                    lang_stage_times(pipe.model.eval(), inputs)  # warm-up
+                    emit({"padded_len": int(b["word"].shape[1]),
+                          "stages_B64": lang_stage_times(pipe.model, inputs)})
+        elif mode == "train":
             train_stage_times(pipe, batches[0])  # warm-up
             emit({"stages_B64": train_stage_times(pipe, batches[0])})
         else:

@@ -20,6 +20,17 @@ must give identical bits. Quarter-integer cotangents are bf16-exact, so
 the bf16 rounding of the summed cell weight is pinned apart: by the 1x1x1
 pair of the CPU test and, exactly, by 12-bit dyadic cotangents at shapes
 small enough for every f32 sum to stay exact, up to D = 384.
+
+K2/K4 (``dmv_inside``), K3a/K4 (``dmv_inside_save``) and K3b
+(``dmv_outside``): the same tie-free potentials at n1 = 1..9 (a warp per
+sentence), 10, 17, 51 and 85 (a block per sentence, charts in shared
+memory) and 86, 100 (charts in global memory). Totals as K1's (max exact,
+and equal to K1's bit for bit); the saved charts within 1e-3 + 1e-5|x| of
+the plain charts on the span triangle (max exact) and exactly -1e12 off it;
+the outside pass, with a cotangent that has zeros, within K1's gradient
+tolerance of the plain version (max exact), on the kernel's charts and on
+the plain charts uploaded, equal in the max semiring to K1 scaled by the
+cotangent, and bit-identical on a rerun.
 """
 
 import numpy as np
@@ -231,3 +242,153 @@ def test_match_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="D <= 384"):
         match_maxes_bwd_cuda(wide, torch.zeros(3, 6, 385, device=cuda,
                                                dtype=torch.bfloat16), li, lvi, dm, dmv)
+
+
+DMV_CASES = [
+    ((0,), 1), ((1, 0), 2), ((2, 1), 3), ((4, 0, 3), 5), ((0, 1, 8, 3, 8, 5), 9),
+    ((9, 1, 0, 4), 10), ((16, 3, 0, 9), 17), ((50, 1, 0, 27, 13), 51),
+    ((84, 2, 40), 85), ((85, 0, 52, 7), 86), ((99, 86, 0, 1), 100)]
+DMV_MAPPING = {1: "warp", 2: "warp", 3: "warp", 5: "warp", 9: "warp", 10: "smem",
+               17: "smem", 51: "smem", 85: "smem", 86: "global", 100: "global"}
+
+
+def _cotangent(B, device):
+    """Multiples of 1/4 (a sum of equal terms is exact in either order),
+    with a zero."""
+    g = torch.arange(1, B + 1, device=device) * 0.25
+    g[B // 2] = 0.0
+    return g
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("lengths,n1", DMV_CASES)
+def test_dmv_inside_matches_plain(cuda, kind, lengths, n1):
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import dmv_total
+
+    dec, attach, lens = _dmv_batch(lengths, n1, sum(lengths), cuda)
+    before = dmv_cuda.launch_counts()
+    got = dmv_cuda.dmv_inside(dec, attach, lens, kind)
+    after = dmv_cuda.launch_counts()
+    mapping = DMV_MAPPING[n1]
+    assert after["inside"][mapping] == before["inside"][mapping] + 1
+    assert sum(after["inside"].values()) == sum(before["inside"].values()) + 1
+    assert after["fused"] == before["fused"]
+    want = dmv_total(dec, attach, lens, kind)
+    fused = dmv_cuda.dmv_fused(dec, attach, lens, kind)[0]
+    if kind == "max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(got, fused, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(got, fused, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("lengths,n1", DMV_CASES)
+def test_dmv_inside_save_and_outside_match_plain_and_fused(cuda, kind, lengths, n1):
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import dmv_inside_charts_plain, dmv_outside_plain
+
+    dec, attach, lens = _dmv_batch(lengths, n1, sum(lengths) + 1, cuda)
+    B = len(lengths)
+    before = dmv_cuda.launch_counts()
+    total, charts = dmv_cuda.dmv_inside_save(dec, attach, lens, kind)
+    after = dmv_cuda.launch_counts()
+    mapping = DMV_MAPPING[n1]
+    assert after["inside_save"][mapping] == before["inside_save"][mapping] + 1
+    want_total, want_charts = dmv_inside_charts_plain(dec, attach, lens, kind)
+    off = want_charts == -1e12
+    assert bool((charts[off] == -1e12).all())
+    tol = dict(rtol=0, atol=0) if kind == "max" else dict(rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(total, want_total, **tol)
+    torch.testing.assert_close(charts[~off], want_charts[~off], **tol)
+
+    gout = _cotangent(B, cuda)
+    got = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
+    assert dmv_cuda.n_outside_launches == after["outside"] + 1
+    again = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
+    on_plain = dmv_cuda.dmv_outside(dec, attach, lens, gout, want_total,
+                                    want_charts.contiguous(), kind)
+    want = dmv_outside_plain(dec, attach, lens, gout, total, charts, kind)
+    _, fd, fa = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+    fused = (gout.view(-1, 1, 1, 1, 1) * fd, gout.view(-1, 1, 1, 1) * fa)
+    gtol = dict(rtol=0, atol=0) if kind == "max" else dict(rtol=1e-4, atol=5e-4)
+    for g, a, p, w, f in zip(got, again, on_plain, want, fused):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        torch.testing.assert_close(g, w, **gtol)
+        torch.testing.assert_close(p, w, **gtol)
+        torch.testing.assert_close(g, f, **gtol)
+        assert bool((g[B // 2] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+def test_dmv_pair_marks_every_best_tree_as_the_fused_kernel(cuda, kind):
+    """Quarter-integer potentials tie often: the pair and the fused kernel
+    must still agree (exactly in the max semiring)."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    rng = np.random.default_rng(5)
+    lengths, n1 = (16, 9, 12, 0, 3, 16), 17
+    B, n = len(lengths), n1 - 1
+    parts = [torch.tensor(rng.integers(-8, 9, s) * 0.25, dtype=torch.float32)
+             for s in ((B, n, 2, 2, 2), (B, n, n, 2), (B, n))]
+    dec, attach = (t.to(cuda) for t in dmv_merge(*parts))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    gout = _cotangent(B, cuda)
+    total, charts = dmv_cuda.dmv_inside_save(dec, attach, lens, kind)
+    got = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
+    ft, fd, fa = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+    fused = (gout.view(-1, 1, 1, 1, 1) * fd, gout.view(-1, 1, 1, 1) * fa)
+    tol = dict(rtol=0, atol=0) if kind == "max" else dict(rtol=1e-4, atol=5e-4)
+    torch.testing.assert_close(total, ft, rtol=0 if kind == "max" else 1e-6,
+                               atol=0 if kind == "max" else 1e-5)
+    for g, f in zip(got, fused):
+        torch.testing.assert_close(g, f, **tol)
+
+
+def test_dmv_totals_on_the_card_take_the_kernels_by_what_is_needed(cuda, monkeypatch):
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import DMV1o, distributions, dmv_total_fast
+
+    def refuse(*_):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    for name in ("dmv_total", "dmv_inside_charts_plain", "dmv_outside_plain",
+                 "dmv_value_and_grads_plain"):
+        monkeypatch.setattr(distributions, name, refuse)
+    dec, attach, lens = _dmv_batch((8, 3, 0, 5), 9, 7, cuda)
+    c0 = dmv_cuda.launch_counts()
+    value = dmv_total_fast(dec.requires_grad_(True), attach, lens, "max")
+    assert not value.requires_grad
+    c1 = dmv_cuda.launch_counts()
+    assert c1["inside"]["warp"] == c0["inside"]["warp"] + 1
+    total = DMV1o((dec, attach.requires_grad_(True)), lens).partition
+    (total * _cotangent(4, cuda)).sum().backward()
+    c2 = dmv_cuda.launch_counts()
+    assert c2["inside_save"]["warp"] == c1["inside_save"]["warp"] + 1
+    assert c2["outside"] == c1["outside"] + 1
+    assert c2["fused"] == c0["fused"]
+    assert dec.grad is not None and attach.grad is not None
+    with torch.no_grad():
+        DMV1o((dec, attach), lens).max
+    assert dmv_cuda.launch_counts()["inside"]["warp"] == c2["inside"]["warp"] + 1
+
+
+def test_dmv_inside_outside_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    dec, attach, lens = _dmv_batch((3, 2), 4, 0, cuda)
+    with pytest.raises(RuntimeError):
+        dmv_cuda.dmv_inside(dec.cpu(), attach.cpu(), lens)
+    with pytest.raises(TypeError):
+        dmv_cuda.dmv_inside_save(dec.double(), attach, lens)
+    with pytest.raises(ValueError):
+        dmv_cuda.dmv_inside(dec, attach[:, :3], lens)
+    with pytest.raises(ValueError):
+        dmv_cuda.dmv_inside(dec, attach, lens, "std")
+    total, charts = dmv_cuda.dmv_inside_save(dec, attach, lens)
+    with pytest.raises(ValueError):
+        dmv_cuda.dmv_outside(dec, attach, lens, total, total, charts[:, :3])
+    with pytest.raises(TypeError):
+        dmv_cuda.dmv_outside(dec, attach, lens, total.double(), total, charts)

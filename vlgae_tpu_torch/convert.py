@@ -11,7 +11,10 @@ flax paths, so a key maps mechanically:
 * the bottleneck pair ``<NAME>_down`` / ``<NAME>_up`` of
   ``DMVSkipConnectEncoder`` is the ``Sequential`` ``<NAME>.0`` / ``<NAME>.1``;
 * every other parameter (``arc_encoder_w1``, ``rel_fc_bias``, embedding
-  tables, the BERT tree under ``.../transformer/bert/...``) keeps its path.
+  tables, the BERT tree under ``.../transformer/bert/...``, the LSTM gates
+  ``encoder/fwd_0/cell/OptimizedLSTMCell_0/{ii..io,hi..ho}``) keeps its
+  path. The stand-alone parser of ``exp=lang_only`` has the same names
+  without the joint model's ``dependency/`` prefix.
 
 Both directions raise on a missing or an unused key.
 """

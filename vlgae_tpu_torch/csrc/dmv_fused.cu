@@ -1,10 +1,11 @@
 // Fused DMV inside + outside pass, one thread block per sentence.
 //
 // Replaces the TPU kernel `_fused_kernel` of vlgae_tpu/ops/dmv_pallas.py
-// (inside fill `_inside_fill_v3`, outside `_outside_fill`), and covers the
-// shapes the TPU sent to its two-launch pair (`_inside_kernel_v3_save` +
-// `_outside_kernel`) and to the older inside fills: every n1 >= 1 takes
-// this one kernel.
+// (inside fill `_inside_fill_v3`, outside `_outside_fill`) for every
+// n1 >= 1: the caller that wants the total and both tables at once, for a
+// cotangent of one. The value-only inside pass and the two-launch pair
+// (inside with saved charts, then outside with a later cotangent) are
+// kernels of their own: dmv_inside.cu and dmv_outside.cu.
 //
 // Per sentence b it computes the single-root DMV inside charts Cr/Cl/Ir/Il
 // (log or max semiring), the total Cr[len,0,NOCHILD], and the gradient of

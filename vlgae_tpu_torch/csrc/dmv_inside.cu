@@ -1,0 +1,163 @@
+// DMV inside pass on its own: the per-sentence total, and optionally the
+// four inside charts saved to global memory for a later outside pass
+// (dmv_outside.cu).
+//
+// Replaces the TPU's inside kernels of vlgae_tpu/ops/dmv_pallas.py:
+//   * value only   - `_inside_kernel_v3` (and `_inside_kernel_v2`,
+//     `_inside_kernel` for the charts the v3 fill does not take): the primal
+//     of `_make_dmv_total` when no gradient is wanted (the eval loss);
+//   * charts saved - `_inside_kernel_v3_save` (`_inside_kernel_v2_save`,
+//     `_inside_kernel_save`): the forward of the two-launch pair, whose
+//     backward is `_outside_kernel` with the real cotangent.
+// Log and max semiring, single-root constraint, lengths clamped to
+// [0, n1-1]; a zero-length row gives dec[0, RIGHT, NOCHILD, STOP].
+//
+// Three mappings of sentences onto threads, chosen by the caller from n1
+// and the card's shared-memory limit only:
+//   0  warp    one warp per sentence, four sentences per block, charts in
+//              shared memory, __syncwarp() between widths: for n1 <= 9,
+//              where a block per sentence would leave nearly every thread
+//              idle (the TPU's fill for tiny charts);
+//   1  block   one block per sentence, charts (32*n1*n1 bytes) in dynamic
+//              shared memory, __syncthreads() between widths;
+//   2  global  one block per sentence, charts in global memory (the saved
+//              chart tensor itself, or a scratch buffer for the value-only
+//              pass): beyond the shared-memory limit (n1 > 85 on an H100;
+//              the TPU's fill for shapes short of fast memory).
+//
+// Bound: latency. A sentence of length L is 2L dependent steps (two
+// barriers per width) with O(L) work per cell; the bytes moved and the
+// operations done are microseconds of this card's peaks.
+//
+// Saved layout: charts [B][4][n1][n1][2] f32, (chart, w, i, v) with chart
+// 0..3 = Cr, Cl, Ir, Il (see dmv_common.cuh); -1e12 outside the triangle.
+
+#include "dmv_common.cuh"
+
+namespace {
+
+using namespace dmv;
+
+constexpr int kThreads = 128;      // block mapping
+constexpr int kWarpsPerBlock = 4;  // warp mapping
+
+// Writes one sentence's charts from `f` (any memory) to `g` (global),
+// -1e12 on the cells outside the span triangle.
+__device__ __forceinline__ void save_charts(const float* f, float* __restrict__ g, int n1,
+                                            int len, int tid, int nt) {
+  const int C = n1 * n1 * 2;
+  for (int k = tid; k < 4 * C; k += nt) {
+    const int chart = k / C;
+    const int r = k - chart * C;
+    const int w = r / (2 * n1);
+    const int i = (r - w * 2 * n1) >> 1;
+    const bool valid = (i + w <= len) && !(chart >= 2 && w == 0);
+    g[k] = valid ? f[k] : kNegInf;
+  }
+}
+
+template <bool IS_MAX, bool SAVE>
+__global__ void __launch_bounds__(kThreads)
+dmv_inside_block_kernel(const float* __restrict__ dec, const float* __restrict__ attach,
+                        const int* __restrict__ lengths, float* __restrict__ out,
+                        float* __restrict__ charts, float* __restrict__ scratch, int n1,
+                        int use_smem) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const size_t C = (size_t)n1 * n1 * 2;
+  float* g = SAVE ? charts + (size_t)b * 4 * C
+                  : (use_smem ? nullptr : scratch + (size_t)b * 4 * C);
+  float* f = use_smem ? smem_f : g;
+  const int len = clamp_len(lengths[b], n1);
+  if (SAVE && !use_smem) {
+    for (size_t k = tid; k < 4 * C; k += nt) f[k] = kNegInf;
+    __syncthreads();
+  }
+  inside_fill<IS_MAX, false>(f, f + C, f + 2 * C, f + 3 * C, dec + (size_t)b * n1 * 8,
+                             attach + (size_t)b * n1 * n1 * 2, n1, len, tid, nt);
+  if (tid == 0) out[b] = f[ix(n1, len, 0, NC)];
+  if (SAVE && use_smem) save_charts(f, g, n1, len, tid, nt);
+}
+
+template <bool IS_MAX, bool SAVE>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+dmv_inside_warp_kernel(const float* __restrict__ dec, const float* __restrict__ attach,
+                       const int* __restrict__ lengths, float* __restrict__ out,
+                       float* __restrict__ charts, int B, int n1) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;  // a whole warp; the kernel has no block-wide barrier
+  const int C = n1 * n1 * 2;
+  float* f = smem_f + warp * 4 * C;
+  const int len = clamp_len(lengths[b], n1);
+  inside_fill<IS_MAX, true>(f, f + C, f + 2 * C, f + 3 * C, dec + (size_t)b * n1 * 8,
+                            attach + (size_t)b * n1 * n1 * 2, n1, len, lane, 32);
+  if (lane == 0) out[b] = f[ix(n1, len, 0, NC)];
+  if (SAVE) save_charts(f, charts + (size_t)b * 4 * C, n1, len, lane, 32);
+}
+
+template <bool IS_MAX, bool SAVE>
+cudaError_t launch(const float* dec, const float* attach, const int* lengths, float* out,
+                   float* charts, float* scratch, int B, int n1, int mapping,
+                   cudaStream_t s) {
+  const int chart_bytes = 32 * n1 * n1;
+  if (mapping == 0) {
+    const int smem = kWarpsPerBlock * chart_bytes;
+    const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    dmv_inside_warp_kernel<IS_MAX, SAVE><<<blocks, kWarpsPerBlock * 32, smem, s>>>(
+        dec, attach, lengths, out, charts, B, n1);
+    return cudaGetLastError();
+  }
+  const int use_smem = mapping == 1;
+  const int smem = use_smem ? chart_bytes : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(dmv_inside_block_kernel<IS_MAX, SAVE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  dmv_inside_block_kernel<IS_MAX, SAVE><<<B, kThreads, smem, s>>>(
+      dec, attach, lengths, out, charts, scratch, n1, use_smem);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest dynamic shared memory a block may opt into on the current device.
+int dmv_inside_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// dec [B,n1,2,2,2] f32, attach [B,n1,n1,2] f32, lengths [B] i32, out [B]
+// f32; with `save`, charts [B,4,n1,n1,2] f32 is written. mapping: 0 warp
+// (n1 <= 9), 1 block + shared memory (32*n1*n1 bytes), 2 block + global
+// memory (`scratch` of B*32*n1*n1 bytes when not saving, else unused).
+// Returns cudaGetLastError().
+int dmv_inside_launch(const float* dec, const float* attach, const int* lengths, float* out,
+                      float* charts, float* scratch, int B, int n1, int is_max, int save,
+                      int mapping, void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (is_max) {
+    e = save ? launch<true, true>(dec, attach, lengths, out, charts, scratch, B, n1, mapping, s)
+             : launch<true, false>(dec, attach, lengths, out, charts, scratch, B, n1, mapping,
+                                   s);
+  } else {
+    e = save ? launch<false, true>(dec, attach, lengths, out, charts, scratch, B, n1, mapping,
+                                   s)
+             : launch<false, false>(dec, attach, lengths, out, charts, scratch, B, n1, mapping,
+                                    s);
+  }
+  return (int)e;
+}
+
+}  // extern "C"

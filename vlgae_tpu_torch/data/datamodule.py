@@ -5,7 +5,8 @@ lists of instance dicts; batches are padded NumPy dicts ``(x, y)``. With
 ``include_init_rules`` set (by the pipeline, during the warm-up epochs)
 the collate of the training splits adds the rule-count targets of
 ``generate_rule_1o``, computed once per instance and cached on it. The
-ViT pixel source is not carried.
+ViT pixel source is not carried. With ``load_vis=False`` (a recipe without
+a visual encoder, ``exp=lang_only``) no region feature is read or batched.
 """
 
 from __future__ import annotations
@@ -374,7 +375,8 @@ class VLParseDataModule(DepDataModule):
 
     def __init__(self, use_img=False, use_gold_scene_graph=False,
                  sg_path=None, pad_boxes=36, sample_boxes=35,
-                 vis_source="det_feats", **kw):
+                 vis_source="det_feats", load_vis=True, **kw):
+        self.load_vis = bool(load_vis)
         # whole-image features feed vis_encoder.use_img, which is not ported
         if use_img:
             raise NotImplementedError("use_img (whole-image features) is not ported")
@@ -419,12 +421,13 @@ class VLParseDataModule(DepDataModule):
         feat_dir = Path(folder) / (
             "gold_feats" if self.use_gold_scene_graph else "det_feats"
         )
-        self._feat_loaders[name] = DetFeatureLoader(
-            feat_dir, self.sg_data,
-            sample=(self.sample_boxes
-                    if name in ("train", "train_init") else 0),
-            gold=self.use_gold_scene_graph, pad_boxes=self.pad_boxes,
-        )
+        if self.load_vis:
+            self._feat_loaders[name] = DetFeatureLoader(
+                feat_dir, self.sg_data,
+                sample=(self.sample_boxes
+                        if name in ("train", "train_init") else 0),
+                gold=self.use_gold_scene_graph, pad_boxes=self.pad_boxes,
+            )
         if name in ("dev", "test") or self.use_gold_scene_graph:
             insts = [i for i in insts if i["has_sg"]]
         return insts
@@ -473,9 +476,10 @@ class VLParseDataModule(DepDataModule):
             y["sg_type"][b, :n] = inst["sg_type"]
             y["sg_box"][b, :n] = inst["sg_box"]
             y["sg_mask"][b, :n] = inst["sg_mask"]
-        vis = self._feat_loaders[name]([i["img_id"] for i in insts])
-        y["vis_box"] = vis.pop("vis_box")
-        x.update(vis)
+        if self.load_vis:
+            vis = self._feat_loaders[name]([i["img_id"] for i in insts])
+            y["vis_box"] = vis.pop("vis_box")
+            x.update(vis)
         x["img_id"] = np.array([i["img_id"] for i in insts], np.int64)
         return x, y
 

@@ -18,6 +18,7 @@ class Vocabulary:
         self.word2idx: Dict[str, int] = {}
         self.idx2word: List[str] = []
         self.word_count: Counter = Counter()
+        self._no_create: set = set()
         for special in (padding, unknown):
             if special is not None:
                 self._add_symbol(special)
@@ -28,8 +29,17 @@ class Vocabulary:
             self.idx2word.append(w)
 
     # -- building ----------------------------------------------------------
-    def update(self, words: Iterable[str]):
-        self.word_count.update(words)
+    def update(self, words: Iterable[str], no_create_entry: bool = False):
+        """Count ``words``. A word first seen with ``no_create_entry`` (it
+        occurs in dev/test only) is remembered as such until a training
+        split counts it too."""
+        for w in words:
+            self.word_count[w] += 1
+            if no_create_entry:
+                if w not in self.word2idx:
+                    self._no_create.add(w)
+            else:
+                self._no_create.discard(w)
         return self
 
     def build(self):
@@ -42,9 +52,12 @@ class Vocabulary:
         """Count ``field`` over the datasets, then build. The words of
         ``no_create_entry_datasets`` (dev/test) are counted too, so they
         get indices, as in the reference."""
-        for ds in (*datasets, *no_create_entry_datasets):
+        for ds in datasets:
             for inst in ds:
                 self.update(inst[field])
+        for ds in no_create_entry_datasets:
+            for inst in ds:
+                self.update(inst[field], no_create_entry=True)
         return self.build()
 
     # -- lookup -------------------------------------------------------------
@@ -60,6 +73,17 @@ class Vocabulary:
 
     def __len__(self) -> int:
         return len(self.idx2word)
+
+    @property
+    def pad_index(self) -> int:
+        return self.word2idx[self.padding] if self.padding else -1
+
+    @property
+    def unk_index(self) -> int:
+        return self.word2idx[self.unknown] if self.unknown else -1
+
+    def is_no_create(self, w: str) -> bool:
+        return w in self._no_create
 
     def save(self, path):
         with open(path, "w", encoding="utf-8") as f:

@@ -1,6 +1,6 @@
-"""Composite embeddings: static tag items and the subword BERT item
-(counterpart of vlgae_tpu/models/embedding.py), with the independent
-dropout across items in training.
+"""Composite embeddings: static word and tag items and the subword BERT
+item (counterpart of vlgae_tpu/models/embedding.py), with the independent
+dropout across items in training, and the GloVe loader of the word table.
 
 The JAX package runs transformers' ``FlaxBertModule``; the card has no
 ``transformers``, so :class:`Bert` is a small BERT encoder written here
@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -69,16 +70,28 @@ class BertConfig:
 
 
 class StaticItem(nn.Module):
-    """Lookup table (``mode='basic'``)."""
+    """Lookup table (``mode='basic'``), started from ``pretrained`` when
+    given. ``row_map`` remaps ids before the lookup: words that occur in
+    dev/test only and have no pretrained vector share the unk row, so they
+    never train private vectors."""
 
-    def __init__(self, cfg: EmbeddingItemCfg):
+    def __init__(self, cfg: EmbeddingItemCfg, pretrained=None, row_map=None):
         super().__init__()
         if cfg.mode != "basic":
             raise NotImplementedError(f"embedding mode {cfg.mode!r} is not ported")
         self.embedding = nn.Parameter(torch.randn(cfg.n_vocab, cfg.embedding_dim))
+        # the table a fresh model starts from (kept out of the state dict)
+        self.pretrained = (None if pretrained is None
+                           else torch.as_tensor(np.asarray(pretrained), dtype=torch.float32))
+        self.register_buffer(
+            "row_map", None if row_map is None
+            else torch.tensor(row_map, dtype=torch.long), persistent=False)
 
     def forward(self, ids):
-        return F.embedding(ids.long(), self.embedding)
+        ids = ids.long()
+        if self.row_map is not None:
+            ids = self.row_map[ids]
+        return F.embedding(ids, self.embedding)
 
 
 class _Table(nn.Module):
@@ -269,7 +282,7 @@ class CompositeEmbedding(Dropping):
 
     def __init__(self, items: Tuple[EmbeddingItemCfg, ...],
                  bert_config: Optional[BertConfig] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, pretrained=None, row_maps=None):
         super().__init__()
         self.items = items
         self.dropout = dropout
@@ -277,7 +290,8 @@ class CompositeEmbedding(Dropping):
             if cfg.kind == "transformer":
                 mod = TransformerItem(cfg, bert_config)
             elif cfg.kind == "static":
-                mod = StaticItem(cfg)
+                mod = StaticItem(cfg, (pretrained or {}).get(cfg.name),
+                                 (row_maps or {}).get(cfg.name))
             else:
                 raise NotImplementedError(f"embedding kind {cfg.kind!r} is not ported")
             self.add_module(cfg.name, mod)
@@ -308,6 +322,35 @@ class CompositeEmbedding(Dropping):
         embs = [e.expand(e.shape[0], seq_len, e.shape[2]) if e.shape[1] == 1
                 else e for e in embs]
         return torch.cat(embs, -1), aux
+
+
+def load_glove(path, vocab, dim: int, lower: bool = True):
+    """GloVe-format vectors aligned to ``vocab``: ``(table [len(vocab), dim],
+    found)``. Rows of words the file lacks are N(0, 1) from numpy seed 0, the
+    padding row is zero; ``found`` is the set of vocab words the file has.
+    Lines with another number of fields are skipped."""
+    table = np.random.default_rng(0).normal(
+        0, 1, (len(vocab), dim)).astype(np.float32)
+    found = set()
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip().split(" ")
+            if len(parts) != dim + 1:
+                continue
+            w = parts[0].lower() if lower else parts[0]
+            if w in vocab:
+                table[vocab[w]] = np.asarray(parts[1:], np.float32)
+                found.add(w)
+    table[vocab.pad_index] = 0.0
+    return table, found
+
+
+def glove_row_map(vocab, found) -> tuple:
+    """Index remap that ties the words of dev/test only without a
+    pretrained vector to the unk row."""
+    unk = vocab.unk_index
+    return tuple(unk if (vocab.is_no_create(w) and w not in found) else i
+                 for i, w in enumerate(vocab.idx2word))
 
 
 @torch.no_grad()

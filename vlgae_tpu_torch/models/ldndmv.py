@@ -1,7 +1,8 @@
 """Discriminative neural DMV (counterpart of vlgae_tpu/models/ldndmv.py):
-the forward (with the dropouts of its scorer stack in training), the NLL
-as a straight-through linearisation around the reused DP results, the
-warm-up loss against rule-count targets, and the Viterbi decode."""
+the forward (with the dropouts of its scorer stack in training), stand-alone
+(``exp=lang_only``) or inside the joint model; the NLL, as a straight-through
+linearisation around the reused DP results or as a DP of its own; the
+warm-up loss against rule-count targets; and the Viterbi decode."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..struct import NEGINF, DMVTotalFn, dmv_merge, dmv_value_and_grads
+from ..struct import NEGINF, DMV1o, dmv_merge
 from ..struct.dmv import LEFT, RIGHT
 from .nn import MLP, DMVFactorizedBilinear, DMVSkipConnectEncoder
 
@@ -21,9 +22,10 @@ FUNCTION_POS = ("ADP", "AUX", "CCONJ", "SCONJ", "CONJ", "DET", "PART")
 
 @dataclasses.dataclass(frozen=True)
 class LDNDMVConfig:
-    """The subset of vlgae_tpu's ``LDNDMVConfig`` that ``exp=vlgae`` reads."""
+    """The subset of vlgae_tpu's ``LDNDMVConfig`` that ``exp=vlgae`` and
+    ``exp=lang_only`` read."""
 
-    context_mode: str = "mean"  # mean | none
+    context_mode: str = "mean"  # hx | mean | none
     strict_pad_context: bool = False
     init_method: str = "y"  # 'y' | 'none'
     init_epoch: int = 0
@@ -44,7 +46,7 @@ class LDNDMVConfig:
     dec_emb_dim: int = 10
 
     def __post_init__(self):
-        if self.context_mode not in ("mean", "none"):
+        if self.context_mode not in ("hx", "mean", "none"):
             raise NotImplementedError(
                 f"context_mode={self.context_mode!r} is not ported")
         if self.variational_mode != "none":
@@ -106,7 +108,10 @@ class DiscriminativeNDMV(nn.Module):
             return None
         x = encoded["x"]
         B, L, _ = x.shape
-        if cfg.strict_pad_context:
+        if cfg.context_mode == "hx":
+            # the last layer's final states of both directions [2, B, H]
+            context = encoded["hiddens"].transpose(0, 1).reshape(B, 1, -1)
+        elif cfg.strict_pad_context:
             context = x.mean(1, keepdim=True)
         else:
             denom = torch.clamp_min(mask.sum(-1, keepdim=True), 1)
@@ -116,13 +121,18 @@ class DiscriminativeNDMV(nn.Module):
             context = context.expand(B, L, context.shape[-1])
         return context
 
-    def forward(self, inputs: Dict[str, Any], encoded, emb_aux):
+    def forward(self, inputs: Dict[str, Any], encoded=None, emb_aux=None):
+        """The score dict. The joint model hands over its own embedding and
+        encoding (one dropout draw shared with its text side); stand-alone
+        the module embeds and encodes itself."""
         cfg = self.cfg
         token = inputs["token"].long()
         b, n = token.shape
         mask = (torch.arange(n, device=token.device)[None, :]
                 < inputs["seq_len"][:, None])
-        emb, aux = emb_aux
+        emb, aux = self.embedding(inputs) if emb_aux is None else emb_aux
+        if encoded is None:
+            encoded = self.encoder(emb, mask)
         out: Dict[str, Any] = {"encoded": encoded, "emb": emb}
         context = self.extract_sent_repr(encoded, mask)
         h = emb if context is None else torch.cat([emb, context], -1)
@@ -170,9 +180,10 @@ def loss_nll(scores, lengths, viterbi: bool):
     With ``scores['dep_reuse']`` (the language factors' DP passes on
     detached copies of the same potentials) the loss is a straight-through
     linearisation: the value is the reused total, the gradient with respect
-    to the potentials the reused tables, so no third DP runs. Without it,
-    :class:`~vlgae_tpu_torch.struct.DMVTotalFn` runs one DP whose backward
-    scales its tables."""
+    to the potentials the reused tables, so no third DP runs. Without it
+    (the stand-alone model) a DP of its own runs: the value-only inside pass
+    when no gradient is wanted (the eval step), else the pair of
+    :class:`~vlgae_tpu_torch.struct.DMVTotalFn`."""
     md, ma = scores["merged_dec"], scores["merged_attach"]
     reuse = (scores.get("dep_reuse") or {}).get("max" if viterbi else "log")
     if reuse is not None:
@@ -182,7 +193,8 @@ def loss_nll(scores, lengths, viterbi: bool):
                + ((ma - ma.detach()) * ga).sum(tuple(range(1, ma.dim()))))
         total = per.detach() + lin
     else:
-        total = DMVTotalFn.apply(md, ma, lengths, "max" if viterbi else "log")
+        dist = DMV1o((md, ma), lengths)
+        total = dist.max if viterbi else dist.partition
     nll = -torch.where(lengths > 0, total, 0.0).sum()
     return nll, {"nll": nll}
 
@@ -204,7 +216,7 @@ def decode(scores, lengths, mbr: bool):
             "the MBR/Eisner slice of ROADMAP.md, after the training step")
     r = (scores.get("dep_reuse") or {}).get("max")
     if r is None:
-        r = dmv_value_and_grads(scores["merged_dec"], scores["merged_attach"],
-                                lengths, "max")
+        return DMV1o((scores["merged_dec"], scores["merged_attach"]),
+                     lengths).argmax_heads
     ind = r[2].sum(-1)  # [B, N1, N1] arc indicators
     return torch.argmax(ind[:, :, 1:], dim=1)

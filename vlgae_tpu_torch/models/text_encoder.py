@@ -1,8 +1,11 @@
 """Text encoders (counterpart of vlgae_tpu/models/text_encoder.py):
-the ``MLPEncoder`` of ``exp=vlgae``."""
+the ``MLPEncoder`` of ``exp=vlgae`` and the BiLSTM ``RNNEncoder`` of
+``exp=lang_only``."""
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .nn import Dropping, shared_dropout, shared_keep_shape
@@ -28,3 +31,162 @@ class MLPEncoder(Dropping):
             p = self.shared_dropout
             x = shared_dropout(x, p, self.keep_mask(shared_keep_shape(x), p, x))
         return {"x": x}
+
+
+class _Gates(nn.Module):
+    """The eight gate projections of flax's ``OptimizedLSTMCell``, under its
+    names: ``ii/if/ig/io`` act on the input (no bias), ``hi/hf/hg/ho`` on
+    the hidden state (with bias). Gate order i, f, g, o."""
+
+    def __init__(self, n_in: int, hidden: int):
+        super().__init__()
+        for g in "ifgo":
+            self.add_module(f"i{g}", nn.Linear(n_in, hidden, bias=False))
+            self.add_module(f"h{g}", nn.Linear(hidden, hidden))
+
+    def stacked(self):
+        """``(W_x [4H, n_in], W_h [4H, H], b [4H])`` in gate order."""
+        w_x = torch.cat([getattr(self, f"i{g}").weight for g in "ifgo"])
+        w_h = torch.cat([getattr(self, f"h{g}").weight for g in "ifgo"])
+        b = torch.cat([getattr(self, f"h{g}").bias for g in "ifgo"])
+        return w_x, w_h, b
+
+
+class _Cell(nn.Module):
+    def __init__(self, n_in: int, hidden: int):
+        super().__init__()
+        self.OptimizedLSTMCell_0 = _Gates(n_in, hidden)
+
+
+class _LSTMLayer(Dropping):
+    """One direction of one layer, with variational recurrent dropout: one
+    keep mask per (sentence, unit), scaled by ``1 / (1 - p)``, multiplies
+    ``h`` on its way into the cell at every step. A padded step carries the
+    (unmasked) state over and emits zeros. The reverse direction runs over
+    the flipped padded sequence, so its padding comes first and the zero
+    state passes through it. The input projection of all steps is one
+    product; the recurrence is a step loop (a library LSTM cannot mask ``h``
+    per step)."""
+
+    def __init__(self, n_in: int, hidden: int, reverse: bool = False,
+                 recurrent_dropout: float = 0.0):
+        super().__init__()
+        self.hidden = hidden
+        self.reverse = reverse
+        self.recurrent_dropout = recurrent_dropout
+        self.cell = _Cell(n_in, hidden)
+
+    def forward(self, x, mask):
+        B, L, _ = x.shape
+        H = self.hidden
+        p = self.recurrent_dropout
+        hmask = None
+        if self.active(p):
+            hmask = self.keep_mask((B, H), p, x) / (1 - p)
+        w_x, w_h, b = self.cell.OptimizedLSTMCell_0.stacked()
+        xs = F.linear(x, w_x)  # [B, L, 4H]
+        c = x.new_zeros(B, H)
+        h = x.new_zeros(B, H)
+        ys = [None] * L
+        order = range(L - 1, -1, -1) if self.reverse else range(L)
+        for t in order:
+            z = xs[:, t] + F.linear(h if hmask is None else h * hmask, w_h, b)
+            i, f, g, o = z.chunk(4, -1)
+            nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            nh = torch.sigmoid(o) * torch.tanh(nc)
+            keep = mask[:, t, None]
+            c = torch.where(keep, nc, c)
+            h = torch.where(keep, nh, h)
+            ys[t] = torch.where(keep, nh, 0.0)
+        return torch.stack(ys, 1)
+
+
+class RNNEncoder(Dropping):
+    """BiLSTM encoder with variational dropout (``exp=lang_only``).
+
+    Returns ``x`` (the chosen layer's ``[fwd, bwd]`` outputs) and
+    ``hiddens [2, B, H]``: of the last layer, the forward direction's output
+    at each sentence's last word and the backward direction's at position
+    0. In training: element-wise then shared dropout on the input, shared
+    dropout (``lstm_dropout``) between layers below the top one, and
+    element-wise then shared dropout on the output."""
+
+    def __init__(self, n_in: int, hidden_size: int = 200, num_layers: int = 2,
+                 reproject_emb: int = 0, reproject_out: int = 0, mix: bool = False,
+                 pre_shared_dropout: float = 0.0, pre_dropout: float = 0.0,
+                 post_shared_dropout: float = 0.0, post_dropout: float = 0.0,
+                 lstm_dropout: float = 0.33, shared_dropout_flag: bool = True,
+                 output_layers: int = -1, proj_size: int = 0,
+                 init_version: str = "zy", cat_emb: bool = False):
+        super().__init__()
+        for name, value in (("reproject_emb", reproject_emb), ("mix", mix),
+                            ("reproject_out", reproject_out), ("cat_emb", cat_emb),
+                            ("proj_size", proj_size)):
+            if value:
+                raise NotImplementedError(f"RNNEncoder {name}={value!r} is not ported")
+        if output_layers == -2:
+            raise NotImplementedError("RNNEncoder output_layers=-2 is not ported")
+        if init_version not in ("zy", "biased"):
+            raise ValueError(f"unknown init_version: {init_version!r}")
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.pre_shared_dropout = pre_shared_dropout
+        self.pre_dropout = pre_dropout
+        self.post_shared_dropout = post_shared_dropout
+        self.post_dropout = post_dropout
+        self.lstm_dropout = lstm_dropout
+        self.output_layers = output_layers
+        self.init_version = init_version
+        rec = lstm_dropout if shared_dropout_flag else 0.0
+        for i in range(num_layers):
+            d = n_in if i == 0 else 2 * hidden_size
+            self.add_module(f"fwd_{i}", _LSTMLayer(d, hidden_size, False, rec))
+            self.add_module(f"bwd_{i}", _LSTMLayer(d, hidden_size, True, rec))
+
+    @property
+    def n_hidden(self) -> int:
+        return 2 * self.hidden_size
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        """``init_version``: ``zy`` orthogonal kernels and zero biases;
+        ``biased`` Xavier-uniform kernels, zero biases with the forget gate's
+        at 1."""
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "bias":
+                p.fill_(1.0 if self.init_version == "biased"
+                        and name.rsplit(".", 2)[-2] == "hf" else 0.0)
+            elif self.init_version == "zy":
+                rows, cols = p.shape
+                a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
+                q, r = torch.linalg.qr(a)
+                q = q * torch.sign(torch.diagonal(r))
+                p.copy_(q if rows >= cols else q.T)
+            else:
+                bound = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+
+    def _drop(self, x, p_elem, p_shared):
+        if self.active(p_elem):
+            x = x * self.keep_mask(x.shape, p_elem, x) / (1 - p_elem)
+        if self.active(p_shared):
+            x = shared_dropout(x, p_shared,
+                               self.keep_mask(shared_keep_shape(x), p_shared, x))
+        return x
+
+    def forward(self, emb, mask):
+        x = self._drop(emb, self.pre_dropout, self.pre_shared_dropout)
+        layer_outputs = []
+        for i in range(self.num_layers):
+            fwd = getattr(self, f"fwd_{i}")(x, mask)
+            bwd = getattr(self, f"bwd_{i}")(x, mask)
+            x = torch.cat([fwd, bwd], -1)
+            if i + 1 < self.num_layers:
+                x = self._drop(x, 0.0, self.lstm_dropout)
+            layer_outputs.append(x)
+        idx = torch.clamp_min(mask.sum(-1) - 1, 0)
+        h_fwd = fwd[torch.arange(fwd.shape[0], device=fwd.device), idx]
+        out = self._drop(layer_outputs[self.output_layers], self.post_dropout,
+                         self.post_shared_dropout)
+        return {"x": out, "hiddens": torch.stack([h_fwd, bwd[:, 0]])}

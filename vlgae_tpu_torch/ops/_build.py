@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``vlgae_tpu_torch/_build/lib<name>.so``, then loaded with
-``ctypes``. The library is rebuilt when its source is newer. Pointers and
+``ctypes``. The library is rebuilt when its source, or a header
+(``csrc/*.cuh``) beside it, is newer. Pointers and
 the stream pass as ``c_void_p``; each launcher returns the CUDA error code,
 and :func:`check` raises on a non-zero one.
 """
@@ -40,7 +41,9 @@ def build(name: str, verbose: bool = False) -> str:
     """Compile ``csrc/<name>.cu`` (when stale) and return the .so path."""
     src = os.path.join(CSRC, f"{name}.cu")
     out = os.path.join(BUILD, f"lib{name}.so")
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
+    if os.path.exists(out) and os.path.getmtime(out) >= max(map(os.path.getmtime, deps)):
         return out
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"

@@ -1,9 +1,20 @@
-"""Wrapper of the fused DMV kernel K1 (``csrc/dmv_fused.cu``).
+"""Wrappers of the DMV chart kernels (``csrc/dmv_fused.cu``,
+``csrc/dmv_inside.cu``, ``csrc/dmv_outside.cu``).
 
-Replaces the TPU launch of ``_fused_kernel`` (vlgae_tpu/ops/dmv_pallas.py,
-reached from ``_make_dmv_total._fwd``): one launch returns the per-sentence
-total and both gradient tables (marginals or Viterbi indicators). The
-plain version is :func:`vlgae_tpu_torch.struct.dmv.dmv_value_and_grads_plain`.
+They replace the TPU launches of vlgae_tpu/ops/dmv_pallas.py reached from
+``_make_dmv_total``:
+
+* :func:`dmv_fused` (K1, ``_fused_kernel``): one launch returns the
+  per-sentence total and both gradient tables for a cotangent of one
+  (marginals or Viterbi indicators);
+* :func:`dmv_inside` (K2/K4, ``_inside_kernel_v3`` and the older fills):
+  the total alone, when no gradient is wanted;
+* :func:`dmv_inside_save` + :func:`dmv_outside` (K3/K4, the ``*_save``
+  inside kernels and ``_outside_kernel``): the two-launch pair of a
+  differentiable total, whose cotangent arrives later.
+
+The plain versions are in :mod:`vlgae_tpu_torch.struct.dmv`. Every wrapper
+takes CUDA tensors only and counts its launches.
 """
 
 from __future__ import annotations
@@ -14,12 +25,35 @@ import torch
 
 from . import _build
 
-# launches of the kernel in this process (chip_smoke resets and reads it)
+# launches in this process (chip_smoke resets and reads them): K1; the
+# inside pass, value-only and chart-saving, by mapping; the outside pass
 n_launches = 0
+MAPPINGS = ("warp", "smem", "global")
+n_inside_launches = dict.fromkeys(MAPPINGS, 0)
+n_inside_save_launches = dict.fromkeys(MAPPINGS, 0)
+n_outside_launches = 0
 
 _SMEM_PER_N1SQ = 72  # bytes of charts per sentence / n1^2 (see the .cu)
+INSIDE_BYTES_PER_N1SQ = 32  # the four inside charts alone
+OUTSIDE_SCRATCH_PER_N1SQ = 40  # the five adjoint charts
+WARP_MAX_N1 = 9  # the warp mapping of dmv_inside.cu serves n1 <= 9
 _lib = None
 _smem_optin = None
+_inside_lib = None
+_outside_lib = None
+
+
+def reset_launch_counts() -> None:
+    global n_launches, n_outside_launches
+    n_launches = n_outside_launches = 0
+    for m in MAPPINGS:
+        n_inside_launches[m] = n_inside_save_launches[m] = 0
+
+
+def launch_counts() -> dict:
+    return {"fused": n_launches, "inside": dict(n_inside_launches),
+            "inside_save": dict(n_inside_save_launches),
+            "outside": n_outside_launches}
 
 
 def _library():
@@ -29,13 +63,38 @@ def _library():
         lib.dmv_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.dmv_fused_launch.restype = ctypes.c_int
-        lib.dmv_fused_smem_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.dmv_fused_smem_optin.restype = ctypes.c_int
-        got = ctypes.c_int(0)
-        _build.check(lib.dmv_fused_smem_optin(ctypes.byref(got)),
-                     "dmv_fused_smem_optin")
-        _lib, _smem_optin = lib, got.value
+        _lib, _smem_optin = lib, _query_optin(lib.dmv_fused_smem_optin)
     return _lib
+
+
+def _query_optin(fn) -> int:
+    """The most dynamic shared memory a block may opt into, in bytes."""
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    got = ctypes.c_int(0)
+    _build.check(fn(ctypes.byref(got)), "smem_optin")
+    return got.value
+
+
+def _checked(what, dec, attach, lengths, kind):
+    """Contiguous ``(dec, attach, int32 lengths, B, n1)`` or a raise on what
+    the kernels do not take."""
+    if kind not in ("log", "max"):
+        raise ValueError(f"kind must be 'log' or 'max', got {kind!r}")
+    if not (dec.is_cuda and attach.is_cuda):
+        raise RuntimeError(f"{what} takes CUDA tensors")
+    if dec.dtype != torch.float32 or attach.dtype != torch.float32:
+        raise TypeError(f"{what} takes f32, got {dec.dtype}/{attach.dtype}")
+    B, n1 = dec.shape[:2]
+    if tuple(dec.shape) != (B, n1, 2, 2, 2) or tuple(attach.shape) != (
+            B, n1, n1, 2) or attach.device != dec.device:
+        raise ValueError(
+            f"{what}: bad shapes dec {tuple(dec.shape)} attach "
+            f"{tuple(attach.shape)}")
+    lengths = lengths.to(device=dec.device, dtype=torch.int32).contiguous()
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"{what}: lengths shape {tuple(lengths.shape)}")
+    return dec.contiguous(), attach.contiguous(), lengths, B, n1
 
 
 def dmv_fused(dec, attach, lengths, kind: str = "log"):
@@ -45,23 +104,7 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
     the card as int32. Lengths are clamped to ``[0, N1-1]`` in the kernel.
     """
     global n_launches
-    if kind not in ("log", "max"):
-        raise ValueError(f"kind must be 'log' or 'max', got {kind!r}")
-    if not (dec.is_cuda and attach.is_cuda):
-        raise RuntimeError("dmv_fused takes CUDA tensors")
-    if dec.dtype != torch.float32 or attach.dtype != torch.float32:
-        raise TypeError(f"dmv_fused takes f32, got {dec.dtype}/{attach.dtype}")
-    B, n1 = dec.shape[:2]
-    if tuple(dec.shape) != (B, n1, 2, 2, 2) or tuple(attach.shape) != (
-            B, n1, n1, 2) or attach.device != dec.device:
-        raise ValueError(
-            f"dmv_fused: bad shapes dec {tuple(dec.shape)} attach "
-            f"{tuple(attach.shape)}")
-    dec = dec.contiguous()
-    attach = attach.contiguous()
-    lengths = lengths.to(device=dec.device, dtype=torch.int32).contiguous()
-    if tuple(lengths.shape) != (B,):
-        raise ValueError(f"dmv_fused: lengths shape {tuple(lengths.shape)}")
+    dec, attach, lengths, B, n1 = _checked("dmv_fused", dec, attach, lengths, kind)
     lib = _library()
     out = torch.empty(B, device=dec.device, dtype=torch.float32)
     g_dec = torch.empty_like(dec)
@@ -82,3 +125,103 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
     _build.check(err, "dmv_fused_launch")
     n_launches += 1
     return out, g_dec, g_attach
+
+
+def _inside_library():
+    global _inside_lib, _smem_optin
+    if _inside_lib is None:
+        lib = _build.load("dmv_inside")
+        lib.dmv_inside_launch.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.dmv_inside_launch.restype = ctypes.c_int
+        _inside_lib, _smem_optin = lib, _query_optin(lib.dmv_inside_smem_optin)
+    return _inside_lib
+
+
+def inside_mapping(n1: int, smem_optin: int) -> str:
+    """Which mapping of ``csrc/dmv_inside.cu`` serves charts of ``n1``
+    positions, from ``n1`` and the card's opt-in shared memory alone:
+    ``warp`` (a warp per sentence) for tiny charts, ``smem`` (a block per
+    sentence, charts in shared memory) while they fit, else ``global``."""
+    if n1 <= WARP_MAX_N1:
+        return "warp"
+    if INSIDE_BYTES_PER_N1SQ * n1 * n1 <= smem_optin:
+        return "smem"
+    return "global"
+
+
+def _inside(dec, attach, lengths, kind, save):
+    what = "dmv_inside_save" if save else "dmv_inside"
+    dec, attach, lengths, B, n1 = _checked(what, dec, attach, lengths, kind)
+    lib = _inside_library()
+    out = torch.empty(B, device=dec.device, dtype=torch.float32)
+    charts = torch.empty((B, 4, n1, n1, 2), device=dec.device,
+                         dtype=torch.float32) if save else None
+    if B == 0:
+        return out, charts
+    mapping = inside_mapping(n1, _smem_optin)
+    scratch = torch.empty(B * INSIDE_BYTES_PER_N1SQ * n1 * n1, device=dec.device,
+                          dtype=torch.uint8) if mapping == "global" and not save else None
+    with torch.cuda.device(dec.device):
+        err = lib.dmv_inside_launch(
+            _build.ptr(dec), _build.ptr(attach), _build.ptr(lengths),
+            _build.ptr(out), None if charts is None else _build.ptr(charts),
+            None if scratch is None else _build.ptr(scratch),
+            B, n1, int(kind == "max"), int(save), MAPPINGS.index(mapping),
+            _build.stream_ptr(dec.device))
+    _build.check(err, f"dmv_inside_launch ({what}, {mapping})")
+    (n_inside_save_launches if save else n_inside_launches)[mapping] += 1
+    return out, charts
+
+
+def dmv_inside(dec, attach, lengths, kind: str = "log"):
+    """The per-sentence total ``[B]`` alone (K2; K4 for tiny and for long
+    charts), on the card. No chart leaves the kernel."""
+    return _inside(dec, attach, lengths, kind, save=False)[0]
+
+
+def dmv_inside_save(dec, attach, lengths, kind: str = "log"):
+    """``(total [B], charts [B, 4, N1, N1, 2])``: the inside pass that keeps
+    its charts Cr, Cl, Ir, Il for :func:`dmv_outside` (K3a; K4 for tiny and
+    for long charts). ``charts[b, c, w, i, v]`` is the span ``[i, i+w]``
+    with valence ``v``; cells outside the span triangle hold -1e12."""
+    return _inside(dec, attach, lengths, kind, save=True)
+
+
+def dmv_outside(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
+    """``(g_dec, g_attach)``: the gradient of ``sum(gout * total)`` from the
+    saved charts of :func:`dmv_inside_save` (K3b), already scaled by
+    ``gout [B]``; ``logz [B]`` is that pass's total."""
+    global n_outside_launches, _outside_lib
+    dec, attach, lengths, B, n1 = _checked("dmv_outside", dec, attach, lengths, kind)
+    for name, t, shape in (("gout", gout, (B,)), ("logz", logz, (B,)),
+                           ("charts", charts, (B, 4, n1, n1, 2))):
+        if not t.is_cuda or t.device != dec.device or t.dtype != torch.float32:
+            raise TypeError(f"dmv_outside: {name} must be f32 on {dec.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"dmv_outside: {name} shape {tuple(t.shape)} != {shape}")
+    gout, logz, charts = gout.contiguous(), logz.contiguous(), charts.contiguous()
+    if _outside_lib is None:
+        lib = _build.load("dmv_outside")
+        lib.dmv_outside_launch.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.dmv_outside_launch.restype = ctypes.c_int
+        _outside_lib = lib
+    _inside_library()  # the shared-memory limit is queried there
+    g_dec = torch.empty_like(dec)
+    g_attach = torch.empty_like(attach)
+    if B == 0:
+        return g_dec, g_attach
+    use_smem = _SMEM_PER_N1SQ * n1 * n1 <= _smem_optin
+    scratch = None if use_smem else torch.empty(
+        B * OUTSIDE_SCRATCH_PER_N1SQ * n1 * n1, device=dec.device, dtype=torch.uint8)
+    with torch.cuda.device(dec.device):
+        err = _outside_lib.dmv_outside_launch(
+            _build.ptr(dec), _build.ptr(attach), _build.ptr(lengths),
+            _build.ptr(gout), _build.ptr(logz), _build.ptr(charts),
+            _build.ptr(g_dec), _build.ptr(g_attach),
+            None if scratch is None else _build.ptr(scratch),
+            B, n1, int(kind == "max"), int(use_smem), _build.stream_ptr(dec.device))
+    _build.check(err, "dmv_outside_launch")
+    n_outside_launches += 1
+    return g_dec, g_attach

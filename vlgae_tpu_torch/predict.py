@@ -52,7 +52,8 @@ def build_datamodule(cfg) -> VLParseDataModule:
     target = dm_cfg.pop("_target_", "VLParseDataModule")
     if "VLParse" not in target:
         raise NotImplementedError(f"datamodule {target!r} is not ported")
-    dm = VLParseDataModule(**dm_cfg).setup()
+    # a recipe without a visual encoder reads and batches no region feature
+    dm = VLParseDataModule(load_vis=bool(cfg.get("vis_encoder")), **dm_cfg).setup()
     if cfg.get("embedding", {}).get("use_subword"):
         attach_subwords(dm, HashSubwordTokenizer())
     return dm

@@ -1,13 +1,26 @@
-"""DMV potentials and the DP dispatch (counterpart of
-``vlgae_tpu/struct/distributions.py``: ``dmv_merge`` and
-``dmv_value_and_grads_fast``), and :class:`DMVTotalFn`, the
-differentiable DP total."""
+"""DMV potentials, the DP dispatch and the ``DMV1o`` distribution
+(counterpart of ``vlgae_tpu/struct/distributions.py``).
+
+The dispatch is by what the caller needs:
+
+* the total alone, no gradient wanted - :func:`dmv_total_fast`: the
+  value-only inside kernel on the card;
+* the total and both tables now, for a cotangent of one -
+  :func:`dmv_value_and_grads`: the fused kernel;
+* a differentiable total whose cotangent arrives later -
+  :class:`DMVTotalFn`: the chart-saving inside kernel in the forward, the
+  outside kernel in the backward.
+
+A CPU tensor takes the plain versions of :mod:`.dmv`; a CUDA tensor goes to
+the kernel or the call raises.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from .dmv import NEGINF, NOCHILD, RIGHT, dmv_value_and_grads_plain
+from .dmv import (NEGINF, NOCHILD, RIGHT, dmv_inside_charts_plain,
+                  dmv_outside_plain, dmv_total, dmv_value_and_grads_plain)
 
 
 def dmv_merge(dec, attach, root, one: float = 0.0, zero: float = NEGINF):
@@ -46,24 +59,118 @@ def dmv_value_and_grads(dec, attach, lengths, kind: str = "log"):
     return dmv_value_and_grads_plain(dec, attach, lengths, kind)
 
 
+def _on_cpu(dec, what):
+    if dec.device.type != "cpu":
+        raise RuntimeError(f"{what}: unsupported device {dec.device}")
+
+
+@torch.no_grad()
+def dmv_total_fast(dec, attach, lengths, kind: str = "log"):
+    """Per-sentence totals ``[B]`` (log Z or the Viterbi score) when no
+    gradient is wanted: the value-only inside kernel (K2; K4 for tiny and
+    long charts) on a CUDA tensor, :func:`~.dmv.dmv_total` on the CPU. The
+    result carries no graph."""
+    if dec.is_cuda:
+        from ..ops.dmv_cuda import dmv_inside
+
+        return dmv_inside(dec, attach, lengths, kind)
+    _on_cpu(dec, "dmv_total_fast")
+    return dmv_total(dec, attach, lengths, kind)
+
+
 class DMVTotalFn(torch.autograd.Function):
-    """Per-sentence DP total ``[B]`` with a gradient: the forward runs one
-    pass of :func:`dmv_value_and_grads` (the fused kernel K1 on the card,
-    the plain version on the CPU) and keeps both tables; the backward is
-    those tables scaled by the cotangent (the fused path of
-    vlgae_tpu/ops/dmv_pallas.py ``_make_dmv_total``). Lengths get no
-    gradient."""
+    """Per-sentence DP total ``[B]`` with a gradient, as the two-launch pair
+    of vlgae_tpu/ops/dmv_pallas.py ``_make_dmv_total``: the forward runs
+    the inside pass that saves its charts (K3a; K4 for tiny and long
+    charts) and keeps them with the total; the backward runs the outside
+    pass (K3b) with the cotangent that has arrived. On the CPU both are the
+    plain versions. Lengths get no gradient."""
 
     @staticmethod
     def forward(ctx, dec, attach, lengths, kind="log"):
-        total, g_dec, g_attach = dmv_value_and_grads(
-            dec.detach(), attach.detach(), lengths, kind)
-        ctx.save_for_backward(g_dec, g_attach)
+        dec, attach = dec.detach().float(), attach.detach().float()
+        if dec.is_cuda:
+            from ..ops.dmv_cuda import dmv_inside_save
+
+            total, charts = dmv_inside_save(dec, attach, lengths, kind)
+        else:
+            _on_cpu(dec, "DMVTotalFn")
+            total, charts = dmv_inside_charts_plain(dec, attach, lengths, kind)
+        ctx.save_for_backward(dec, attach, lengths, total, charts)
+        ctx.kind = kind
         return total
 
     @staticmethod
     def backward(ctx, g):
-        g_dec, g_attach = ctx.saved_tensors
-        g = g.to(g_dec.dtype)
-        return (g.view(-1, 1, 1, 1, 1) * g_dec,
-                g.view(-1, 1, 1, 1) * g_attach, None, None)
+        dec, attach, lengths, total, charts = ctx.saved_tensors
+        g = g.to(total.dtype).contiguous()
+        if dec.is_cuda:
+            from ..ops.dmv_cuda import dmv_outside
+
+            g_dec, g_attach = dmv_outside(dec, attach, lengths, g, total, charts,
+                                          ctx.kind)
+        else:
+            g_dec, g_attach = dmv_outside_plain(dec, attach, lengths, g, total,
+                                                charts, ctx.kind)
+        return g_dec, g_attach, None, None
+
+
+def _total(dec, attach, lengths, kind: str = "log"):
+    """The total by what the caller needs: :class:`DMVTotalFn` when a
+    gradient can flow to the potentials, :func:`dmv_total_fast` otherwise."""
+    if torch.is_grad_enabled() and (dec.requires_grad or attach.requires_grad):
+        return DMVTotalFn.apply(dec, attach, lengths, kind)
+    return dmv_total_fast(dec, attach, lengths, kind)
+
+
+class DMV1o:
+    """First-order valence DMV distribution over merged (with-root)
+    potentials ``(dec, attach)``; see :func:`dmv_merge`. The totals
+    differentiate when their inputs require a gradient; the tables come from
+    one fused pass and carry no graph."""
+
+    def __init__(self, log_potentials, lengths):
+        self.dec, self.attach = log_potentials
+        self.lengths = lengths
+
+    @property
+    def partition(self):
+        return _total(self.dec, self.attach, self.lengths, "log")
+
+    @property
+    def max(self):
+        return _total(self.dec, self.attach, self.lengths, "max")
+
+    def _tables(self, kind):
+        return dmv_value_and_grads(self.dec.detach(), self.attach.detach(),
+                                   self.lengths, kind)[1:]
+
+    @property
+    def marginals(self):
+        """Attach marginals ``[B, N1, N1, 2]``."""
+        return self._tables("log")[1]
+
+    @property
+    def marginals_full(self):
+        """(dec, attach) expected counts."""
+        return self._tables("log")
+
+    @property
+    def argmax(self):
+        """Viterbi attach indicators ``[B, N1, N1, 2]``."""
+        return self._tables("max")[1]
+
+    @property
+    def argmax_heads(self):
+        """Viterbi head array ``[B, N]`` (1-based heads, 0 = root)."""
+        ind = self.argmax.sum(-1)  # [B, N1, N1]
+        return torch.argmax(ind[:, :, 1:], dim=1)
+
+    def _not_ported(self, *args, **kwargs):
+        raise NotImplementedError(
+            "this DMV1o method needs a semiring or sampler that is not ported "
+            "yet; see the semiring slice of ROADMAP.md")
+
+    entropy = property(_not_ported)
+    count = property(_not_ported)
+    cross_entropy = kl = kmax = topk = sample = gumbel_crf = _not_ported

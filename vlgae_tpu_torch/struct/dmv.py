@@ -1,10 +1,13 @@
 """First-order DMV (with valence) inside pass, plain PyTorch.
 
 Counterpart of ``vlgae_tpu/struct/dmv.py`` for the Log and Max semirings.
-This is the plain version of the fused CUDA kernel in
-``csrc/dmv_fused.cu``: the CPU tests and ``chip_smoke.py``'s comparison
-phase use it, the wrapper in :mod:`vlgae_tpu_torch.struct.distributions`
-takes it only for tensors that lie on the CPU.
+These are the plain versions of the CUDA kernels in ``csrc/dmv_fused.cu``
+(:func:`dmv_value_and_grads_plain`), ``csrc/dmv_inside.cu``
+(:func:`dmv_total`, :func:`dmv_inside_charts_plain`) and
+``csrc/dmv_outside.cu`` (:func:`dmv_outside_plain`): the CPU tests and
+``chip_smoke.py``'s comparison phases use them, the dispatch in
+:mod:`vlgae_tpu_torch.struct.distributions` takes them only for tensors
+that lie on the CPU.
 
 Chart semantics and recursions are those of the reference
 (NC/HC = NOCHILD/HASCHILD, ⊗/⊕ = semiring mul/sum):
@@ -59,19 +62,19 @@ def _reduce(x, kind):
     return torch.amax(x, dim=0)
 
 
-def dmv_total(dec, attach, lengths, kind: str = "log"):
-    """Per-sentence semiring total ``[B]`` (log Z or the Viterbi score).
-
-    ``dec [B, N1, 2, 2, 2]`` and ``attach [B, N1, N1, 2]`` are merged
-    (root at position 0) f32 log-potentials, ``lengths [B]`` word counts.
-    """
+def _inside_rows(dec, attach, lengths, kind):
+    """The inside pass: per-width lists ``(Cr, Cl, Ir, Il)`` of rows
+    ``[B, N1, 2]`` indexed by span start (``Ir[0]``/``Il[0]`` are None), and
+    the clamped lengths. Rows hold the semiring zero where the span runs
+    past position N1 - 1; past a shorter sentence's end they hold values
+    nothing reads."""
     if kind not in ("log", "max"):
         raise ValueError(f"kind must be 'log' or 'max', got {kind!r}")
     dec = dec.float()
     attach = attach.float()
     B, N1 = dec.shape[:2]
     dev = dec.device
-    lengths = lengths.to(device=dev, dtype=torch.long)
+    lengths = lengths.to(device=dev, dtype=torch.long).clamp(0, N1 - 1)
     att_r = attach + dec[:, :, None, RIGHT, :, GO]  # head i -> child c
     att_l = attach + dec[:, :, None, LEFT, :, GO]
     ar = torch.arange(N1, device=dev)
@@ -119,8 +122,37 @@ def dmv_total(dec, attach, lengths, kind: str = "log"):
         Cl.append(cl)
         CrE.append(_shift(cr, w))
         ClE.append(_shift(cl, w))
+    return Cr, Cl, Ir, Il, lengths
+
+
+def dmv_total(dec, attach, lengths, kind: str = "log"):
+    """Per-sentence semiring total ``[B]`` (log Z or the Viterbi score).
+
+    ``dec [B, N1, 2, 2, 2]`` and ``attach [B, N1, N1, 2]`` are merged
+    (root at position 0) f32 log-potentials, ``lengths [B]`` word counts
+    (clamped to ``[0, N1 - 1]``).
+    """
+    Cr, _, _, _, lengths = _inside_rows(dec, attach, lengths, kind)
     root = torch.stack(Cr)[:, :, 0, NOCHILD]  # [w, B]
     return root.gather(0, lengths[None, :])[0]
+
+
+def dmv_inside_charts_plain(dec, attach, lengths, kind: str = "log"):
+    """``(total [B], charts [B, 4, N1, N1, 2])``: the four inside charts
+    Cr, Cl, Ir, Il in the layout the chart-saving kernel writes
+    (``charts[b, c, w, i, v]`` is the span ``[i, i+w]`` with valence ``v``),
+    the semiring zero on cells outside the span triangle (``i + w`` past the
+    sentence's length, and the width-0 row of Ir/Il)."""
+    Cr, Cl, Ir, Il, lengths = _inside_rows(dec, attach, lengths, kind)
+    B, N1 = Cr[0].shape[:2]
+    zero = torch.full_like(Cr[0], NEGINF)
+    charts = torch.stack([torch.stack([zero if r is None else r for r in rows], 1)
+                          for rows in (Cr, Cl, Ir, Il)], 1)  # [B, 4, w, i, v]
+    ar = torch.arange(N1, device=charts.device)
+    inside = (ar[:, None] + ar[None, :])[None] <= lengths[:, None, None]  # [B, w, i]
+    charts = torch.where(inside[:, None, :, :, None], charts, NEGINF)
+    total = charts[torch.arange(B, device=charts.device), 0, lengths, 0, NOCHILD]
+    return total, charts
 
 
 def dmv_value_and_grads_plain(dec, attach, lengths, kind: str = "log"):
@@ -136,3 +168,17 @@ def dmv_value_and_grads_plain(dec, attach, lengths, kind: str = "log"):
         # with n1 = 1 (no words) attach takes no part: its gradient is 0
         gd, ga = torch.autograd.grad(per.sum(), (d, a), allow_unused=True)
     return per.detach(), gd, torch.zeros_like(a) if ga is None else ga
+
+
+def dmv_outside_plain(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
+    """``(g_dec, g_attach)``: the gradient of ``sum(gout * total)`` with
+    respect to the potentials, the contract of the outside kernel.
+
+    The tables come from autograd of :func:`dmv_total` scaled by ``gout``;
+    ``logz`` and ``charts`` (the hand-off of the chart-saving inside pass)
+    are not read here, so a comparison pins their layout from the kernel's
+    side: the outside kernel is run on the saved charts and on the plain
+    charts, and the saved charts are compared with the plain ones."""
+    _, gd, ga = dmv_value_and_grads_plain(dec, attach, lengths, kind)
+    gout = gout.to(gd.dtype)
+    return gout.view(-1, 1, 1, 1, 1) * gd, gout.view(-1, 1, 1, 1) * ga

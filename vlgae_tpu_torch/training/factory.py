@@ -1,6 +1,7 @@
 """Model factory (counterpart of vlgae_tpu/training/factory.py): build the
-joint model of ``exp=vlgae`` from a composed config. ``_target_`` strings
-are matched by class name, as in the JAX package."""
+joint model of ``exp=vlgae`` or the stand-alone parser of ``exp=lang_only``
+from a composed config. ``_target_`` strings are matched by class name, as
+in the JAX package."""
 
 from __future__ import annotations
 
@@ -9,20 +10,35 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..models.embedding import BertConfig, CompositeEmbedding, EmbeddingItemCfg
+from ..models.embedding import (BertConfig, CompositeEmbedding, EmbeddingItemCfg,
+                                glove_row_map, load_glove)
 from ..models.joint import (ATTR_POS, OBJ_POS, REL_POS, DependencyBoxRel,
                             DependencyBoxRelConfig)
 from ..models.ldndmv import FUNCTION_POS, DiscriminativeNDMV, LDNDMVConfig
-from ..models.text_encoder import MLPEncoder
+from ..models.text_encoder import MLPEncoder, RNNEncoder
 from ..models.vis_encoder import VisBoxRelSimpleEncoder
 
 
 def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
     items = []
+    pretrained, row_maps = {}, {}
     if emb_cfg.get("use_word", True):
-        raise NotImplementedError(
-            "embedding.use_word (the GloVe word table) is not ported; "
-            "exp=vlgae uses subword + tag embeddings")
+        wcfg = emb_cfg.get("word_embedding", {}) or {}
+        args = wcfg.get("args", {}) or {}
+        dim = int(args.get("embedding_dim", 100))
+        mode = (wcfg.get("adaptor_args", {}) or {}).get("mode", "basic")
+        items.append(EmbeddingItemCfg(
+            "word_embedding", "word", "static", n_vocab=len(dm.vocabs["word"]),
+            embedding_dim=dim, mode=mode,
+            normalize_method=wcfg.get("normalize_method", "mean+std"),
+            normalize_time=wcfg.get("normalize_time", "nowhere")))
+        # a GloVe text file starts the table; without one it starts at random
+        glove_path = args.get("model_dir_or_name")
+        if (isinstance(glove_path, str) and glove_path.endswith(".txt")
+                and os.path.exists(glove_path)):
+            table, found = load_glove(glove_path, dm.vocabs["word"], dim)
+            pretrained["word_embedding"] = table
+            row_maps["word_embedding"] = glove_row_map(dm.vocabs["word"], found)
     if emb_cfg.get("use_tag", True) and "tag" in dm.vocabs:
         tcfg = emb_cfg.get("tag_embedding", {}) or {}
         args = tcfg.get("args", {}) or {}
@@ -50,7 +66,37 @@ def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
             stride=int(args.get("stride", 256)),
             layer_dropout=float(args.get("dropout", 0.0) or 0.0)))
     return CompositeEmbedding(tuple(items), bert_config,
-                              dropout=float(emb_cfg.get("dropout", 0.0) or 0.0))
+                              dropout=float(emb_cfg.get("dropout", 0.0) or 0.0),
+                              pretrained=pretrained, row_maps=row_maps)
+
+
+def build_encoder(enc_cfg: Dict[str, Any], n_in: int):
+    """``(encoder, width of its output)``."""
+    target = str(enc_cfg.get("_target_", ""))
+    kw = {k: v for k, v in enc_cfg.items() if not k.startswith("_")}
+    if "MLPEncoder" in target:
+        n_enc = int(kw.get("n_hidden", 256))
+        return MLPEncoder(n_in, n_enc, dropout=float(kw.get("dropout", 0.0)),
+                          shared_dropout=float(kw.get("shared_dropout", 0.0) or 0.0)), n_enc
+    if "RNNEncoder" in target:
+        enc = RNNEncoder(
+            n_in, hidden_size=int(kw.get("hidden_size", 200)),
+            num_layers=int(kw.get("num_layers", 2)),
+            reproject_emb=int(kw.get("reproject_emb", 0) or 0),
+            reproject_out=int(kw.get("reproject_out", 0) or 0),
+            mix=bool(kw.get("mix", False)),
+            pre_shared_dropout=float(kw.get("pre_shared_dropout", 0.0)),
+            pre_dropout=float(kw.get("pre_dropout", 0.0)),
+            post_shared_dropout=float(kw.get("post_shared_dropout", 0.0)),
+            post_dropout=float(kw.get("post_dropout", 0.0)),
+            lstm_dropout=float(kw.get("lstm_dropout", 0.33)),
+            output_layers=int(kw.get("output_layers", -1)),
+            proj_size=int(kw.get("proj_size", 0) or 0),
+            init_version=str(kw.get("init_version", "zy")),
+            cat_emb=bool(kw.get("cat_emb", False)))
+        return enc, enc.n_hidden
+    raise NotImplementedError(
+        f"encoder {target!r} is not ported (MLPEncoder and RNNEncoder only)")
 
 
 def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
@@ -80,14 +126,7 @@ def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
 
 def build_ldndmv(cfg: Dict[str, Any], dm, mcfg: Dict[str, Any]):
     embedding = build_embedding(cfg.get("embedding", {}), dm)
-    enc_cfg = cfg.get("encoder", {})
-    if "MLPEncoder" not in str(enc_cfg.get("_target_", "")):
-        raise NotImplementedError(
-            f"encoder {enc_cfg.get('_target_')!r} is not ported (MLPEncoder only)")
-    n_enc = int(enc_cfg.get("n_hidden", 256))
-    encoder = MLPEncoder(embedding.embed_size, n_enc,
-                         dropout=float(enc_cfg.get("dropout", 0.0)),
-                         shared_dropout=float(enc_cfg.get("shared_dropout", 0.0) or 0.0))
+    encoder, n_enc = build_encoder(cfg.get("encoder", {}), embedding.embed_size)
     dep_cfg = _ldndmv_cfg(mcfg)
     fmask = ()
     if dep_cfg.function_mask and "tag" in dm.vocabs:
@@ -166,5 +205,6 @@ def build_model(cfg: Dict[str, Any], dm):
     target = cfg.get("model", {}).get("_target_", "")
     if "DependencyBoxRel" in target:
         return build_joint(cfg, dm)
-    raise NotImplementedError(
-        f"model {target!r} is not ported (DependencyBoxRel only)")
+    if "DiscriminativeNDMV" in target or target == "":
+        return build_ldndmv(cfg, dm, cfg.get("model", {}))[0]
+    raise NotImplementedError(f"model {target!r} is not ported")

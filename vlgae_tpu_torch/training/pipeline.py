@@ -1,5 +1,6 @@
 """Training and evaluation pipeline (counterpart of
-vlgae_tpu/training/pipeline.py): the train step (forward, backward, clip,
+vlgae_tpu/training/pipeline.py), for the joint model and for the stand-alone
+parser: the train step (forward, backward, clip,
 Adam) and its accumulation form, the epoch loop with the warm-up phase,
 the per-epoch grounding coefficient, mid-epoch validation and device-side
 loss sums, checkpoints with ``torch.save``, the eval step, metrics and the
@@ -17,10 +18,11 @@ import numpy as np
 import torch
 
 from ..data.conll import write_conll_rows
-from ..models.embedding import normalize_embedding_
+from ..models.embedding import StaticItem, normalize_embedding_
 from ..models.ldndmv import decode as ldndmv_decode
 from ..models.ldndmv import loss_init_rules, loss_nll
 from ..models.nn import set_dropout_generator
+from ..models.text_encoder import RNNEncoder
 from ..utils.fn import coeff_at, parse_coeff_schedule, reduce_loss
 from . import metrics as metrics_mod
 from .optim import Optimizer
@@ -52,7 +54,8 @@ def init_params(model: torch.nn.Module, seed: int) -> None:
     """Random weights from ``seed`` (an explicit CPU generator, so the
     draw does not depend on the device): biases and mixing weights 0,
     norm scales 1, BERT tables/kernels N(0, 0.02), static embeddings
-    N(0, 1), other matrices N(0, 1/fan_in)."""
+    N(0, 1) (or their pretrained table), other matrices N(0, 1/fan_in);
+    an ``RNNEncoder`` by its ``init_version``."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -68,6 +71,11 @@ def init_params(model: torch.nn.Module, seed: int) -> None:
                 elif leaf not in ("embedding", "root_emb", "dec_emb"):
                     x = x * (p.shape[-1] if p.dim() == 2 else p.shape[0]) ** -0.5
                 p.copy_(x)
+        for m in model.modules():
+            if isinstance(m, RNNEncoder):
+                m.reset_parameters(g)
+            elif isinstance(m, StaticItem) and m.pretrained is not None:
+                m.embedding.copy_(m.pretrained)
 
 
 def _to_device(x: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -85,7 +93,10 @@ class Pipeline:
         self.dm = dm
         self.cfg = cfg
         self.workdir = workdir
-        self.dep_cfg = model.dep_cfg
+        # the joint model wraps the parser; ``exp=lang_only`` is the parser alone
+        self.is_joint = hasattr(model, "dependency")
+        self.dep = model.dependency if self.is_joint else model
+        self.dep_cfg = self.dep.cfg
         self.loss_reduction_mode = (cfg.get("pipeline") or {}).get(
             "loss_reduction_mode", "token")
         self.metrics = [self._build_metric_node(cfg.get("metric") or {})
@@ -105,7 +116,7 @@ class Pipeline:
         self.watch_mode = cfg.get("watch_mode", "min")
         # per-term loss means of the latest mid-epoch training window
         self.window_train_terms: Dict[str, float] = {}
-        emb = self.model.dependency.embedding
+        emb = self.dep.embedding
         self._batch_normalize = any(
             item.kind == "static" and item.normalize_time == "batch"
             for item in emb.items)
@@ -116,8 +127,11 @@ class Pipeline:
 
     def _build_metric_node(self, node):
         """Instantiate a metric from a config node (``_target_`` matched by
-        class name in :mod:`.metrics`); the flagship default without one."""
+        class name in :mod:`.metrics`); without one the flagship default
+        (attachment alone for the stand-alone parser)."""
         if not isinstance(node, dict) or "_target_" not in node:
+            if not self.is_joint:
+                return metrics_mod.DependencyParsingMetric()
             return metrics_mod.MultiMetric(
                 metrics_mod.DependencyParsingMetric(),
                 box=metrics_mod.BoxRelMatchingMetric(),
@@ -140,7 +154,7 @@ class Pipeline:
         n_batches = max(1, len(self.dm.datasets.get("train", [1]))
                         // max(int(train_cfg.get("batch_size", 32)), 1))
         frozen = [rf"\b{item.name}\b.*bert"
-                  for item in self.model.dependency.embedding.items
+                  for item in self.dep.embedding.items
                   if item.kind == "transformer" and not item.requires_grad]
         self.optimizer = Optimizer(
             self.model, self.cfg.get("optimizer", {"args": {"lr": 1e-3}}),
@@ -152,7 +166,7 @@ class Pipeline:
     def normalize_embeddings(self, when: str) -> None:
         """Re-whiten the static embedding tables scheduled for ``when``
         (begin | epoch | batch), count-weighted where the vocab counts."""
-        emb = self.model.dependency.embedding
+        emb = self.dep.embedding
         for item in emb.items:
             if item.kind != "static" or item.normalize_time != when:
                 continue
@@ -199,17 +213,18 @@ class Pipeline:
     def compute_loss(self, inputs, gold, init_phase: bool, alpha: float):
         """The training objective ``(total, per-term dict)``, reduced per
         the configured mode: in the warm-up phase the dependency scores
-        against the rule counts, else the NLL interpolated with the
-        grounding loss."""
+        against the rule counts, else the NLL, interpolated with the
+        grounding loss in the joint model."""
         model = self.model
-        out = model(inputs, with_grounding=not init_phase)
+        out = (model(inputs, with_grounding=not init_phase) if self.is_joint
+               else model(inputs))
         lengths = inputs["seq_len"]
         if init_phase:
             total, aux = loss_init_rules(out, gold)
         else:
-            dep_loss, dep_aux = loss_nll(out, lengths,
-                                         viterbi=self.dep_cfg.viterbi_training)
-            total, aux = model.loss(out, inputs, dep_loss, dep_aux, alpha)
+            total, aux = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
+            if self.is_joint:
+                total, aux = model.loss(out, inputs, total, aux, alpha)
         num_token = torch.clamp_min(lengths.sum(), 1)
         n_sent = torch.clamp_min((lengths > 0).sum(), 1)
         mode = self.loss_reduction_mode
@@ -368,9 +383,11 @@ class Pipeline:
         inputs = _to_device(x, self.device)
         out = model(inputs)
         lengths = inputs["seq_len"]
-        dep_loss, _ = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
-        total, _ = model.loss(out, inputs, dep_loss, alpha=alpha)
+        total, _ = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
         heads = ldndmv_decode(out, lengths, mbr=self.dep_cfg.mbr_decoding)
+        if not self.is_joint:
+            return {"arc": heads.cpu().numpy(), "loss": total.cpu().numpy()}
+        total, _ = model.loss(out, inputs, total, alpha=alpha)
         g = model.decode_grounding_device(out, inputs)
         res = {"arc": heads, "loss": total, "txt_to_img": g["txt_to_img"],
                "txt_to_factor_idx": g["txt_to_factor_idx"],
@@ -400,24 +417,23 @@ class Pipeline:
             token_sum += int(x["seq_len"].sum())
             mask = (np.arange(x["word"].shape[1])[None, :]
                     < np.asarray(x["seq_len"])[:, None])
-            vis_split = tuple(int(s) for s in res["vis_split"])
-            box_index = x.get("vis_box_index", np.tile(
-                np.arange(vis_split[0])[None], (res["arc"].shape[0], 1)))
-            predict = {
-                "arc": res["arc"],
-                "txt_to_factor": self.model.format_grounding(
+            predict = {"arc": res["arc"]}
+            if self.is_joint:
+                vis_split = tuple(int(s) for s in res["vis_split"])
+                box_index = x.get("vis_box_index", np.tile(
+                    np.arange(vis_split[0])[None], (res["arc"].shape[0], 1)))
+                predict["txt_to_factor"] = self.model.format_grounding(
                     res["txt_to_factor_idx"], vis_split,
-                    np.asarray(x["seq_len"]), box_index, res["txt_mask"]),
-                "txt_to_img": [res["txt_to_img"][j][res["txt_mask"][j]]
-                               for j in range(res["arc"].shape[0])],
-            }
+                    np.asarray(x["seq_len"]), box_index, res["txt_mask"])
+                predict["txt_to_img"] = [res["txt_to_img"][j][res["txt_mask"][j]]
+                                         for j in range(res["arc"].shape[0])]
             metric.update(predict, y, mask)
             for j, sid in enumerate(np.asarray(x["id"])):
                 n = int(x["seq_len"][j])
-                all_outputs[int(sid)] = {
-                    "arc": res["arc"][j, :n].tolist(),
-                    "txt_to_factor": predict["txt_to_factor"][j],
-                }
+                rec = {"arc": res["arc"][j, :n].tolist()}
+                if self.is_joint:
+                    rec["txt_to_factor"] = predict["txt_to_factor"][j]
+                all_outputs[int(sid)] = rec
         result = metric.compute()
         result["loss"] = loss_sum / max(token_sum, 1)
         return result, all_outputs
@@ -425,7 +441,8 @@ class Pipeline:
     # -- prediction writing -------------------------------------------------
     def write_predictions(self, path: str, split: str, outputs: Dict[int, dict]):
         """CoNLL rows ``ID FORM POS HEAD ALIGN`` (ALIGN: word factors, then
-        arc factors, tab-separated), the format ``eval.py`` scores."""
+        arc factors, tab-separated), the format ``eval.py`` scores; the
+        stand-alone parser writes no ALIGN column."""
         ds = self.dm.datasets[split]
         with open(path, "w", encoding="utf-8") as f:
             for inst in ds:
