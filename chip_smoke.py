@@ -8,9 +8,16 @@ Phases, each printing one JSON line:
                  parallel)
   3. k1        - the fused DMV kernel against its plain version (log + max),
                  at B=64 with ragged lengths 1..50, a batch with lengths up
-                 to 80 and n1 < 10
-  4. k5        - the matching-max kernel against its plain version at
-                 A=B=64, Q=102, V=703, D=128 (bf16)
+                 to 80 and n1 < 10; reruns bit-identical
+  4. k5        - the matching-max kernel (bf16 tensor cores) against its
+                 plain version at A=B=64, Q=102, D=128 and V=703 (eval) and
+                 739 (train); exactly on quarter-integer operands at shapes
+                 that hit the edges of its tiles (104 words, 64 image rows,
+                 4 captions, blocks that serve unequal numbers of images,
+                 D = 8, 130, 384) and on operands full of ties with whole
+                 rows and columns masked; its time
+                 beside one bf16 ``torch.matmul`` of the same product, which
+                 stores the product and takes no maxes
   5. k6        - the matching backward against its plain version at the
                  training shape A=B=64, Q=102, V=739, D=128 (its K5 forward
                  held against the plain version too), exactly at a ragged
@@ -308,8 +315,12 @@ def phase_k1(state):
         dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
         for kind in ("log", "max"):
             kt, kd, ka = dmv_fused(dec, attach, lens, kind)
+            again = dmv_fused(dec, attach, lens, kind)
             pt, pd, pa = dmv_value_and_grads_plain(dec, attach, lens, kind)
             torch.cuda.synchronize()
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip((kt, kd, ka), again)):
+                raise AssertionError(f"K1 {name}/{kind} gave different bits on two runs")
             e_tot = (kt - pt).abs()
             ok_tot = close(kt, pt, K1_TOTAL_ATOL, K1_TOTAL_RTOL)
             ok_grads = all(close(k, p, K1_GRAD_ATOL, K1_GRAD_RTOL)
@@ -326,8 +337,10 @@ def phase_k1(state):
     timing = {}
     for kind in ("log", "max"):
         timing[kind] = {
+            # time_ms: one call per event pair; device_ms: launches queued
+            # behind a spinning device (no host time between them)
             "ms": time_ms(lambda: dmv_fused(dec, attach, lens, kind)),
-            "queued_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+            "device_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
             "plain_ms": time_ms(
                 lambda: dmv_value_and_grads_plain(dec, attach, lens, kind),
                 reps=5, warmup=1),
@@ -344,8 +357,8 @@ def phase_k1(state):
         "plain_ms": timing["log"]["plain_ms"] + timing["max"]["plain_ms"],
         **both, "bound_ms": 2 * both["bound_ms"], "library_ms": None,
         "ms_log": timing["log"]["ms"], "ms_max": timing["max"]["ms"],
-        "queued_ms_log": timing["log"]["queued_ms"],
-        "queued_ms_max": timing["max"]["queued_ms"],
+        "device_ms_log": timing["log"]["device_ms"],
+        "device_ms_max": timing["max"]["device_ms"],
         "dependent_steps": 4 * 50,
     }
 
@@ -368,6 +381,10 @@ def _check_k5(args, exact, what):
     errs = {}
     for name, kv, pv in (("logit", k[0], p[0]), ("logit_v", k[2], p[2])):
         errs[name] = float((kv - pv).abs().max())
+        # a masked cell sits near -1e9, where one f32 ulp is 64
+        live = pv > -1e8
+        errs[f"{name}_unmasked"] = float((kv - pv)[live].abs().max()) if bool(
+            live.any()) else 0.0
         if not (torch.equal(kv, pv) if exact else close(kv, pv, K5_ATOL, K5_RTOL)):
             raise AssertionError(f"K5 {name} disagrees {what}: max err {errs[name]}")
 
@@ -392,46 +409,114 @@ def _check_k5(args, exact, what):
     return k, errs, off
 
 
-def phase_k5(state):
+# (A, V, B, Q, D) that hit the edges of K5's tiles: chunks of 104 words (the
+# wgmma's N), stages of 64 image rows (its M), 4 captions a block, k-steps of
+# 16 and stages of 128, 50 caption tiles, so that 2 blocks share 5 images,
+# and the other builds (one chunk of 40 words, of 72, of 120)
+K5_EDGES = ((5, 65, 62, 202, 130), (2, 15, 1, 7, 8), (3, 63, 5, 103, 128),
+            (3, 64, 4, 104, 128), (3, 65, 7, 105, 128), (2, 20, 3, 9, 384),
+            (5, 70, 200, 9, 16), (3, 65, 6, 34, 128), (3, 65, 6, 66, 128),
+            (2, 70, 5, 114, 128))
+
+
+def _k5_inputs(rng, A, V, B, Q, D, dev, kind):
+    """bf16 operands and -1e9 masks. ``kind``: "random" (standard normal),
+    "quarter" (quarter-integers in [-2, 2]: every product and sum exact) or
+    "ties" (operands in {-1/4, 0, 1/4} and a whole image, caption, region
+    and word masked: nearly every maximum is tied)."""
     import numpy as np
     import torch
 
-    from vlgae_tpu_torch.ops.match import match_maxes_cuda, match_maxes_plain
+    def draw(*shape):
+        if kind == "random":
+            return rng.standard_normal(shape)
+        scale = 1 if kind == "ties" else 8
+        return rng.integers(-scale, scale + 1, shape) * 0.25
 
-    rng = np.random.default_rng(1)
-    dev = torch.device("cuda")
-    A = B = 64
-    Q, V, D = 102, 703, 128
-    vis = torch.tensor(rng.standard_normal((A, V, D)), dtype=torch.float32,
-                       device=dev).bfloat16()
-    txt = torch.tensor(rng.standard_normal((B, Q, D)), dtype=torch.float32,
-                       device=dev).bfloat16()
+    vis = torch.tensor(draw(A, V, D), dtype=torch.float32, device=dev).bfloat16()
+    txt = torch.tensor(draw(B, Q, D), dtype=torch.float32, device=dev).bfloat16()
     vb = torch.tensor(np.where(rng.random((A, V)) < 0.2, -1e9, 0.0),
                       dtype=torch.float32, device=dev)
     tb = torch.tensor(np.where(rng.random((B, Q)) < 0.3, -1e9, 0.0),
                       dtype=torch.float32, device=dev)
-    # a second shape with ragged tiles and Q over one 128-row chunk
-    # (captions of 100 words), checked for exact agreement
-    small = [torch.tensor(rng.integers(-8, 9, s) * 0.25, dtype=torch.float32,
-                          device=dev).bfloat16() for s in ((5, 65, 130), (62, 202, 130))]
-    small += [torch.tensor(np.where(rng.random(s) < 0.3, -1e9, 0.0),
-                           dtype=torch.float32, device=dev) for s in ((5, 65), (62, 202))]
-    _check_k5(small, True, "at A=5, V=65, B=62, Q=202, D=130")
-    _, errs, off = _check_k5((vis, txt, vb, tb), False, f"at V={V}")
-    ms = time_ms(lambda: match_maxes_cuda(vis, txt, vb, tb))
-    plain_ms = time_ms(lambda: match_maxes_plain(vis, txt, vb, tb), reps=5,
-                       warmup=1)
-    emit({"phase": "k5", "shape": {"A": A, "B": B, "Q": Q, "V": V, "D": D},
-          "exact_at": {"A": 5, "V": 65, "B": 62, "Q": 202, "D": 130},
-          "max_abs_err": errs, "index_mismatch_within_tol": off,
-          "tolerance": [K5_ATOL, K5_RTOL], "ms": ms, "plain_ms": plain_ms})
-    # inputs read once (bf16 operands, f32 masks), four [B, A, Q|V] outputs
-    # written once; one multiply-add per (a, b, q, v, d) at the bf16 peak
-    state["match_fwd"] = {"max_abs_err": max(errs.values()), "ms": ms,
-                          "plain_ms": plain_ms, "library_ms": None,
-                          **bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q)
-                                  + 8 * B * A * (Q + V),
-                                  2 * A * B * Q * V * D, "bf16")}
+    if kind == "ties":
+        vb[0, :] = -1e9
+        vb[:, V // 2] = -1e9
+        tb[B - 1, :] = -1e9
+        tb[:, 0] = -1e9
+    return vis, txt, vb, tb
+
+
+def phase_k5(state):
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.ops.match import (match_fwd_plan, match_maxes_cuda,
+                                           match_maxes_plain)
+
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    A = B = 64
+    Q, D = 102, 128
+    # exact agreement, indices included, at the tiles' edges ...
+    for shape in K5_EDGES:
+        _check_k5(_k5_inputs(rng, *shape, dev, "quarter"), True,
+                  "at A={}, V={}, B={}, Q={}, D={}".format(*shape))
+    # ... and where nearly every maximum is tied and whole rows and columns
+    # are masked (index 0 on those)
+    tie_shape = (6, 130, 7, 110, 8)
+    (_, li, _, lvi), _, _ = _check_k5(_k5_inputs(rng, *tie_shape, dev, "ties"), True,
+                                      "on tied and wholly masked operands")
+    if int(li[:, 0].max()) != 0 or int(lvi[tie_shape[2] - 1].max()) != 0:
+        raise AssertionError("K5: a wholly masked row or column did not give index 0")
+    timing = {}
+    for V in (703, 739):  # the eval and the training shape
+        args = _k5_inputs(rng, A, V, B, Q, D, dev, "random")
+        _, errs, off = _check_k5(args, False, f"at V={V}")
+        vis, txt = args[:2]
+        x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
+        timing[V] = {
+            "max_abs_err": errs, "index_mismatch_within_tol": off,
+            "ms": time_ms(lambda: match_maxes_cuda(*args)),
+            "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
+            "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=5, warmup=1),
+            # one library call for the product alone: it stores [B*Q, A*V]
+            # and takes no maxes; the port never calls it
+            "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
+            # inputs read once (bf16 operands, f32 masks), four [B, A, Q|V]
+            # outputs written once; one multiply-add per (a, b, q, v, d) at
+            # the bf16 peak
+            **bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q)
+                    + 8 * B * A * (Q + V), 2 * A * B * Q * V * D, "bf16")}
+    # captions are padded to multiples of 8 words and Q = 2 * (length + 1): a
+    # short batch (16 words), a middling one (32) and the longest of the
+    # recipe (56 words: one chunk of 120) at the training V, beside the 51
+    # positions the kernels are quoted at
+    by_q = {}
+    for q in (34, 66, 114):
+        args = _k5_inputs(rng, A, 739, B, q, D, dev, "random")
+        _check_k5(args, False, f"at V=739, Q={q}")
+        by_q[q] = {"device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
+                   "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=3, warmup=1),
+                   **bound(2 * (A * 739 + B * q) * D + 4 * (A * 739 + B * q)
+                           + 8 * B * A * (q + 739), 2 * A * B * q * 739 * D, "bf16")}
+    plan = match_fwd_plan(A, 703, B, Q, D, sm_count=torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    emit({"phase": "k5", "shape": {"A": A, "B": B, "Q": Q, "V": [703, 739], "D": D},
+          "instruction": "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16",
+          "plan_V703": plan, "exact_at": [list(sh) for sh in K5_EDGES],
+          "exact_on_ties_at": list(tie_shape), "timing": timing,
+          "timing_V739_by_Q": by_q,
+          "tolerance": [K5_ATOL, K5_RTOL]})
+    t = timing[703]
+    state["match_fwd"] = {
+        "max_abs_err": max(max(timing[V]["max_abs_err"].values()) for V in timing),
+        "max_abs_err_unmasked": max(v for V in timing for k, v in
+                                    timing[V]["max_abs_err"].items() if "unmasked" in k),
+        "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "library_ms": None, "product_only_library_ms": t["product_only_library_ms"],
+        "ms_V739": timing[739]["ms"], "device_ms_V739": timing[739]["device_ms"],
+        **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")}}
 
 
 def _match_bwd_inputs(rng, A, V, B, Q, D, dev, kind):

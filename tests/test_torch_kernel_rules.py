@@ -1,0 +1,155 @@
+"""What the wrappers of the port's CUDA kernels decide in Python before a
+launch, as pure functions of the shapes and the card's opt-in shared memory
+(232,448 bytes on an H100): the DMV kernels' chart pitch, bytes of shared
+memory per sentence, shared/global thresholds, threads per block and group
+widths (``vlgae_tpu_torch.ops.dmv_cuda``), and K5's tiling, image groups,
+resident side and staging path
+(``vlgae_tpu_torch.ops.match.match_fwd_plan``). The kernels themselves run
+on the card only (tests/test_torch_kernels_cuda.py)."""
+
+import pytest
+
+from vlgae_tpu_torch.ops import dmv_cuda, match
+
+H100_OPTIN = 232448
+
+
+@pytest.mark.parametrize("n1", [1, 2, 9, 10, 16, 17, 32, 48, 51, 56, 64, 85, 101])
+def test_chart_pitch_is_odd_and_spreads_rows_over_banks(n1):
+    p = dmv_cuda.chart_pitch(n1)
+    assert p % 2 == 1 and n1 <= p <= n1 + 1
+    # the lanes of one cell read float pairs a row (2 * p floats) apart:
+    # 16 consecutive rows must start on 16 different pairs of the 32 banks
+    banks = {(2 * p * t) % 32 for t in range(16)}
+    assert len(banks) == 16
+
+
+@pytest.mark.parametrize("n1,fused,inside", [
+    (1, 72, 32), (9, 72 * 81, 32 * 81), (10, 72 * 110, 32 * 110),
+    (51, 72 * 51 * 51, 32 * 51 * 51), (56, 72 * 56 * 57, 32 * 56 * 57)])
+def test_shared_memory_bytes_per_sentence(n1, fused, inside):
+    assert dmv_cuda.fused_smem_bytes(n1) == fused
+    assert dmv_cuda.inside_smem_bytes(n1) == inside
+
+
+@pytest.mark.parametrize("optin,last_fused,last_inside", [
+    (H100_OPTIN, 56, 85), (49152, 25, 39), (101376, 37, 55)])
+def test_shared_or_global_thresholds_follow_the_cards_limit(optin, last_fused, last_inside):
+    for n1 in range(1, 130):
+        assert dmv_cuda.fused_uses_smem(n1, optin) == (n1 <= last_fused)
+        want = "warp" if n1 <= 9 else "smem" if n1 <= last_inside else "global"
+        assert dmv_cuda.inside_mapping(n1, optin) == want
+
+
+@pytest.mark.parametrize("n1,want", [
+    (1, 32), (4, 32), (5, 64), (9, 128), (10, 128), (17, 256), (32, 256),
+    (33, 512), (51, 512), (57, 512), (64, 512), (65, 1024), (101, 1024), (400, 1024)])
+def test_block_threads_is_a_power_of_two_by_n1(n1, want):
+    t = dmv_cuda.block_threads(n1)
+    assert t == want and t & (t - 1) == 0 and 32 <= t <= dmv_cuda.MAX_THREADS
+    assert dmv_cuda.block_threads(n1 + 1) >= t
+
+
+@pytest.mark.parametrize("n1,want", [
+    (1, 32), (10, 32), (16, 32), (17, 64), (32, 64), (33, 128), (51, 128),
+    (57, 128), (64, 128), (65, 256), (101, 256), (129, 512), (400, 1024)])
+def test_inside_threads_is_one_lane_a_cell(n1, want):
+    t = dmv_cuda.inside_threads(n1)
+    assert t == want and t & (t - 1) == 0 and 32 <= t <= dmv_cuda.MAX_THREADS
+    # never more than K1's block, whose first threads run the inside fill
+    assert t <= dmv_cuda.block_threads(n1)
+    assert t >= min(2 * n1, dmv_cuda.MAX_THREADS)
+
+
+@pytest.mark.parametrize("ntasks,nterms,threads,want", [
+    (50, 1, 512, 1), (50, 50, 512, 8), (26, 25, 512, 16), (100, 25, 512, 4),
+    (5, 46, 512, 32), (2, 100, 1024, 32), (8, 8, 32, 4), (1, 3, 32, 4),
+    (600, 40, 512, 1)])
+def test_group_lanes(ntasks, nterms, threads, want):
+    assert dmv_cuda.group_lanes(ntasks, nterms, threads) == want
+
+
+def test_the_card_tests_reach_every_group_width():
+    """The n1 of tests/test_torch_kernels_cuda.py's DMV cases, with the
+    threads their mapping gives them, use every sub-warp width from one
+    lane to a whole warp."""
+    seen = set()
+    for n1 in (2, 3, 5, 9):
+        seen |= dmv_cuda.inside_group_widths(n1, 32)
+    for n1 in (10, 17, 51, 57, 101):
+        seen |= dmv_cuda.inside_group_widths(n1, dmv_cuda.inside_threads(n1))
+    assert seen == {1, 2, 4, 8, 16, 32}
+
+
+def test_match_fwd_plan_at_the_recipes_shapes():
+    for V, tiles in ((703, 11), (739, 12)):
+        plan = match.match_fwd_plan(64, V, 64, 102, 128)
+        # 16 tiles of 4 captions x 8 image groups: 128 blocks on 132
+        # multiprocessors, each serving 8 images
+        assert plan["grid"] == (8, 16) and plan["resident"] == "captions"
+        assert (plan["q_chunks"], plan["v_tiles"], plan["k_chunks"]) == (1, tiles, 1)
+        assert plan["q_chunk_words"] == 104
+        assert plan["staging"] == "cp.async"
+        assert plan["smem_bytes"] == 185984 <= H100_OPTIN
+        # every block streams its 8 images once and stages its four captions once
+        assert plan["l2_to_smem_bytes"] == 2 * 128 * 16 * (64 * V + 8 * 4 * 102)
+
+
+@pytest.mark.parametrize("A,B,sms,want", [
+    (64, 64, 132, 8), (64, 64, 66, 4), (64, 64, 264, 16), (64, 4, 132, 64),
+    (5, 200, 132, 2), (3, 1000, 132, 1), (1, 1, 132, 1), (64, 61, 132, 8),
+    (7, 0, 132, 7), (0, 5, 132, 1)])
+def test_match_fwd_groups_fill_the_card_once(A, B, sms, want):
+    g = match.match_fwd_groups(A, B, sms)
+    assert g == want and 1 <= g <= max(1, A)
+    # about one block a multiprocessor, unless one block per image is fewer
+    if 0 < -(-B // match.FWD_CAP_TILE) <= sms and g < A:
+        assert sms // 2 < g * -(-B // match.FWD_CAP_TILE) <= sms
+
+
+@pytest.mark.parametrize("Q,chunks,words", [
+    (1, 1, 40), (18, 1, 40), (34, 1, 40), (40, 1, 40), (41, 1, 72), (50, 1, 72),
+    (66, 1, 72), (72, 1, 72), (73, 1, 104), (82, 1, 104), (98, 1, 104),
+    (102, 1, 104), (104, 1, 104), (105, 1, 120), (114, 1, 120), (120, 1, 120),
+    (121, 2, 72), (144, 2, 72), (145, 2, 104), (202, 2, 104), (208, 2, 104),
+    (209, 2, 120), (240, 2, 120), (241, 3, 104), (312, 3, 104), (313, 3, 120)])
+def test_match_fwd_q_tiling_wastes_few_columns(Q, chunks, words):
+    """Captions are padded to multiples of 8 words and Q = 2 * (length + 1):
+    18, 34, ..., 114 on the recipe, one chunk each. Beyond the widest build
+    equal chunks; never a wide chunk for a few words left over."""
+    got = match.match_fwd_q_tiling(Q)
+    assert got == (chunks, words // 8) and words // 8 in match.FWD_Q_GROUPS
+    assert chunks == -(-Q // 120) and chunks * words >= Q
+    # a chunk wastes less than the widest step between two builds plus a group
+    assert chunks * words - Q < (32 + 8) * chunks
+
+
+def test_match_fwd_smem_fits_the_card_at_every_chunk_width():
+    sizes = [match.match_fwd_smem_bytes(nt) for nt in match.FWD_Q_GROUPS]
+    assert sizes == sorted(sizes) and sizes[-1] == 206720 <= H100_OPTIN
+    assert all(match.match_fwd_plan(2, 70, 5, 8 * nt, 64)["smem_bytes"] == s
+               for nt, s in zip(match.FWD_Q_GROUPS, sizes))
+
+
+@pytest.mark.parametrize("shape,want", [
+    # (A, V, B, Q, D): image groups, tiles of 4 captions, q-chunks of at most
+    # 120 words, image tiles of 64 rows, k-chunks of 128
+    ((5, 65, 62, 202, 130), (5, 16, 2, 2, 2)),
+    ((3, 64, 4, 104, 128), (3, 1, 1, 1, 1)),
+    ((3, 63, 5, 105, 129), (3, 2, 1, 1, 2)), ((3, 63, 5, 121, 129), (3, 2, 2, 1, 2)),
+    ((1, 1, 1, 1, 8), (1, 1, 1, 1, 1)),
+    ((2, 20, 3, 9, 384), (2, 1, 1, 1, 3)),
+    ((5, 70, 200, 9, 16), (2, 50, 1, 2, 1))])
+def test_match_fwd_plan_counts_ragged_tiles(shape, want):
+    plan = match.match_fwd_plan(*shape)
+    got = (*plan["grid"], plan["q_chunks"], plan["v_tiles"], plan["k_chunks"])
+    assert got == want
+
+
+@pytest.mark.parametrize("D,vis_ptr,txt_ptr,want", [
+    (128, 0, 0, "cp.async"), (8, 256, 512, "cp.async"), (384, 16, 32, "cp.async"),
+    (130, 0, 0, "scalar"), (7, 0, 0, "scalar"), (128, 8, 0, "scalar"),
+    (128, 0, 2, "scalar")])
+def test_match_fwd_staging_needs_16_byte_rows(D, vis_ptr, txt_ptr, want):
+    plan = match.match_fwd_plan(4, 33, 6, 31, D, vis_ptr, txt_ptr)
+    assert plan["staging"] == want

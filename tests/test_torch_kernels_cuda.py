@@ -11,7 +11,21 @@ K1 (``dmv_fused``): tie-free random potentials at n1 = 1, 2, 3, 5, 9, 51
 ulp of |log Z|); max-semiring totals and indicators exact. K5
 (``match_fwd``): bf16-exact quarter-integer operands with -1e9 masks, so
 values and first-winner indices are exact, at shapes with ragged tiles
-(V, B, D not multiples of the tiles) and Q over one 128-row chunk. K6
+(V, B, D not multiples of the tiles) and Q over one 104-word chunk; Q and V
+one below, at and one above the MMA tile sizes (the wgmma's N = 104 words
+and its 8-word column groups, the other builds of 40, 72 and 120 words,
+its M = 64 image rows and a warp's 16), B not
+a multiple of the 4-caption tile, more caption tiles than a block per image
+fills the card with (blocks then serve unequal numbers of images), D = 8,
+130 (rows not 16-byte aligned: the 2-byte staging path) and 384 (three
+k-chunks), an operand that starts 2 bytes off alignment, and operands in {-1/4, 0, 1/4}
+with a whole image, caption, region and word masked, where nearly every
+maximum is tied and the first index must win. K1 again on ragged batches
+with lengths 0, 1 and n1-1 at n1 = 9, 10, 17, 51, 57 and 101, which
+between them use every group width from one lane to a warp
+(tests/test_torch_kernel_rules.py), with reruns bit-identical and, on
+quarter-integer potentials full of ties, max totals equal to the inside
+kernel's bit for bit and tables equal to the pair's. K6
 (``match_bwd``): indices from a real K5 forward and quarter-integer
 cotangents, so every product and sum is exact and the gradients must be
 EQUAL to the plain version's, at Q > 128, V and Q not multiples of the
@@ -80,6 +94,56 @@ def test_dmv_fused_matches_plain(cuda, kind, lengths, n1):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
 
 
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("n1", [9, 10, 17, 51, 57, 101])
+def test_dmv_fused_ragged_batches_at_every_group_width(cuda, kind, n1):
+    """Mixed lengths (0, 1, n1-1 among them) in one launch: charts in shared
+    memory up to n1 = 56 and in global scratch beyond, blocks of 128 to 1024
+    threads, groups of 1 to 32 lanes."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    rng = np.random.default_rng(n1)
+    lengths = [0, 1, n1 - 1, n1 - 1, *rng.integers(0, n1, 8).tolist()]
+    dec, attach, lens = _dmv_batch(lengths, n1, n1, cuda)
+    got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+    again = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+    for g, a in zip(got, again):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+    want = dmv_value_and_grads_plain(dec, attach, lens, kind)
+    if kind == "max":
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("n1", [9, 10, 17, 51, 57, 101])
+def test_dmv_fused_on_tied_potentials_equals_the_inside_and_the_pair(cuda, n1):
+    """Quarter-integer potentials tie often. The max totals must be the
+    inside kernel's bit for bit (fmaxf is order-free), and the tables the
+    pair's: every cell of every best tree, by the exact tie test."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    rng = np.random.default_rng(100 + n1)
+    lengths = [0, 1, n1 - 1, *rng.integers(0, n1, 9).tolist()]
+    B, n = len(lengths), n1 - 1
+    parts = [torch.tensor(rng.integers(-8, 9, s) * 0.25, dtype=torch.float32)
+             for s in ((B, n, 2, 2, 2), (B, n, n, 2), (B, n))]
+    dec, attach = (t.to(cuda) for t in dmv_merge(*parts))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    ft, fd, fa = dmv_cuda.dmv_fused(dec, attach, lens, "max")
+    assert torch.equal(ft, dmv_cuda.dmv_inside(dec, attach, lens, "max"))
+    total, charts = dmv_cuda.dmv_inside_save(dec, attach, lens, "max")
+    gout = _cotangent(B, cuda)
+    gd, ga = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, "max")
+    assert torch.equal(total, ft)
+    assert torch.equal(gd, gout.view(-1, 1, 1, 1, 1) * fd)
+    assert torch.equal(ga, gout.view(-1, 1, 1, 1) * fa)
+    assert bool(((fa == 0) | (fa == 1)).all()) and float(fa.sum()) >= sum(lengths)
+
+
 def test_dmv_dispatch_goes_to_the_kernel(cuda):
     from vlgae_tpu_torch.ops import dmv_cuda
     from vlgae_tpu_torch.struct import dmv_value_and_grads
@@ -109,6 +173,91 @@ def test_match_fwd_matches_plain(cuda, A, V, B, Q, D):
     want = match_maxes_plain(vis, txt, vb, tb)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _quarter_match_inputs(rng, A, V, B, Q, D, device, scale=8):
+    """bf16-exact operands (k/4 with |k| <= scale) and -1e9 masks."""
+    vis = torch.tensor(rng.integers(-scale, scale + 1, (A, V, D)) * 0.25,
+                       device=device).bfloat16()
+    txt = torch.tensor(rng.integers(-scale, scale + 1, (B, Q, D)) * 0.25,
+                       device=device).bfloat16()
+    vb = torch.tensor(np.where(rng.random((A, V)) < 0.3, -1e9, 0.0),
+                      dtype=torch.float32, device=device)
+    tb = torch.tensor(np.where(rng.random((B, Q)) < 0.3, -1e9, 0.0),
+                      dtype=torch.float32, device=device)
+    return vis, txt, vb, tb
+
+
+def _assert_match_fwd_equals_plain(args):
+    from vlgae_tpu_torch.ops.match import match_maxes_cuda, match_maxes_plain
+
+    got = match_maxes_cuda(*args)
+    want = match_maxes_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return got
+
+
+# (A, V, B, Q, D): Q around an 8-word column group and the 104-word chunk
+# (the wgmma's N), V around a warp's 16 rows and the 64-row stage (its M), B
+# around the 4-caption tile, D around the 16-deep MMA step and the 128-deep
+# stage; 50 caption tiles, so that 2 blocks share 5 images, 3 and 2
+MATCH_EDGES = [
+    (2, 15, 1, 7, 8), (2, 16, 2, 8, 16), (2, 17, 3, 9, 24),
+    (3, 63, 4, 103, 128), (3, 64, 5, 104, 128), (3, 65, 7, 105, 128),
+    (2, 129, 9, 209, 64), (1, 33, 6, 31, 130), (2, 20, 3, 9, 384),
+    (2, 70, 5, 110, 127), (2, 70, 5, 110, 129), (1, 1, 1, 1, 1),
+    (5, 70, 200, 9, 16), (7, 130, 150, 30, 128),
+    # Q around the other builds (chunks of 40, 72 and 120 words), the recipe's
+    # Q = 2 * (padded length + 1), and where two and three equal chunks begin
+    (2, 70, 5, 18, 64), (2, 70, 5, 34, 128), (2, 70, 5, 39, 128), (3, 65, 6, 40, 128),
+    (3, 65, 6, 41, 128), (2, 70, 5, 50, 128), (2, 70, 5, 66, 128), (2, 70, 5, 72, 128),
+    (2, 70, 5, 73, 128), (2, 70, 5, 82, 128), (2, 70, 5, 98, 128), (3, 130, 9, 114, 128),
+    (2, 70, 5, 119, 128), (2, 70, 5, 120, 128), (2, 70, 5, 121, 128),
+    (2, 66, 3, 160, 136), (2, 66, 3, 241, 64), (2, 66, 3, 313, 32)]
+
+
+@pytest.mark.parametrize("A,V,B,Q,D", MATCH_EDGES)
+def test_match_fwd_tile_edges(cuda, A, V, B, Q, D):
+    rng = np.random.default_rng(A + V + B + Q + D)
+    _assert_match_fwd_equals_plain(_quarter_match_inputs(rng, A, V, B, Q, D, cuda))
+
+
+@pytest.mark.parametrize("A,V,B,Q,D", [(3, 70, 6, 110, 8), (4, 130, 5, 21, 3),
+                                       (2, 64, 4, 104, 128)])
+def test_match_fwd_ties_and_whole_masked_rows(cuda, A, V, B, Q, D):
+    """Operands in {-1/4, 0, 1/4}: nearly every maximum is tied, so every
+    merge (lanes, warps, image tiles, q-chunks) must prefer the smaller
+    index; a wholly masked image, caption, region and word tie at exactly
+    -1e9 or -2e9 and give index 0."""
+    rng = np.random.default_rng(D)
+    vis, txt, vb, tb = _quarter_match_inputs(rng, A, V, B, Q, D, cuda, scale=1)
+    vb[0, :] = -1e9
+    vb[:, 1] = -1e9
+    tb[1, :] = -1e9
+    tb[:, 0] = -1e9
+    _, li, _, lvi = _assert_match_fwd_equals_plain((vis, txt, vb, tb))
+    assert int(li[:, 0].max()) == 0 and int(lvi[1].max()) == 0
+    zeros = (torch.zeros_like(vis), torch.zeros_like(txt), torch.zeros_like(vb),
+             torch.zeros_like(tb))
+    _, li, _, lvi = _assert_match_fwd_equals_plain(zeros)
+    assert int(li.max()) == 0 and int(lvi.max()) == 0
+
+
+def test_match_fwd_takes_operands_off_16_byte_alignment(cuda):
+    """A contiguous operand that starts 2 bytes into an allocation cannot be
+    copied 16 bytes at a time: the same kernel stages it by 2-byte loads."""
+    from vlgae_tpu_torch.ops.match import match_fwd_plan
+
+    rng = np.random.default_rng(11)
+    vis, txt, vb, tb = _quarter_match_inputs(rng, 3, 70, 5, 40, 128, cuda)
+    buf = torch.zeros(vis.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    buf[1:] = vis.flatten()
+    off = buf[1:].view(vis.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    assert match_fwd_plan(3, 70, 5, 40, 128, off.data_ptr(),
+                          txt.data_ptr())["staging"] == "scalar"
+    _assert_match_fwd_equals_plain((off, txt, vb, tb))
 
 
 def test_match_wrapper_rejects_what_the_kernel_does_not_take(cuda):

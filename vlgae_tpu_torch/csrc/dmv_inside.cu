@@ -18,16 +18,21 @@
 //              shared memory, __syncwarp() between widths: for n1 <= 9,
 //              where a block per sentence would leave nearly every thread
 //              idle (the TPU's fill for tiny charts);
-//   1  block   one block per sentence, charts (32*n1*n1 bytes) in dynamic
-//              shared memory, __syncthreads() between widths;
+//   1  block   one block per sentence, charts (32*n1*(n1|1) bytes, an odd
+//              row pitch against bank conflicts) in dynamic shared memory,
+//              __syncthreads() between widths;
 //   2  global  one block per sentence, charts in global memory (the saved
 //              chart tensor itself, or a scratch buffer for the value-only
 //              pass): beyond the shared-memory limit (n1 > 85 on an H100;
 //              the TPU's fill for shapes short of fast memory).
 //
 // Bound: latency. A sentence of length L is 2L dependent steps (two
-// barriers per width) with O(L) work per cell; the bytes moved and the
-// operations done are microseconds of this card's peaks.
+// barriers per width); the bytes moved and the operations done are
+// microseconds of this card's peaks. The fill (dmv_common.cuh) spreads a
+// cell's terms over a group of lanes and takes a logsumexp as a
+// lane-parallel max, independent exps and one log, so a step is not a chain
+// of dependent exps; the block mappings run about one lane a cell (the
+// wrapper picks the count from n1).
 //
 // Saved layout: charts [B][4][n1][n1][2] f32, (chart, w, i, v) with chart
 // 0..3 = Cr, Cl, Ir, Il (see dmv_common.cuh); -1e12 outside the triangle.
@@ -38,13 +43,13 @@ namespace {
 
 using namespace dmv;
 
-constexpr int kThreads = 128;      // block mapping
+constexpr int kMaxThreads = 1024;  // block mappings
 constexpr int kWarpsPerBlock = 4;  // warp mapping
 
-// Writes one sentence's charts from `f` (any memory) to `g` (global),
-// -1e12 on the cells outside the span triangle.
+// Writes one sentence's charts from `f` (shared memory, row pitch p) to `g`
+// (global, row pitch n1), -1e12 on the cells outside the span triangle.
 __device__ __forceinline__ void save_charts(const float* f, float* __restrict__ g, int n1,
-                                            int len, int tid, int nt) {
+                                            int p, int len, int tid, int nt) {
   const int C = n1 * n1 * 2;
   for (int k = tid; k < 4 * C; k += nt) {
     const int chart = k / C;
@@ -52,12 +57,12 @@ __device__ __forceinline__ void save_charts(const float* f, float* __restrict__ 
     const int w = r / (2 * n1);
     const int i = (r - w * 2 * n1) >> 1;
     const bool valid = (i + w <= len) && !(chart >= 2 && w == 0);
-    g[k] = valid ? f[k] : kNegInf;
+    g[k] = valid ? f[chart * n1 * p * 2 + ix(p, w, i, r & 1)] : kNegInf;
   }
 }
 
 template <bool IS_MAX, bool SAVE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 dmv_inside_block_kernel(const float* __restrict__ dec, const float* __restrict__ attach,
                         const int* __restrict__ lengths, float* __restrict__ out,
                         float* __restrict__ charts, float* __restrict__ scratch, int n1,
@@ -66,19 +71,22 @@ dmv_inside_block_kernel(const float* __restrict__ dec, const float* __restrict__
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const size_t C = (size_t)n1 * n1 * 2;
-  float* g = SAVE ? charts + (size_t)b * 4 * C
-                  : (use_smem ? nullptr : scratch + (size_t)b * 4 * C);
+  const size_t CG = (size_t)n1 * n1 * 2;  // a chart in global memory
+  float* g = SAVE ? charts + (size_t)b * 4 * CG
+                  : (use_smem ? nullptr : scratch + (size_t)b * 4 * CG);
   float* f = use_smem ? smem_f : g;
+  const int p = use_smem ? smem_pitch(n1) : n1;
+  const size_t C = (size_t)n1 * p * 2;
   const int len = clamp_len(lengths[b], n1);
   if (SAVE && !use_smem) {
     for (size_t k = tid; k < 4 * C; k += nt) f[k] = kNegInf;
     __syncthreads();
   }
-  inside_fill<IS_MAX, false>(f, f + C, f + 2 * C, f + 3 * C, dec + (size_t)b * n1 * 8,
-                             attach + (size_t)b * n1 * n1 * 2, n1, len, tid, nt);
-  if (tid == 0) out[b] = f[ix(n1, len, 0, NC)];
-  if (SAVE && use_smem) save_charts(f, g, n1, len, tid, nt);
+  inside_fill<IS_MAX, false>(f, f + C, f + 2 * C, f + 3 * C, nullptr,
+                             dec + (size_t)b * n1 * 8, attach + (size_t)b * n1 * n1 * 2, n1,
+                             p, len, tid, nt);
+  if (tid == 0) out[b] = f[ix(p, len, 0, NC)];
+  if (SAVE && use_smem) save_charts(f, g, n1, p, len, tid, nt);
 }
 
 template <bool IS_MAX, bool SAVE>
@@ -91,20 +99,22 @@ dmv_inside_warp_kernel(const float* __restrict__ dec, const float* __restrict__ 
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;  // a whole warp; the kernel has no block-wide barrier
-  const int C = n1 * n1 * 2;
+  const int p = smem_pitch(n1);
+  const int C = n1 * p * 2;
   float* f = smem_f + warp * 4 * C;
   const int len = clamp_len(lengths[b], n1);
-  inside_fill<IS_MAX, true>(f, f + C, f + 2 * C, f + 3 * C, dec + (size_t)b * n1 * 8,
-                            attach + (size_t)b * n1 * n1 * 2, n1, len, lane, 32);
-  if (lane == 0) out[b] = f[ix(n1, len, 0, NC)];
-  if (SAVE) save_charts(f, charts + (size_t)b * 4 * C, n1, len, lane, 32);
+  inside_fill<IS_MAX, true>(f, f + C, f + 2 * C, f + 3 * C, nullptr,
+                            dec + (size_t)b * n1 * 8, attach + (size_t)b * n1 * n1 * 2, n1, p,
+                            len, lane, 32);
+  if (lane == 0) out[b] = f[ix(p, len, 0, NC)];
+  if (SAVE) save_charts(f, charts + (size_t)b * 4 * n1 * n1 * 2, n1, p, len, lane, 32);
 }
 
 template <bool IS_MAX, bool SAVE>
 cudaError_t launch(const float* dec, const float* attach, const int* lengths, float* out,
-                   float* charts, float* scratch, int B, int n1, int mapping,
+                   float* charts, float* scratch, int B, int n1, int mapping, int threads,
                    cudaStream_t s) {
-  const int chart_bytes = 32 * n1 * n1;
+  const int chart_bytes = 32 * n1 * smem_pitch(n1);
   if (mapping == 0) {
     const int smem = kWarpsPerBlock * chart_bytes;
     const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -119,7 +129,7 @@ cudaError_t launch(const float* dec, const float* attach, const int* lengths, fl
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  dmv_inside_block_kernel<IS_MAX, SAVE><<<B, kThreads, smem, s>>>(
+  dmv_inside_block_kernel<IS_MAX, SAVE><<<B, threads, smem, s>>>(
       dec, attach, lengths, out, charts, scratch, n1, use_smem);
   return cudaGetLastError();
 }
@@ -138,25 +148,21 @@ int dmv_inside_smem_optin(int* bytes) {
 
 // dec [B,n1,2,2,2] f32, attach [B,n1,n1,2] f32, lengths [B] i32, out [B]
 // f32; with `save`, charts [B,4,n1,n1,2] f32 is written. mapping: 0 warp
-// (n1 <= 9), 1 block + shared memory (32*n1*n1 bytes), 2 block + global
+// (n1 <= 9), 1 block + shared memory (32*n1*(n1|1) bytes), 2 block + global
 // memory (`scratch` of B*32*n1*n1 bytes when not saving, else unused).
+// `threads` per block of mappings 1 and 2: a power of two in [32, 1024].
 // Returns cudaGetLastError().
 int dmv_inside_launch(const float* dec, const float* attach, const int* lengths, float* out,
                       float* charts, float* scratch, int B, int n1, int is_max, int save,
-                      int mapping, void* stream) {
+                      int mapping, int threads, void* stream) {
   if (B <= 0) return 0;
+  if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (is_max) {
-    e = save ? launch<true, true>(dec, attach, lengths, out, charts, scratch, B, n1, mapping, s)
-             : launch<true, false>(dec, attach, lengths, out, charts, scratch, B, n1, mapping,
-                                   s);
-  } else {
-    e = save ? launch<false, true>(dec, attach, lengths, out, charts, scratch, B, n1, mapping,
-                                   s)
-             : launch<false, false>(dec, attach, lengths, out, charts, scratch, B, n1, mapping,
-                                    s);
-  }
+  auto fn = is_max ? (save ? launch<true, true> : launch<true, false>)
+                   : (save ? launch<false, true> : launch<false, false>);
+  const cudaError_t e =
+      fn(dec, attach, lengths, out, charts, scratch, B, n1, mapping, threads, s);
   return (int)e;
 }
 

@@ -14,7 +14,12 @@ They replace the TPU launches of vlgae_tpu/ops/dmv_pallas.py reached from
   differentiable total, whose cotangent arrives later.
 
 The plain versions are in :mod:`vlgae_tpu_torch.struct.dmv`. Every wrapper
-takes CUDA tensors only and counts its launches.
+takes CUDA tensors only and counts its launches. What a wrapper decides
+before a launch (bytes of shared memory per sentence, charts in shared or
+in global memory, threads per block) is a pure function of ``n1`` and the
+card's opt-in shared memory: :func:`chart_pitch`, :func:`fused_smem_bytes`,
+:func:`inside_smem_bytes`, :func:`fused_uses_smem`, :func:`inside_mapping`,
+:func:`block_threads`, :func:`inside_threads`.
 """
 
 from __future__ import annotations
@@ -33,10 +38,14 @@ n_inside_launches = dict.fromkeys(MAPPINGS, 0)
 n_inside_save_launches = dict.fromkeys(MAPPINGS, 0)
 n_outside_launches = 0
 
-_SMEM_PER_N1SQ = 72  # bytes of charts per sentence / n1^2 (see the .cu)
-INSIDE_BYTES_PER_N1SQ = 32  # the four inside charts alone
-OUTSIDE_SCRATCH_PER_N1SQ = 40  # the five adjoint charts
+# bytes of one chart cell pair times the charts a kernel keeps per sentence
+# (see the .cu): nine for inside + outside, four for the inside alone, five
+# adjoint charts in the outside kernel's global scratch
+_FUSED_BYTES_PER_CELL = 72
+INSIDE_BYTES_PER_N1SQ = 32
+OUTSIDE_SCRATCH_PER_N1SQ = 40
 WARP_MAX_N1 = 9  # the warp mapping of dmv_inside.cu serves n1 <= 9
+MAX_THREADS = 1024  # csrc kMaxThreads
 _lib = None
 _smem_optin = None
 _inside_lib = None
@@ -56,12 +65,76 @@ def launch_counts() -> dict:
             "outside": n_outside_launches}
 
 
+def chart_pitch(n1: int) -> int:
+    """Positions per chart row in shared memory (``smem_pitch`` of
+    ``csrc/dmv_common.cuh``): odd, so that the lanes of one cell, which read
+    cells a row apart, hit different banks. Global charts keep ``n1``."""
+    return n1 | 1
+
+
+def fused_smem_bytes(n1: int) -> int:
+    """Shared memory per sentence of K1 and of the outside kernel: nine
+    float charts of ``[n1][pitch][2]``."""
+    return _FUSED_BYTES_PER_CELL * n1 * chart_pitch(n1)
+
+
+def inside_smem_bytes(n1: int) -> int:
+    """Shared memory per sentence of the inside kernel: four charts."""
+    return INSIDE_BYTES_PER_N1SQ * n1 * chart_pitch(n1)
+
+
+def fused_uses_smem(n1: int, smem_optin: int) -> bool:
+    """Whether K1 and the outside kernel keep their charts in shared memory
+    (else in a global scratch buffer), from ``n1`` and the card's opt-in
+    shared memory alone."""
+    return fused_smem_bytes(n1) <= smem_optin
+
+
+def block_threads(n1: int) -> int:
+    """Threads per block of K1 and of the outside kernel: the power of two
+    that gives each of the up to ``2 * n1`` cells of a width step about four
+    lanes, between one warp and ``MAX_THREADS`` (512 up to n1 = 64, where the
+    charts are in or near shared memory; 1024 beyond, where every term is a
+    read of global memory and more lanes hide more of it)."""
+    want = max(32, 8 * n1)
+    return min(MAX_THREADS, 1 << (want - 1).bit_length())
+
+
+def inside_threads(n1: int) -> int:
+    """Threads that run the inside fill of one sentence (the whole block of
+    the inside kernel, the first threads of K1's block): the power of two that
+    gives each of the up to ``2 * n1`` cells of a width step one lane, between
+    one warp and ``MAX_THREADS``. The inside fill has at most ``n1`` cheap
+    terms a cell; more lanes a cell cost more in shuffles and barrier than
+    they save."""
+    return min(MAX_THREADS, max(32, 1 << (2 * n1 - 1).bit_length()))
+
+
+def group_lanes(ntasks: int, nterms: int, threads: int) -> int:
+    """Lanes that share one task of a width step (``lanes_per_task`` of
+    ``csrc/dmv_common.cuh``, mirrored here for the tests and the notes): the
+    largest power of two ``G``, at most a warp, with ``ntasks * G <=
+    threads``, and no wider than ``nterms`` needs."""
+    G = 1
+    while G < 32 and 2 * G * ntasks <= threads and G < nterms:
+        G *= 2
+    return G
+
+
+def inside_group_widths(n1: int, threads: int) -> set:
+    """Every group width the inside fill uses on a sentence of ``n1 - 1``
+    words with ``threads`` threads (a warp in the warp mapping)."""
+    n = n1
+    return {group_lanes(tasks * (n - w), w, threads)
+            for w in range(1, n) for tasks in (1, 2)}
+
+
 def _library():
     global _lib, _smem_optin
     if _lib is None:
         lib = _build.load("dmv_fused")
         lib.dmv_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.dmv_fused_launch.restype = ctypes.c_int
         _lib, _smem_optin = lib, _query_optin(lib.dmv_fused_smem_optin)
     return _lib
@@ -109,10 +182,9 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
     out = torch.empty(B, device=dec.device, dtype=torch.float32)
     g_dec = torch.empty_like(dec)
     g_attach = torch.empty_like(attach)
-    need = _SMEM_PER_N1SQ * n1 * n1
-    use_smem = need <= _smem_optin
+    use_smem = fused_uses_smem(n1, _smem_optin)
     scratch = None if use_smem else torch.empty(
-        B * need, device=dec.device, dtype=torch.uint8)
+        B * _FUSED_BYTES_PER_CELL * n1 * n1, device=dec.device, dtype=torch.uint8)
     if B == 0:
         return out, g_dec, g_attach
     with torch.cuda.device(dec.device):
@@ -120,8 +192,8 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
             _build.ptr(dec), _build.ptr(attach), _build.ptr(lengths),
             _build.ptr(out), _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch),
-            B, n1, int(kind == "max"), int(use_smem),
-            _build.stream_ptr(dec.device))
+            B, n1, int(kind == "max"), int(use_smem), block_threads(n1),
+            inside_threads(n1), _build.stream_ptr(dec.device))
     _build.check(err, "dmv_fused_launch")
     n_launches += 1
     return out, g_dec, g_attach
@@ -132,7 +204,7 @@ def _inside_library():
     if _inside_lib is None:
         lib = _build.load("dmv_inside")
         lib.dmv_inside_launch.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.dmv_inside_launch.restype = ctypes.c_int
         _inside_lib, _smem_optin = lib, _query_optin(lib.dmv_inside_smem_optin)
     return _inside_lib
@@ -145,7 +217,7 @@ def inside_mapping(n1: int, smem_optin: int) -> str:
     sentence, charts in shared memory) while they fit, else ``global``."""
     if n1 <= WARP_MAX_N1:
         return "warp"
-    if INSIDE_BYTES_PER_N1SQ * n1 * n1 <= smem_optin:
+    if inside_smem_bytes(n1) <= smem_optin:
         return "smem"
     return "global"
 
@@ -168,7 +240,7 @@ def _inside(dec, attach, lengths, kind, save):
             _build.ptr(out), None if charts is None else _build.ptr(charts),
             None if scratch is None else _build.ptr(scratch),
             B, n1, int(kind == "max"), int(save), MAPPINGS.index(mapping),
-            _build.stream_ptr(dec.device))
+            inside_threads(n1), _build.stream_ptr(dec.device))
     _build.check(err, f"dmv_inside_launch ({what}, {mapping})")
     (n_inside_save_launches if save else n_inside_launches)[mapping] += 1
     return out, charts
@@ -204,7 +276,7 @@ def dmv_outside(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
     if _outside_lib is None:
         lib = _build.load("dmv_outside")
         lib.dmv_outside_launch.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.dmv_outside_launch.restype = ctypes.c_int
         _outside_lib = lib
     _inside_library()  # the shared-memory limit is queried there
@@ -212,7 +284,7 @@ def dmv_outside(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
     g_attach = torch.empty_like(attach)
     if B == 0:
         return g_dec, g_attach
-    use_smem = _SMEM_PER_N1SQ * n1 * n1 <= _smem_optin
+    use_smem = fused_uses_smem(n1, _smem_optin)
     scratch = None if use_smem else torch.empty(
         B * OUTSIDE_SCRATCH_PER_N1SQ * n1 * n1, device=dec.device, dtype=torch.uint8)
     with torch.cuda.device(dec.device):
@@ -221,7 +293,8 @@ def dmv_outside(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
             _build.ptr(gout), _build.ptr(logz), _build.ptr(charts),
             _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch),
-            B, n1, int(kind == "max"), int(use_smem), _build.stream_ptr(dec.device))
+            B, n1, int(kind == "max"), int(use_smem), block_threads(n1),
+            _build.stream_ptr(dec.device))
     _build.check(err, "dmv_outside_launch")
     n_outside_launches += 1
     return g_dec, g_attach

@@ -49,13 +49,91 @@ def match_maxes_plain(vis, txt, vis_bias, txt_bias):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
+# tiling of csrc/match_fwd.cu: captions per block (two per warpgroup; their
+# rows stay resident in shared memory), the q-chunks the kernel is built for
+# in 8-word column groups (the wgmma's N / 8: chunks of 40, 72, 104 and 120
+# words), image rows per streamed stage (the wgmma's M), contraction per
+# stage (8 wgmmas of k = 16), stages of the ring
+FWD_CAP_TILE, FWD_Q_GROUPS, FWD_V_TILE, FWD_K_CHUNK, FWD_STAGES = 4, (5, 9, 13, 15), 64, 128, 3
+H100_SMS = 132
+
+
+def match_fwd_groups(A: int, B: int, sm_count: int) -> int:
+    """Image groups of K5's grid: a block serves ``FWD_CAP_TILE`` captions and
+    every ``groups``-th image, so that ``groups * ceil(B / FWD_CAP_TILE)``
+    blocks are about one a multiprocessor (never more than one per image)."""
+    return max(1, min(A, sm_count // max(1, -(-B // FWD_CAP_TILE))))
+
+
+def match_fwd_q_tiling(Q: int):
+    """``(q_chunks, nt)``: the words of a caption go through K5 in
+    ``q_chunks`` chunks of ``8 * nt`` words, each a pass over the images. The
+    fewest chunks of at most 120 words (the widest build), of equal width, in
+    the narrowest build that holds them. Captions are padded to multiples of 8
+    words and Q = 2 * (length + 1): Q = 34 is one chunk of 40, Q = 98 and 102
+    one of 104, Q = 114 (56 words, the recipe's longest) one of 120, Q = 202
+    two of 104."""
+    groups8 = max(1, -(-Q // 8))
+    per_chunk = -(-groups8 // -(-groups8 // FWD_Q_GROUPS[-1]))
+    nt = next(n for n in FWD_Q_GROUPS if n >= per_chunk)
+    return -(-groups8 // nt), nt
+
+
+def match_fwd_smem_bytes(nt: int) -> int:
+    """Dynamic shared memory of a K5 block with q-chunks of ``8 * nt`` words:
+    the resident captions, the ring of image tiles, both biases (the tiles'
+    in a ring one deeper), the merge buffer of the column maxes (16
+    candidates a word and warpgroup), and room to start the swizzled tiles on
+    a 1024-byte boundary."""
+    row, chunk = 2 * FWD_K_CHUNK, 8 * nt
+    return (FWD_CAP_TILE * chunk * row + FWD_STAGES * FWD_V_TILE * row
+            + FWD_CAP_TILE * chunk * 4 + (FWD_STAGES + 1) * FWD_V_TILE * 4
+            + 2 * 16 * chunk * 8 + 1024)
+
+
+def match_fwd_plan(A, V, B, Q, D, vis_ptr=0, txt_ptr=0, sm_count=H100_SMS):
+    """What one launch of K5 does at these shapes, from the shapes, the
+    operands' addresses and the card's multiprocessor count alone: the grid
+    (``groups`` x tiles of ``FWD_CAP_TILE`` captions, whose rows are the
+    resident side), the q-chunks (how many, of how many words), the streamed
+    image tiles and k-chunks a block walks per image, how rows are staged
+    (``"cp.async"`` 16 bytes at a time when they are 16-byte aligned, else
+    ``"scalar"`` 2-byte loads inside the same kernel), the dynamic shared
+    memory of a block and the bytes all blocks copy from L2."""
+    cap_tiles = -(-B // FWD_CAP_TILE)
+    groups = match_fwd_groups(A, B, sm_count)
+    q_chunks, nt = match_fwd_q_tiling(Q)
+    v_tiles = -(-V // FWD_V_TILE)
+    k_chunks = -(-D // FWD_K_CHUNK)
+    aligned = D % 8 == 0 and vis_ptr % 16 == 0 and txt_ptr % 16 == 0
+    # every block streams its images once per q-chunk and stages its captions
+    # once; when D takes k-chunks both are staged again for every (image tile,
+    # caption of a warpgroup)
+    if k_chunks == 1:
+        l2_bytes = 2 * D * cap_tiles * (q_chunks * A * V + groups * FWD_CAP_TILE * Q)
+    else:
+        l2_bytes = 2 * D * cap_tiles * 2 * A * (q_chunks * V + v_tiles * FWD_CAP_TILE * Q)
+    return {"grid": (groups, cap_tiles), "resident": "captions", "q_chunks": q_chunks,
+            "q_chunk_words": 8 * nt, "v_tiles": v_tiles, "k_chunks": k_chunks,
+            "staging": "cp.async" if aligned else "scalar",
+            "smem_bytes": match_fwd_smem_bytes(nt), "l2_to_smem_bytes": l2_bytes}
+
+
 def _library():
     global _lib
     if _lib is None:
         lib = _build.load("match_fwd")
         lib.match_fwd_launch.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.match_fwd_launch.restype = ctypes.c_int
+        lib.match_fwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.match_fwd_smem_bytes.restype = ctypes.c_int
+        for nt in FWD_Q_GROUPS:
+            if lib.match_fwd_smem_bytes(nt) != match_fwd_smem_bytes(nt):
+                raise RuntimeError(
+                    f"match_fwd.cu keeps {lib.match_fwd_smem_bytes(nt)} bytes of shared "
+                    f"memory at nt = {nt}, match_fwd_smem_bytes says "
+                    f"{match_fwd_smem_bytes(nt)}")
         _lib = lib
     return _lib
 
@@ -72,7 +150,8 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
         raise TypeError(f"match operands must be bf16, got {vis.dtype}/{txt.dtype}")
     if vis_bias.dtype != torch.float32 or txt_bias.dtype != torch.float32:
         raise TypeError("match biases must be f32")
-    if D != D2 or tuple(vis_bias.shape) != (A, V) or tuple(txt_bias.shape) != (B, Q):
+    if (D != D2 or D < 1 or tuple(vis_bias.shape) != (A, V)
+            or tuple(txt_bias.shape) != (B, Q)):
         raise ValueError(
             f"match shapes: vis {tuple(vis.shape)} txt {tuple(txt.shape)} "
             f"vis_bias {tuple(vis_bias.shape)} txt_bias {tuple(txt_bias.shape)}")
@@ -80,6 +159,8 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
         raise ValueError("match_maxes_cuda takes contiguous tensors")
     lib = _library()
     dev = vis.device
+    plan = match_fwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr(),
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
     logit = torch.empty((B, A, Q), device=dev, dtype=torch.float32)
     logit_idx = torch.empty((B, A, Q), device=dev, dtype=torch.int32)
     logit_v = torch.empty((B, A, V), device=dev, dtype=torch.float32)
@@ -89,7 +170,9 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
             _build.ptr(vis), _build.ptr(txt), _build.ptr(vis_bias),
             _build.ptr(txt_bias), _build.ptr(logit), _build.ptr(logit_idx),
             _build.ptr(logit_v), _build.ptr(logit_v_idx),
-            A, V, D, B, Q, _build.stream_ptr(dev))
+            A, V, D, B, Q, plan["grid"][0], plan["q_chunk_words"] // 8,
+            int(plan["staging"] == "cp.async"),
+            _build.stream_ptr(dev))
     _build.check(err, "match_fwd_launch")
     n_launches += 1
     return logit, logit_idx, logit_v, logit_v_idx
