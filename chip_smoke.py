@@ -21,8 +21,11 @@ Phases, each printing one JSON line:
   5. k6        - the matching backward against its plain version at the
                  training shape A=B=64, Q=102, V=739, D=128 (its K5 forward
                  held against the plain version too), exactly at a ragged
-                 shape, and exactly where the bf16 rounding of the summed
-                 cell weight shows
+                 shape, where the bf16 rounding of the summed cell weight
+                 shows, and on a hot word, a hot region and cells that win
+                 both ways; its winner lists against their plain version;
+                 the lists' lengths; its time beside the two bf16
+                 ``torch.matmul`` products over the dense winner weight
   6. reference - the card against the CPU on a small corpus (predictions)
   7. train_reference - one joint train step, the card against the CPU, at
                  small widths and precision=32 (loss and every gradient)
@@ -32,7 +35,8 @@ Phases, each printing one JSON line:
   9. train     - ``vlgae_tpu_torch.train`` on that corpus at the recipe's
                  widths and bf16: one warm-up and one joint epoch, the
                  checkpoints, ``eval.py`` on the test predictions, K5 and
-                 K6 on a joint step's own tensors, and the train-step time
+                 K6 on a joint step's own tensors (K6's time and list
+                 lengths there too), and the train-step time
                  at B=64
  10. k2        - the value-only inside kernel against ``dmv_total`` (log +
                  max) at B=64 with ragged lengths, in its three mappings: a
@@ -574,11 +578,79 @@ def _check_k6(args, exact, what):
     return err
 
 
+def k6_list_stats(li, lvi):
+    """Cross partners per owner row in K6's winner lists (their plain
+    version), for each output: rows, own partners a row (one a caption or
+    image), max, p99 and mean cross partners, rows with none."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_bwd_lists_plain
+
+    B, A, Q = li.shape
+    V = lvi.shape[2]
+    lists = match_bwd_lists_plain(li, lvi)
+    stats = {}
+    for out, side, N, O in (("dvis", "vis", V, B), ("dtxt", "txt", Q, A)):
+        cross = (lists["starts_" + side].long().diff().view(-1, N + 1)[:, :N] - O).flatten().float()
+        stats[out] = {"rows": cross.numel(), "own": O, "cross_max": int(cross.max()),
+                      "cross_p99": float(torch.quantile(cross, 0.99)),
+                      "cross_mean": float(cross.mean()),
+                      "rows_without_cross": int((cross == 0).sum())}
+    return stats
+
+
+def k6_product_library_ms(vis, txt, li, lvi, dm, dmv):
+    """K6's yardstick: the two bf16 ``torch.matmul`` products over the dense
+    winner weight W (bf16 of the summed cotangents, as K6 weighs a cell),
+    prebuilt outside the timed region in the layouts they need, ``[A·V,
+    B·Q] @ txt`` and ``[B·Q, A·V] @ vis``. The port never calls them."""
+    import torch
+
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    w = torch.zeros(B, A, Q, V, device=vis.device)
+    w.scatter_(3, li.long()[..., None], dm[..., None])
+    wq = torch.zeros_like(w)
+    wq.scatter_(2, lvi.long()[:, :, None, :], dmv[:, :, None, :])
+    w = (w + wq).bfloat16()
+    del wq
+    w_vis = w.permute(1, 3, 0, 2).reshape(A * V, B * Q).contiguous()
+    w_txt = w.permute(0, 2, 1, 3).reshape(B * Q, A * V).contiguous()
+    del w
+    x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
+    ms = device_ms(lambda: (torch.matmul(w_vis, x), torch.matmul(w_txt, y)), n=10)
+    del w_vis, w_txt
+    torch.cuda.empty_cache()
+    return ms
+
+
+def k6_kernels_ms(args, n=10):
+    """Device ms a call of each of K6's CUDA kernels (build, rows, finish),
+    from ``torch.profiler`` over ``n`` calls."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_maxes_bwd_cuda
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            match_maxes_bwd_cuda(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        for part in ("build", "rows", "finish"):
+            if f"match_bwd_{part}_kernel" in ev.key:
+                t = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+                out[part] = out.get(part, 0.0) + t / n / 1e3
+    return out
+
+
 def phase_k6(state):
     import numpy as np
     import torch
 
-    from vlgae_tpu_torch.ops.match import match_maxes_bwd_cuda, match_maxes_bwd_plain
+    from vlgae_tpu_torch.ops.match import (match_bwd_launch, match_bwd_lists_plain,
+                                           match_bwd_plan, match_maxes_bwd_cuda,
+                                           match_maxes_bwd_plain)
 
     rng = np.random.default_rng(2)
     dev = torch.device("cuda")
@@ -614,12 +686,41 @@ def phase_k6(state):
                     for a, b in zip(first, again))
     if not identical:
         raise AssertionError("K6 gave different bits on two runs")
+    # the card's winner lists and row starts are those of the plain version
+    scratch = match_bwd_launch(*args)[2]
+    plain_lists = match_bwd_lists_plain(*args[2:4])
+    if not all(torch.equal(scratch[k], w) for k, w in plain_lists.items()):
+        raise AssertionError("K6's winner lists differ from their plain version")
+    # exactly on rows that span many segments: word 1 of every caption wins
+    # every region (a dtxt row with A·V cross partners), region 2 of every
+    # image wins every word (a dvis row with B·Q), every cell (b, a, q, q)
+    # wins both ways
+    vis, txt, li, lvi, dm, dmv = _match_bwd_inputs(rng, *shape.values(), dev, "quarter")
+    q = torch.arange(shape["Q"], device=dev, dtype=torch.int32)
+    hot = {"hot_word": (li, torch.ones_like(lvi)), "hot_region": (torch.full_like(li, 2), lvi),
+           "own_cross": (q.expand_as(li).contiguous(),
+                         lvi.clone().index_copy_(2, q.long(), q.expand(*lvi.shape[:2], -1)))}
+    for name, (hli, hlvi) in hot.items():
+        hargs = (vis, txt, hli, hlvi, dm, dmv)
+        _check_k6(hargs, True, f"on the {name} case at {shape}")
+        if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in
+                   zip(match_maxes_bwd_cuda(*hargs), match_maxes_bwd_cuda(*hargs))):
+            raise AssertionError(f"K6 gave different bits on two runs ({name})")
+    vis, txt, li, lvi, dm, dmv = args
     ms = time_ms(lambda: match_maxes_bwd_cuda(*args))
+    dev_ms = device_ms(lambda: match_maxes_bwd_cuda(*args), n=20)
+    kernels_ms = k6_kernels_ms(args)
     plain_ms = time_ms(lambda: match_maxes_bwd_plain(*args), reps=5, warmup=1)
+    product_ms = k6_product_library_ms(*args)
+    list_stats = k6_list_stats(li, lvi)
+    plan = match_bwd_plan(*shape.values(), vis.data_ptr(), txt.data_ptr())
     emit({"phase": "k6", "shape": shape, "exact_at": exact_shape,
           "exact_12bit_cotangents_at": round_shape, "rounded_pair": pair,
+          "exact_hot_cases": list(hot), "lists_equal_plain": True,
           "max_abs_err": err, "tolerance": [K6_ATOL, K6_RTOL],
-          "bit_identical_reruns": identical, "ms": ms, "plain_ms": plain_ms})
+          "bit_identical_reruns": identical, "ms": ms, "device_ms": dev_ms,
+          "kernels_ms": kernels_ms, "plain_ms": plain_ms, "product_only_library_ms": product_ms,
+          "list_lengths": list_stats, "plan": plan})
     # what this run's winners need: one multiply-add per feature and output
     # (dvis, dtxt) for each distinct winning cell (b, a, q, v)
     vis, txt, li, lvi, dm, dmv = args
@@ -630,8 +731,9 @@ def phase_k6(state):
     v_side = (ba * Q + lvi.long()) * V + torch.arange(V, device=dev)
     cells = int(torch.unique(torch.cat([q_side.flatten(), v_side.flatten()])).numel())
     state["match_bwd"] = {
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "winning_cells": cells,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": None, "product_only_library_ms": product_ms,
+        "winning_cells": cells, "scratch_bytes": plan["bytes"],
         **bound(2 * 2 * (A * V + B * Q) * D + 8 * B * A * (Q + V),
                 4 * cells * D, "bf16")}
 
@@ -979,7 +1081,9 @@ def phase_train(state):
         _, k5_err, k5_off = _check_k5(captured["fwd"], False,
                                       "on a joint step's tensors")
         path_err = _check_k6(captured["bwd"], False, "on a joint step's tensors")
-        vis, txt = captured["bwd"][:2]
+        vis, txt, li, lvi = captured["bwd"][:4]
+        path_ms = device_ms(lambda: match.match_maxes_bwd_cuda(*captured["bwd"]), n=20)
+        path_lists = k6_list_stats(li, lvi)
         emit({"phase": "train", "train_s": round(t_train, 3), "launches": launches,
               "test": test, "epochs": len([r for r in lines if "train/loss" in r]),
               "losses": losses, "eval_py_tail": ev.stdout.strip().splitlines()[-1],
@@ -987,7 +1091,8 @@ def phase_train(state):
                              "vis": list(captured["fwd"][0].shape),
                              "txt": list(captured["fwd"][1].shape)},
               "k6_on_path": {"max_abs_err": path_err, "vis": list(vis.shape),
-                             "txt": list(txt.shape)},
+                             "txt": list(txt.shape), "device_ms": path_ms,
+                             "list_lengths": path_lists},
               "train_step_ms_median_B64": step_s * 1e3,
               "train_step_ms_B64": [round(t * 1e3, 3) for t in times],
               "sentences_per_s_B64": 64 / step_s,

@@ -153,3 +153,58 @@ def test_match_fwd_plan_counts_ragged_tiles(shape, want):
 def test_match_fwd_staging_needs_16_byte_rows(D, vis_ptr, txt_ptr, want):
     plan = match.match_fwd_plan(4, 33, 6, 31, D, vis_ptr, txt_ptr)
     assert plan["staging"] == want
+
+
+@pytest.mark.parametrize("V,Q", [(739, 102), (703, 102), (739, 114), (739, 34)])
+def test_match_bwd_plan_at_the_recipes_shapes(V, Q):
+    """K6 at A = B = 64, D = 128: the lists hold one int per cell of each
+    direction's index table, the row starts N+1 per group, a mark a segment,
+    and the workspace two partial rows a segment; together under 32 MB, with
+    no workspace of max(4·A·V·D, 16·B·Q·D) floats (97 MB at V = 739)."""
+    plan = match.match_bwd_plan(64, V, 64, Q, 128)
+    assert plan["positions"] == 64 * 64 * (V + Q)
+    per = -(-plan["positions"] // match.BWD_SEGMENT)
+    assert plan["segments"] == 2 * per
+    assert plan["layout"] == {"list_vis": (64, 64 * Q), "list_txt": (64, 64 * V),
+                              "starts_vis": (64 * (V + 1) + 1,),
+                              "starts_txt": (64 * (Q + 1) + 1,), "marks": (2 * per,)}
+    lists = 64 * 64 * (Q + V)
+    assert plan["ints"] == lists + 64 * (V + 1) + 1 + 64 * (Q + 1) + 1 + 2 * per
+    assert plan["workspace_floats"] == 2 * 2 * per * 128
+    assert plan["workspace_floats"] <= lists
+    assert plan["bytes"] == 4 * (plan["ints"] + plan["workspace_floats"]) < 32 * 2 ** 20
+    assert plan["bytes"] < 4 * max(4 * 64 * V * 128, 16 * 64 * Q * 128)
+    assert plan["features"] == "vec4"
+    assert plan["build_warps"] == (32, 32)
+    assert plan["build_smem"] == 4 * 33 * (V + 1) <= match.BWD_BUILD_SMEM <= H100_OPTIN
+
+
+def test_match_bwd_plan_at_the_training_shape_in_bytes():
+    plan = match.match_bwd_plan(64, 739, 64, 102, 128)
+    lists = plan["layout"]["list_vis"], plan["layout"]["list_txt"]
+    assert 4 * sum(g * n for g, n in lists) == 13_778_944 and plan["bytes"] == 27_827_528
+
+
+@pytest.mark.parametrize("D,vis_ptr,txt_ptr,want", [
+    (128, 0, 0, "vec4"), (8, 256, 8, "vec4"), (384, 8, 16, "vec4"), (4, 0, 0, "vec4"),
+    (130, 0, 0, "scalar"), (7, 0, 0, "scalar"), (128, 2, 0, "scalar"),
+    (128, 0, 4, "scalar")])
+def test_match_bwd_loads_8_bytes_a_lane_only_on_aligned_rows(D, vis_ptr, txt_ptr, want):
+    assert match.match_bwd_plan(4, 33, 6, 31, D, vis_ptr, txt_ptr)["features"] == want
+
+
+@pytest.mark.parametrize("n_rows,warps", [(1, 32), (102, 32), (739, 32), (1500, 15),
+                                          (6000, 3), (12286, 1)])
+def test_match_bwd_build_warps_fit_their_counts_in_shared_memory(n_rows, warps):
+    plan = match.match_bwd_plan(2, n_rows, 3, 1, 16)
+    assert plan["build_warps"][0] == warps
+    assert plan["build_smem"] == 4 * (warps + 1) * (n_rows + 1) <= match.BWD_BUILD_SMEM
+
+
+def test_match_bwd_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="D <= 384"):
+        match.match_bwd_plan(2, 9, 3, 6, 385)
+    with pytest.raises(ValueError, match="V, Q <="):
+        match.match_bwd_plan(2, 12288, 3, 6, 16)
+    with pytest.raises(ValueError, match="overflow"):
+        match.match_bwd_plan(4096, 4096, 128, 100, 16)

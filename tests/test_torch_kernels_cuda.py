@@ -28,9 +28,12 @@ quarter-integer potentials full of ties, max totals equal to the inside
 kernel's bit for bit and tables equal to the pair's. K6
 (``match_bwd``): indices from a real K5 forward and quarter-integer
 cotangents, so every product and sum is exact and the gradients must be
-EQUAL to the plain version's, at Q > 128, V and Q not multiples of the
-32-row tile, B = 1 and the recipe's training shape (V = 739); two runs
-must give identical bits. Quarter-integer cotangents are bf16-exact, so
+EQUAL to the plain version's, at Q > 128, D = 7 and 130 (the 2-byte
+feature path), B = 1 and the recipe's training shape (V = 739); two runs
+must give identical bits. The winner lists K6 builds equal their plain
+version (a stable argsort), and rows whose lists cross many 512-position
+segments (a word or a region that wins every cell of its caption or
+image) and cells that win both ways are exact too. Quarter-integer cotangents are bf16-exact, so
 the bf16 rounding of the summed cell weight is pinned apart: by the 1x1x1
 pair of the CPU test and, exactly, by 12-bit dyadic cotangents at shapes
 small enough for every f32 sum to stay exact, up to D = 384.
@@ -353,6 +356,68 @@ def test_match_bwd_is_exact_on_12_bit_cotangents(cuda, A, V, B, Q, D):
     assert not all(torch.equal(w, s) for w, s in zip(want, separate))
 
 
+@pytest.mark.parametrize("A,V,B,Q,D", [
+    (3, 10, 4, 5, 7), (5, 65, 62, 202, 130), (4, 33, 1, 129, 128),
+    (64, 739, 64, 102, 128)])
+def test_match_bwd_lists_equal_their_plain_version(cuda, A, V, B, Q, D):
+    from vlgae_tpu_torch.ops.match import match_bwd_launch, match_bwd_lists_plain, match_maxes
+
+    vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda)
+    _, li, _, lvi = match_maxes(vis, txt, vb, tb)
+    got = match_bwd_launch(vis, txt, li, lvi, dm, dmv)[2]
+    for name, want in match_bwd_lists_plain(li, lvi).items():
+        assert torch.equal(got[name], want), name
+
+
+def _hot_case(kind, device, A, V, B, Q, D):
+    """Winner indices built directly, quarter-integer operands and
+    cotangents. ``"hot_q"``: word 1 of every caption wins every region of
+    every image (a dtxt row with A·V cross partners); ``"hot_v"``: region 2
+    of every image wins every word (a dvis row with B·Q); ``"own_cross"``:
+    every cell (b, a, q, q % V) wins both ways where that is possible."""
+    rng = np.random.default_rng(A + V + B + Q + D)
+    vis = torch.tensor(rng.integers(-8, 9, (A, V, D)) * 0.25, device=device).bfloat16()
+    txt = torch.tensor(rng.integers(-8, 9, (B, Q, D)) * 0.25, device=device).bfloat16()
+    li = torch.tensor(rng.integers(0, V, (B, A, Q)), dtype=torch.int32, device=device)
+    lvi = torch.tensor(rng.integers(0, Q, (B, A, V)), dtype=torch.int32, device=device)
+    if kind == "hot_q":
+        lvi[:] = 1
+    elif kind == "hot_v":
+        li[:] = 2
+    else:
+        q = torch.arange(Q, device=device)
+        li[:] = (q % V).int()
+        lvi[:, :, :min(Q, V)] = torch.arange(min(Q, V), device=device).int()
+    dm = torch.tensor(rng.integers(-8, 9, (B, A, Q)) * 0.25, dtype=torch.float32,
+                      device=device)
+    dmv = torch.tensor(rng.integers(-8, 9, (B, A, V)) * 0.25, dtype=torch.float32,
+                       device=device)
+    return vis, txt, li, lvi, dm, dmv
+
+
+@pytest.mark.parametrize("kind", ["hot_q", "hot_v", "own_cross"])
+@pytest.mark.parametrize("A,V,B,Q,D", [(6, 70, 5, 40, 128), (64, 739, 64, 102, 128),
+                                       (3, 45, 4, 50, 130)])
+def test_match_bwd_hot_rows_and_own_cross_cells_are_exact(cuda, kind, A, V, B, Q, D):
+    """Rows whose lists run over many segments (a word that wins all A·V
+    cells of its caption, a region that wins all B·Q of its image) and cells
+    that win both ways (one weight, bf16(dm + dmv)): equal to the plain
+    version, bit-identical on a rerun, the lists equal to theirs."""
+    from vlgae_tpu_torch.ops.match import (match_bwd_launch, match_bwd_lists_plain,
+                                           match_maxes_bwd_cuda, match_maxes_bwd_plain)
+
+    args = _hot_case(kind, cuda, A, V, B, Q, D)
+    got = match_maxes_bwd_cuda(*args)
+    again = match_maxes_bwd_cuda(*args)
+    want = match_maxes_bwd_plain(*args)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+    lists = match_bwd_launch(*args)[2]
+    for name, want in match_bwd_lists_plain(*args[2:4]).items():
+        assert torch.equal(lists[name], want), name
+
+
 def test_match_autograd_on_the_card_launches_k5_and_k6(cuda, monkeypatch):
     from vlgae_tpu_torch.ops import match
     from vlgae_tpu_torch.ops.match import MatchMaxesFn
@@ -387,6 +452,9 @@ def test_match_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         match_maxes_bwd_cuda(vis, txt, li, lvi, dm[:, :, :5], dmv)
     with pytest.raises(RuntimeError):
         match_maxes_bwd_cuda(vis, txt, li, lvi, dm.cpu(), dmv)
+    with pytest.raises(ValueError):
+        match_maxes_bwd_cuda(vis, txt, li.transpose(1, 2).contiguous().transpose(1, 2),
+                             lvi, dm, dmv)
     wide = torch.zeros(2, 9, 385, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D <= 384"):
         match_maxes_bwd_cuda(wide, torch.zeros(3, 6, 385, device=cuda,

@@ -105,3 +105,99 @@ def test_meta_tensors_are_refused():
     v = torch.zeros(1, 2, 3, dtype=torch.bfloat16, device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         match_maxes_bwd(v, v, None, None, None, None)
+
+
+def _sum_over_lists(vis, txt, li, lvi, dm, dmv):
+    """(dvis, dtxt) summed over the plain winner lists the way K6 walks
+    them: row (g, n) takes its O own positions, then its cross positions in
+    list order, each position one bf16 weight times a partner row, added in
+    f32 in position order."""
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    lists = match.match_bwd_lists_plain(li, lvi)
+    bf16 = lambda x: x.bfloat16().float()  # noqa: E731
+    # (owner rows N, partners O x M, own/cross tables [O, G, *], partner rows)
+    sides = {"vis": (V, B, Q, lvi.long(), dmv, li.long(), dm, txt.float().reshape(B * Q, D)),
+             "txt": (Q, A, V, li.long().transpose(0, 1), dm.transpose(0, 1),
+                     lvi.long().transpose(0, 1), dmv.transpose(0, 1),
+                     vis.float().reshape(A * V, D))}
+    outs = []
+    for side, (N, O, M, own_win, own_cot, cross_win, cross_cot, src) in sides.items():
+        order, starts = lists["list_" + side], lists["starts_" + side]
+        G = order.shape[0]
+        T = int(starts[-1])
+        p = torch.arange(T)
+        r = torch.searchsorted(starts.long(), p, right=True) - 1
+        g, n = r // (N + 1), r % (N + 1)
+        k = p - starts.long()[r]
+        real = n < N
+        nn = n.clamp(max=N - 1)
+        # own positions: o = k, m = own_win[o, g, n]
+        o_own = k.clamp(max=O - 1)
+        m_own = own_win[o_own, g, nn]
+        w_own = own_cot[o_own, g, nn] + torch.where(
+            cross_win[o_own, g, m_own] == nn, cross_cot[o_own, g, m_own], 0.0)
+        # cross positions: e = o*M + m from the list
+        e = order.flatten().long()[(p - (g * N + n + 1) * O).clamp(0, G * O * M - 1)]
+        o_x, m_x = e // M, e % M
+        w_x = torch.where(own_win[o_x, g, nn] != m_x, cross_cot[o_x, g, m_x], 0.0)
+        own = k < O
+        w = torch.where(real, bf16(torch.where(own, w_own, w_x)), 0.0)
+        partner = torch.where(own, o_own * M + m_own, e)
+        out = torch.zeros(G * N, D)
+        lengths = starts.long().diff()
+        for step in range(int(lengths.max())):
+            at = (lengths > step) & (torch.arange(G * (N + 1)) % (N + 1) < N)
+            rows = torch.nonzero(at).flatten()
+            q = starts.long()[rows] + step
+            dst = (rows // (N + 1)) * N + rows % (N + 1)
+            out[dst] += w[q, None] * src[partner[q]]
+        outs.append(out.view(G, N, D).bfloat16())
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sums_over_the_winner_lists_equal_plain_and_pallas_interpret(shape):
+    """K6's lists, summed in K6's order, give the plain version's gradients
+    and the Pallas kernel's (interpret mode) exactly on quarter-integers."""
+    vis, txt, vb, tb, wm, wmv = _inputs(*shape)
+    want_dvis, want_dtxt = _jax_grads(vis, txt, vb, tb, wm, wmv)
+    v = torch.from_numpy(vis).bfloat16()
+    t = torch.from_numpy(txt).bfloat16()
+    _, li, _, lvi = match_maxes_plain(v, t, torch.from_numpy(vb), torch.from_numpy(tb))
+    dm, dmv = torch.from_numpy(wm), torch.from_numpy(wmv)
+    dvis, dtxt = _sum_over_lists(v, t, li, lvi, dm, dmv)
+    plain = match_maxes_bwd_plain(v, t, li, lvi, dm, dmv)
+    assert torch.equal(dvis, plain[0]) and torch.equal(dtxt, plain[1])
+    np.testing.assert_array_equal(dvis.float().numpy(), want_dvis)
+    np.testing.assert_array_equal(dtxt.float().numpy(), want_dtxt)
+
+
+def test_winner_lists_group_every_cell_by_its_owner_row_stably():
+    """Each list is a permutation of its group's partner cells, ordered by
+    the owner row their winner names and, within a row, ascending; the row
+    starts count O own positions per row before it plus the cross entries;
+    an index outside the rows goes to the group's last, unwritten row."""
+    A, V, B, Q = 3, 7, 4, 5
+    rng = np.random.default_rng(0)
+    li = torch.tensor(rng.integers(0, V, (B, A, Q)), dtype=torch.int32)
+    lvi = torch.tensor(rng.integers(0, Q, (B, A, V)), dtype=torch.int32)
+    li[1, 2, 3] = -1
+    lists = match.match_bwd_lists_plain(li, lvi)
+    for side, keys, N, O in (("vis", li.permute(1, 0, 2).reshape(A, B * Q), V, B),
+                             ("txt", lvi.reshape(B, A * V), Q, A)):
+        order, starts = lists["list_" + side], lists["starts_" + side]
+        G, cells = keys.shape
+        assert order.dtype == starts.dtype == torch.int32
+        assert starts.shape == (G * (N + 1) + 1,) and int(starts[-1]) == G * O * (N + cells // O)
+        for g in range(G):
+            assert sorted(order[g].tolist()) == list(range(cells))
+            key = keys[g].long().where((keys[g] >= 0) & (keys[g] < N), torch.tensor(N))
+            got = [(int(key[i]), int(i)) for i in order[g]]
+            assert got == sorted(got)
+            for n in range(N + 1):
+                before = int((key < n).sum())
+                assert int(starts[g * (N + 1) + n]) == (g * N + n) * O + g * cells + before
+    order, starts = lists["list_vis"], lists["starts_vis"]
+    assert int(starts[2 * (V + 1) + V + 1] - starts[2 * (V + 1) + V]) == 1
+    assert order[2, -1] == 1 * Q + 3

@@ -17,6 +17,7 @@ contract); the biases get no gradient.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -214,25 +215,111 @@ def match_maxes_bwd_plain(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
     return torch.cat(dvis).to(vis.dtype), dtxt.to(txt.dtype)
 
 
+# K6 (csrc/match_bwd.cu): positions per segment of a warp of the rows pass;
+# the largest feature width; warps of a build block (a block per group) and
+# the shared memory they may take (a [warps, N+1] table of int counts and a
+# row of N+1)
+BWD_SEGMENT = 512
+BWD_MAX_D = 384
+BWD_BUILD_WARPS = 32
+BWD_BUILD_SMEM = 96 * 1024
+
+
+def _bwd_build_warps(n_rows: int) -> int:
+    """Warps of a K6 build block whose groups have ``n_rows`` owner rows:
+    each warp counts into its own row of ``n_rows + 1`` ints."""
+    fit = BWD_BUILD_SMEM // (4 * (n_rows + 1)) - 1
+    if fit < 1:
+        raise ValueError(f"match_maxes_bwd_cuda takes V, Q <= "
+                         f"{BWD_BUILD_SMEM // 8 - 1}, got {n_rows}")
+    return min(BWD_BUILD_WARPS, fit)
+
+
+def match_bwd_plan(A, V, B, Q, D, vis_ptr=0, txt_ptr=0):
+    """What one call of K6 allocates and launches, from the shapes and the
+    operands' addresses alone. Each direction (dvis: owner rows (a, v),
+    partners (b, q); dtxt: owner rows (b, q), partners (a, v)) has
+    ``A*B*(V+Q)`` positions: every owner row's O own partners (one a caption
+    or image), then its cross partners from the winner lists, cut into
+    segments of ``BWD_SEGMENT`` positions (a warp of the rows pass each).
+    ``"layout"`` is the one int32 scratch buffer, in order: the lists of
+    dvis ``[A, B*Q]`` and of dtxt ``[B, A*V]``, their row starts
+    (``A*(V+1)+1`` and ``B*(Q+1)+1``) and one mark a segment; the f32
+    workspace holds two partial rows of D a segment. Features go 8 bytes a
+    lane (``"vec4"``) when rows are 8-byte aligned, else 2 bytes
+    (``"scalar"``)."""
+    if D < 1 or D > BWD_MAX_D:
+        raise ValueError(f"match_maxes_bwd_cuda takes D <= {BWD_MAX_D}, got {D}")
+    segment = BWD_SEGMENT
+    positions = A * B * (V + Q)
+    if positions >= 2 ** 31 - segment:
+        raise ValueError(f"match_maxes_bwd_cuda: {positions} positions overflow int32")
+    per = -(-positions // segment)
+    warps = (_bwd_build_warps(V), _bwd_build_warps(Q))
+    layout = {"list_vis": (A, B * Q), "list_txt": (B, A * V),
+              "starts_vis": (A * (V + 1) + 1,), "starts_txt": (B * (Q + 1) + 1,),
+              "marks": (2 * per,)}
+    ints = sum(math.prod(shape) for shape in layout.values())
+    work = 2 * (2 * per) * D
+    aligned = D % 4 == 0 and vis_ptr % 8 == 0 and txt_ptr % 8 == 0
+    return {"positions": positions, "segment": segment, "segments": 2 * per,
+            "layout": layout, "ints": ints,
+            "workspace_floats": work, "bytes": 4 * (ints + work),
+            "features": "vec4" if aligned else "scalar",
+            "build_warps": warps,
+            "build_smem": 4 * max((w + 1) * (n + 1) for w, n in zip(warps, (V, Q)))}
+
+
+def match_bwd_lists_plain(logit_idx, logit_v_idx):
+    """K6's winner lists and row starts in plain PyTorch (a stable argsort by
+    owner row), named and shaped as in :func:`match_bwd_plan`'s layout
+    (``list_vis``, ``starts_vis``, ``list_txt``, ``starts_txt``). A list
+    holds, per group (image a for dvis, caption b for dtxt), its partner
+    cells o*M + m (dvis: b*Q + q, dtxt: a*V + v) grouped by the owner row
+    their winner names (keys outside the rows last), in ascending order
+    within a row. The starts are positions: row (g, n) begins after the O
+    own positions of every earlier row and the cross entries before it; the
+    last entry is A*B*(V+Q)."""
+    B, A, Q = logit_idx.shape
+    V = logit_v_idx.shape[2]
+
+    def one(keys, N, O):
+        G, cells = keys.shape
+        keys = keys.long()
+        keys = torch.where((keys >= 0) & (keys < N), keys, N)
+        order = torch.argsort(keys, dim=1, stable=True).int()
+        counts = torch.zeros(G, N + 1, dtype=torch.long, device=keys.device)
+        counts.scatter_add_(1, keys, torch.ones_like(keys))
+        before = counts.cumsum(1) - counts
+        g = torch.arange(G, device=keys.device)[:, None]
+        n = torch.arange(N + 1, device=keys.device)
+        starts = (g * N + n) * O + g * cells + before
+        end = torch.tensor([G * O * (N + cells // O)], device=keys.device)
+        return order, torch.cat([starts.flatten(), end]).int()
+
+    lists = {}
+    for side, keys, N, O in (("vis", logit_idx.permute(1, 0, 2).reshape(A, B * Q), V, B),
+                             ("txt", logit_v_idx.reshape(B, A * V), Q, A)):
+        lists["list_" + side], lists["starts_" + side] = one(keys, N, O)
+    return lists
+
+
 def _bwd_library():
     global _bwd_lib
     if _bwd_lib is None:
         lib = _build.load("match_bwd")
-        lib.match_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.match_bwd_launch.argtypes = [ctypes.c_void_p] * 14 + [
+            ctypes.c_int] * 12 + [ctypes.c_void_p]
         lib.match_bwd_launch.restype = ctypes.c_int
-        lib.match_bwd_workspace.argtypes = [ctypes.c_int] * 5
-        lib.match_bwd_workspace.restype = ctypes.c_longlong
+        lib.match_bwd_max_d.restype = ctypes.c_int
+        if lib.match_bwd_max_d() != BWD_MAX_D:
+            raise RuntimeError(f"match_bwd.cu takes D <= {lib.match_bwd_max_d()}, "
+                               f"BWD_MAX_D says {BWD_MAX_D}")
         _bwd_lib = lib
     return _bwd_lib
 
 
-_BWD_MAX_D = 384  # csrc/match_bwd.cu kMaxD (shared-memory accumulator)
-
-
-def match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
-    """Launch K6. Same outputs as :func:`match_maxes_bwd_plain`."""
-    global n_bwd_launches
+def _check_bwd_args(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
     A, V, D = vis.shape
     B, Q, D2 = txt.shape
     tensors = (vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
@@ -252,25 +339,43 @@ def match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
             f"match bwd shapes: vis {tuple(vis.shape)} txt {tuple(txt.shape)} "
             f"idx {tuple(logit_idx.shape)} vidx {tuple(logit_v_idx.shape)} "
             f"dlogit {tuple(dlogit.shape)} dlogit_v {tuple(dlogit_v.shape)}")
-    if D > _BWD_MAX_D:
-        raise ValueError(f"match_maxes_bwd_cuda takes D <= {_BWD_MAX_D}, got {D}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("match_maxes_bwd_cuda takes contiguous tensors")
+    return match_bwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr())
+
+
+def match_bwd_launch(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    """Launch K6 (three CUDA kernels, one count): ``(dvis, dtxt, scratch)``,
+    ``scratch`` the views of the int32 buffer named in
+    :func:`match_bwd_plan`'s layout, as this call left them."""
+    global n_bwd_launches
+    plan = _check_bwd_args(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
     lib = _bwd_library()
-    dvis = torch.empty_like(vis)
-    dtxt = torch.empty_like(txt)
-    # f32 partial sums of the split-K slices (see the .cu)
-    work = torch.empty(max(1, lib.match_bwd_workspace(A, V, D, B, Q)),
-                       dtype=torch.float32, device=vis.device)
+    # every output row is written unless a dimension is 0 (nothing to sum)
+    empty = torch.zeros_like if 0 in (A, V, B, Q) else torch.empty_like
+    dvis, dtxt = empty(vis), empty(txt)
+    ints = torch.empty(plan["ints"], dtype=torch.int32, device=vis.device)
+    work = torch.empty(plan["workspace_floats"], dtype=torch.float32, device=vis.device)
+    layout = plan["layout"]
+    parts = torch.split(ints, [math.prod(shape) for shape in layout.values()])
+    scratch = {name: part.view(shape) for (name, shape), part in zip(layout.items(), parts)}
     with torch.cuda.device(vis.device):
         err = lib.match_bwd_launch(
-            _build.ptr(vis), _build.ptr(txt), _build.ptr(logit_idx),
-            _build.ptr(logit_v_idx), _build.ptr(dlogit), _build.ptr(dlogit_v),
-            _build.ptr(dvis), _build.ptr(dtxt), _build.ptr(work), A, V, D, B, Q,
+            *(_build.ptr(t) for t in (vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v,
+                                      dvis, dtxt, *scratch.values(), work)),
+            A, V, D, B, Q, plan["positions"], plan["segment"], plan["segments"] // 2,
+            int(plan["features"] == "vec4"), *plan["build_warps"], plan["build_smem"],
             _build.stream_ptr(vis.device))
     _build.check(err, "match_bwd_launch")
     n_bwd_launches += 1
-    return dvis, dtxt
+    return dvis, dtxt, scratch
+
+
+def match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    """Launch K6. Same outputs as :func:`match_maxes_bwd_plain`."""
+    return match_bwd_launch(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)[:2]
 
 
 def match_maxes_bwd(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
