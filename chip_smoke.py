@@ -60,11 +60,29 @@ Phases, each printing one JSON line:
                  own tensors, the checkpoint, step times at B=64; then
                  ``predict`` on a small corpus of captions of 86-99 words
                  (charts beyond shared memory)
-Then the card's name and power limit, the per-kernel table (launches on the
-main paths, error, time, the plain version's time, the bound the card's
-peaks set for the same work, a library call's time where one exists) and, as
-the last line, ``{"ok": true, "device": {...}}``. Any failure raises and the
-script exits non-zero without that line. Needs one CUDA device.
+ 14. vit_reference - ``exp=vlgae_vit`` at small widths (32 px images, 16 px
+                 patches, ViT 16/1/2/32) and precision=32, the backbone's
+                 weights from an .npz through ``vis_encoder.vit_weights``:
+                 the card and the CPU write the same dev predictions and
+                 take the same joint train step
+ 15. vit       - ``vlgae_tpu_torch.train`` then ``.predict`` with
+                 ``exp=vlgae_vit`` at the recipe's widths (224 px images, 32
+                 px patches, ViT 192/4/4/384, captions up to 63 words) and
+                 bf16: one warm-up and one joint epoch, K1 in its
+                 global-scratch mapping (n1 = 65), K5 in two q-chunks at
+                 V = 1,324 and K6 at V = 1,324 on the path (launches counted,
+                 each held against its plain version on the path's own
+                 tensors), the frozen ViT bit-identical after training,
+                 ``eval.py`` on the predictions with the patch grid as
+                 proposal boxes, step times and the kernels' times there
+Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
+the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
+Then each phase's seconds, the card's name and power limit, the per-kernel
+table (launches on the main paths, error, time, the plain version's time,
+the bound the card's peaks set for the same work, a library call's time
+where one exists) and, as the last line, ``{"ok": true, "device": {...}}``.
+Any failure raises and the script exits non-zero without that line. Needs
+one CUDA device.
 """
 
 from __future__ import annotations
@@ -301,6 +319,7 @@ def phase_k1(state):
     import numpy as np
     import torch
 
+    from vlgae_tpu_torch.ops import dmv_cuda
     from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused
     from vlgae_tpu_torch.struct import dmv_value_and_grads_plain
 
@@ -308,18 +327,26 @@ def phase_k1(state):
     dev = torch.device("cuda")
     recipe = rng.integers(1, 51, 64)
     recipe[:3] = (1, 50, 0)  # length 1, the longest, a zero-length filler
+    # exp=vlgae_vit trains on captions of up to 63 words: n1 = 65, past the
+    # shared-memory limit, so K1 keeps its charts in global scratch
+    vit = rng.integers(1, 65, 64)
+    vit[:3] = (64, 1, 0)
     cases = {
         "B64_len1-50": (recipe, 51),
         "B16_len-to-80": (np.r_[80, 0, 1, rng.integers(51, 81, 13)], 81),
         "B16_n1-lt-10": (np.r_[0, 1, 8, rng.integers(0, 9, 13)], 9),
+        "B64_len1-64_global": (vit, 65),
     }
     worst = 0.0
     result = {"phase": "k1", "cases": {}}
     for name, (lengths, n1) in cases.items():
         dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
         for kind in ("log", "max"):
+            g0 = dmv_cuda.n_fused_global_launches
             kt, kd, ka = dmv_fused(dec, attach, lens, kind)
             again = dmv_fused(dec, attach, lens, kind)
+            if name.endswith("_global") and dmv_cuda.n_fused_global_launches != g0 + 2:
+                raise AssertionError(f"K1 {name} did not take the global-scratch mapping")
             pt, pd, pa = dmv_value_and_grads_plain(dec, attach, lens, kind)
             torch.cuda.synchronize()
             if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -350,6 +377,13 @@ def phase_k1(state):
                 reps=5, warmup=1),
         }
     result["timing_B64_len1-50"] = timing
+    dec, attach, lens = _dmv_inputs(rng, vit, 65, dev)
+    timing65 = {kind: {
+        "ms": time_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+        "device_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+        "plain_ms": time_ms(lambda: dmv_value_and_grads_plain(dec, attach, lens, kind),
+                            reps=5, warmup=1)} for kind in ("log", "max")}
+    result["timing_B64_n1-65_global"] = timing65
     result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
                            "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL]}
     emit(result)
@@ -365,6 +399,14 @@ def phase_k1(state):
         "device_ms_max": timing["max"]["device_ms"],
         "dependent_steps": 4 * 50,
     }
+    both65 = dmv_bound(vit, 65, "fused")
+    state["dmv_fused"]["at_n1_65_global"] = {
+        "ms": timing65["log"]["ms"] + timing65["max"]["ms"],
+        "plain_ms": timing65["log"]["plain_ms"] + timing65["max"]["plain_ms"],
+        **both65, "bound_ms": 2 * both65["bound_ms"],
+        **{f"{k}_{kind}": timing65[kind][k] for kind in timing65
+           for k in ("ms", "device_ms", "plain_ms")},
+        "dependent_steps": 4 * 64}
 
 
 def _check_k5(args, exact, what):
@@ -420,7 +462,12 @@ def _check_k5(args, exact, what):
 K5_EDGES = ((5, 65, 62, 202, 130), (2, 15, 1, 7, 8), (3, 63, 5, 103, 128),
             (3, 64, 4, 104, 128), (3, 65, 7, 105, 128), (2, 20, 3, 9, 384),
             (5, 70, 200, 9, 16), (3, 65, 6, 34, 128), (3, 65, 6, 66, 128),
-            (2, 70, 5, 114, 128))
+            (2, 70, 5, 114, 128), (3, 1324, 5, 130, 128))
+# the patch grid of exp=vlgae_vit (49 patches, their pairs, attributes and
+# the image): V in training (inclusive pair triangle) and in evaluation
+# (strict), beside its longest captions (63 words: Q = 130, two q-chunks)
+VIT_V = {"train": 1324, "eval": 1275}
+VIT_Q = 130
 
 
 def _k5_inputs(rng, A, V, B, Q, D, dev, kind):
@@ -455,6 +502,7 @@ def phase_k5(state):
     import numpy as np
     import torch
 
+    from vlgae_tpu_torch.ops import match
     from vlgae_tpu_torch.ops.match import (match_fwd_plan, match_maxes_cuda,
                                            match_maxes_plain)
 
@@ -504,13 +552,32 @@ def phase_k5(state):
                    "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=3, warmup=1),
                    **bound(2 * (A * 739 + B * q) * D + 4 * (A * 739 + B * q)
                            + 8 * B * A * (q + 739), 2 * A * B * q * 739 * D, "bf16")}
-    plan = match_fwd_plan(A, 703, B, Q, D, sm_count=torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    at_vit = {}
+    for what, V in VIT_V.items():
+        args = _k5_inputs(rng, A, V, B, VIT_Q, D, dev, "random")
+        two = match.n_launches_by_q_chunks.get(2, 0)
+        _, errs, off = _check_k5(args, False, f"at V={V}, Q={VIT_Q}")
+        if match.n_launches_by_q_chunks.get(2, 0) != two + 1:
+            raise AssertionError(f"K5 at V={V}, Q={VIT_Q} did not take two q-chunks")
+        vis, txt = args[:2]
+        x, y = txt.reshape(B * VIT_Q, D), vis.reshape(A * V, D)
+        at_vit[what] = {
+            "V": V, "Q": VIT_Q, "max_abs_err": errs, "index_mismatch_within_tol": off,
+            "plan": match_fwd_plan(A, V, B, VIT_Q, D, vis.data_ptr(), txt.data_ptr(),
+                                   sm_count),
+            "ms": time_ms(lambda: match_maxes_cuda(*args)),
+            "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
+            "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=5, warmup=1),
+            "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
+            **bound(2 * (A * V + B * VIT_Q) * D + 4 * (A * V + B * VIT_Q)
+                    + 8 * B * A * (VIT_Q + V), 2 * A * B * VIT_Q * V * D, "bf16")}
+    plan = match_fwd_plan(A, 703, B, Q, D, sm_count=sm_count)
     emit({"phase": "k5", "shape": {"A": A, "B": B, "Q": Q, "V": [703, 739], "D": D},
           "instruction": "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16",
           "plan_V703": plan, "exact_at": [list(sh) for sh in K5_EDGES],
           "exact_on_ties_at": list(tie_shape), "timing": timing,
-          "timing_V739_by_Q": by_q,
+          "timing_V739_by_Q": by_q, "timing_vit": at_vit,
           "tolerance": [K5_ATOL, K5_RTOL]})
     t = timing[703]
     state["match_fwd"] = {
@@ -520,7 +587,9 @@ def phase_k5(state):
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "library_ms": None, "product_only_library_ms": t["product_only_library_ms"],
         "ms_V739": timing[739]["ms"], "device_ms_V739": timing[739]["device_ms"],
-        **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")}}
+        **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+        "at_vit_shapes": {what: {k: v for k, v in r.items() if k != "plan"}
+                          for what, r in at_vit.items()}}
 
 
 def _match_bwd_inputs(rng, A, V, B, Q, D, dev, kind):
@@ -649,8 +718,7 @@ def phase_k6(state):
     import torch
 
     from vlgae_tpu_torch.ops.match import (match_bwd_launch, match_bwd_lists_plain,
-                                           match_bwd_plan, match_maxes_bwd_cuda,
-                                           match_maxes_bwd_plain)
+                                           match_maxes_bwd_cuda, match_maxes_bwd_plain)
 
     rng = np.random.default_rng(2)
     dev = torch.device("cuda")
@@ -706,36 +774,68 @@ def phase_k6(state):
         if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in
                    zip(match_maxes_bwd_cuda(*hargs), match_maxes_bwd_cuda(*hargs))):
             raise AssertionError(f"K6 gave different bits on two runs ({name})")
-    vis, txt, li, lvi, dm, dmv = args
-    ms = time_ms(lambda: match_maxes_bwd_cuda(*args))
-    dev_ms = device_ms(lambda: match_maxes_bwd_cuda(*args), n=20)
-    kernels_ms = k6_kernels_ms(args)
-    plain_ms = time_ms(lambda: match_maxes_bwd_plain(*args), reps=5, warmup=1)
-    product_ms = k6_product_library_ms(*args)
-    list_stats = k6_list_stats(li, lvi)
-    plan = match_bwd_plan(*shape.values(), vis.data_ptr(), txt.data_ptr())
+    timed = k6_timing(args)
     emit({"phase": "k6", "shape": shape, "exact_at": exact_shape,
           "exact_12bit_cotangents_at": round_shape, "rounded_pair": pair,
           "exact_hot_cases": list(hot), "lists_equal_plain": True,
           "max_abs_err": err, "tolerance": [K6_ATOL, K6_RTOL],
-          "bit_identical_reruns": identical, "ms": ms, "device_ms": dev_ms,
-          "kernels_ms": kernels_ms, "plain_ms": plain_ms, "product_only_library_ms": product_ms,
-          "list_lengths": list_stats, "plan": plan})
-    # what this run's winners need: one multiply-add per feature and output
-    # (dvis, dtxt) for each distinct winning cell (b, a, q, v)
+          "bit_identical_reruns": identical, **timed})
+    # the patch grid of exp=vlgae_vit: V = 1,324 at its longest captions,
+    # exactly on quarter-integers and within tolerance on normal operands
+    vit_shape = dict(A=64, V=VIT_V["train"], B=64, Q=VIT_Q, D=128)
+    _check_k6(_match_bwd_inputs(rng, *vit_shape.values(), dev, "quarter"), True,
+              f"at {vit_shape}")
+    vargs = _match_bwd_inputs(rng, *vit_shape.values(), dev, "random")
+    verr = _check_k6(vargs, False, f"at {vit_shape}")
+    scratch = match_bwd_launch(*vargs)[2]
+    plain_lists = match_bwd_lists_plain(*vargs[2:4])
+    if not all(torch.equal(scratch[k], w) for k, w in plain_lists.items()):
+        raise AssertionError(f"K6's winner lists differ from their plain version at {vit_shape}")
+    del scratch, plain_lists
+    vtimed = k6_timing(vargs)
+    emit({"phase": "k6", "shape": vit_shape, "exact_at": vit_shape,
+          "lists_equal_plain": True, "max_abs_err": verr,
+          "tolerance": [K6_ATOL, K6_RTOL], **vtimed})
+    keep = ("ms", "device_ms", "kernels_ms", "plain_ms", "product_only_library_ms",
+            "winning_cells", "scratch_bytes", "bound_ms", "bound_by", "bound_bytes",
+            "bound_ops")
+    state["match_bwd"] = {
+        "max_abs_err": max(err, verr), "library_ms": None,
+        **{k: timed[k] for k in keep},
+        "at_vit_shape": {"shape": vit_shape, "max_abs_err": verr,
+                         **{k: vtimed[k] for k in keep}}}
+
+
+def k6_timing(args):
+    """K6's times on ``args`` (one call, queued calls, each CUDA kernel), its
+    plain version's, the matmul yardstick, the lists' lengths, the scratch
+    plan and the bound of what this run's winners need: one multiply-add
+    per feature and output (dvis, dtxt) for each distinct winning cell
+    (b, a, q, v)."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import (match_bwd_plan, match_maxes_bwd_cuda,
+                                           match_maxes_bwd_plain)
+
     vis, txt, li, lvi, dm, dmv = args
     A, V, D = vis.shape
     B, Q, _ = txt.shape
+    dev = vis.device
+    plan = match_bwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr())
+    out = {"ms": time_ms(lambda: match_maxes_bwd_cuda(*args)),
+           "device_ms": device_ms(lambda: match_maxes_bwd_cuda(*args), n=20),
+           "kernels_ms": k6_kernels_ms(args),
+           "plain_ms": time_ms(lambda: match_maxes_bwd_plain(*args), reps=5, warmup=1),
+           "product_only_library_ms": k6_product_library_ms(*args),
+           "list_lengths": k6_list_stats(li, lvi), "plan": plan,
+           "scratch_bytes": plan["bytes"]}
     ba = torch.arange(B * A, device=dev).view(B, A, 1)
     q_side = (ba * Q + torch.arange(Q, device=dev)) * V + li.long()
     v_side = (ba * Q + lvi.long()) * V + torch.arange(V, device=dev)
     cells = int(torch.unique(torch.cat([q_side.flatten(), v_side.flatten()])).numel())
-    state["match_bwd"] = {
-        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-        "library_ms": None, "product_only_library_ms": product_ms,
-        "winning_cells": cells, "scratch_bytes": plan["bytes"],
-        **bound(2 * 2 * (A * V + B * Q) * D + 8 * B * A * (Q + V),
-                4 * cells * D, "bf16")}
+    return {**out, "winning_cells": cells,
+            **bound(2 * 2 * (A * V + B * Q) * D + 8 * B * A * (Q + V),
+                    4 * cells * D, "bf16")}
 
 
 def _check_dmv_on_path(out, lengths):
@@ -919,14 +1019,16 @@ def phase_reference(state):
             raise AssertionError("the card and the CPU disagree on the small corpus")
 
 
+NO_DROPOUT = ["encoder.dropout=0", "model.word_encoder.dropout=0",
+              "model.dep_model_cfg.head_ff.dropout=0",
+              "model.dep_model_cfg.mid_ff.dropout=0"]
+
+
 def _small_overrides(root):
     return _corpus_overrides(root) + [
         "datamodule.pad_boxes=6", "datamodule.sample_boxes=0", "_hidden_size=32",
         "_match_hidden_size=16", "_rank=4", "vis_encoder.n_in=16",
-        "vis_encoder.n_hidden=32", "trainer.precision=32",
-        "encoder.dropout=0", "model.word_encoder.dropout=0",
-        "model.dep_model_cfg.head_ff.dropout=0",
-        "model.dep_model_cfg.mid_ff.dropout=0"]
+        "vis_encoder.n_hidden=32", "trainer.precision=32"] + NO_DROPOUT
 
 
 def phase_train_reference(state):
@@ -1660,12 +1762,361 @@ def phase_lang_only(state):
         state.setdefault(name, {}).setdefault("launches_by_path", {}).update(by_path)
 
 
+def _vit_overrides(root):
+    """``exp=vlgae_vit`` on the corpus under ``root``, at bf16 as
+    ``exp=vlgae``: the recipe's file sets no precision and so composes the
+    trainer's default 32, where the matching is an f32 stream in plain
+    PyTorch and neither K5 nor K6 runs."""
+    ov = _corpus_overrides(root)
+    ov[0] = "exp=vlgae_vit"
+    return ov + ["trainer.precision=bf16"]
+
+
+# the narrow ViT of tests/test_e2e.py::test_vlgae_vit_swap_e2e, and the
+# recipe's (configs/exp/vlgae_vit.yaml)
+VIT_NARROW = {"hidden_size": 16, "num_hidden_layers": 1, "num_attention_heads": 2,
+              "intermediate_size": 32, "image_size": 32, "patch_size": 16}
+VIT_RECIPE = {"hidden_size": 192, "num_hidden_layers": 4, "num_attention_heads": 4,
+              "intermediate_size": 384, "image_size": 224, "patch_size": 32}
+
+
+def vit_width_overrides(dims):
+    return [f"datamodule.vit_image_size={dims['image_size']}",
+            f"datamodule.vit_patch_size={dims['patch_size']}",
+            f"vis_encoder.vit_hidden_size={dims['hidden_size']}",
+            f"vis_encoder.vit_num_layers={dims['num_hidden_layers']}",
+            f"vis_encoder.vit_num_heads={dims['num_attention_heads']}",
+            f"vis_encoder.vit_intermediate_size={dims['intermediate_size']}"]
+
+
+def write_vit_npz(path, dims, seed):
+    """Random ViT backbone weights as the ``.npz`` of ``/``-joined flax
+    paths that ``vis_encoder.vit_weights`` reads: every tensor N(0, 0.02),
+    LayerNorm scales about 1. Returns the flat arrays."""
+    import numpy as np
+
+    from vlgae_tpu_torch import convert
+    from vlgae_tpu_torch.models.vis_encoder import ViTConfig, ViTModel
+
+    rng = np.random.default_rng(seed)
+    shapes = convert.torch_to_flax(ViTModel(ViTConfig(**dims)).state_dict())
+    flat = {k: (rng.standard_normal(v.shape) * 0.02 + k.endswith("scale")).astype(np.float32)
+            for k, v in sorted(shapes.items())}
+    np.savez(path, **flat)
+    return flat
+
+
+def vit_unchanged(model, flat):
+    """Whether ``model``'s ViT backbone holds exactly the arrays ``flat``."""
+    import numpy as np
+
+    from vlgae_tpu_torch import convert
+
+    got = convert.torch_to_flax(model.vis_encoder.vit.state_dict())
+    return sorted(got) == sorted(flat) and all(np.array_equal(got[k], v)
+                                               for k, v in flat.items())
+
+
+def phase_vit_reference(state):
+    """``exp=vlgae_vit`` at small widths and precision=32, the backbone's
+    weights from an .npz on both sides: the card and the CPU write the same
+    dev predictions, and take the same joint train step from the same
+    weights with every dropout 0 (loss and every gradient; the frozen ViT
+    gets none). The seed gives a tie-free training batch."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.predict import build_datamodule, compose
+    from vlgae_tpu_torch.training.factory import build_model
+    from vlgae_tpu_torch.training.pipeline import Pipeline, init_params, pad_batch_pow2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=8, feat_dim=16, n_box=6,
+                    len_range=(3, 12), seed=1, image_size=VIT_NARROW["image_size"])
+        npz = os.path.join(tmp, "vit.npz")
+        flat = write_vit_npz(npz, VIT_NARROW, seed=1)
+        ov = (_vit_overrides(tmp) + vit_width_overrides(VIT_NARROW) + [
+            "_hidden_size=32", "_match_hidden_size=16", "_rank=4",
+            "trainer.precision=32", f"vis_encoder.vit_weights={npz}"])
+        files, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            pipe, res = _run_predict(tmp, ov + ["init_seed=0", f"device={dev}",
+                                                f"name={dev}"])
+            if not vit_unchanged(pipe.model, flat):
+                raise AssertionError(f"vit_reference: the .npz did not reach the {dev} model")
+            with open(os.path.join(tmp, f"{dev}_dev.conll")) as f:
+                files[dev] = f.read()
+            losses[dev] = res["dev"]["loss"]
+        dloss = abs(losses["cpu"] - losses["cuda"])
+        cfg = compose(ov + ["datamodule.train_dataloader.num_bucket=1"] + NO_DROPOUT)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            dm = build_datamodule(cfg)
+            model = build_model(cfg, dm)
+            init_params(model, 0)
+            pipe = Pipeline(model, dm, cfg, device=dev, workdir=tmp)
+            pipe.setup_optimizer()
+            x, y = next(dm.batches("train", shuffle=False))
+            x, y = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
+            loss, _ = pipe.grad_step(x, y, False, 0.5)
+            with torch.no_grad():
+                ind = pipe.model.eval()(
+                    {k: torch.as_tensor(v).to(pipe.device) for k, v in x.items()}
+                )["dep_reuse"]["max"][2]
+            grads = {n: p.grad.detach().cpu() for n, p in pipe.model.named_parameters()
+                     if p.grad is not None}
+            res[dev] = (float(loss), grads, int(((ind.cpu() % 1) != 0).flatten(1).any(1).sum()))
+        (lc, gc, ties), (lg, gg, _) = res["cpu"], res["cuda"]
+        worst, worst_name = 0.0, None
+        for n in gc.keys() & gg.keys():
+            err = float((gc[n] - gg[n]).abs().max())
+            if err > worst:
+                worst, worst_name = err, n
+        emit({"phase": "vit_reference", "identical_dev_file": files["cpu"] == files["cuda"],
+              "dev_loss": losses, "loss_abs_diff": dloss,
+              "train_loss": {"cpu": lc, "cuda": lg},
+              "train_loss_rel_diff": abs(lc - lg) / abs(lc), "n_params": len(gc),
+              "max_grad_abs_err": worst, "worst_param": worst_name,
+              "tied_sentences_cpu_split": ties,
+              "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad": [TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL]}})
+        if files["cpu"] != files["cuda"] or dloss > 1e-4 * (1 + abs(losses["cpu"])):
+            raise AssertionError("vit: the card and the CPU predict differently")
+        if ties:
+            raise AssertionError(f"{ties} tied Viterbi trees in the reference batch")
+        if sorted(gc) != sorted(gg) or any(".vit." in f".{n}" for n in gc):
+            raise AssertionError("vit: the params that get grads differ or include the ViT")
+        for n in gc:
+            if not close(gg[n], gc[n], TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL):
+                raise AssertionError(f"vit train step gradient {n}")
+        if abs(lc - lg) > TRAIN_LOSS_RTOL * abs(lc):
+            raise AssertionError(f"vit train step loss: cpu {lc} cuda {lg}")
+
+
+def phase_vit(state):
+    """``exp=vlgae_vit`` at the recipe's widths through ``train`` and
+    ``predict``: 104 images of 224 x 224 pixels (520/260/260 captions of
+    3-63 words), the ViT's weights from an .npz drawn from a seed (random,
+    as the recipe's ``vit_weights: null``), bf16, batch 64."""
+    import json as _json
+    import math
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import patch_roi_boxes, train
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused
+    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+
+    def reset():
+        dmv_cuda.reset_launch_counts()
+        match.n_launches = match.n_bwd_launches = 0
+        match.n_launches_by_q_chunks.clear()
+
+    def counts():
+        return {"dmv_fused": dmv_cuda.n_launches,
+                "dmv_fused_global": dmv_cuda.n_fused_global_launches,
+                "match_fwd": match.n_launches,
+                "match_fwd_two_q_chunks": match.n_launches_by_q_chunks.get(2, 0),
+                "match_bwd": match.n_bwd_launches}
+
+    # the (V, Q) of every K5 call, to show which shapes the path reached
+    shapes = set()
+    orig = {"fwd": match.match_maxes, "bwd": match.match_maxes_bwd}
+
+    def recording(vis, txt, vb, tb):
+        shapes.add((int(vis.shape[1]), int(txt.shape[1])))
+        return orig["fwd"](vis, txt, vb, tb)
+
+    def check_eval(root, pred_file):
+        ev = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "eval.py"), "--file", pred_file,
+             "--dataroot", root], capture_output=True, text=True)
+        if ev.returncode != 0:
+            raise AssertionError(f"eval.py rc {ev.returncode}: {ev.stderr[-2000:]}")
+        return ev.stdout.strip().splitlines()[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=104, feat_dim=2048, n_box=36, len_range=(3, 64),
+                    image_size=VIT_RECIPE["image_size"], seed=0)
+        npz = os.path.join(tmp, "vit.npz")
+        vit_flat = write_vit_npz(npz, VIT_RECIPE, seed=0)
+        t_corpus = time.perf_counter() - t0
+        run = os.path.join(tmp, "run")
+        overrides = _vit_overrides(tmp) + [
+            f"datamodule.{s}_dataloader.num_bucket=1"
+            for s in ("train", "dev", "test")] + [
+            "trainer.max_epochs=2", "model.init_epoch=1", f"workdir={run}",
+            f"vis_encoder.vit_weights={npz}", "init_seed=0", "device=cuda"]
+        reset()
+        match.match_maxes = recording
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            pipe, test = train.main(overrides)
+        finally:
+            os.chdir(cwd)
+            match.match_maxes = orig["fwd"]
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = counts()
+        train_shapes = sorted(shapes)
+        if not all(launches.values()):
+            raise AssertionError(f"vit train: a kernel or mapping never launched: {launches}")
+        if (VIT_V["train"], VIT_Q) not in shapes:
+            raise AssertionError(f"vit train: K5 never ran at V={VIT_V['train']}, "
+                                 f"Q={VIT_Q}: {train_shapes}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            lines = [_json.loads(line) for line in f]
+        losses = {k: v for rec in lines for k, v in rec.items()
+                  if "loss" in k or k.endswith(("nll", "enll", "txt2vis", "vis2txt"))}
+        bad = [k for rec in lines for k, v in rec.items()
+               if ("loss" in k or k.endswith(("nll", "enll")))
+               and not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"vit: non-finite losses: {bad}")
+        last = os.path.join(run, "checkpoint", "last.pt")
+        ckpt = torch.load(last, map_location="cpu", weights_only=True)
+        pipe.model.load_state_dict(ckpt["model"], strict=True)
+        # the frozen backbone: the .npz's arrays, bit for bit, after training
+        if not vit_unchanged(pipe.model, vit_flat):
+            raise AssertionError("vit: the frozen ViT changed in training")
+        patch_roi_boxes.main(["--dataroot", root, "--split", "val",
+                              "--image-size", str(VIT_RECIPE["image_size"]),
+                              "--patch-size", str(VIT_RECIPE["patch_size"])])
+        eval_dev = check_eval(root, os.path.join(run, "dev.predict.txt"))
+
+        # joint train steps at B = 64 on the host clock; the first step's K5
+        # and K6 calls are held against their plain versions
+        captured = {}
+
+        def capturing(key):
+            def call(*args):
+                captured.setdefault(key, tuple(a.detach() for a in args))
+                return orig[key](*args)
+            return call
+
+        full = [b for b in pipe.dm.batches("train") if len(b[0]["seq_len"]) == 64][:7]
+        if len(full) < 2:
+            raise AssertionError("vit: fewer than two training batches of 64 captions")
+        full = [(pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]) for x, y in full]
+        match.match_maxes, match.match_maxes_bwd = capturing("fwd"), capturing("bwd")
+        reset()
+        times = []
+        try:
+            for k in range(7):
+                x, y = full[k % len(full)]
+                t0 = time.perf_counter()
+                loss, _ = pipe.train_step(x, y, False, 0.5)
+                float(loss)
+                times.append(time.perf_counter() - t0)
+        finally:
+            match.match_maxes, match.match_maxes_bwd = orig["fwd"], orig["bwd"]
+        per_step = {k: v / 7 for k, v in counts().items()}
+        step_s = statistics.median(times[1:])
+        k5_args, k6_args = captured["fwd"], captured["bwd"]
+        on_path = {"padded_len": [int(x["word"].shape[1]) for x, _ in full],
+                   "vis": list(k5_args[0].shape), "txt": list(k5_args[1].shape)}
+        _, on_path["k5_max_abs_err"], on_path["k5_index_mismatch_within_tol"] = _check_k5(
+            k5_args, False, "on a vlgae_vit joint step's tensors")
+        on_path["k6_max_abs_err"] = _check_k6(k6_args, False,
+                                              "on a vlgae_vit joint step's tensors")
+        on_path["k5_device_ms"] = device_ms(lambda: match.match_maxes_cuda(*k5_args), n=10)
+        on_path["k6_device_ms"] = device_ms(lambda: match.match_maxes_bwd_cuda(*k6_args),
+                                            n=20)
+        on_path["k6_list_lengths"] = k6_list_stats(*k6_args[2:4])
+        # K1 on the potentials of a training batch (eval forward): n1 = 65
+        x = next(b for b, _ in full if b["word"].shape[1] + 1 == 65)
+        with torch.no_grad():
+            inputs = _to_device(x, pipe.device)
+            g0 = dmv_cuda.n_fused_global_launches
+            out = pipe.model.eval()(inputs)
+            on_path["k1"] = _check_dmv_on_path(out, inputs["seq_len"])
+            if dmv_cuda.n_fused_global_launches != g0 + 2:
+                raise AssertionError("vit: K1 at n1 = 65 did not take global scratch")
+            dec, attach, lens = out["merged_dec"], out["merged_attach"], inputs["seq_len"]
+            on_path["k1_device_ms"] = {kind: device_ms(lambda: dmv_fused(dec, attach, lens, kind))
+                                       for kind in ("log", "max")}
+            # the frozen ViT's forward and the pageable upload of the pixels
+            px = inputs["vis_pixels"]
+            vit_ms = device_ms(lambda: pipe.model.vis_encoder.vit(px), n=10)
+            upload_ms = time_ms(lambda: torch.as_tensor(x["vis_pixels"]).to(pipe.device))
+        if (VIT_V["train"], VIT_Q) != (k5_args[0].shape[1], k5_args[1].shape[1]):
+            raise AssertionError(f"vit: the timed step's K5 shapes {on_path}")
+
+        # eval steps at B = 64 over the dev batches
+        reset()
+        pipe.evaluate("dev")
+        eval_counts = counts()
+        steps = [t for t, n in zip(pipe.step_times, pipe.step_sizes) if n == 64]
+        eval_s = statistics.median(steps)
+        per_eval_step = {k: v / len(pipe.step_times) for k, v in eval_counts.items()}
+
+        # predict from the checkpoint: train, dev and test files
+        shapes.clear()
+        reset()
+        match.match_maxes = recording
+        t0 = time.perf_counter()
+        try:
+            ppipe, results = _run_predict(tmp, [f"checkpoint={last}", "device=cuda"])
+        finally:
+            match.match_maxes = orig["fwd"]
+        torch.cuda.synchronize()
+        t_predict = time.perf_counter() - t0
+        predict_launches = counts()
+        predict_shapes = sorted(shapes)
+        if not (predict_launches["dmv_fused_global"] and predict_launches["match_fwd"]
+                and (VIT_V["eval"], VIT_Q) in shapes):
+            raise AssertionError(f"vit predict: launches {predict_launches}, "
+                                 f"K5 shapes {predict_shapes}")
+        for split in ("dev", "test"):
+            with open(os.path.join(tmp, f"unnamed_{split}.conll")) as f:
+                n_sent = f.read().count("\n\n")
+            if n_sent != len(ppipe.dm.datasets[split]) or not math.isfinite(
+                    float(results[split]["loss"])):
+                raise AssertionError(f"vit predict {split}: {n_sent} sentences")
+        eval_predict = check_eval(root, os.path.join(tmp, "unnamed_dev.conll"))
+
+    emit({"phase": "vit", "corpus_s": round(t_corpus, 3), "train_s": round(t_train, 3),
+          "predict_s": round(t_predict, 3), "launches_train": launches,
+          "launches_per_train_step": per_step, "launches_per_eval_step": per_eval_step,
+          "launches_predict": predict_launches, "k5_shapes_train": train_shapes,
+          "k5_shapes_predict": predict_shapes, "test": test,
+          "epochs": len([r for r in lines if "train/loss" in r]), "losses": losses,
+          "eval_py_tail": {"train_dev": eval_dev, "predict_dev": eval_predict},
+          "vit_frozen_bit_identical": True, "kernels_on_path": on_path,
+          "vit_forward_device_ms_B64": vit_ms, "pixel_upload_ms_B64": upload_ms,
+          "pixel_bytes_B64": int(x["vis_pixels"].nbytes),
+          "train_step_ms_median_B64": step_s * 1e3,
+          "train_step_ms_B64": [round(t * 1e3, 3) for t in times],
+          "train_sentences_per_s_B64": 64 / step_s,
+          "eval_step_ms_median_B64": eval_s * 1e3,
+          "eval_step_ms_B64": [round(t * 1e3, 3) for t in steps],
+          "eval_sentences_per_s_B64": 64 / eval_s,
+          "shape": {"len": "3-63", "B": 64, "patches": 49, "image": 224,
+                    "vit": "192/4/4/384", "V": VIT_V, "precision": "bf16"}})
+    for name in ("dmv_fused", "match_fwd", "match_bwd"):
+        by_path = {"vlgae_vit_train": launches[name]}
+        if name != "match_bwd":
+            by_path["vlgae_vit_predict"] = predict_launches[name]
+        state.setdefault(name, {}).setdefault("launches_by_path", {}).update(by_path)
+
+
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
           "train": phase_train, "k2": phase_k2, "k3": phase_k3,
           "lang_only_reference": phase_lang_only_reference,
-          "lang_only": phase_lang_only}
+          "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
+          "vit": phase_vit}
 
 
 def main():
@@ -1683,8 +2134,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = {}
-    for phase in PHASES.values():
+    seconds = {}
+    for name, phase in PHASES.items():
+        t0 = time.perf_counter()
         phase(state)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    emit({"phase_seconds": seconds, "total_s": round(sum(seconds.values()), 3)})
     print(nvidia_smi_line())
     rows = []
     required = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,7 +1,8 @@
 """Where the time of the port's eval step or train step goes, on one
 CUDA device.
 
-    python scripts/profile_torch_eval.py [eval|train|lang_only_eval|lang_only_train]
+    python scripts/profile_torch_eval.py \
+        [eval|train|lang_only_eval|lang_only_train|vit_eval|vit_train]
 
 Builds the pipeline of ``exp=vlgae`` (random weights from seed 0) on the
 synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50, 36
@@ -10,7 +11,10 @@ eval steps; ``train`` runs joint train steps (bf16, dropout on: upload,
 forward, backward, clip, Adam). The ``lang_only_*`` modes do the same for
 ``exp=lang_only`` at its recipe's widths on the corpus of ``chip_smoke.py``'s
 ``lang_only`` phase (training captions up to 10 words, so full batches pad
-to L = 8 or 16; dev captions of 3-49 words). Prints JSON lines:
+to L = 8 or 16; dev captions of 3-49 words). The ``vit_*`` modes do the
+same for ``exp=vlgae_vit`` at its recipe's widths on the corpus of
+``chip_smoke.py``'s ``vit`` phase (224 px images, captions of 3-63 words;
+the ViT's weights from seed 0). Prints JSON lines:
 
   - the wall time of a step (host clock, synchronised),
   - the same under ``torch.profiler``: device-busy ms per step, the device's
@@ -182,10 +186,9 @@ def _lang_setup(tmp, mode):
     return pipe, batches, step
 
 
-def _train_setup(tmp):
+def _train_setup(tmp, overrides):
     """A training pipeline and N_STEPS joint batches of 64 captions."""
-    cfg = compose(chip_smoke._corpus_overrides(tmp) + [
-        "datamodule.train_dataloader.num_bucket=1"])
+    cfg = compose(overrides + ["datamodule.train_dataloader.num_bucket=1"])
     dm = build_datamodule(cfg)
     model = build_model(cfg, dm)
     init_params(model, 0)
@@ -204,7 +207,8 @@ def main(mode="eval"):
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device", file=sys.stderr)
         return 2
-    if mode not in ("eval", "train", "lang_only_eval", "lang_only_train"):
+    if mode not in ("eval", "train", "lang_only_eval", "lang_only_train", "vit_eval",
+                    "vit_train"):
         print(f"profile_torch_eval: unknown mode {mode!r}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -216,12 +220,19 @@ def main(mode="eval"):
                         feat_dim=4, n_box=3, len_range=(3, 50), seed=0)
             pipe, batches, step = _lang_setup(tmp, mode)
         else:
+            vit = mode.startswith("vit")
             make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
-                        n_box=36, len_range=(3, 50), seed=0)
-            if mode == "train":
-                pipe, batches, step = _train_setup(tmp)
+                        n_box=36, len_range=(3, 64) if vit else (3, 50), seed=0,
+                        image_size=chip_smoke.VIT_RECIPE["image_size"] if vit else 0)
+            overrides = chip_smoke._corpus_overrides(tmp)
+            if vit:
+                npz = os.path.join(tmp, "vit.npz")
+                chip_smoke.write_vit_npz(npz, chip_smoke.VIT_RECIPE, seed=0)
+                overrides = chip_smoke._vit_overrides(tmp) + [f"vis_encoder.vit_weights={npz}"]
+            if mode in ("train", "vit_train"):
+                pipe, batches, step = _train_setup(tmp, overrides)
             else:
-                pipe = build_pipeline(chip_smoke._corpus_overrides(tmp) + [
+                pipe = build_pipeline(overrides + [
                     "datamodule.dev_dataloader.num_bucket=1"], device="cuda", init_seed=0)
                 batches = [pad_batch_pow2(x)[0]
                            for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
@@ -260,7 +271,7 @@ def main(mode="eval"):
                     lang_stage_times(pipe.model.eval(), inputs)  # warm-up
                     emit({"padded_len": int(b["word"].shape[1]),
                           "stages_B64": lang_stage_times(pipe.model, inputs)})
-        elif mode == "train":
+        elif mode in ("train", "vit_train"):
             train_stage_times(pipe, batches[0])  # warm-up
             emit({"stages_B64": train_stage_times(pipe, batches[0])})
         else:

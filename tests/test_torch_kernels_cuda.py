@@ -98,7 +98,7 @@ def test_dmv_fused_matches_plain(cuda, kind, lengths, n1):
 
 
 @pytest.mark.parametrize("kind", ["log", "max"])
-@pytest.mark.parametrize("n1", [9, 10, 17, 51, 57, 101])
+@pytest.mark.parametrize("n1", [9, 10, 17, 51, 57, 65, 101])
 def test_dmv_fused_ragged_batches_at_every_group_width(cuda, kind, n1):
     """Mixed lengths (0, 1, n1-1 among them) in one launch: charts in shared
     memory up to n1 = 56 and in global scratch beyond, blocks of 128 to 1024
@@ -122,7 +122,7 @@ def test_dmv_fused_ragged_batches_at_every_group_width(cuda, kind, n1):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
 
 
-@pytest.mark.parametrize("n1", [9, 10, 17, 51, 57, 101])
+@pytest.mark.parametrize("n1", [9, 10, 17, 51, 57, 65, 101])
 def test_dmv_fused_on_tied_potentials_equals_the_inside_and_the_pair(cuda, n1):
     """Quarter-integer potentials tie often. The max totals must be the
     inside kernel's bit for bit (fmaxf is order-free), and the tables the
@@ -147,6 +147,27 @@ def test_dmv_fused_on_tied_potentials_equals_the_inside_and_the_pair(cuda, n1):
     assert bool(((fa == 0) | (fa == 1)).all()) and float(fa.sum()) >= sum(lengths)
 
 
+def test_dmv_fused_takes_global_scratch_at_the_vit_recipes_longest_captions(cuda):
+    """exp=vlgae_vit trains on captions of up to 63 words (n1 = 65): past
+    the shared-memory limit of K1, whose charts then live in global
+    scratch; both semirings there agree with the plain version."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    dmv_cuda.dmv_fused(*_dmv_batch((1,), 2, 0, cuda), "max")  # loads the library
+    assert not dmv_cuda.fused_uses_smem(65, dmv_cuda._smem_optin)
+    rng = np.random.default_rng(65)
+    lengths = [64, 1, 0, *rng.integers(1, 65, 61).tolist()]
+    dec, attach, lens = _dmv_batch(lengths, 65, 7, cuda)
+    for kind in ("log", "max"):
+        before = dmv_cuda.n_fused_global_launches
+        got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+        assert dmv_cuda.n_fused_global_launches == before + 1
+        want = dmv_value_and_grads_plain(dec, attach, lens, kind)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
+
+
 def test_dmv_dispatch_goes_to_the_kernel(cuda):
     from vlgae_tpu_torch.ops import dmv_cuda
     from vlgae_tpu_torch.struct import dmv_value_and_grads
@@ -158,7 +179,7 @@ def test_dmv_dispatch_goes_to_the_kernel(cuda):
 
 @pytest.mark.parametrize("A,V,B,Q,D", [
     (3, 10, 4, 5, 7), (4, 130, 7, 21, 130), (5, 65, 62, 202, 128),
-    (64, 703, 64, 102, 128)])
+    (64, 703, 64, 102, 128), (64, 1324, 64, 130, 128), (64, 1275, 64, 130, 128)])
 def test_match_fwd_matches_plain(cuda, A, V, B, Q, D):
     from vlgae_tpu_torch.ops import match
     from vlgae_tpu_torch.ops.match import match_maxes, match_maxes_plain
@@ -176,6 +197,21 @@ def test_match_fwd_matches_plain(cuda, A, V, B, Q, D):
     want = match_maxes_plain(vis, txt, vb, tb)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("V", [1324, 1275])
+def test_match_fwd_takes_two_q_chunks_on_the_patch_grid(cuda, V):
+    """The patch grid of exp=vlgae_vit (V = 1,324 in training, 1,275 in
+    evaluation) at its longest captions (Q = 130): two q-chunks of 72
+    words, exactly the plain version's outputs on quarter-integers."""
+    from vlgae_tpu_torch.ops import match
+    from vlgae_tpu_torch.ops.match import match_fwd_q_tiling
+
+    assert match_fwd_q_tiling(130) == (2, 9)
+    args = _quarter_match_inputs(np.random.default_rng(V), 64, V, 64, 130, 128, cuda)
+    before = match.n_launches_by_q_chunks.get(2, 0)
+    _assert_match_fwd_equals_plain(args)
+    assert match.n_launches_by_q_chunks.get(2, 0) == before + 1
 
 
 def _quarter_match_inputs(rng, A, V, B, Q, D, device, scale=8):
@@ -304,7 +340,7 @@ def _match_case(A, V, B, Q, D, device, seed=0, dyadic=False):
 
 @pytest.mark.parametrize("A,V,B,Q,D", [
     (3, 10, 4, 5, 7), (5, 65, 62, 202, 130), (4, 33, 1, 129, 128),
-    (1, 40, 6, 31, 16), (64, 739, 64, 102, 128)])
+    (1, 40, 6, 31, 16), (64, 739, 64, 102, 128), (64, 1324, 64, 130, 128)])
 def test_match_bwd_matches_plain_and_is_deterministic(cuda, A, V, B, Q, D):
     from vlgae_tpu_torch.ops import match
     from vlgae_tpu_torch.ops.match import (match_maxes, match_maxes_bwd,
@@ -358,7 +394,7 @@ def test_match_bwd_is_exact_on_12_bit_cotangents(cuda, A, V, B, Q, D):
 
 @pytest.mark.parametrize("A,V,B,Q,D", [
     (3, 10, 4, 5, 7), (5, 65, 62, 202, 130), (4, 33, 1, 129, 128),
-    (64, 739, 64, 102, 128)])
+    (64, 739, 64, 102, 128), (64, 1324, 64, 130, 128)])
 def test_match_bwd_lists_equal_their_plain_version(cuda, A, V, B, Q, D):
     from vlgae_tpu_torch.ops.match import match_bwd_launch, match_bwd_lists_plain, match_maxes
 

@@ -377,11 +377,13 @@ def test_model_built_with_a_glove_file(corpus, tmp_path):
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
-    """No file of the port, nor ``chip_smoke.py``, imports JAX or anything
-    of ``vlgae_tpu`` (comments and docstrings may name its files)."""
+    """No file of the port, nor ``chip_smoke.py``, imports JAX, anything of
+    ``vlgae_tpu`` or ``transformers`` (comments and docstrings may name
+    their files)."""
     import re
 
-    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|vlgae_tpu)\b(?!_)")
+    bad = re.compile(r"^\s*(from|import)\s+"
+                     r"(jax|jaxlib|flax|optax|orbax|transformers|vlgae_tpu)\b(?!_)")
     files = sorted((REPO / "vlgae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"

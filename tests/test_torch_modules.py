@@ -122,3 +122,22 @@ def test_bert_item_stride_windows_and_scalar_mix(pooling):
     with torch.no_grad():
         got = titem(*(torch.as_tensor(a) for a in (sub, mask, first, last)))
     _close(got, want)
+
+
+def test_leaky_relu_value_and_derivative_match_jax_at_zero():
+    """``jax.nn.leaky_relu`` is ``where(x >= 0, x, 0.01 x)``: its derivative
+    at exactly 0 is 1, where ``F.leaky_relu``'s is 0.01. In bf16 the
+    relation factor's pairwise mean hits exact zeros (two projections that
+    are each other's negatives), which moved one feature's gradient of
+    ``rel_fc`` by 3e-3 in an ``exp=vlgae_vit`` step."""
+    from vlgae_tpu_torch.models.nn import leaky_relu
+
+    xs = np.array([-2.0, -0.0, 0.0, 1e-30, -1e-30, 3.0], np.float32)
+    x = torch.tensor(xs, requires_grad=True)
+    y = leaky_relu(x)
+    y.sum().backward()
+    want = np.asarray(jax.nn.leaky_relu(jnp.asarray(xs)))
+    np.testing.assert_array_equal(y.detach().numpy(), want)
+    np.testing.assert_array_equal(np.signbit(y.detach().numpy()), np.signbit(want))
+    np.testing.assert_array_equal(
+        x.grad.numpy(), np.asarray(jax.vmap(jax.grad(jax.nn.leaky_relu))(jnp.asarray(xs))))

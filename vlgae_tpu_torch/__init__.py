@@ -4,12 +4,13 @@ The JAX package ``vlgae_tpu`` is the reference; this package keeps its
 module names and its layouts at public functions, so a reader finds each
 counterpart under the same path. It imports ``torch`` and numpy only.
 
-What runs here is the ``exp=vlgae`` predict path: the deterministic joint
-forward, the Viterbi tree read from the reused DP indicators, the
-grounding decode with the exact top-5, and the CoNLL+ALIGN prediction
-writer (``python -m vlgae_tpu_torch.predict``). The two TPU kernels on
-that path are hand-written CUDA C++ kernels for ``sm_90a`` under
-``csrc/``, built at first use by :mod:`vlgae_tpu_torch.ops._build`.
+What runs here: training (``python -m vlgae_tpu_torch.train``) and
+prediction (``python -m vlgae_tpu_torch.predict``) of the recipes
+``exp=vlgae`` (region features), ``exp=vlgae_vit`` (the patch grid of a
+ViT over raw pixels) and ``exp=lang_only`` (the text-only parser), with
+the CoNLL+ALIGN prediction writer that ``eval.py`` scores. The TPU
+kernels of those paths are hand-written CUDA C++ kernels for ``sm_90a``
+under ``csrc/``, built at first use by :mod:`vlgae_tpu_torch.ops._build`.
 """
 
 __version__ = "0.1.0"

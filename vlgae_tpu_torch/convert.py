@@ -7,14 +7,19 @@ flax paths, so a key maps mechanically:
 
 * a flax ``Dense`` ``kernel [in, out]`` is the transposed ``weight`` of
   ``nn.Linear``; a ``LayerNorm`` ``scale`` is its ``weight``;
+* a flax ``Conv`` ``kernel [kh, kw, in, out]`` (the ViT's patch
+  projection) is a ``weight [out, in, kh, kw]``: the axes are permuted, not
+  reversed, so a square patch cannot hide a swap of kh and kw;
 * the ``Dense_0`` inside ``MLP`` / ``MLPEncoder`` is ``linear``;
 * the bottleneck pair ``<NAME>_down`` / ``<NAME>_up`` of
   ``DMVSkipConnectEncoder`` is the ``Sequential`` ``<NAME>.0`` / ``<NAME>.1``;
 * every other parameter (``arc_encoder_w1``, ``rel_fc_bias``, embedding
   tables, the BERT tree under ``.../transformer/bert/...``, the LSTM gates
   ``encoder/fwd_0/cell/OptimizedLSTMCell_0/{ii..io,hi..ho}``) keeps its
-  path. The stand-alone parser of ``exp=lang_only`` has the same names
-  without the joint model's ``dependency/`` prefix.
+  path, as do the ViT's ``cls_token`` and ``position_embeddings`` under
+  ``.../vis_encoder/vit/embeddings``. The stand-alone parser of
+  ``exp=lang_only`` has the same names without the joint model's
+  ``dependency/`` prefix.
 
 Both directions raise on a missing or an unused key.
 """
@@ -27,6 +32,16 @@ import numpy as np
 import torch
 
 _BOTTLENECK = ("HASCHILD", "NOCHILD", "LEFT", "RIGHT")
+# a flax Conv kernel [kh, kw, in, out] <-> a torch weight [out, in, kh, kw]
+_CONV_TO_TORCH, _CONV_TO_FLAX = (3, 2, 0, 1), (2, 3, 1, 0)
+
+
+def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    return arr.transpose(_CONV_TO_TORCH) if arr.ndim == 4 else arr.T
+
+
+def _kernel_to_flax(arr: np.ndarray) -> np.ndarray:
+    return arr.transpose(_CONV_TO_FLAX) if arr.ndim == 4 else arr.T
 
 
 def _flax_to_torch_key(path: str):
@@ -68,7 +83,7 @@ def torch_to_flax_key(key: str, ndim: int) -> str:
         i += 1
     leaf = parts[-1]
     if leaf == "weight":
-        leaf = "kernel" if ndim == 2 else "scale"
+        leaf = "kernel" if ndim in (2, 4) else "scale"
     return "/".join(out + [leaf])
 
 
@@ -82,7 +97,7 @@ def flax_to_torch(flat: Dict[str, np.ndarray], model: torch.nn.Module):
             raise KeyError(f"flax param {path!r} has no counterpart ({key!r})")
         arr = np.asarray(value)
         if transpose:
-            arr = arr.T
+            arr = _kernel_to_torch(arr)
         t = torch.from_numpy(np.array(arr)).to(want[key].dtype)
         if t.shape != want[key].shape:
             raise ValueError(
@@ -102,7 +117,7 @@ def torch_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         arr = value.detach().cpu().numpy()
         path = torch_to_flax_key(key, arr.ndim)
         if path.endswith("/kernel"):
-            arr = arr.T
+            arr = _kernel_to_flax(arr)
         if path in flat:
             raise KeyError(f"two torch keys map to {path!r}")
         flat[path] = np.ascontiguousarray(arr)

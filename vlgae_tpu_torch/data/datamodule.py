@@ -4,9 +4,11 @@ A copy of ``vlgae_tpu/data/datamodule.py`` (NumPy host code): datasets are
 lists of instance dicts; batches are padded NumPy dicts ``(x, y)``. With
 ``include_init_rules`` set (by the pipeline, during the warm-up epochs)
 the collate of the training splits adds the rule-count targets of
-``generate_rule_1o``, computed once per instance and cached on it. The
-ViT pixel source is not carried. With ``load_vis=False`` (a recipe without
-a visual encoder, ``exp=lang_only``) no region feature is read or batched.
+``generate_rule_1o``, computed once per instance and cached on it. With
+``vis_source: pixels`` (``exp=vlgae_vit``) the batches carry raw pixels and
+the ViT patch grid as boxes (:class:`PixelLoader`). With ``load_vis=False``
+(a recipe without a visual encoder, ``exp=lang_only``) no region feature is
+read or batched.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .conll import read_conll
-from .features import DetFeatureLoader
+from .features import DetFeatureLoader, PixelLoader
 from .sampler import BasicSampler, ConstantTokenNumSampler
 from .vocab import UNK, TokenVocabulary, Vocabulary
 from ..struct.alg import isprojective
@@ -187,14 +189,15 @@ class DataModule:
     def train_state(self) -> dict:
         """The host RNG state of the training splits: sampler epochs (they
         seed the shuffles) and the box-sampling generators, so a resumed
-        run draws what the uninterrupted run would have."""
+        run draws what the uninterrupted run would have (the pixel loader
+        draws nothing)."""
         state = {"sampler_epoch": {}, "loader_rng": {}}
         for name in ("train", "train_init"):
             if name not in self.datasets:
                 continue
             state["sampler_epoch"][name] = self.sampler(name).epoch
             loader = getattr(self, "_feat_loaders", {}).get(name)
-            if loader is not None:
+            if hasattr(loader, "rng"):
                 state["loader_rng"][name] = loader.rng.bit_generator.state
         return state
 
@@ -375,7 +378,8 @@ class VLParseDataModule(DepDataModule):
 
     def __init__(self, use_img=False, use_gold_scene_graph=False,
                  sg_path=None, pad_boxes=36, sample_boxes=35,
-                 vis_source="det_feats", load_vis=True, **kw):
+                 vis_source="det_feats", vit_image_size=224,
+                 vit_patch_size=32, load_vis=True, **kw):
         self.load_vis = bool(load_vis)
         # whole-image features feed vis_encoder.use_img, which is not ported
         if use_img:
@@ -383,10 +387,13 @@ class VLParseDataModule(DepDataModule):
         self.use_gold_scene_graph = use_gold_scene_graph
         self.pad_boxes = pad_boxes
         self.sample_boxes = sample_boxes
-        # only Faster-RCNN region features; the ViT pixel source of
-        # exp=vlgae_vit is not ported yet
-        if vis_source != "det_feats":
-            raise NotImplementedError(f"vis_source {vis_source!r} is not ported")
+        # 'det_feats': Faster-RCNN region features; 'pixels': raw
+        # imgs/<id>.npy pixels for the ViT patch grid of exp=vlgae_vit
+        if vis_source not in ("det_feats", "pixels"):
+            raise ValueError(f"unknown vis_source {vis_source!r}")
+        self.vis_source = vis_source
+        self.vit_image_size = vit_image_size
+        self.vit_patch_size = vit_patch_size
         self.sg_data = {}
         if sg_path and os.path.exists(sg_path):
             with open(sg_path) as f:
@@ -403,7 +410,7 @@ class VLParseDataModule(DepDataModule):
                         self.sg_data.update(
                             {i["coco_id"]: i for i in json.load(f)}
                         )
-        self._feat_loaders: Dict[str, DetFeatureLoader] = {}
+        self._feat_loaders: Dict[str, object] = {}
         super().__init__(**kw)
 
     def _load(self, path, name):
@@ -421,7 +428,11 @@ class VLParseDataModule(DepDataModule):
         feat_dir = Path(folder) / (
             "gold_feats" if self.use_gold_scene_graph else "det_feats"
         )
-        if self.load_vis:
+        if self.load_vis and self.vis_source == "pixels":
+            self._feat_loaders[name] = PixelLoader(
+                Path(folder) / "imgs", image_size=self.vit_image_size,
+                patch_size=self.vit_patch_size)
+        elif self.load_vis:
             self._feat_loaders[name] = DetFeatureLoader(
                 feat_dir, self.sg_data,
                 sample=(self.sample_boxes

@@ -1,10 +1,12 @@
-"""Per-image detection-feature loading and batch packing (NumPy).
+"""Per-image detection-feature and pixel loading and batch packing (NumPy).
 
 A copy of the NumPy path of ``vlgae_tpu/data/features.py``: per-image
 ``det_feats/<img_id>.npy`` files of shape [n_box, feat_dim + 4]
 (Faster-RCNN features + box coords) are loaded at batch time, optionally
 subsampled to ``sample`` boxes for training, and packed into arrays padded
-to a fixed box count (``pad_boxes``).
+to a fixed box count (``pad_boxes``). :class:`PixelLoader` reads raw
+``imgs/<img_id>.npy`` pixels instead, for the ViT patch grid of
+``exp=vlgae_vit``.
 """
 
 from __future__ import annotations
@@ -84,3 +86,44 @@ class DetFeatureLoader:
         sid = sid[sid < n_obj] if len(sid) and sid.max() >= n_obj else sid
         rel = rel[np.ix_(sid, sid)] if len(sid) else rel[:0, :0]
         return mask, rel
+
+
+class PixelLoader:
+    """Loads ``imgs/<img_id>.npy`` raw pixels (``[S, S, 3]`` floats) for
+    :class:`~vlgae_tpu_torch.models.vis_encoder.VisViTPatchEncoder`. The
+    "proposal boxes" are the ViT patch rectangles, the same for every image,
+    so the keys are those of :class:`DetFeatureLoader` with ``vis_pixels``
+    in place of ``vis_box_feat``."""
+
+    def __init__(self, root, image_size: int, patch_size: int):
+        from ..models.vis_encoder import patch_boxes
+
+        self.root = Path(root)
+        self.image_size = int(image_size)
+        self.patch_size = int(patch_size)
+        self.boxes = patch_boxes(self.image_size, self.patch_size).astype(np.float32)
+
+    @property
+    def n_patches(self) -> int:
+        return len(self.boxes)
+
+    def __call__(self, img_ids: List[int]) -> Dict[str, np.ndarray]:
+        B, P, S = len(img_ids), self.n_patches, self.image_size
+        pixels = np.zeros((B, S, S, 3), np.float32)
+        for i, img_id in enumerate(img_ids):
+            path = self.root / f"{img_id}.npy"
+            if not path.exists():
+                raise FileNotFoundError(str(path))
+            img = np.load(str(path))
+            if img.shape[:2] != (S, S):
+                raise ValueError(f"{path}: expected {S}x{S} pixels, got {img.shape}")
+            pixels[i] = img
+        masks = np.ones((B, P), bool)
+        return {
+            "vis_pixels": pixels,
+            "vis_box_mask": masks,
+            "vis_rel_mask": np.zeros((B, P, P), bool),
+            "vis_available": masks[:, 0].copy(),
+            "vis_box": np.tile(self.boxes[None], (B, 1, 1)),
+            "vis_box_index": np.tile(np.arange(P)[None], (B, 1)),
+        }

@@ -21,7 +21,11 @@ LEAKY_SLOPE = 0.01  # jax.nn.leaky_relu default
 
 
 def leaky_relu(x):
-    return F.leaky_relu(x, LEAKY_SLOPE)
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope * x)``, so that the
+    derivative at exactly 0 is 1 (``F.leaky_relu``'s is the slope). Exact
+    zeros are common in bf16: the relation factor's pairwise mean of two
+    projections that are each other's negatives."""
+    return torch.where(x >= 0, x, x * LEAKY_SLOPE)
 
 
 def shared_dropout(x, p: float, keep):

@@ -30,9 +30,11 @@ import torch
 
 from . import _build
 
-# launches in this process (chip_smoke resets and reads them): K1; the
-# inside pass, value-only and chart-saving, by mapping; the outside pass
+# launches in this process (chip_smoke resets and reads them): K1, and
+# those of it with charts in global scratch; the inside pass, value-only
+# and chart-saving, by mapping; the outside pass
 n_launches = 0
+n_fused_global_launches = 0
 MAPPINGS = ("warp", "smem", "global")
 n_inside_launches = dict.fromkeys(MAPPINGS, 0)
 n_inside_save_launches = dict.fromkeys(MAPPINGS, 0)
@@ -53,14 +55,15 @@ _outside_lib = None
 
 
 def reset_launch_counts() -> None:
-    global n_launches, n_outside_launches
-    n_launches = n_outside_launches = 0
+    global n_launches, n_fused_global_launches, n_outside_launches
+    n_launches = n_fused_global_launches = n_outside_launches = 0
     for m in MAPPINGS:
         n_inside_launches[m] = n_inside_save_launches[m] = 0
 
 
 def launch_counts() -> dict:
-    return {"fused": n_launches, "inside": dict(n_inside_launches),
+    return {"fused": n_launches, "fused_global": n_fused_global_launches,
+            "inside": dict(n_inside_launches),
             "inside_save": dict(n_inside_save_launches),
             "outside": n_outside_launches}
 
@@ -176,7 +179,7 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
     ``dec``/``attach`` are f32 CUDA tensors; ``lengths`` (int) is moved to
     the card as int32. Lengths are clamped to ``[0, N1-1]`` in the kernel.
     """
-    global n_launches
+    global n_launches, n_fused_global_launches
     dec, attach, lengths, B, n1 = _checked("dmv_fused", dec, attach, lengths, kind)
     lib = _library()
     out = torch.empty(B, device=dec.device, dtype=torch.float32)
@@ -196,6 +199,7 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
             inside_threads(n1), _build.stream_ptr(dec.device))
     _build.check(err, "dmv_fused_launch")
     n_launches += 1
+    n_fused_global_launches += int(not use_smem)
     return out, g_dec, g_attach
 
 

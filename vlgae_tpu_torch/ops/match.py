@@ -23,8 +23,10 @@ import torch
 
 from . import _build
 
-# launches of K5 / K6 in this process (chip_smoke resets and reads them)
+# launches of K5 / K6 in this process (chip_smoke resets and reads them),
+# and of K5 by the number of q-chunks it took
 n_launches = 0
+n_launches_by_q_chunks = {}
 n_bwd_launches = 0
 
 _lib = None
@@ -176,6 +178,8 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
             _build.stream_ptr(dev))
     _build.check(err, "match_fwd_launch")
     n_launches += 1
+    chunks = plan["q_chunks"]
+    n_launches_by_q_chunks[chunks] = n_launches_by_q_chunks.get(chunks, 0) + 1
     return logit, logit_idx, logit_v, logit_v_idx
 
 

@@ -1,6 +1,6 @@
 """Model factory (counterpart of vlgae_tpu/training/factory.py): build the
-joint model of ``exp=vlgae`` or the stand-alone parser of ``exp=lang_only``
-from a composed config. ``_target_`` strings are matched by class name, as
+joint model of ``exp=vlgae`` and ``exp=vlgae_vit`` or the stand-alone parser
+of ``exp=lang_only`` from a composed config. ``_target_`` strings are matched by class name, as
 in the JAX package."""
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from ..models.joint import (ATTR_POS, OBJ_POS, REL_POS, DependencyBoxRel,
                             DependencyBoxRelConfig)
 from ..models.ldndmv import FUNCTION_POS, DiscriminativeNDMV, LDNDMVConfig
 from ..models.text_encoder import MLPEncoder, RNNEncoder
-from ..models.vis_encoder import VisBoxRelSimpleEncoder
+from ..models.vis_encoder import VisBoxRelSimpleEncoder, VisViTPatchEncoder, ViTConfig
 
 
 def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
@@ -149,17 +149,28 @@ def build_vis_encoder(cfg: Optional[Dict[str, Any]], dtype=None):
     if not cfg:
         raise NotImplementedError("the joint model needs a vis_encoder config")
     target = str(cfg.get("_target_", ""))
+    head = dict(n_hidden=int(cfg.get("n_hidden", 256)),
+                activate=bool(cfg.get("activate", True)),
+                use_attr=bool(cfg.get("use_attr", True)),
+                use_img=bool(cfg.get("use_img", False)),
+                img_feat=bool(cfg.get("img_feat", True)),
+                dtype=dtype, dropout=float(cfg.get("dropout", 0.0)))
+    if target.endswith("VisViTPatchEncoder"):
+        # exp=vlgae_vit: patch-grid factors from a (by default frozen) ViT
+        vit_cfg = ViTConfig(
+            hidden_size=int(cfg.get("vit_hidden_size", 192)),
+            num_hidden_layers=int(cfg.get("vit_num_layers", 4)),
+            num_attention_heads=int(cfg.get("vit_num_heads", 4)),
+            intermediate_size=int(cfg.get("vit_intermediate_size", 384)),
+            image_size=int(cfg.get("vit_image_size", 224)),
+            patch_size=int(cfg.get("vit_patch_size", 32)),
+            num_channels=3)
+        return VisViTPatchEncoder(vit_config=vit_cfg,
+                                  requires_grad=bool(cfg.get("requires_grad", False)),
+                                  **head)
     if not target.endswith("VisBoxRelSimpleEncoder"):
         raise NotImplementedError(f"vis_encoder {target!r} is not ported")
-    return VisBoxRelSimpleEncoder(
-        n_in=int(cfg.get("n_in", 2048)),
-        n_hidden=int(cfg.get("n_hidden", 256)),
-        activate=bool(cfg.get("activate", True)),
-        use_attr=bool(cfg.get("use_attr", True)),
-        use_img=bool(cfg.get("use_img", False)),
-        img_feat=bool(cfg.get("img_feat", True)),
-        dtype=dtype,
-        dropout=float(cfg.get("dropout", 0.0)))
+    return VisBoxRelSimpleEncoder(n_in=int(cfg.get("n_in", 2048)), **head)
 
 
 def build_joint(cfg: Dict[str, Any], dm) -> DependencyBoxRel:

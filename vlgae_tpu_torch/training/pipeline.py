@@ -53,7 +53,7 @@ def pad_batch_pow2(batch: dict, min_b: int = 8):
 def init_params(model: torch.nn.Module, seed: int) -> None:
     """Random weights from ``seed`` (an explicit CPU generator, so the
     draw does not depend on the device): biases and mixing weights 0,
-    norm scales 1, BERT tables/kernels N(0, 0.02), static embeddings
+    norm scales 1, BERT and ViT tables/kernels N(0, 0.02), static embeddings
     N(0, 1) (or their pretrained table), other matrices N(0, 1/fan_in);
     an ``RNNEncoder`` by its ``init_version``."""
     g = torch.Generator().manual_seed(int(seed))
@@ -66,7 +66,7 @@ def init_params(model: torch.nn.Module, seed: int) -> None:
                 p.fill_(1.0)
             else:
                 x = torch.randn(p.shape, generator=g)
-                if ".bert." in f".{name}":
+                if ".bert." in f".{name}" or ".vit." in f".{name}":
                     x = x * 0.02
                 elif leaf not in ("embedding", "root_emb", "dec_emb"):
                     x = x * (p.shape[-1] if p.dim() == 2 else p.shape[0]) ** -0.5
@@ -120,6 +120,16 @@ class Pipeline:
         self._batch_normalize = any(
             item.kind == "static" and item.normalize_time == "batch"
             for item in emb.items)
+        # pretrained ViT backbone weights over the random init
+        vit_weights = (cfg.get("vis_encoder") or {}).get("vit_weights")
+        if vit_weights:
+            from ..models.vis_encoder import graft_vit_params, load_vit_params
+
+            vis = getattr(self.model, "vis_encoder", None)
+            if not hasattr(vis, "vit_config"):
+                raise ValueError("vis_encoder.vit_weights is set but the model's "
+                                 "vis_encoder is not a VisViTPatchEncoder")
+            graft_vit_params(self.model, load_vit_params(str(vit_weights), vis.vit_config))
         # seconds of each eval step of the last evaluate(): batch upload,
         # forward, loss and decode, ending when the results reach the host
         self.step_times: List[float] = []
@@ -149,13 +159,16 @@ class Pipeline:
     # -- setup -----------------------------------------------------------------
     def setup_optimizer(self) -> Optimizer:
         """Adam over the trainable parameters; a frozen transformer item's
-        BERT stays out."""
+        BERT and a frozen ViT backbone stay out."""
         train_cfg = self.cfg.get("datamodule", {}).get("train_dataloader", {}) or {}
         n_batches = max(1, len(self.dm.datasets.get("train", [1]))
                         // max(int(train_cfg.get("batch_size", 32)), 1))
         frozen = [rf"\b{item.name}\b.*bert"
                   for item in self.dep.embedding.items
                   if item.kind == "transformer" and not item.requires_grad]
+        vis = getattr(self.model, "vis_encoder", None)
+        if hasattr(vis, "vit_config") and not vis.requires_grad:
+            frozen.append(r"vis_encoder\.vit\b")
         self.optimizer = Optimizer(
             self.model, self.cfg.get("optimizer", {"args": {"lr": 1e-3}}),
             self.cfg.get("scheduler"), steps_per_epoch=n_batches,
