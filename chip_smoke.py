@@ -74,7 +74,28 @@ Phases, each printing one JSON line:
                  each held against its plain version on the path's own
                  tensors), the frozen ViT bit-identical after training,
                  ``eval.py`` on the predictions with the patch grid as
-                 proposal boxes, step times and the kernels' times there
+                 proposal boxes, step times and the kernels' times there;
+                 one eval step with ``mbr_decoding`` on at n1 = 65 (three
+                 K1 launches in global scratch, heads held to the plain
+                 Eisner fill)
+ 16. mbr       - MBR decoding: K1 on Eisner potentials (free decisions, the
+                 arc in both valences) against the plain Eisner fill at B=64,
+                 n1 = 51, 65 and 101 (log and max, device time beside the
+                 plain fill's); ``predict`` of ``exp=vlgae`` at the recipe's
+                 widths and precision=32 with MBR, the card against the CPU
+                 on the dev set (arcs equal wherever the MBR tree wins by
+                 ``MBR_MARGIN``, every head set a projective tree),
+                 ``eval.py`` on it; the recipe's bf16 eval step with and
+                 without MBR (K1 2 -> 3 launches a step); ``exp=lang_only``
+                 ``predict`` with MBR (K1 1 -> 2 a step) on the corpus of
+                 phase ``lang_only`` and on 86-99 word captions (K1 in
+                 global scratch), its eval step with and without MBR, and
+                 the small precision=32 corpus, card against CPU
+ 17. em        - the classic tabular DMV on the lang_only corpus: km_init,
+                 two EM epochs at B=64 on the card (K3a + K3b each E-step)
+                 and on the CPU, tables within ``EM_TOL``; MBR and Viterbi
+                 decodes of dev (UAS), the card against the CPU on three
+                 batches; the E-step's time and K3a/K3b at its shape
 Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
 the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
 Then each phase's seconds, the card's name and power limit, the per-kernel
@@ -87,6 +108,7 @@ one CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -2060,6 +2082,25 @@ def phase_vit(state):
         eval_s = statistics.median(steps)
         per_eval_step = {k: v / len(pipe.step_times) for k, v in eval_counts.items()}
 
+        # one MBR eval step on the n1 = 65 batch: K1 log and max reused, plus
+        # K1 max on the Eisner potentials, all three in global scratch
+        pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=True)
+        reset()
+        try:
+            mbr_arc = pipe.eval_step(x)["arc"]
+        finally:
+            pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=False)
+        mbr_counts = counts()
+        if not (mbr_counts["dmv_fused"] == mbr_counts["dmv_fused_global"] == 3):
+            raise AssertionError(f"vit MBR eval step: launches {mbr_counts}")
+        with torch.no_grad():
+            inputs = _to_device(x, pipe.device)
+            arc = pipe.model.eval()(inputs)["dep_reuse"]["log"][2].sum(-1)
+            mbr_check = check_mbr_heads(arc, inputs["seq_len"],
+                                        torch.as_tensor(mbr_arc).to(arc.device),
+                                        "vlgae_vit eval batch at n1 = 65")
+        mbr_check["launches"] = mbr_counts
+
         # predict from the checkpoint: train, dev and test files
         shapes.clear()
         reset()
@@ -2093,6 +2134,7 @@ def phase_vit(state):
           "epochs": len([r for r in lines if "train/loss" in r]), "losses": losses,
           "eval_py_tail": {"train_dev": eval_dev, "predict_dev": eval_predict},
           "vit_frozen_bit_identical": True, "kernels_on_path": on_path,
+          "mbr_eval_step_n1_65": mbr_check,
           "vit_forward_device_ms_B64": vit_ms, "pixel_upload_ms_B64": upload_ms,
           "pixel_bytes_B64": int(x["vis_pixels"].nbytes),
           "train_step_ms_median_B64": step_s * 1e3,
@@ -2107,7 +2149,626 @@ def phase_vit(state):
         by_path = {"vlgae_vit_train": launches[name]}
         if name != "match_bwd":
             by_path["vlgae_vit_predict"] = predict_launches[name]
+            by_path["vlgae_vit_mbr_eval_step"] = mbr_counts[name]
         state.setdefault(name, {}).setdefault("launches_by_path", {}).update(by_path)
+
+
+# MBR and the Eisner CRF on the card (phase mbr): a head set is compared
+# with another computation's where its tree wins by at least this much (the
+# gap to the best tree that differs in one arc or more); the card's and the
+# CPU's marginals differ by a few ulp, so near-ties may go either way
+MBR_MARGIN = 1e-3
+EISNER_N1 = {"B64_len1-50": 51, "B64_len1-64_global": 65, "B64_len86-100_global": 101}
+
+
+def eisner_lengths(rng, n1, B=64):
+    """B lengths in [1, n1 - 1] (in [86, 100] at n1 = 101, every sentence
+    beyond K1's shared memory) with the longest and a one-word sentence."""
+    lo = 86 if n1 > 86 else 1
+    lengths = rng.integers(lo, n1, B)
+    lengths[:2] = (n1 - 1, lo)
+    return lengths
+
+
+def eisner_bound(lengths, n1):
+    """The bound of the Eisner CRF's tables (K1 on Eisner potentials): the
+    arc scores read, the attach table written, and the operations of the
+    Eisner inside pass (3 split-point sums of w terms a span of width w,
+    each term one product and one sum) three times, inside and outside."""
+    B = len(lengths)
+    ops = sum(6 * w * (int(n) + 1 - w) for n in lengths for w in range(1, int(n) + 1))
+    return bound(4 * B * n1 * n1 + 4 * B * n1 * n1 * 2 + 4 * B, 3 * ops, "f32")
+
+
+def tree_margins(heads, lengths, best, total_without):
+    """Per sentence, the best tree's score minus the best score of a tree
+    that differs from it in one arc or more: the largest total with one of
+    the tree's arcs removed (``total_without(h, k)``: totals [B] with arc
+    ``h[b] -> k`` removed in every sentence). ``inf`` for a sentence with a
+    single tree. Torch tensors on one device."""
+    import torch
+
+    rows = torch.arange(heads.shape[0], device=heads.device)
+    second = torch.full_like(best, float("-inf"))
+    for k in range(1, int(lengths.max()) + 1):
+        t = total_without(rows, heads[:, k - 1], k)
+        second = torch.where(k <= lengths, torch.maximum(second, t), second)
+    return torch.where(second > -1e11, best - second, float("inf"))
+
+
+def eisner_margins(arc, lengths, heads):
+    """:func:`tree_margins` of the single-root Eisner CRF on ``arc`` (value
+    only inside passes, K2/K4 on the card)."""
+    from vlgae_tpu_torch.struct import NEGINF, DependencyCRF
+
+    def without(rows, h, k):
+        a = arc.clone()
+        a[rows, h.long(), k] = NEGINF
+        return DependencyCRF(a, lengths).max
+
+    return tree_margins(heads, lengths, DependencyCRF(arc, lengths).max, without)
+
+
+def dmv_margins(dec, attach, lengths, heads):
+    """:func:`tree_margins` of the DMV on merged potentials (both valences
+    of an arc removed)."""
+    from vlgae_tpu_torch.struct import NEGINF, dmv_total_fast
+
+    def without(rows, h, k):
+        a = attach.clone()
+        a[rows, h.long(), k] = NEGINF
+        return dmv_total_fast(dec, a, lengths, "max")
+
+    return tree_margins(heads, lengths, dmv_total_fast(dec, attach, lengths, "max"), without)
+
+
+def _is_tree(heads):
+    from vlgae_tpu_torch.struct.alg import istree
+
+    return istree(list(heads), proj=True)
+
+
+def non_trees(heads, lengths):
+    """Sentences whose heads are not a single-root projective tree."""
+    return sum(1 for h, n in zip(heads.tolist(), lengths.tolist())
+               if n and not _is_tree(h[:n]))
+
+
+def check_mbr_heads(arc, lengths, got, what):
+    """Heads ``got`` of an MBR decode on the card against the plain Eisner
+    fill's argmax on the same summed marginals ``arc``: equal where the tree
+    wins by ``MBR_MARGIN``, and a projective tree in every sentence."""
+    import torch
+
+    from vlgae_tpu_torch.struct import deptree_marginals
+
+    want = torch.argmax(deptree_marginals(arc, lengths, "max")[:, :, 1:], dim=1)
+    margin = eisner_margins(arc, lengths, want)
+    real = lengths > 0
+    won = real & (margin >= MBR_MARGIN)
+    stats = {"sentences": int(real.sum()), "margin_won": int(won.sum()),
+             "equal_where_won": bool(torch.equal(got[won], want[won])),
+             "equal_all": bool(torch.equal(got[real], want[real])),
+             "min_margin": float(margin[real].min()) if bool(real.any()) else None,
+             "non_trees": non_trees(got, lengths)}
+    if not stats["equal_where_won"] or stats["non_trees"]:
+        raise AssertionError(f"MBR heads {what}: {stats}")
+    return stats
+
+
+def _k1_eisner(state, rng, dev):
+    """K1 on Eisner potentials (``eisner_as_dmv``) against the plain Eisner
+    fill on the card, at B = 64 and the n1 of the three recipes' eval paths;
+    its time beside the plain fill's."""
+    import torch
+
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused
+    from vlgae_tpu_torch.struct import (deptree_grads_fast, deptree_marginals,
+                                        deptree_partition, eisner_as_dmv)
+
+    cases, rows = {}, {}
+    for name, n1 in EISNER_N1.items():
+        lengths = eisner_lengths(rng, n1)
+        arc = torch.tensor(rng.standard_normal((64, n1, n1)), dtype=torch.float32,
+                           device=dev)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        dec, attach = eisner_as_dmv(arc)
+        case = {}
+        for kind in ("log", "max"):
+            g0 = dmv_cuda.n_fused_global_launches
+            total = dmv_fused(dec, attach, lens, kind)[0]
+            table = deptree_grads_fast(arc, lens, kind)
+            if name.endswith("_global") and dmv_cuda.n_fused_global_launches != g0 + 2:
+                raise AssertionError(f"K1 Eisner {name} did not take global scratch")
+            want_t = deptree_partition(arc, lens, kind)
+            want_g = deptree_marginals(arc, lens, kind)
+            errs = {"total": float((total - want_t).abs().max()),
+                    "table": float((table - want_g).abs().max())}
+            ok = close(total, want_t, K1_TOTAL_ATOL, K1_TOTAL_RTOL) and (
+                errs["table"] == 0.0 if kind == "max"
+                else close(table, want_g, K1_GRAD_ATOL, K1_GRAD_RTOL))
+            if not ok:
+                raise AssertionError(f"K1 on Eisner potentials {name}/{kind}: {errs}")
+            case[kind] = {
+                **errs,
+                "device_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+                "ms": time_ms(lambda: deptree_grads_fast(arc, lens, kind)),
+                "plain_ms": time_ms(lambda: deptree_marginals(arc, lens, kind),
+                                    reps=3, warmup=1)}
+        cases[name] = case
+        b = eisner_bound(lengths, n1)
+        rows[f"n1={n1}"] = {
+            "ms_log": case["log"]["ms"], "ms_max": case["max"]["ms"],
+            "device_ms_log": case["log"]["device_ms"],
+            "device_ms_max": case["max"]["device_ms"],
+            "plain_ms_log": case["log"]["plain_ms"], "plain_ms_max": case["max"]["plain_ms"],
+            "max_abs_err": max(case["log"]["table"], case["max"]["table"]),
+            **b, "library_ms": None}
+    state.setdefault("dmv_fused", {})["on_eisner_potentials"] = rows
+    return cases
+
+
+def _eval_with_and_without_mbr(pipe, counts, reset, full, rounds=2):
+    """``pipe.evaluate('dev')`` with MBR off and on, in turns: the median
+    host ms of the eval steps whose batch holds more than ``full`` real
+    sentences, sentences/s, and the kernels' launches per step."""
+    out = {}
+    for _ in range(rounds):
+        for mbr in (False, True):
+            pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=mbr)
+            reset()
+            pipe.evaluate("dev")
+            c = counts()
+            rec = out.setdefault("mbr" if mbr else "viterbi", {"steps": []})
+            rec["steps"] += [(t, n) for t, n in zip(pipe.step_times, pipe.step_sizes)
+                             if n > full]
+            rec["launches"] = c
+            rec["per_step"] = {k: v / len(pipe.step_times) for k, v in c.items()}
+    pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=False)
+    for rec in out.values():
+        steps = rec.pop("steps")
+        rec["median_ms"] = statistics.median(t for t, _ in steps) * 1e3
+        rec["sentences_per_s"] = statistics.median(n / t for t, n in steps)
+        rec["ms"] = [round(t * 1e3, 3) for t, _ in steps]
+    return out
+
+
+# a grounding row counts as tied where two of its top-(k + 1) decode logits
+# lie within this of each other (card and CPU may order them either way)
+ALIGN_TIE = 1e-4
+
+
+def _tied_align_rows(model, out, inputs, real, topk=5):
+    """Per real sentence of a joint eval batch, whether every row of its
+    prediction file may differ in its ALIGN column between card and CPU, and
+    the rows that may: a row where a word factor or an arc factor holds two
+    top-(``topk`` + 1) decode logits within ``ALIGN_TIE`` (relative to 1 +
+    |value|); every row of a sentence whose DMV Viterbi tree wins by less
+    than ``MBR_MARGIN`` (the arc factors are built from that tree's heads,
+    and K1 max marks every best tree on a tie where the CPU splits it), or
+    where the best-box heuristic's inputs tie (a row's best box against its
+    best non-box factor, or its two best boxes, before the heuristic), since
+    either choice reaches all its rows. Mask constants (<= -1e5) tie
+    exactly on both devices and are left out."""
+    import dataclasses
+
+    import torch
+
+    def near(v):
+        gap = v[..., :-1] - v[..., 1:]
+        return (gap <= ALIGN_TIE * (1 + v[..., :-1].abs())) & (v[..., :-1] > -1e5)
+
+    logit = model.decode_grounding_logits(out, inputs)
+    tied_q = near(torch.topk(logit.float(), topk + 1, dim=-1).values).any(-1)
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, decode_use_heuristic=False)
+    try:
+        raw = model.decode_grounding_logits(out, inputs).float()
+    finally:
+        model.cfg = cfg
+    mask = out["txt_packed"][1]
+    P = out["vis_packed"][2][0]
+    box = torch.topk(raw[..., :P], 2, dim=-1).values
+    rest = raw[..., P:].amax(-1, keepdim=True)
+    pair = torch.sort(torch.cat([box[..., :1], rest], -1), -1, descending=True).values
+    heur = ((near(box) | near(pair)).any(-1) & mask).any(-1)
+    lens = inputs["seq_len"]
+    viterbi = torch.argmax(out["dep_reuse"]["max"][2].sum(-1)[:, :, 1:], dim=1)
+    heur = heur | (dmv_margins(out["merged_dec"], out["merged_attach"], lens,
+                               viterbi) < MBR_MARGIN)
+    tied_q, mask, lens, heur = tied_q.cpu(), mask.cpu(), lens.cpu(), heur.cpu()
+    rows = []
+    for b in range(real):
+        t, n = tied_q[b][mask[b]].tolist(), int(lens[b])
+        rows.append((bool(heur[b]),
+                     {i for i in range(n) if t[i] or (len(t) > n and t[i + n])}))
+    return rows
+
+
+def _dev_heads(path):
+    """HEAD columns of a CoNLL file, one list per sentence."""
+    with open(path) as f:
+        blocks = [b for b in f.read().split("\n\n") if b.strip()]
+    return [[int(r.split("\t")[3]) for r in b.splitlines()] for b in blocks]
+
+
+def phase_mbr(state):
+    """MBR decoding (``mbr_decoding: true``) on the card: K1 on Eisner
+    potentials; ``exp=vlgae`` predict at its published widths, card against
+    CPU at precision=32, and its bf16 eval step with and without MBR;
+    ``exp=lang_only`` predict with MBR (long captions too), card against
+    CPU at small widths, and its eval step with and without MBR."""
+    import math
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.predict import build_pipeline
+    from vlgae_tpu_torch.struct import DependencyCRF, DMV1o
+    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+
+    def reset():
+        dmv_cuda.reset_launch_counts()
+        match.n_launches = match.n_bwd_launches = 0
+
+    def counts():
+        c = dmv_cuda.launch_counts()
+        return {"dmv_fused": c["fused"], "dmv_fused_global": c["fused_global"],
+                "dmv_inside": c["inside"]["smem"], "dmv_inside_small": c["inside"]["warp"],
+                "dmv_inside_long": c["inside"]["global"],
+                "dmv_inside_save": sum(c["inside_save"].values()),
+                "dmv_outside": c["outside"], "match_fwd": match.n_launches}
+
+    def value_only(c):
+        return c["dmv_inside"] + c["dmv_inside_small"] + c["dmv_inside_long"]
+
+    def n_steps(pipe):
+        return sum(len(list(pipe.dm.batches(s, shuffle=False)))
+                   for s in ("train", "dev", "test") if s in pipe.dm.datasets)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    result = {"phase": "mbr", "k1_on_eisner": _k1_eisner(state, rng, dev)}
+    by_path = {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=104, feat_dim=2048, n_box=36, len_range=(3, 50), seed=0)
+        base = _corpus_overrides(tmp) + [f"datamodule.{s}_dataloader.num_bucket=1"
+                                         for s in ("train", "dev", "test")]
+        p32 = base + ["trainer.precision=32", "model.dep_model_cfg.mbr_decoding=true"]
+        # the card through the predict entry point, precision=32, MBR
+        reset()
+        t0 = time.perf_counter()
+        card, card_res = _run_predict(tmp, p32 + ["init_seed=0", "device=cuda", "name=card"])
+        torch.cuda.synchronize()
+        t_predict = time.perf_counter() - t0
+        c = counts()
+        steps = n_steps(card)
+        if c["dmv_fused"] != 3 * steps or c["match_fwd"]:
+            raise AssertionError(f"vlgae MBR predict: launches {c} over {steps} steps")
+        by_path["vlgae_mbr_predict"] = c
+        card_file = os.path.join(tmp, "card_dev.conll")
+        ev = subprocess.run([sys.executable, os.path.join(ROOT, "eval.py"), "--file",
+                             card_file, "--dataroot", root], capture_output=True, text=True)
+        if ev.returncode != 0:
+            raise AssertionError(f"eval.py rc {ev.returncode}: {ev.stderr[-2000:]}")
+        # the CPU: the same weights and dev set, plain versions
+        t0 = time.perf_counter()
+        cpu = build_pipeline(p32, device="cpu", init_seed=0)
+        cpu_res, cpu_out = cpu.evaluate("dev")
+        cpu_file = os.path.join(tmp, "cpu_dev.conll")
+        cpu.write_predictions(cpu_file, "dev", cpu_out)
+        t_cpu = time.perf_counter() - t0
+        # the card's MBR marginals, heads and margins on each dev batch
+        margins, card_heads, tied = {}, {}, {}
+        with torch.no_grad():
+            for x, _ in card.dm.batches("dev", shuffle=False):
+                xp, real = pad_batch_pow2(x)
+                inputs = _to_device(xp, card.device)
+                out = card.model.eval()(inputs)
+                lens = inputs["seq_len"]
+                arc = out["dep_reuse"]["log"][2].sum(-1)
+                heads = DependencyCRF(arc, lens).argmax_heads
+                m = eisner_margins(arc, lens, heads)
+                t = _tied_align_rows(card.model, out, inputs, real)
+                for j, sid in enumerate(x["id"][:real]):
+                    margins[int(sid)] = float(m[j])
+                    card_heads[int(sid)] = heads[j, :int(x["seq_len"][j])].tolist()
+                    tied[int(sid)] = t[j]
+        ids = [inst["id"] for inst in card.dm.datasets["dev"]]
+        got, want = _dev_heads(card_file), _dev_heads(cpu_file)
+        with open(card_file) as f, open(cpu_file) as g:
+            card_text, cpu_text = f.read(), g.read()
+        rows = [(a.split("\t"), b.split("\t")) for a, b in zip(
+            card_text.splitlines(), cpu_text.splitlines())]
+        blocks = [[b.splitlines() for b in text.split("\n\n") if b.strip()]
+                  for text in (card_text, cpu_text)]
+        differ = {(sid, i): (ra.split("\t")[4:], rb.split("\t")[4:])
+                  for sid, a, b in zip(ids, *blocks)
+                  for i, (ra, rb) in enumerate(zip(a, b)) if ra != rb}
+        untied = {k: v for k, v in differ.items()
+                  if not tied[k[0]][0] and k[1] not in tied[k[0]][1]}
+        won = [margins[i] >= MBR_MARGIN for i in ids]
+        ref = {"identical_dev_file": card_text == cpu_text,
+               "arcs_identical": got == want,
+               "arcs_identical_where_won": all(a == b for a, b, w in zip(got, want, won) if w),
+               "sentences": len(ids), "margin_won": sum(won),
+               "min_margin": min(margins.values()),
+               "heads_as_decoded_again": all(card_heads[i] == h for i, h in zip(ids, got)),
+               "non_trees": sum(1 for h in got if not _is_tree(h)),
+               "align_rows_identical": float(np.mean([a == b for a, b in rows])),
+               "rows_differing": len(differ),
+               "rows_differing_head": sum(1 for sid, i in differ
+                                          if got[ids.index(sid)][i]
+                                          != want[ids.index(sid)][i]),
+               "align_rows_tied": sum(len(t) for _, t in tied.values()),
+               "sentences_tied": sum(h for h, _ in tied.values()),
+               "rows_differing_in_tied_sentences": sum(1 for sid, _ in differ
+                                                       if tied[sid][0]),
+               "rows_differing_untied": len(untied),
+               "untied_rows": {f"{sid}:{i}": v for (sid, i), v in list(untied.items())[:8]},
+               "dev_loss": {"card": card_res["dev"]["loss"], "cpu": cpu_res["loss"]},
+               "predict_s": round(t_predict, 3), "cpu_dev_s": round(t_cpu, 3),
+               "eval_py_tail": ev.stdout.strip().splitlines()[-1]}
+        result["vlgae_reference"] = ref
+        # every arc is the same; a row may differ only in its ALIGN column,
+        # and only where its grounding holds a near tie (_tied_align_rows)
+        if not (ref["arcs_identical"] and ref["arcs_identical_where_won"]
+                and ref["heads_as_decoded_again"]
+                and not ref["non_trees"] and len(got) == len(ids)
+                and len(blocks[0]) == len(blocks[1]) == len(ids)
+                and not ref["rows_differing_untied"]
+                and abs(card_res["dev"]["loss"] - cpu_res["loss"])
+                <= 1e-4 * (1 + abs(cpu_res["loss"]))):
+            raise AssertionError(f"vlgae MBR: card and CPU disagree: {ref}")
+
+        # the recipe (bf16) eval step with and without MBR
+        pipe = build_pipeline(base, device=dev, init_seed=0)
+        timing = _eval_with_and_without_mbr(pipe, counts, reset, full=63)
+        if not (timing["viterbi"]["per_step"]["dmv_fused"] == 2
+                and timing["mbr"]["per_step"]["dmv_fused"] == 3):
+            raise AssertionError(f"vlgae eval step K1 launches: {timing}")
+        result["vlgae_eval_step_B64"] = timing
+        by_path["vlgae_mbr_eval"] = timing["mbr"]["launches"]
+
+    # exp=lang_only: the recipe's widths, weights from a seed
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=LANG_N_IMGS, feat_dim=4,
+                    n_box=3, len_range=(3, 50), seed=0)
+        lang = _lang_overrides(tmp, False)
+        reset()
+        ppipe, res = _run_predict(tmp, lang + ["model.mbr_decoding=true", "init_seed=0",
+                                               "device=cuda"])
+        c = counts()
+        steps = n_steps(ppipe)
+        if not (c["dmv_fused"] == 2 * steps and value_only(c) == steps
+                and not any(math.isnan(float(r["loss"])) for r in res.values())):
+            raise AssertionError(f"lang_only MBR predict: launches {c} over {steps} steps")
+        by_path["lang_only_mbr_predict"] = c
+        lang_trees = sum(1 for h in _dev_heads(os.path.join(tmp, "unnamed_dev.conll"))
+                         if not _is_tree(h))
+        pipe = build_pipeline(lang, device=dev, init_seed=0)
+        timing = _eval_with_and_without_mbr(pipe, counts, reset, full=32)
+        if not (timing["viterbi"]["per_step"]["dmv_fused"] == 1
+                and timing["mbr"]["per_step"]["dmv_fused"] == 2):
+            raise AssertionError(f"lang_only eval step K1 launches: {timing}")
+        result["lang_only_eval_step_B64"] = timing
+        x = pad_batch_pow2(next(pipe.dm.batches("dev", shuffle=False))[0])[0]
+        pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=True)
+        heads = torch.as_tensor(pipe.eval_step(x)["arc"]).to(dev)
+        with torch.no_grad():
+            inputs = _to_device(x, pipe.device)
+            out = pipe.model.eval()(inputs)
+            lens = inputs["seq_len"]
+            arc = DMV1o((out["merged_dec"], out["merged_attach"]), lens).marginals.sum(-1)
+        result["lang_only_batch"] = check_mbr_heads(arc, lens, heads, "lang_only dev batch")
+        result["lang_only_predict"] = {"dev_uas": res["dev"]["uas"], "non_trees": lang_trees}
+        if lang_trees:
+            raise AssertionError(f"lang_only MBR predict: {lang_trees} non-trees")
+
+    # long captions (n1 = 89-105): K1 in global scratch for both passes
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=16, feat_dim=4, n_box=3,
+                    len_range=(86, 100), seed=2)
+        reset()
+        ppipe, res = _run_predict(tmp, _lang_overrides(tmp, False) + [
+            "datamodule.max_len.train=100", "model.mbr_decoding=true", "init_seed=0",
+            "device=cuda"])
+        c = counts()
+        steps = n_steps(ppipe)
+        long_trees = sum(1 for h in _dev_heads(os.path.join(tmp, "unnamed_dev.conll"))
+                         if not _is_tree(h))
+        if not (c["dmv_fused"] == c["dmv_fused_global"] == 2 * steps
+                and c["dmv_inside_long"] == steps and not long_trees):
+            raise AssertionError(f"lang_only long MBR predict: {c}, {long_trees} non-trees")
+        by_path["lang_only_mbr_long_predict"] = c
+
+    # the small lang_only reference at precision=32: card against CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=8, feat_dim=4, n_box=3,
+                    len_range=(3, 12), seed=1)
+        files = {}
+        for d in ("cpu", "cuda"):
+            _run_predict(tmp, _lang_overrides(tmp, True) + [
+                "model.mbr_decoding=true", "init_seed=0", f"device={d}", f"name={d}"])
+            with open(os.path.join(tmp, f"{d}_dev.conll")) as f:
+                files[d] = f.read()
+        result["lang_only_reference_identical_dev_file"] = files["cpu"] == files["cuda"]
+        if files["cpu"] != files["cuda"]:
+            raise AssertionError("lang_only MBR: the card and the CPU predict differently")
+
+    result["launches_by_path"] = by_path
+    emit(result)
+    for path, c in by_path.items():
+        for name in ("dmv_fused", "dmv_inside", "dmv_inside_small", "dmv_inside_long",
+                     "match_fwd"):
+            if c.get(name):
+                state.setdefault(name, {}).setdefault("launches_by_path", {})[path] = c[name]
+
+
+# card against CPU after two EM epochs: log tables (f32 DP sums in other
+# orders; the gather's backward adds with float atomics on the card)
+EM_TOL = 1e-4
+
+
+def phase_em(state):
+    """The classic tabular DMV (``models/dmv_model.py``) on the lang_only
+    corpus with the recipe's data settings (word:tag tokens of the 200 most
+    frequent words, training captions up to 10 words): km_init, two EM
+    epochs at B = 64 on the card and on the CPU, then MBR and Viterbi
+    decodes of dev."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.data import DepDataModule
+    from vlgae_tpu_torch.models import dmv_model
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_inside_save, dmv_outside
+    from vlgae_tpu_torch.struct import DMV1o, dmv_inside_charts_plain, dmv_outside_plain
+    from vlgae_tpu_torch.training.metrics import DependencyParsingMetric
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=LANG_N_IMGS, feat_dim=4, n_box=3, len_range=(3, 50),
+                    seed=0)
+        loader = {"batch_size": 64, "num_bucket": 1}
+        dm = DepDataModule(
+            train_path=f"{root}/train.conll", dev_path=f"{root}/val.conll",
+            test_path=f"{root}/test.conll", use_tag=True, num_lex=200,
+            max_len={"train": 10}, train_dataloader=loader,
+            dev_dataloader={"batch_size": 64, "num_bucket": 8}).setup()
+        vocab = dm.vocabs["token"]
+        seqs = [[vocab[t] for t in inst["token"]] for inst in dm.datasets["train"]]
+        cfg = dmv_model.DMVConfig(init_method="km", n_token=len(vocab), smooth=0.1)
+        devices = {"card": dev, "cpu": torch.device("cpu")}
+        params = {d: dmv_model.init_params(cfg, token_seqs=seqs, device=devices[d])
+                  for d in devices}
+        batches = [pad_batch_pow2(x)[0] for x, _ in dm.batches("train", shuffle=False)]
+
+        def tensors(x, d):
+            return (torch.as_tensor(x["token"]).to(devices[d]),
+                    torch.as_tensor(x["seq_len"]).to(devices[d]))
+
+        dmv_cuda.reset_launch_counts()
+        times = []
+        for _ in range(2):
+            for d in devices:
+                em = dmv_model.EMAccumulator(cfg.smooth)
+                for x in batches:
+                    t0 = time.perf_counter()
+                    em.accumulate(dmv_model.expected_counts(params[d], *tensors(x, d)))
+                    if d == "card":
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                params[d] = em.apply(params[d])
+        c = dmv_cuda.launch_counts()
+        n_em = 2 * len(batches)
+        if not (sum(c["inside_save"].values()) == c["outside"] == n_em
+                and c["fused"] == 0 and sum(c["inside"].values()) == 0):
+            raise AssertionError(f"classic DMV E-steps: launches {c} over {n_em} steps")
+        em_launches = {"dmv_inside_save": c["inside_save"]["smem"],
+                       "dmv_inside_small": c["inside_save"]["warp"],
+                       "dmv_inside_long": c["inside_save"]["global"],
+                       "dmv_outside": c["outside"]}
+        table_err = {k: float((params["card"][k].cpu() - params["cpu"][k]).abs().max())
+                     for k in dmv_model.KEYS}
+        if not all(close(params["card"][k].cpu(), params["cpu"][k], EM_TOL, EM_TOL)
+                   for k in dmv_model.KEYS):
+            raise AssertionError(f"classic DMV tables, card against CPU: {table_err}")
+
+        # K3a and K3b at the E-step's shape (the last full batch), log semiring
+        x = next(b for b in reversed(batches) if int((b["seq_len"] > 0).sum()) > 32)
+        tok, lens = tensors(x, "card")
+        md, ma = (t.detach() for t in dmv_model.forward(params["card"], tok))
+        total, charts = dmv_inside_save(md, ma, lens, "log")
+        gout = torch.ones_like(total)
+        n1, lengths = int(md.shape[1]), x["seq_len"]
+        shape_rows = {
+            "dmv_inside_save": {
+                "device_ms": device_ms(lambda: dmv_inside_save(md, ma, lens, "log")),
+                "plain_ms": time_ms(lambda: dmv_inside_charts_plain(md, ma, lens, "log"),
+                                    reps=5, warmup=1),
+                **dmv_bound(lengths, n1, "save")},
+            "dmv_outside": {
+                "device_ms": device_ms(
+                    lambda: dmv_outside(md, ma, lens, gout, total, charts, "log")),
+                "plain_ms": time_ms(lambda: dmv_outside_plain(
+                    md, ma, lens, gout, total, charts, "log"), reps=5, warmup=1),
+                **dmv_bound(lengths, n1, "outside")}}
+        for name, row in shape_rows.items():
+            row.update(n1=n1, B=len(lengths), library_ms=None)
+            state.setdefault(name, {})["at_classic_dmv_e_step"] = row
+
+        # dev: MBR and Viterbi decodes on the card (UAS); the card against
+        # the CPU on three batches, the longest among them
+        dev_batches = list(dm.batches("dev", shuffle=False))
+        metrics = {m: DependencyParsingMetric() for m in ("mbr", "viterbi")}
+        dmv_cuda.reset_launch_counts()
+        heads = {}
+        for k, (x, y) in enumerate(dev_batches):
+            tok, lens = tensors(x, "card")
+            mask = np.arange(x["token"].shape[1])[None, :] < x["seq_len"][:, None]
+            for m in metrics:
+                h = dmv_model.decode(params["card"], tok, lens, mbr=m == "mbr")
+                heads[k, m] = h
+                metrics[m].update({"arc": h.cpu().numpy()}, y, mask)
+        c = dmv_cuda.launch_counts()
+        if c["fused"] != 3 * len(dev_batches):
+            raise AssertionError(f"classic DMV decode: launches {c}")
+        uas = {m: metric.compute()["uas"] for m, metric in metrics.items()}
+        longest = max(range(len(dev_batches)), key=lambda k: dev_batches[k][0]["token"].shape[1])
+        compare = {m: {"sentences": 0, "margin_won": 0, "equal_where_won": True,
+                       "non_trees": 0} for m in ("mbr", "viterbi")}
+        compare["n1"] = []
+        for k in sorted({0, 1, longest}):
+            x = dev_batches[k][0]
+            tok, lens = tensors(x, "card")
+            md, ma = dmv_model.forward(params["card"], tok)
+            arc = DMV1o((md, ma), lens).marginals.sum(-1)
+            for m, rec in ((m, compare[m]) for m in ("mbr", "viterbi")):
+                got = heads[k, m]
+                want = dmv_model.decode(params["cpu"], *tensors(x, "cpu"), mbr=m == "mbr")
+                margin = (eisner_margins(arc, lens, got) if m == "mbr"
+                          else dmv_margins(md, ma, lens, got))
+                won = (margin >= MBR_MARGIN) & (lens > 0)
+                rec["sentences"] += int((lens > 0).sum())
+                rec["margin_won"] += int(won.sum())
+                rec["equal_where_won"] &= bool(torch.equal(got[won].cpu(), want[won.cpu()]))
+                rec["non_trees"] += non_trees(got, lens)
+                # a Viterbi tree tied exactly may decode to a non-tree (ROADMAP
+                # Queue 3); one that wins by the margin may not
+                if m == "viterbi" and non_trees(got[won], lens[won]):
+                    raise AssertionError("classic DMV: a margin-won Viterbi non-tree")
+            compare["n1"].append(int(md.shape[1]))
+        if not (compare["mbr"]["equal_where_won"] and compare["viterbi"]["equal_where_won"]
+                and not compare["mbr"]["non_trees"]):
+            raise AssertionError(f"classic DMV decode, card against CPU: {compare}")
+
+    emit({"phase": "em", "n_token": len(vocab), "train_captions": len(seqs),
+          "e_step_batches": len(batches), "e_step_launches": em_launches,
+          "e_step_ms_median_B64": statistics.median(times) * 1e3,
+          "e_step_ms_B64": [round(t * 1e3, 3) for t in times],
+          "tables_max_abs_err_card_vs_cpu": table_err, "tolerance": EM_TOL,
+          "kernels_at_e_step_shape": shape_rows, "dev_batches": len(dev_batches),
+          "decode_launches": {"dmv_fused": c["fused"]}, "uas": uas,
+          "card_vs_cpu_decode": compare})
+    for name, n in em_launches.items():
+        if n:
+            state.setdefault(name, {}).setdefault("launches_by_path", {})[
+                "classic_dmv_em"] = n
+    state.setdefault("dmv_fused", {}).setdefault("launches_by_path", {})[
+        "classic_dmv_decode"] = c["fused"]
 
 
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
@@ -2116,7 +2777,7 @@ PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "train": phase_train, "k2": phase_k2, "k3": phase_k3,
           "lang_only_reference": phase_lang_only_reference,
           "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
-          "vit": phase_vit}
+          "vit": phase_vit, "mbr": phase_mbr, "em": phase_em}
 
 
 def main():

@@ -2,7 +2,7 @@
 CUDA device.
 
     python scripts/profile_torch_eval.py \
-        [eval|train|lang_only_eval|lang_only_train|vit_eval|vit_train]
+        [eval|train|lang_only_eval|lang_only_train|vit_eval|vit_train] [viterbi|mbr]
 
 Builds the pipeline of ``exp=vlgae`` (random weights from seed 0) on the
 synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50, 36
@@ -14,7 +14,9 @@ forward, backward, clip, Adam). The ``lang_only_*`` modes do the same for
 to L = 8 or 16; dev captions of 3-49 words). The ``vit_*`` modes do the
 same for ``exp=vlgae_vit`` at its recipe's widths on the corpus of
 ``chip_smoke.py``'s ``vit`` phase (224 px images, captions of 3-63 words;
-the ViT's weights from seed 0). Prints JSON lines:
+the ViT's weights from seed 0). ``mbr`` decodes the eval steps' trees by
+MBR (``mbr_decoding: true``) in place of the Viterbi trees. Prints JSON
+lines:
 
   - the wall time of a step (host clock, synchronised),
   - the same under ``torch.profiler``: device-busy ms per step, the device's
@@ -28,6 +30,7 @@ and, last, the card's name and power limit.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -97,9 +100,11 @@ def train_stage_times(pipe, batch):
     return stages
 
 
-def stage_times(model, inputs):
+def stage_times(model, inputs, mbr=False):
     """Device and host ms of each stage of one eval forward + loss + decode
     (the order of ``DependencyBoxRel.forward``)."""
+    from vlgae_tpu_torch.models.ldndmv import decode
+
     stages = {}
     timed = _timer(stages)
 
@@ -123,6 +128,8 @@ def stage_times(model, inputs):
     zero = torch.zeros((), device=token.device)
     timed("val/loss (factor CE)", lambda: model.loss(out, inputs, zero, alpha=0.5))
     timed("decode_grounding (top-5)", lambda: model.decode_grounding_device(out, inputs))
+    timed("decode (reused tables; MBR: K1 max on the Eisner potentials)",
+          lambda: decode(out, inputs["seq_len"], mbr))
     return stages
 
 
@@ -142,7 +149,7 @@ def lang_train_stage_times(pipe, batch):
     return stages
 
 
-def lang_stage_times(model, inputs):
+def lang_stage_times(model, inputs, mbr=False):
     """Device and host ms of each stage of one ``exp=lang_only`` eval step."""
     from vlgae_tpu_torch.models.ldndmv import decode, loss_nll
 
@@ -156,7 +163,8 @@ def lang_stage_times(model, inputs):
     out = timed("DiscriminativeNDMV scores", lambda: model(inputs, enc, (emb, aux)))
     timed("loss (value-only inside)",
           lambda: loss_nll(out, inputs["seq_len"], model.cfg.viterbi_training))
-    timed("decode (K1 max)", lambda: decode(out, inputs["seq_len"], False))
+    timed("decode (K1 max; MBR: K1 log, then K1 max on the Eisner potentials)",
+          lambda: decode(out, inputs["seq_len"], mbr))
     return stages
 
 
@@ -203,13 +211,13 @@ def _train_setup(tmp, overrides):
     return pipe, batches, step
 
 
-def main(mode="eval"):
+def main(mode="eval", decode="viterbi"):
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device", file=sys.stderr)
         return 2
     if mode not in ("eval", "train", "lang_only_eval", "lang_only_train", "vit_eval",
-                    "vit_train"):
-        print(f"profile_torch_eval: unknown mode {mode!r}", file=sys.stderr)
+                    "vit_train") or decode not in ("viterbi", "mbr"):
+        print(f"profile_torch_eval: unknown mode {mode!r} {decode!r}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -237,7 +245,8 @@ def main(mode="eval"):
                 batches = [pad_batch_pow2(x)[0]
                            for x, _ in pipe.dm.batches("dev", shuffle=False)][:N_STEPS]
                 step = pipe.eval_step
-        emit({"mode": mode, "batches": len(batches), "B": 64,
+        pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=decode == "mbr")
+        emit({"mode": mode, "decode": decode, "batches": len(batches), "B": 64,
               "padded_len": [int((b[0] if isinstance(b, tuple) else b)["word"].shape[1])
                              for b in batches]})
         run_steps(step, batches)  # warm-up
@@ -268,20 +277,21 @@ def main(mode="eval"):
             with torch.no_grad():
                 for b in batches:
                     inputs = _to_device(b, pipe.device)
-                    lang_stage_times(pipe.model.eval(), inputs)  # warm-up
+                    lang_stage_times(pipe.model.eval(), inputs, decode == "mbr")  # warm-up
                     emit({"padded_len": int(b["word"].shape[1]),
-                          "stages_B64": lang_stage_times(pipe.model, inputs)})
+                          "stages_B64": lang_stage_times(pipe.model, inputs,
+                                                         decode == "mbr")})
         elif mode in ("train", "vit_train"):
             train_stage_times(pipe, batches[0])  # warm-up
             emit({"stages_B64": train_stage_times(pipe, batches[0])})
         else:
             with torch.no_grad():
                 inputs = _to_device(batches[0], pipe.device)
-                stage_times(pipe.model, inputs)  # warm-up
-                emit({"stages_B64": stage_times(pipe.model, inputs)})
+                stage_times(pipe.model, inputs, decode == "mbr")  # warm-up
+                emit({"stages_B64": stage_times(pipe.model, inputs, decode == "mbr")})
     print(chip_smoke.nvidia_smi_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:2]))
+    sys.exit(main(*sys.argv[1:3]))

@@ -645,3 +645,116 @@ def test_dmv_inside_outside_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dmv_cuda.dmv_outside(dec, attach, lens, total, total, charts[:, :3])
     with pytest.raises(TypeError):
         dmv_cuda.dmv_outside(dec, attach, lens, total.double(), total, charts)
+
+
+# The Eisner CRF on the card: DependencyCRF maps arcs onto DMV potentials
+# with free decisions (struct.distributions.eisner_as_dmv) and takes K1 for
+# its tables, K2/K4 for a total without a gradient and the K3 pair with one;
+# held against the plain Eisner fill of struct.deptree on the CPU, on
+# tie-free standard-normal arcs: totals 1e-3 + 1e-5|x|, tables 5e-4 +
+# 1e-4|x| in log, exact in max.
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("n1", [9, 51, 65, 101])
+def test_dmv_fused_on_eisner_potentials_matches_the_plain_fill(cuda, kind, n1):
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import DependencyCRF, deptree_marginals, deptree_partition
+
+    rng = np.random.default_rng(200 + n1)
+    lengths = [0, 1, n1 - 1, *rng.integers(max(1, n1 - 16), n1, 13).tolist()]
+    arc = torch.tensor(rng.standard_normal((len(lengths), n1, n1)), dtype=torch.float32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    crf = DependencyCRF(arc.to(cuda), lens.to(cuda))
+    c0 = dmv_cuda.launch_counts()
+    table = crf.marginals if kind == "log" else crf.argmax
+    total = crf.partition if kind == "log" else crf.max
+    c1 = dmv_cuda.launch_counts()
+    assert c1["fused"] == c0["fused"] + 1
+    assert sum(c1["inside"].values()) == sum(c0["inside"].values()) + 1
+    want_t = deptree_partition(arc, lens, kind)
+    want_g = deptree_marginals(arc, lens, kind)
+    if kind == "max":
+        torch.testing.assert_close(table.cpu(), want_g, rtol=0, atol=0)
+        torch.testing.assert_close(total.cpu(), want_t, rtol=0, atol=1e-3)
+        heads = crf.argmax_heads.cpu()
+        assert torch.equal(heads, torch.argmax(want_g[:, :, 1:], dim=1))
+    else:
+        torch.testing.assert_close(total.cpu(), want_t, rtol=1e-5, atol=1e-3)
+        torch.testing.assert_close(table.cpu(), want_g, rtol=1e-4, atol=5e-4)
+
+
+def test_crf_on_the_card_takes_the_kernels_by_what_is_needed(cuda, monkeypatch):
+    """A total with a gradient: the K3 pair, and the gradient reaches the
+    arcs; a labeled arc's tables reach its labels; multiroot: the plain
+    fill, no kernel."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import DependencyCRF, distributions
+
+    rng = np.random.default_rng(7)
+    lengths = torch.tensor([12, 0, 1, 7], dtype=torch.int32)
+    arc = torch.tensor(rng.standard_normal((4, 13, 13, 3)), dtype=torch.float32)
+    want_grad = arc.clone().requires_grad_(True)
+    DependencyCRF(want_grad, lengths).partition.sum().backward()
+    want_table = DependencyCRF(arc, lengths).marginals
+    for name in ("dmv_total", "dmv_inside_charts_plain", "dmv_outside_plain",
+                 "dmv_value_and_grads_plain"):
+        monkeypatch.setattr(distributions, name, lambda *_: 1 / 0)
+    a = arc.to(cuda).requires_grad_(True)
+    c0 = dmv_cuda.launch_counts()
+    DependencyCRF(a, lengths.to(cuda)).partition.sum().backward()
+    c1 = dmv_cuda.launch_counts()
+    assert c1["outside"] == c0["outside"] + 1
+    assert sum(c1["inside_save"].values()) == sum(c0["inside_save"].values()) + 1
+    torch.testing.assert_close(a.grad.cpu(), want_grad.grad, rtol=1e-4, atol=5e-4)
+    table = DependencyCRF(arc.to(cuda), lengths.to(cuda)).marginals
+    torch.testing.assert_close(table.cpu(), want_table, rtol=1e-4, atol=5e-4)
+    c2 = dmv_cuda.launch_counts()
+    DependencyCRF(arc.to(cuda), lengths.to(cuda), multiroot=True).marginals
+    assert dmv_cuda.launch_counts() == c2
+
+
+def test_classic_dmv_on_the_card_matches_the_cpu(cuda):
+    """The classic DMV's E-step (K3a + K3b through the table gather) and its
+    decodes (K1 log then K1 max for MBR, K1 max for Viterbi) against the
+    CPU. Counts to 1e-4 + 1e-4|x| (the gather's backward adds with float
+    atomics on the card). Each sentence's tokens are distinct, so no two
+    trees tie exactly: Viterbi heads equal. The MBR scores (summed
+    marginals) differ by a few ulp between card and CPU, so the card's MBR
+    heads must form a projective tree that the CPU scores within 1e-4 of
+    its own best: equal heads wherever the best tree wins by more."""
+    from vlgae_tpu_torch.models import dmv_model
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import DMV1o
+    from vlgae_tpu_torch.struct.alg import istree
+
+    rng = np.random.default_rng(8)
+    n_token, L = 60, 40
+    lengths = torch.tensor([40, 0, 1, 2, *rng.integers(3, 41, 12).tolist()])
+    token = torch.tensor(np.stack([rng.permutation(n_token)[:L] for _ in lengths]))
+    cfg = dmv_model.DMVConfig(init_method="random", n_token=n_token)
+    cpu = dmv_model.init_params(cfg, seed=3, device="cpu")
+    card = dmv_model.init_params(cfg, seed=3, device=cuda)
+    tok, lens = token.to(cuda), lengths.to(cuda)
+    c0 = dmv_cuda.launch_counts()
+    got = dmv_model.expected_counts(card, tok, lens)
+    c1 = dmv_cuda.launch_counts()
+    assert c1["outside"] == c0["outside"] + 1
+    assert sum(c1["inside_save"].values()) == sum(c0["inside_save"].values()) + 1
+    want = dmv_model.expected_counts(cpu, token, lengths)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4, atol=1e-4)
+    before = dmv_cuda.n_launches
+    viterbi = dmv_model.decode(card, tok, lens, mbr=False)
+    assert dmv_cuda.n_launches == before + 1
+    assert torch.equal(viterbi.cpu(), dmv_model.decode(cpu, token, lengths, mbr=False))
+    mbr = dmv_model.decode(card, tok, lens, mbr=True).cpu()
+    assert dmv_cuda.n_launches == before + 3
+    want_mbr = dmv_model.decode(cpu, token, lengths, mbr=True)
+    arc = DMV1o(dmv_model.forward(cpu, token), lengths).marginals.sum(-1)
+
+    def score(heads):
+        s = torch.gather(arc[:, :, 1:], 1, heads[:, None, :])[:, 0]
+        return torch.where(torch.arange(L)[None, :] < lengths[:, None], s, 0.0).sum(-1)
+
+    for h, n in zip(mbr, lengths.tolist()):
+        assert n == 0 or istree(h[:n].tolist(), proj=True)
+    assert bool((score(mbr) >= score(want_mbr) - 1e-4).all())

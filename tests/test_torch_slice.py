@@ -41,9 +41,9 @@ def overrides(root):
     ]
 
 
-def build_pair(root):
+def build_pair(root, extra=()):
     """(JAX pipeline, port pipeline, flat params) on one corpus and one
-    set of weights."""
+    set of weights; ``extra`` overrides go to both."""
     synth_data.make_corpus(Path(root) / "vlparse", n_imgs=4, feat_dim=16,
                            n_box=6, len_range=(3, 9))
     from vlgae_tpu.data import VLParseDataModule
@@ -54,7 +54,7 @@ def build_pair(root):
     from vlgae_tpu_torch.predict import build_pipeline
 
     cfg = resolve(ConfigComposer(str(REPO / "configs")).compose(
-        "config_train", overrides(root)))
+        "config_train", overrides(root) + list(extra)))
     dm_cfg = dict(cfg["datamodule"])
     dm_cfg.pop("_target_")
     dm = VLParseDataModule(**dm_cfg).setup()
@@ -70,7 +70,7 @@ def build_pair(root):
     flat = {"/".join(k): np.asarray(v) for k, v in flat.items()}
     weights = os.path.join(root, "weights.npz")
     np.savez(weights, **flat)
-    tpipe = build_pipeline(overrides(root), device="cpu", weights=weights)
+    tpipe = build_pipeline(overrides(root) + list(extra), device="cpu", weights=weights)
     return jpipe, tpipe, flat
 
 
@@ -165,6 +165,8 @@ def test_export_script_writes_the_npz_predict_reads(pair, tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, vlgae_tpu_torch, vlgae_tpu_torch.predict, vlgae_tpu_torch.train\n"
+        "import vlgae_tpu_torch.models, vlgae_tpu_torch.models.dmv_model\n"
+        "import vlgae_tpu_torch.struct.alg, vlgae_tpu_torch.struct.deptree\n"
         "roots = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots\n"
         "       or m == 'vlgae_tpu' or m.startswith('vlgae_tpu.')]\n"

@@ -22,6 +22,11 @@ flax paths, so a key maps mechanically:
   ``dependency/`` prefix.
 
 Both directions raise on a missing or an unused key.
+
+The classic tabular DMV (:mod:`vlgae_tpu_torch.models.dmv_model`) is no
+module: its params are the same three arrays under the same keys in both
+packages (``root_param``, ``trans_param``, ``dec_param``), carried as
+``{k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}``.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 the forward (with the dropouts of its scorer stack in training), stand-alone
 (``exp=lang_only``) or inside the joint model; the NLL, as a straight-through
 linearisation around the reused DP results or as a DP of its own; the
-warm-up loss against rule-count targets; and the Viterbi decode."""
+warm-up losses against rule-count targets and against a frozen DMV's expected
+counts; and the Viterbi and MBR decodes."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..struct import NEGINF, DMV1o, dmv_merge
+from ..struct import NEGINF, DependencyCRF, DMV1o, dmv_merge, dmv_value_and_grads
 from ..struct.dmv import LEFT, RIGHT
 from .nn import MLP, DMVFactorizedBilinear, DMVSkipConnectEncoder
 
@@ -208,13 +209,36 @@ def loss_init_rules(scores, gold):
     return enll, {"enll": enll}
 
 
+def loss_init_pretrained(scores, dmv_scores, lengths):
+    """Warm-up loss against a frozen DMV's expected counts: the scores'
+    merged tables weighted by the log-semiring marginals of
+    ``dmv_scores``'s merged tables (one fused DP pass, no gradient to the
+    frozen DMV). No recipe calls it yet, as in vlgae_tpu."""
+    _, gd, ga = dmv_value_and_grads(dmv_scores["merged_dec"].detach(),
+                                    dmv_scores["merged_attach"].detach(), lengths, "log")
+    enll = (-(gd * scores["merged_dec"]).sum()
+            - (ga * scores["merged_attach"]).sum())
+    return enll, {"enll": enll}
+
+
 def decode(scores, lengths, mbr: bool):
-    """Tree decode: heads [B, L] from the Viterbi indicators."""
+    """Tree decode: heads ``[B, L]``.
+
+    ``mbr``: the projective tree of the largest summed arc marginal (the
+    Eisner CRF's argmax over the marginals); otherwise the Viterbi tree.
+    ``scores['dep_reuse']`` (the joint model's DP passes on the same
+    potentials) supplies the marginals or the Viterbi indicators without a
+    DP pass of their own."""
+    reuse = scores.get("dep_reuse") or {}
     if mbr:
-        raise NotImplementedError(
-            "mbr_decoding (Eisner over the marginals) is not ported yet; it is "
-            "the MBR/Eisner slice of ROADMAP.md, after the training step")
-    r = (scores.get("dep_reuse") or {}).get("max")
+        r = reuse.get("log")
+        if r is not None:
+            arc = r[2].sum(-1)
+        else:
+            arc = DMV1o((scores["merged_dec"].detach(), scores["merged_attach"].detach()),
+                        lengths).marginals.sum(-1)
+        return DependencyCRF(arc, lengths).argmax_heads
+    r = reuse.get("max")
     if r is None:
         return DMV1o((scores["merged_dec"], scores["merged_attach"]),
                      lengths).argmax_heads

@@ -13,13 +13,20 @@ The dispatch is by what the caller needs:
 
 A CPU tensor takes the plain versions of :mod:`.dmv`; a CUDA tensor goes to
 the kernel or the call raises.
+
+The projective dependency CRF (:class:`DependencyCRF`) rides the same
+dispatch when it has a single root: an Eisner CRF is a DMV with free (zero)
+decisions and valence-independent attach scores (:func:`eisner_as_dmv`).
+With ``multiroot`` it takes the plain fill of :mod:`.deptree` on any device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .dmv import (NEGINF, NOCHILD, RIGHT, dmv_inside_charts_plain,
+from . import deptree as _deptree
+from .deptree import reduce_labels
+from .dmv import (HASCHILD, NEGINF, NOCHILD, RIGHT, dmv_inside_charts_plain,
                   dmv_outside_plain, dmv_total, dmv_value_and_grads_plain)
 
 
@@ -174,3 +181,110 @@ class DMV1o:
     entropy = property(_not_ported)
     count = property(_not_ported)
     cross_entropy = kl = kmax = topk = sample = gumbel_crf = _not_ported
+
+
+def eisner_as_dmv(arc):
+    """DMV potentials ``(dec [B,N1,2,2,2], attach [B,N1,N1,2])`` whose
+    trees score as the Eisner CRF over ``arc [B, N1, N1]``: free decisions,
+    the arc score in both valences, and no second root child (the root row's
+    HASCHILD channel is the semiring zero, as :func:`dmv_merge` builds it).
+    Differentiable in ``arc``."""
+    arc = arc.float()
+    B, N1 = arc.shape[:2]
+    attach = torch.stack([arc, arc], -1)
+    attach[:, 0, :, HASCHILD] = NEGINF
+    return arc.new_zeros(B, N1, 2, 2, 2), attach
+
+
+def deptree_total_fast(arc, lengths, kind: str = "log", multiroot: bool = False):
+    """Per-sentence Eisner CRF total ``[B]`` (log Z or the best tree's
+    score) of ``arc [B,N1,N1]`` or labeled ``[B,N1,N1,L]`` (labels reduced
+    first). Single root: the DMV totals of :func:`eisner_as_dmv` by what the
+    caller needs (:func:`_total`: the chart-saving pair when a gradient can
+    flow to ``arc``, the value-only inside pass otherwise). ``multiroot``:
+    the plain fill, differentiable by autograd."""
+    if multiroot:
+        return _deptree.deptree_partition(arc, lengths, kind, multiroot=True)
+    if arc.dim() == 4:
+        arc = reduce_labels(arc, kind)
+    dec, attach = eisner_as_dmv(arc)
+    return _total(dec, attach, lengths, kind)
+
+
+def deptree_grads_fast(arc, lengths, kind: str = "log", multiroot: bool = False):
+    """``d sum(total) / d arc`` in the shape of ``arc``: arc marginals (log)
+    or the best tree's indicators (max). Single root: one fused DP pass on
+    :func:`eisner_as_dmv` (:func:`dmv_value_and_grads`: K1 on the card), its
+    attach table summed over the two valences, the root row's HASCHILD
+    channel and the dec table dropped; a labeled arc's gradient then reaches
+    its labels through :func:`~.deptree.reduce_labels` by autograd.
+    ``multiroot``: autograd of the plain fill. No graph is kept."""
+    if multiroot:
+        return _deptree.deptree_marginals(arc, lengths, kind, multiroot=True)
+    labeled = arc.detach().float()
+    flat = reduce_labels(labeled, kind) if arc.dim() == 4 else labeled
+    dec, attach = eisner_as_dmv(flat)
+    ga = dmv_value_and_grads(dec, attach, lengths, kind)[2]
+    g = ga.sum(-1)
+    g[:, 0] = ga[:, 0, :, NOCHILD]
+    if arc.dim() == 3:
+        return g
+    with torch.enable_grad():
+        a = labeled.requires_grad_(True)
+        (gl,) = torch.autograd.grad(reduce_labels(a, kind), a, grad_outputs=g)
+    return gl
+
+
+class DependencyCRF:
+    """Projective dependency CRF over ``arc [B, N1, N1]`` (head x child,
+    root at row 0; or labeled ``[B, N1, N1, L]``) and ``lengths [B]``.
+
+    ``multiroot=False`` allows exactly one child of the root; ``True`` is
+    the standard Eisner recursion where position 0 may head any number of
+    words. The totals differentiate when ``arc`` requires a gradient; the
+    tables carry no graph."""
+
+    def __init__(self, log_potentials, lengths, multiroot: bool = False):
+        self.arc = log_potentials
+        self.lengths = lengths
+        self.multiroot = bool(multiroot)
+
+    @property
+    def partition(self):
+        return deptree_total_fast(self.arc, self.lengths, "log", self.multiroot)
+
+    @property
+    def max(self):
+        return deptree_total_fast(self.arc, self.lengths, "max", self.multiroot)
+
+    @property
+    def marginals(self):
+        return deptree_grads_fast(self.arc, self.lengths, "log", self.multiroot)
+
+    @property
+    def argmax(self):
+        return deptree_grads_fast(self.arc, self.lengths, "max", self.multiroot)
+
+    @property
+    def argmax_heads(self):
+        """Viterbi head array ``[B, N]`` (head of word j at column j+1)."""
+        return torch.argmax(self.argmax[:, :, 1:], dim=1)
+
+    def log_prob(self, heads):
+        """Log-probability ``[B]`` of head sequences ``[B, N]`` (1-based,
+        0 = root); positions past a sentence's length are ignored."""
+        N1 = self.arc.shape[1]
+        cols = torch.arange(1, N1, device=self.arc.device)
+        pos_ok = cols[None, :] <= self.lengths.to(self.arc.device)[:, None]
+        score = torch.gather(self.arc[:, :, 1:], 1, heads[:, None, :].long())[:, 0]
+        score = torch.where(pos_ok, score, 0.0).sum(-1)
+        return score - self.partition
+
+    def _not_ported(self, *args, **kwargs):
+        raise NotImplementedError(
+            "this DependencyCRF method needs a semiring or sampler that is not "
+            "ported yet; see the semiring slice of ROADMAP.md")
+
+    entropy = property(_not_ported)
+    count = property(_not_ported)
+    cross_entropy = kl = risk = kmax = topk = sample = gumbel_crf = _not_ported
