@@ -96,6 +96,20 @@ Phases, each printing one JSON line:
                  and on the CPU, tables within ``EM_TOL``; MBR and Viterbi
                  decodes of dev (UAS), the card against the CPU on three
                  batches; the E-step's time and K3a/K3b at its shape
+ 18. grounding_modes - the joint model's other grounding strategies at
+                 ``exp=vlgae``'s widths and bf16: ``word+alldep`` (words and
+                 every (head, dep) pair, Q up to 3,306) and the caption-image
+                 path (``reduced`` / ``cap_img|ce`` / ``on_img``,
+                 ``metric=attachment_cap_img``) through ``train`` (one
+                 warm-up and one joint epoch) and ``predict``, ``eval.py`` on
+                 each dev file; ``word`` by train and eval steps; each mode's
+                 launches per step (K1, K2, the K3 pair, K5, K6) and step
+                 times at B=64; K5 (28 q-chunks) and K6 at word+alldep's
+                 widest Q and the K3 pair at n1 = 57 on the path's own
+                 tensors against their plain versions, with their times,
+                 bounds and matmul yardsticks; each mode at small widths and
+                 precision=32, the card against the CPU (dev predictions,
+                 one train step's loss and gradients)
 Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
 the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
 Then each phase's seconds, the card's name and power limit, the per-kernel
@@ -691,23 +705,23 @@ def k6_list_stats(li, lvi):
 
 
 def k6_product_library_ms(vis, txt, li, lvi, dm, dmv):
-    """K6's yardstick: the two bf16 ``torch.matmul`` products over the dense
-    winner weight W (bf16 of the summed cotangents, as K6 weighs a cell),
-    prebuilt outside the timed region in the layouts they need, ``[A·V,
-    B·Q] @ txt`` and ``[B·Q, A·V] @ vis``. The port never calls them."""
+    """K6's yardstick: the two bf16 ``torch.matmul`` products over a dense
+    bf16 winner weight W (the two cotangents scattered onto their winning
+    cells and added in bf16; a matmul's time does not depend on the
+    values), prebuilt outside the timed region in the layouts they need,
+    ``[A·V, B·Q] @ txt`` and ``[B·Q, A·V] @ vis``: at most two copies of
+    W are alive at once. The port never calls them."""
     import torch
 
     A, V, D = vis.shape
     B, Q, _ = txt.shape
-    w = torch.zeros(B, A, Q, V, device=vis.device)
-    w.scatter_(3, li.long()[..., None], dm[..., None])
-    wq = torch.zeros_like(w)
-    wq.scatter_(2, lvi.long()[:, :, None, :], dmv[:, :, None, :])
-    w = (w + wq).bfloat16()
-    del wq
+    torch.cuda.empty_cache()
+    w = torch.zeros(B, A, Q, V, device=vis.device, dtype=torch.bfloat16)
+    w.scatter_add_(3, li.long()[..., None], dm.bfloat16()[..., None])
+    w.scatter_add_(2, lvi.long()[:, :, None, :], dmv.bfloat16()[:, :, None, :])
     w_vis = w.permute(1, 3, 0, 2).reshape(A * V, B * Q).contiguous()
-    w_txt = w.permute(0, 2, 1, 3).reshape(B * Q, A * V).contiguous()
     del w
+    w_txt = w_vis.view(A, V, B, Q).permute(2, 3, 0, 1).reshape(B * Q, A * V).contiguous()
     x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
     ms = device_ms(lambda: (torch.matmul(w_vis, x), torch.matmul(w_txt, y)), n=10)
     del w_vis, w_txt
@@ -896,6 +910,17 @@ def _check_dmv_on_path(out, lengths):
         if errs["max_grads_untied"] != 0.0:
             raise AssertionError(f"K1 max indicators on the path: {errs}")
     return errs
+
+
+def check_eval(root, pred_file):
+    """``eval.py`` on a prediction file against the corpus at ``root``; its
+    last line, or a failure when it exits non-zero."""
+    ev = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "eval.py"), "--file", pred_file,
+         "--dataroot", root], capture_output=True, text=True)
+    if ev.returncode != 0:
+        raise AssertionError(f"eval.py rc {ev.returncode}: {ev.stderr[-2000:]}")
+    return ev.stdout.strip().splitlines()[-1]
 
 
 def _corpus_overrides(root):
@@ -1617,18 +1642,7 @@ def phase_lang_only(state):
     from vlgae_tpu_torch.ops import dmv_cuda, match
     from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
-    def counts():
-        c = dmv_cuda.launch_counts()
-        return {"dmv_fused": c["fused"], "dmv_inside": c["inside"]["smem"],
-                "dmv_inside_save": c["inside_save"]["smem"],
-                "dmv_outside": c["outside"],
-                "dmv_inside_small": c["inside"]["warp"] + c["inside_save"]["warp"],
-                "dmv_inside_long": c["inside"]["global"] + c["inside_save"]["global"],
-                "match_fwd": match.n_launches, "match_bwd": match.n_bwd_launches}
-
-    def reset():
-        dmv_cuda.reset_launch_counts()
-        match.n_launches = match.n_bwd_launches = 0
+    counts, reset = kernel_counts, reset_kernel_counts
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1954,14 +1968,6 @@ def phase_vit(state):
     def recording(vis, txt, vb, tb):
         shapes.add((int(vis.shape[1]), int(txt.shape[1])))
         return orig["fwd"](vis, txt, vb, tb)
-
-    def check_eval(root, pred_file):
-        ev = subprocess.run(
-            [sys.executable, os.path.join(ROOT, "eval.py"), "--file", pred_file,
-             "--dataroot", root], capture_output=True, text=True)
-        if ev.returncode != 0:
-            raise AssertionError(f"eval.py rc {ev.returncode}: {ev.stderr[-2000:]}")
-        return ev.stdout.strip().splitlines()[-1]
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2771,13 +2777,440 @@ def phase_em(state):
         "classic_dmv_decode"] = c["fused"]
 
 
+# the joint model's other grounding strategies (configs/model/vlgae.yaml keys)
+GROUNDING_MODES = {
+    "word": ["model.language_factor_mode=word"],
+    "word+alldep": ["model.language_factor_mode=word+alldep"],
+    "cap_img": ["model.gather_logit_mode=reduced", "model.loss_grounding_mode=cap_img|ce",
+                "model.decode_grounding_mode=on_img", "model/metric=attachment_cap_img"],
+}
+
+
+def kernel_counts():
+    """Every wrapper's launch count, by the rows of the ``kernels`` line."""
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+
+    c = dmv_cuda.launch_counts()
+    return {"dmv_fused": c["fused"], "dmv_inside": c["inside"]["smem"],
+            "dmv_inside_save": c["inside_save"]["smem"], "dmv_outside": c["outside"],
+            "dmv_inside_small": c["inside"]["warp"] + c["inside_save"]["warp"],
+            "dmv_inside_long": c["inside"]["global"] + c["inside_save"]["global"],
+            "match_fwd": match.n_launches, "match_bwd": match.n_bwd_launches}
+
+
+def reset_kernel_counts():
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+
+    dmv_cuda.reset_launch_counts()
+    match.n_launches = match.n_bwd_launches = 0
+    match.n_launches_by_q_chunks.clear()
+
+
+# K1, K2, the K3 pair, K5 and K6 of each step, by mode (the exp=vlgae
+# captions pad to at most 56 words, so none takes the warp or global
+# mapping): word trains the NLL through the K3 pair (no tree is reused) and
+# evaluates it with K2, decoding with K1 max; word+alldep takes K1 log for
+# the arc marginals and the K3 pair for the NLL, and evaluates as
+# word+maxdep (K1 twice); the caption-image path takes K1 twice and no
+# matching kernel
+GROUNDING_STEP_LAUNCHES = {
+    ("word", "train"): {"dmv_inside_save": 1, "dmv_outside": 1, "match_fwd": 1,
+                        "match_bwd": 1},
+    ("word", "eval"): {"dmv_fused": 1, "dmv_inside": 1, "match_fwd": 1},
+    ("word+alldep", "train"): {"dmv_fused": 1, "dmv_inside_save": 1, "dmv_outside": 1,
+                               "match_fwd": 1, "match_bwd": 1},
+    ("word+alldep", "eval"): {"dmv_fused": 2, "match_fwd": 1},
+    ("cap_img", "train"): {"dmv_fused": 2},
+    ("cap_img", "eval"): {"dmv_fused": 2},
+}
+
+
+def _check_k3_on_path(save_args, out_args):
+    """The K3 pair on a training step's own tensors (the Viterbi NLL of a
+    mode that reuses no tree): the chart-saving inside kernel against the
+    plain charts (exact in the max semiring), the outside kernel against
+    its plain version under the step's own cotangent (the same support
+    everywhere, within K1's tolerances on sentences without a tied best
+    tree) and against K1 scaled by that cotangent; times and bounds."""
+    import torch
+
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused, dmv_inside_save, dmv_outside
+    from vlgae_tpu_torch.struct import (dmv_inside_charts_plain, dmv_outside_plain,
+                                        dmv_value_and_grads_plain)
+
+    dec, attach, lens, kind = save_args
+    gout = out_args[3]
+    with torch.no_grad():
+        total, charts = dmv_inside_save(dec, attach, lens, kind)
+        p_total, p_charts = dmv_inside_charts_plain(dec, attach, lens, kind)
+        gd, ga = dmv_outside(dec, attach, lens, gout, total, charts, kind)
+        pd, pa = dmv_outside_plain(dec, attach, lens, gout, p_total, p_charts, kind)
+        _, fd, fa = dmv_fused(dec, attach, lens, kind)
+        _, _, wa = dmv_value_and_grads_plain(dec, attach, lens, kind)
+    torch.cuda.synchronize()
+    off = p_charts == -1e12
+    tied = ((wa % 1) != 0).flatten(1).any(1) if kind == "max" else torch.zeros_like(lens,
+                                                                                    dtype=torch.bool)
+    g = gout.view(-1, *([1] * (gd.dim() - 1)))
+    errs = {"n1": int(dec.shape[1]), "B": int(dec.shape[0]), "kind": kind,
+            "lengths": [int(lens.min()), int(lens.max())],
+            "tied_sentences": int(tied.sum()),
+            "inside_total": float((total - p_total).abs().max()),
+            "outside_untied": max(float((a[~tied] - b[~tied]).abs().max()) if bool(
+                (~tied).any()) else 0.0 for a, b in ((gd, pd), (ga, pa))),
+            "outside_vs_k1": max(float((gd - g * fd).abs().max()),
+                                 float((ga - g.view(-1, 1, 1, 1) * fa).abs().max()))}
+    inside_ok = (torch.equal(total, p_total) and torch.equal(charts[~off], p_charts[~off])
+                 and bool((charts[off] == -1e12).all())) if kind == "max" else (
+        close(total, p_total, K1_TOTAL_ATOL, K1_TOTAL_RTOL))
+    outside_ok = (all(bool(((a != 0) == (b != 0)).all()) for a, b in ((gd, pd), (ga, pa)))
+                  and all(close(a[~tied], b[~tied], K1_GRAD_ATOL, K1_GRAD_RTOL)
+                          for a, b in ((gd, pd), (ga, pa)))
+                  and close(gd, g * fd, K1_GRAD_ATOL, K1_GRAD_RTOL)
+                  and close(ga, g.view(-1, 1, 1, 1) * fa, K1_GRAD_ATOL, K1_GRAD_RTOL))
+    if not (inside_ok and outside_ok):
+        raise AssertionError(f"the K3 pair disagrees on a training step's tensors: {errs}")
+    n1 = int(dec.shape[1])
+    save = {"ms": time_ms(lambda: dmv_inside_save(dec, attach, lens, kind)),
+            "device_ms": device_ms(lambda: dmv_inside_save(dec, attach, lens, kind)),
+            "plain_ms": time_ms(lambda: dmv_inside_charts_plain(dec, attach, lens, kind),
+                                reps=3, warmup=1),
+            "max_abs_err": errs["inside_total"], **dmv_bound(lens.tolist(), n1, "save")}
+    outside = {"ms": time_ms(lambda: dmv_outside(dec, attach, lens, gout, total, charts,
+                                                 kind)),
+               "device_ms": device_ms(lambda: dmv_outside(dec, attach, lens, gout, total,
+                                                          charts, kind)),
+               "plain_ms": time_ms(lambda: dmv_outside_plain(dec, attach, lens, gout, total,
+                                                             charts, kind), reps=3, warmup=1),
+               "max_abs_err": errs["outside_untied"],
+               **dmv_bound(lens.tolist(), n1, "outside")}
+    return errs, save, outside
+
+
+def _big_k5_timing(args):
+    """K5's times at a wide shape (word+alldep's Q), its plain version's and
+    the yardstick: one bf16 ``torch.matmul`` of the product (it stores all
+    ``B*Q x A*V`` of it; the port never calls it). The bound counts the
+    work of this run's masks: a masked (a, v) or (b, q) gives -INF whatever
+    its product, so only the live rows are read and multiplied. Beside it,
+    the share of K5's q-chunks (per caption, and per block's tile of
+    ``FWD_CAP_TILE`` captions) that hold no live word."""
+    import torch
+    import torch.nn.functional as F
+
+    from vlgae_tpu_torch.ops.match import (FWD_CAP_TILE, match_fwd_plan, match_fwd_q_tiling,
+                                           match_maxes_cuda, match_maxes_plain)
+
+    vis, txt, vb, tb = args
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    # a live row's bias is 0, a masked one's -1e9
+    n_v, n_q = int((vb == 0).sum()), int((tb == 0).sum())
+    q_chunks, nt = match_fwd_q_tiling(Q)
+    live = F.pad(tb == 0, (0, q_chunks * 8 * nt - Q)).view(B, q_chunks, 8 * nt).any(-1)
+    tiles = F.pad(live, (0, 0, 0, -B % FWD_CAP_TILE)).view(-1, FWD_CAP_TILE, q_chunks).any(1)
+    out = {"A": A, "V": V, "B": B, "Q": Q, "D": D,
+           "plan": match_fwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr(),
+                                  torch.cuda.get_device_properties(vis.device)
+                                  .multi_processor_count),
+           "ms": time_ms(lambda: match_maxes_cuda(*args), reps=5),
+           "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=5, reps=3),
+           "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=2, warmup=1)}
+    torch.cuda.empty_cache()
+    x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
+    out["product_only_library_ms"] = device_ms(lambda: torch.matmul(x, y.T), n=3, reps=3)
+    torch.cuda.empty_cache()
+    out.update({"live_vis_rows": n_v, "live_txt_rows": n_q,
+                "live_txt_share": n_q / (B * Q),
+                "dead_q_chunk_share": 1 - float(live.float().mean()),
+                "dead_block_q_chunk_share": 1 - float(tiles.float().mean()),
+                **bound(2 * (n_v + n_q) * D + 4 * (A * V + B * Q) + 8 * B * A * (Q + V),
+                        2 * n_v * n_q * D, "bf16")})
+    return out
+
+
+def _grounding_pipeline(tmp, overrides, device):
+    from vlgae_tpu_torch.predict import build_datamodule, compose
+    from vlgae_tpu_torch.training.factory import build_model
+    from vlgae_tpu_torch.training.pipeline import Pipeline, init_params
+
+    cfg = compose(overrides)
+    dm = build_datamodule(cfg)
+    model = build_model(cfg, dm)
+    init_params(model, 0)
+    pipe = Pipeline(model, dm, cfg, device=device, workdir=tmp)
+    pipe.setup_optimizer()
+    return pipe
+
+
+def _grounding_reference(tmp, name):
+    """One mode at small widths and precision=32, the card against the CPU:
+    ``predict``'s dev file (identical byte for byte, the dev loss within
+    1e-4) and
+    one joint train step (loss within ``TRAIN_LOSS_RTOL``, every
+    gradient within ``TRAIN_GRAD_ATOL``/``RTOL``) on the first training
+    batch whose Viterbi trees have no exact tie (where one ties, the card's
+    DMV kernels mark every best tree and the CPU splits the gradient)."""
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.struct import dmv_value_and_grads_plain
+    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+
+    small = ["datamodule.pad_boxes=6", "_hidden_size=32", "_match_hidden_size=16",
+             "_rank=4", "vis_encoder.n_in=16", "vis_encoder.n_hidden=32",
+             "trainer.precision=32", "init_seed=0"] + GROUNDING_MODES[name]
+    files, res = {}, {}
+    for dev in ("cpu", "cuda"):
+        _, r = _run_predict(tmp, _corpus_overrides(tmp) + small + [
+            f"device={dev}", f"name={name}_{dev}"])
+        with open(os.path.join(tmp, f"{name}_{dev}_dev.conll")) as f:
+            files[dev] = f.read()
+        res[dev] = r["dev"]
+    rows = [(a.split("\t"), b.split("\t")) for a, b in zip(
+        files["cpu"].splitlines(), files["cuda"].splitlines())]
+    out = {"identical_dev_file": files["cpu"] == files["cuda"],
+           "arcs_identical": all(a[:4] == b[:4] for a, b in rows),
+           "align_rows_identical": float(np.mean([a == b for a, b in rows])),
+           "dev": res}
+    dloss = abs(res["cpu"]["loss"] - res["cuda"]["loss"])
+    if not (out["identical_dev_file"] and dloss <= 1e-4 * (1 + abs(res["cpu"]["loss"]))):
+        raise AssertionError(f"{name}: the card and the CPU disagree on the dev set: {out}")
+
+    pipes = {dev: _grounding_pipeline(tmp, _small_overrides(tmp) + GROUNDING_MODES[name],
+                                      dev) for dev in ("cpu", "cuda")}
+    skipped = 0
+    for x, y in pipes["cpu"].dm.batches("train", shuffle=False):
+        x, y = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
+        with torch.no_grad():
+            o = pipes["cpu"].model.eval()(_to_device(x, "cpu"))
+            ind = dmv_value_and_grads_plain(o["merged_dec"], o["merged_attach"],
+                                            torch.as_tensor(x["seq_len"]), "max")[2]
+        if bool(((ind % 1) != 0).flatten(1).any(1).any()):
+            skipped += 1
+            continue
+        break
+    else:
+        raise AssertionError(f"{name}: every training batch has a tied Viterbi tree")
+    step = {}
+    for dev, pipe in pipes.items():
+        loss, _ = pipe.grad_step(x, y, False, 0.5)
+        step[dev] = (float(loss), {n: p.grad.detach().cpu() for n, p in
+                                   pipe.model.named_parameters() if p.grad is not None})
+    (lc, gc), (lg, gg) = step["cpu"], step["cuda"]
+    if sorted(gc) != sorted(gg):
+        raise AssertionError(f"{name}: the card and the CPU differ in which params get grads")
+    worst = max(float((gc[n] - gg[n]).abs().max()) for n in gc)
+    bad = [n for n in gc if not close(gg[n], gc[n], TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL)]
+    out.update({"train_loss": {"cpu": lc, "cuda": lg}, "max_grad_abs_err": worst,
+                "n_params": len(gc), "tied_batches_skipped": skipped})
+    if bad or abs(lc - lg) > TRAIN_LOSS_RTOL * abs(lc):
+        raise AssertionError(f"{name}: train step card vs CPU: loss {lc} / {lg}, {bad}")
+    return out
+
+
+def phase_grounding_modes(state):
+    """The joint model's other grounding strategies at ``exp=vlgae``'s
+    published widths and bf16 on the corpus of phase ``slice``:
+    ``word+alldep`` (words and every (head, dep) pair: Q = N + N^2 up to
+    3,306 in training) and the caption-image path (``reduced`` /
+    ``cap_img|ce`` / ``on_img``, ``metric=attachment_cap_img``) through
+    ``train`` (one warm-up and one joint epoch) and ``predict``, ``eval.py``
+    on each dev file; ``word`` by a train step and an eval step. Each
+    mode's launches per step, K5 and K6 at word+alldep's widest Q and the
+    K3 pair at its longest charts on the path's own tensors against their
+    plain versions, step times at B = 64; then each mode at small widths and
+    precision=32, the card against the CPU."""
+    import json as _json
+    import math
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import train
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    def nonzero(c):
+        return {k: v for k, v in c.items() if v}
+
+    result = {"phase": "grounding_modes"}
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=104, feat_dim=2048, n_box=36, len_range=(3, 50), seed=0)
+        base = _corpus_overrides(tmp) + [f"datamodule.{s}_dataloader.num_bucket=1"
+                                         for s in ("train", "dev", "test")]
+        # -- train and predict: word+alldep and the caption-image path ------
+        for name in ("word+alldep", "cap_img"):
+            run = os.path.join(tmp, f"run_{name}")
+            overrides = base + GROUNDING_MODES[name]
+            reset_kernel_counts()
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            t0 = time.perf_counter()
+            try:
+                pipe, test = train.main(overrides + [
+                    "trainer.max_epochs=2", "model.init_epoch=1", f"workdir={run}",
+                    "init_seed=0", "device=cuda"])
+            finally:
+                os.chdir(cwd)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            trained = kernel_counts()
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                lines = [_json.loads(line) for line in f]
+            bad = [k for rec in lines for k, v in rec.items()
+                   if ("loss" in k or k.endswith(("nll", "enll", "mt", "txt2vis")))
+                   and not math.isfinite(float(v))]
+            if bad:
+                raise AssertionError(f"{name}: non-finite losses: {bad}")
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            _, results = _run_predict(tmp, overrides + [
+                f"checkpoint={run}/checkpoint/last.pt", "device=cuda", f"name={name}"])
+            torch.cuda.synchronize()
+            t_predict = time.perf_counter() - t0
+            predicted = kernel_counts()
+            dev_file = os.path.join(tmp, f"{name}_dev.conll")
+            with open(dev_file) as f:
+                text = f.read()
+            if text.count("\n\n") != len(pipe.dm.datasets["dev"]):
+                raise AssertionError(f"{name}: {text.count(chr(10) * 2)} dev sentences")
+            need = (("dmv_fused", "dmv_inside_save", "dmv_outside", "match_fwd", "match_bwd")
+                    if name == "word+alldep" else ("dmv_fused",))
+            if not all(trained[k] for k in need) or not predicted["dmv_fused"]:
+                raise AssertionError(f"{name}: a kernel of the path never launched: "
+                                     f"{trained} {predicted}")
+            if name == "cap_img":
+                if trained["match_fwd"] or trained["match_bwd"] or predicted["match_fwd"]:
+                    raise AssertionError(f"cap_img launched a matching kernel: {trained}")
+                if "caption/acc" not in results["dev"]:
+                    raise AssertionError(f"cap_img: no caption accuracy: {results['dev']}")
+                if any(row.split("\t")[4:] != ["X", "X"] for row in text.splitlines() if row):
+                    raise AssertionError("cap_img: an ALIGN column is not the X placeholder")
+            for split, r in results.items():
+                if not all(math.isfinite(float(v)) for v in r.values()):
+                    raise AssertionError(f"{name} {split}: non-finite {r}")
+            tail = {"train_dev": check_eval(root, os.path.join(run, "dev.predict.txt")),
+                    "predict_dev": check_eval(root, dev_file)}
+            key = name.replace("+", "_")
+            by_path[f"vlgae_{key}_train"] = trained
+            by_path[f"vlgae_{key}_predict"] = predicted
+            result[name] = {"train_s": round(t_train, 3), "predict_s": round(t_predict, 3),
+                            "launches_train": nonzero(trained),
+                            "launches_predict": nonzero(predicted), "test": test,
+                            "dev": results["dev"], "eval_py_tail": tail}
+
+        # -- one step at a time, B = 64: launches, times, the path's tensors --
+        captured = {}
+        orig = {"fwd": match.match_maxes, "bwd": match.match_maxes_bwd,
+                "save": dmv_cuda.dmv_inside_save, "outside": dmv_cuda.dmv_outside}
+
+        def capturing(key, fn):
+            def call(*args):
+                captured.setdefault(key, tuple(
+                    a.detach() if isinstance(a, torch.Tensor) else a for a in args))
+                return fn(*args)
+            return call
+
+        steps = {}
+        for name in GROUNDING_MODES:
+            pipe = _grounding_pipeline(tmp, base + GROUNDING_MODES[name] + [
+                "datamodule.train_dataloader.num_bucket=1"], "cuda")
+            train_b = [(pad_batch_pow2(x)[0], pad_batch_pow2(y)[0])
+                       for x, y in pipe.dm.batches("train", shuffle=False)
+                       if len(x["seq_len"]) == 64]
+            train_b.sort(key=lambda b: -b[0]["word"].shape[1])
+            eval_b = [pad_batch_pow2(x)[0] for x, _ in pipe.dm.batches("dev", shuffle=False)]
+            eval_b.sort(key=lambda b: -b["word"].shape[1])
+            train_b, eval_b = train_b[:3], eval_b[:3]
+            if not train_b:
+                raise AssertionError(f"{name}: no training batch of 64 captions")
+            rec = {"padded_len_train": [int(b[0]["word"].shape[1]) for b in train_b],
+                   "padded_len_eval": [int(b["word"].shape[1]) for b in eval_b]}
+            for what, batches, run_step in (
+                    ("train", train_b, lambda b: float(pipe.train_step(*b, False, 0.5)[0])),
+                    ("eval", eval_b, lambda b: pipe.eval_step(b, 0.5))):
+                run_step(batches[0])  # warm-up
+                torch.cuda.synchronize()
+                if name == "word+alldep" and what == "train":
+                    # the widest batch's own tensors, captured on the way
+                    match.match_maxes = capturing("fwd", orig["fwd"])
+                    match.match_maxes_bwd = capturing("bwd", orig["bwd"])
+                    dmv_cuda.dmv_inside_save = capturing("save", orig["save"])
+                    dmv_cuda.dmv_outside = capturing("outside", orig["outside"])
+                times = []
+                reset_kernel_counts()
+                try:
+                    for b in batches:
+                        t0 = time.perf_counter()
+                        run_step(b)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                finally:
+                    match.match_maxes, match.match_maxes_bwd = orig["fwd"], orig["bwd"]
+                    dmv_cuda.dmv_inside_save = orig["save"]
+                    dmv_cuda.dmv_outside = orig["outside"]
+                launched = nonzero(kernel_counts())
+                per_step = {k: v / len(batches) for k, v in launched.items()}
+                want = GROUNDING_STEP_LAUNCHES[(name, what)]
+                if per_step != want:
+                    raise AssertionError(f"{name} {what} step launched {per_step}, "
+                                         f"expected {want}")
+                by_path[f"vlgae_{name.replace('+', '_')}_{what}_steps"] = launched
+                rec[f"{what}_step_ms_B64"] = [round(t * 1e3, 3) for t in times]
+                rec[f"{what}_step_ms_median_B64"] = statistics.median(times) * 1e3
+                rec[f"{what}_launches_per_step"] = per_step
+            steps[name] = rec
+            del pipe
+            torch.cuda.empty_cache()
+        result["steps"] = steps
+
+        # -- K5/K6 at word+alldep's widest Q, the K3 pair at its longest charts
+        fwd, bwd = captured["fwd"], captured["bwd"]
+        _, k5_err, k5_off = _check_k5(fwd, False, "on a word+alldep step's tensors")
+        k5 = {"max_abs_err": k5_err, "index_mismatch_within_tol": k5_off,
+              "q_chunks": match.match_fwd_q_tiling(int(fwd[1].shape[1])),
+              **_big_k5_timing(fwd)}
+        k6_err = _check_k6(bwd, False, "on a word+alldep step's tensors")
+        k6 = {"max_abs_err": k6_err, **k6_timing(bwd)}
+        k3_errs, k3a, k3b = _check_k3_on_path(captured["save"], captured["outside"])
+        result["k5_at_alldep"] = {k: v for k, v in k5.items() if k != "plan"}
+        result["k5_plan"] = k5["plan"]
+        result["k6_at_alldep"] = {k: v for k, v in k6.items() if k != "plan"}
+        result["k3_at_path"] = {"check": k3_errs, "inside_save": k3a, "outside": k3b}
+        state.setdefault("match_fwd", {})["at_word_alldep"] = result["k5_at_alldep"]
+        state.setdefault("match_bwd", {})["at_word_alldep"] = {
+            k: v for k, v in result["k6_at_alldep"].items() if k != "list_lengths"}
+        state.setdefault("dmv_inside_save", {})["at_word_alldep"] = {
+            "n1": k3_errs["n1"], **k3a}
+        state.setdefault("dmv_outside", {})["at_word_alldep"] = {"n1": k3_errs["n1"], **k3b}
+
+        # -- each mode at small widths and precision=32, card against CPU ----
+        small = os.path.join(tmp, "small")
+        make_corpus(os.path.join(small, "vlparse"), n_imgs=8, feat_dim=16, n_box=6,
+                    len_range=(3, 12), seed=1)
+        result["card_vs_cpu"] = {name: _grounding_reference(small, name)
+                                 for name in GROUNDING_MODES}
+    result["launches_by_path"] = by_path
+    emit(result)
+    for path, counts in by_path.items():
+        for kname, n in counts.items():
+            if n:
+                state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
+
+
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
           "train": phase_train, "k2": phase_k2, "k3": phase_k3,
           "lang_only_reference": phase_lang_only_reference,
           "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
-          "vit": phase_vit, "mbr": phase_mbr, "em": phase_em}
+          "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
+          "grounding_modes": phase_grounding_modes}
 
 
 def main():

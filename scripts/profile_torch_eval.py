@@ -2,7 +2,9 @@
 CUDA device.
 
     python scripts/profile_torch_eval.py \
-        [eval|train|lang_only_eval|lang_only_train|vit_eval|vit_train] [viterbi|mbr]
+        [eval|train|lang_only_eval|lang_only_train|vit_eval|vit_train|
+         word_eval|word_train|alldep_eval|alldep_train|cap_img_eval|cap_img_train]
+        [viterbi|mbr]
 
 Builds the pipeline of ``exp=vlgae`` (random weights from seed 0) on the
 synthetic corpus of ``chip_smoke.py``'s slice phase (lengths 3-50, 36
@@ -14,7 +16,10 @@ forward, backward, clip, Adam). The ``lang_only_*`` modes do the same for
 to L = 8 or 16; dev captions of 3-49 words). The ``vit_*`` modes do the
 same for ``exp=vlgae_vit`` at its recipe's widths on the corpus of
 ``chip_smoke.py``'s ``vit`` phase (224 px images, captions of 3-63 words;
-the ViT's weights from seed 0). ``mbr`` decodes the eval steps' trees by
+the ViT's weights from seed 0). The ``word_*``, ``alldep_*`` and
+``cap_img_*`` modes run ``exp=vlgae``'s steps under the grounding
+strategies of ``chip_smoke.GROUNDING_MODES`` (``word``, ``word+alldep``, the
+caption-image path), without the per-stage times. ``mbr`` decodes the eval steps' trees by
 MBR (``mbr_decoding: true``) in place of the Viterbi trees. Prints JSON
 lines:
 
@@ -215,8 +220,11 @@ def main(mode="eval", decode="viterbi"):
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device", file=sys.stderr)
         return 2
+    grounding = {"word": "word", "alldep": "word+alldep", "cap_img": "cap_img"}.get(
+        mode.rsplit("_", 1)[0])
     if mode not in ("eval", "train", "lang_only_eval", "lang_only_train", "vit_eval",
-                    "vit_train") or decode not in ("viterbi", "mbr"):
+                    "vit_train") and not (grounding and mode.endswith(("_eval", "_train"))) \
+            or decode not in ("viterbi", "mbr"):
         print(f"profile_torch_eval: unknown mode {mode!r} {decode!r}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -237,7 +245,9 @@ def main(mode="eval", decode="viterbi"):
                 npz = os.path.join(tmp, "vit.npz")
                 chip_smoke.write_vit_npz(npz, chip_smoke.VIT_RECIPE, seed=0)
                 overrides = chip_smoke._vit_overrides(tmp) + [f"vis_encoder.vit_weights={npz}"]
-            if mode in ("train", "vit_train"):
+            if grounding:
+                overrides = overrides + chip_smoke.GROUNDING_MODES[grounding]
+            if mode in ("train", "vit_train") or (grounding and mode.endswith("_train")):
                 pipe, batches, step = _train_setup(tmp, overrides)
             else:
                 pipe = build_pipeline(overrides + [
@@ -284,7 +294,7 @@ def main(mode="eval", decode="viterbi"):
         elif mode in ("train", "vit_train"):
             train_stage_times(pipe, batches[0])  # warm-up
             emit({"stages_B64": train_stage_times(pipe, batches[0])})
-        else:
+        elif not grounding:
             with torch.no_grad():
                 inputs = _to_device(batches[0], pipe.device)
                 stage_times(pipe.model, inputs, decode == "mbr")  # warm-up

@@ -199,6 +199,30 @@ def test_match_fwd_matches_plain(cuda, A, V, B, Q, D):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def test_match_fwd_and_bwd_at_word_alldeps_widest_q(cuda):
+    """word+alldep's language factors at the recipe's longest captions (N =
+    57 positions: Q = N + N^2 = 3,306) at the training V = 739: K5 takes 28
+    q-chunks of 120 and equals its plain version, K6 too (8 captions and
+    images, quarter-integer operands and 12-bit cotangents: exact)."""
+    from vlgae_tpu_torch.ops import match
+    from vlgae_tpu_torch.ops.match import (match_fwd_q_tiling, match_maxes,
+                                           match_maxes_bwd, match_maxes_bwd_plain,
+                                           match_maxes_plain)
+
+    A, V, B, Q, D = 8, 739, 8, 3306, 128
+    assert match_fwd_q_tiling(Q) == (28, 15)
+    vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda)
+    before = match.n_launches_by_q_chunks.get(28, 0)
+    got = match_maxes(vis, txt, vb, tb)
+    assert match.n_launches_by_q_chunks.get(28, 0) == before + 1
+    for g, w in zip(got, match_maxes_plain(vis, txt, vb, tb)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    _, li, _, lvi = got
+    want = match_maxes_bwd_plain(vis, txt, li, lvi, dm, dmv)
+    for g, w in zip(match_maxes_bwd(vis, txt, li, lvi, dm, dmv), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("V", [1324, 1275])
 def test_match_fwd_takes_two_q_chunks_on_the_patch_grid(cuda, V):
     """The patch grid of exp=vlgae_vit (V = 1,324 in training, 1,275 in
@@ -500,9 +524,9 @@ def test_match_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 DMV_CASES = [
     ((0,), 1), ((1, 0), 2), ((2, 1), 3), ((4, 0, 3), 5), ((0, 1, 8, 3, 8, 5), 9),
     ((9, 1, 0, 4), 10), ((16, 3, 0, 9), 17), ((50, 1, 0, 27, 13), 51),
-    ((84, 2, 40), 85), ((85, 0, 52, 7), 86), ((99, 86, 0, 1), 100)]
+    ((56, 2, 0, 33), 57), ((84, 2, 40), 85), ((85, 0, 52, 7), 86), ((99, 86, 0, 1), 100)]
 DMV_MAPPING = {1: "warp", 2: "warp", 3: "warp", 5: "warp", 9: "warp", 10: "smem",
-               17: "smem", 51: "smem", 85: "smem", 86: "global", 100: "global"}
+               17: "smem", 51: "smem", 57: "smem", 85: "smem", 86: "global", 100: "global"}
 
 
 def _cotangent(B, device):

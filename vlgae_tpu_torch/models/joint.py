@@ -2,12 +2,18 @@
 (counterpart of vlgae_tpu/models/joint.py).
 
 Forward: visual factors, the attention fusion of matched visual features
-into the text encoding, the dependency scores, the language factors from
-the Viterbi tree (two DP passes, log and max, through the fused kernel K1
-on the card), the reduced matching maxes (kernels K5 forward and K6
-backward under ``precision=bf16``), the factor-CE grounding loss, and at
-eval the grounding decode with the exact top-5. No ``[B, A, Q, V]`` tensor
-is built under bf16.
+into the text encoding, the dependency scores, the language factors of
+``language_factor_mode`` (``word``: the words alone; ``word+maxdep``: words
+and the arcs of the Viterbi tree, two DP passes, log and max, through the
+fused kernel K1 on the card; ``word+alldep``: words and every (head, dep)
+pair weighted by its marginal, one K1 pass in log, in training only), then
+the matching. ``gather_logit_mode=simple`` with the factor-CE loss takes
+the reduced matching maxes (kernels K5 forward and K6 backward under
+``precision=bf16``; no ``[B, A, Q, V]`` tensor is built); ``reduced``
+(caption logits for the caption-image CE and the ``on_img`` decode) builds
+the full map with one einsum, as the JAX package does outside any kernel,
+and reduces it at once. At eval the grounding decode takes the exact
+top-5 (``on_factor``) or the best image of each caption (``on_img``).
 
 In ``.train()`` mode the dropouts act and the relation group is built
 compactly: the inclusive upper triangle of box pairs (rel(i, j) ==
@@ -46,14 +52,15 @@ LN_EPS = 1e-6  # flax LayerNorm default
 
 @dataclasses.dataclass(frozen=True)
 class DependencyBoxRelConfig:
-    """The strategy strings of the JAX config that the port supports;
-    any other value raises."""
+    """The strategy strings of the JAX config; an unknown value, or a
+    pairing the JAX package rejects, raises its ``ValueError``."""
 
     add_rel: bool = True
     add_attr: bool = True
     add_image: bool = True
     add_marginal: bool = True
     language_factor_mode: str = "word+maxdep"
+    visual_factor_mode: str = "unprune"
     match_hidden: int = 128
     feat_fuse_mode: str = "attention"
     fuse_aug_with_matching: bool = True
@@ -71,18 +78,27 @@ class DependencyBoxRelConfig:
     bf16_matmul: bool = False
 
     def __post_init__(self):
-        supported = {
-            "language_factor_mode": ("word+maxdep",),
+        allowed = {
+            "language_factor_mode": ("word", "word+maxdep", "word+alldep"),
+            "visual_factor_mode": ("unprune",),
             "feat_fuse_mode": ("none", "attention"),
-            "gather_logit_mode": ("simple",),
-            "loss_grounding_mode": ("factor|ce",),
-            "decode_grounding_mode": ("on_factor",),
+            "gather_logit_mode": ("simple", "reduced"),
+            "loss_grounding_mode": ("factor|ce", "cap_img|ce"),
+            "decode_grounding_mode": ("on_img", "on_factor"),
         }
-        for name, allowed in supported.items():
+        for name, values in allowed.items():
             v = getattr(self, name)
-            if v not in allowed:
-                raise NotImplementedError(
-                    f"{name}={v!r} is not ported (supported: {allowed})")
+            if v not in values:
+                raise ValueError(f"{name}={v!r} not in {values}")
+        if self.gather_logit_mode == "reduced" and self.decode_grounding_mode != "on_img":
+            raise ValueError(
+                "gather_logit_mode='reduced' produces [B_txt, B_img] caption "
+                "logits; decode_grounding_mode must be 'on_img'")
+        if self.loss_grounding_mode == "cap_img|ce" and self.gather_logit_mode != "reduced":
+            raise ValueError(
+                "loss_grounding_mode='cap_img|ce' consumes the [B_txt, B_img] "
+                "caption logits of gather_logit_mode='reduced'; 'simple' "
+                "produces a 4-D attention map the caption CE cannot use")
         if self.eval_match_chunk <= 0:
             raise ValueError("eval_match_chunk must be positive")
 
@@ -115,11 +131,14 @@ class DependencyBoxRel(nn.Module):
         p = cfg.word_encoder_dropout
         self.word_encoder = MLP(n_enc, H, activate=False, dropout=p)
         self.vis_mlp_pre_matching = nn.Linear(n_vis, H, bias=False)
-        self.child_encoder = MLP(n_enc, H, dropout=p)
-        self.parent_encoder = MLP(n_enc, H, dropout=p)
-        self.arc_encoder_w1 = nn.Parameter(torch.zeros(H, H, H))
-        self.arc_encoder_w2 = nn.Parameter(torch.zeros(H, H))
-        self.arc_encoder_b = nn.Parameter(torch.zeros(H))
+        if cfg.language_factor_mode != "word":
+            # the arc factors' encoders (shared by the max-tree and all-arc
+            # factors); the words-only mode has none, as in the JAX package
+            self.child_encoder = MLP(n_enc, H, dropout=p)
+            self.parent_encoder = MLP(n_enc, H, dropout=p)
+            self.arc_encoder_w1 = nn.Parameter(torch.zeros(H, H, H))
+            self.arc_encoder_w2 = nn.Parameter(torch.zeros(H, H))
+            self.arc_encoder_b = nn.Parameter(torch.zeros(H))
         if cfg.feat_fuse_mode == "attention":
             self.feat_layernorm = nn.LayerNorm(n_enc, eps=LN_EPS)
         for name, ids in (("obj", pos_for_obj), ("rel", pos_for_rel),
@@ -196,24 +215,34 @@ class DependencyBoxRel(nn.Module):
                 / torch.clamp_min(seq_len, 1)[:, None])[:, None]
         return torch.cat([root, x], 1)
 
-    def lang_feat_word_only(self, inputs, encoded, mask):
+    def lang_feat_word_only(self, inputs, encoded, lang_score, mask):
+        """The words alone: ``(word_repr, q_mask, q_mask as f32, None)``."""
         B = mask.shape[0]
         q_mask = torch.cat([mask.new_zeros(B, 1), mask], 1)
         x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
-        return self.word_encoder(x), q_mask
+        return self.word_encoder(x), q_mask, q_mask.float(), None
+
+    def _arc_common(self, inputs, encoded, lang_score, mask):
+        """What both arc modes share: the word mask with the root slot, one
+        K1 pass in log on the detached potentials (the arc marginals), the
+        root-prepended words and their word and child encodings."""
+        q_mask = torch.cat([mask.new_zeros(mask.shape[0], 1), mask], 1)
+        log = dmv_value_and_grads(lang_score["merged_dec"].detach(),
+                                  lang_score["merged_attach"].detach(),
+                                  inputs["seq_len"], "log")
+        x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
+        return q_mask, log, x, self.word_encoder(x), self.child_encoder(x)
 
     def lang_feat_max_tree(self, inputs, encoded, lang_score, mask):
         """Words + arcs of the Viterbi tree."""
-        B, L = mask.shape
-        q_mask = torch.cat([mask.new_zeros(B, 1), mask], 1)
-        txt_mask = torch.cat([q_mask, q_mask], 1)
-        mdec = lang_score["merged_dec"].detach()
-        mattach = lang_score["merged_attach"].detach()
-        lengths = inputs["seq_len"]
-        vlog, gd_log, marg = dmv_value_and_grads(mdec, mattach, lengths, "log")
-        arc_margin = marg.sum(-1)  # [B, L+1, L+1]
-        vmax, gd_max, ga_max = dmv_value_and_grads(mdec, mattach, lengths, "max")
-        dep_reuse = {"log": (vlog, gd_log, marg), "max": (vmax, gd_max, ga_max)}
+        B = mask.shape[0]
+        q_mask, log, x, word_repr, child_repr = self._arc_common(
+            inputs, encoded, lang_score, mask)
+        arc_margin = log[2].sum(-1)  # [B, L+1, L+1]
+        vmax, gd_max, ga_max = dmv_value_and_grads(
+            lang_score["merged_dec"].detach(), lang_score["merged_attach"].detach(),
+            inputs["seq_len"], "max")
+        dep_reuse = {"log": log, "max": (vmax, gd_max, ga_max)}
         ind = ga_max.sum(-1)
         predicted = torch.cat(
             [torch.zeros(B, 1, dtype=torch.long, device=mask.device),
@@ -226,9 +255,6 @@ class DependencyBoxRel(nn.Module):
             arc_margin = q_mask.float()
         txt_marginal = torch.cat([q_mask.to(arc_margin.dtype), arc_margin], 1)
 
-        x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
-        word_repr = self.word_encoder(x)
-        child_repr = self.child_encoder(x)
         parent_x = torch.gather(x, 1, predicted[..., None].expand(-1, -1, x.shape[-1]))
         parent_repr = self.parent_encoder(parent_x)
         arc_repr = (
@@ -238,7 +264,43 @@ class DependencyBoxRel(nn.Module):
             + self.arc_encoder_b
         )
         txt = torch.cat([word_repr, arc_repr], 1)
-        return txt, txt_mask, txt_marginal, dep_reuse
+        return txt, torch.cat([q_mask, q_mask], 1), txt_marginal, dep_reuse
+
+    def lang_feat_all_arc(self, inputs, encoded, lang_score, mask):
+        """Words + every (head, dep) pair, head-major, weighted by the
+        pair's arc marginal (the K1 log tables go to ``dep_reuse['log']``);
+        words weigh 1, the root 0. The factorized bilinear of
+        :meth:`lang_feat_max_tree` over all pairs, with its parameters. At
+        eval the Viterbi-tree factors."""
+        if not self.training:
+            return self.lang_feat_max_tree(inputs, encoded, lang_score, mask)
+        B, L = mask.shape
+        N = L + 1
+        q_mask, log, x, word_repr, child_repr = self._arc_common(
+            inputs, encoded, lang_score, mask)
+        pair_mask = (q_mask[:, :, None] & q_mask[:, None, :]).reshape(B, -1)
+        arc_margin = log[2].sum(-1).reshape(B, -1)  # [B, N*N]
+        txt_marginal = torch.cat([q_mask.to(arc_margin.dtype), arc_margin], 1)
+
+        parent_repr = self.parent_encoder(x)
+        # the child side through w1 first: [B, N, H, H], then every parent
+        cw = torch.einsum("bcx,xhy->bchy", child_repr, self.arc_encoder_w1)
+        arc_repr = (
+            torch.einsum("bchy,bpy->bpch", cw, parent_repr)
+            + (child_repr @ self.arc_encoder_w2)[:, None]
+            + (parent_repr @ self.arc_encoder_w2)[:, :, None]
+            + self.arc_encoder_b
+        ).reshape(B, N * N, -1)
+        txt = torch.cat([word_repr, arc_repr], 1)
+        return txt, torch.cat([q_mask, pair_mask], 1), txt_marginal, {"log": log}
+
+    def lang_feat(self, inputs, encoded, lang_score, mask):
+        """``(txt, txt_mask, txt_marginal, dep_reuse)`` of the configured
+        language factors."""
+        fn = {"word": self.lang_feat_word_only,
+              "word+alldep": self.lang_feat_all_arc,
+              }.get(self.cfg.language_factor_mode, self.lang_feat_max_tree)
+        return fn(inputs, encoded, lang_score, mask)
 
     # -- reduced matching ----------------------------------------------------
     def gather_logit_train(self, vis, txt):
@@ -316,6 +378,25 @@ class DependencyBoxRel(nn.Module):
         pad = logit_v.new_full(logit_v.shape[:-1] + (1,), -INF)
         return torch.cat([logit_v, pad], -1)[..., maps[1]]
 
+    # -- the full map ---------------------------------------------------------
+    def gather_logit(self, vis, txt):
+        """The ``[B, A]`` caption logits of ``gather_logit_mode='reduced'``:
+        the full ``[B, A, Q, V]`` map (masked to -INF), each word's best
+        factor, averaged over the caption with ``txt_marginal``. Under bf16
+        the operands are rounded to bf16 and multiplied with f32
+        accumulation, as the JAX package's einsum does."""
+        vis_feat, vis_mask = vis[0], vis[1]
+        txt_feat, txt_mask, txt_marginal = txt[:3]
+        if self.cfg.bf16_matmul:
+            vis_feat = vis_feat.to(torch.bfloat16).float()
+            txt_feat = txt_feat.to(torch.bfloat16).float()
+        attmap = torch.einsum("avd,bqd->baqv", vis_feat, txt_feat)
+        attmap = torch.where(vis_mask[None, :, None, :], attmap, -INF)
+        attmap = torch.where(txt_mask[:, None, :, None], attmap, -INF)
+        maxatt = attmap.amax(-1)  # [B, A, Q]
+        return ((maxatt * txt_marginal[:, None]).sum(-1)
+                / (txt_marginal.sum(1, keepdim=True) + 1e-9))
+
     def _diag_att(self, out, inputs, with_pen: bool):
         """Own-image [B, Q, V] matching block (f32) with masks and,
         optionally, the POS-prior penalty."""
@@ -333,7 +414,7 @@ class DependencyBoxRel(nn.Module):
         """Soft-match every word against the visual factors and add the
         matched (pre-projection) features back into the text encoding."""
         vis = self.vis_feat(inputs, vis_encoded, return_mid=True)
-        word, _ = self.lang_feat_word_only(inputs, encoded, mask)
+        word = self.lang_feat_word_only(inputs, encoded, None, mask)[0]
         fuse_logits = torch.einsum("bvd,bqd->bqv", vis[0], word[:, 1:])
         if compact:
             fuse_logits = fuse_logits + self._rel_logmult(vis[2], vis[0].device)
@@ -364,11 +445,16 @@ class DependencyBoxRel(nn.Module):
         if not with_grounding:
             return out
         vis = self.vis_feat(inputs, vis_encoded)
-        *txt, dep_reuse = self.lang_feat_max_tree(inputs, encoded, out, mask)
+        *txt, dep_reuse = self.lang_feat(inputs, encoded, out, mask)
         txt = tuple(txt)
-        out.update({"vis_packed": vis, "txt_packed": txt, "dep_reuse": dep_reuse})
-        out["match_reduced"] = self.gather_logit_train(vis, txt)
-        out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
+        out.update({"vis_packed": vis, "txt_packed": txt})
+        if dep_reuse is not None:
+            out["dep_reuse"] = dep_reuse
+        if cfg.gather_logit_mode == "simple" and cfg.loss_grounding_mode == "factor|ce":
+            out["match_reduced"] = self.gather_logit_train(vis, txt)
+            out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
+        else:
+            out["match_logit"] = self.gather_logit(vis, txt)
         return out
 
     # -- grounding loss -----------------------------------------------------
@@ -395,6 +481,8 @@ class DependencyBoxRel(nn.Module):
         return pen
 
     def loss_grounding_factor_ce(self, out, inputs):
+        """The factor CE on the reduced maxes, their own-image entries from
+        the recomputed diagonal block that carries the POS-prior penalty."""
         cfg = self.cfg
         txt_marginal = out["txt_packed"][2]
         vis_mask = out["vis_packed"][1]
@@ -423,13 +511,30 @@ class DependencyBoxRel(nn.Module):
                                   / (vis2txt.detach() + 1e-6) * num_token)
         return sum(loss.values()), loss
 
-    def loss(self, out, inputs, dep_loss, dep_aux=None, alpha=None):
-        """Interpolated joint objective ``(total, per-term dict)``, the
-        same in training and at eval for ``factor|ce``; the grounding term
-        counts only when two real captions have images."""
+    def loss_grounding_cap_img(self, out, inputs):
+        """Caption-image CE over the ``[B, A]`` caption logits of the
+        reduced map, averaged over the real captions; filler rows of the
+        batch padding are masked out of both axes."""
+        row = inputs["seq_len"] > 0
+        logit = torch.where(row[None, :], out["match_logit"], -INF)
+        diag = torch.diagonal(torch.log_softmax(logit, 1))
+        loss = -(diag * row).sum() / torch.clamp_min(row.sum(), 1)
+        return loss, {"mt": loss}
+
+    def loss(self, out, inputs, dep_loss, dep_aux=None, alpha=None,
+             train: bool = True):
+        """Interpolated joint objective ``(total, per-term dict)``; the
+        grounding term counts only when two real captions have images.
+        ``factor|ce`` is the same in training and at eval; ``cap_img|ce``
+        contributes 0 at eval (``train=False``), as in the JAX package."""
         if alpha is None:
             alpha = self.cfg.grounding_interpolation
-        mt_loss, mt_aux = self.loss_grounding_factor_ce(out, inputs)
+        if self.cfg.loss_grounding_mode == "factor|ce":
+            mt_loss, mt_aux = self.loss_grounding_factor_ce(out, inputs)
+        elif not train:
+            mt_loss, mt_aux = dep_loss.new_zeros(()), {}
+        else:
+            mt_loss, mt_aux = self.loss_grounding_cap_img(out, inputs)
         real_avail = inputs["vis_available"] & (inputs["seq_len"] > 0)
         enough = (real_avail.sum() >= 2).to(mt_loss.dtype)
         mt_loss = mt_loss * enough * float(alpha > 0)
@@ -438,7 +543,13 @@ class DependencyBoxRel(nn.Module):
 
     # -- grounding decode (device part) -------------------------------------
     def decode_grounding_device(self, out, inputs, topk: int = 5):
-        factor2img = out["match_logit"].argmax(1)  # [B, Q]
+        """``on_factor``: the top-``topk`` factors of each word and arc
+        (``txt_to_factor_idx``) and each one's best image; ``on_img``: the
+        best image of each caption alone (``txt_to_img [B]``)."""
+        match_logit = out["match_logit"]
+        if self.cfg.decode_grounding_mode == "on_img":
+            return {"txt_to_img": match_logit.argmax(1)}
+        factor2img = match_logit.argmax(1)  # [B, Q]
         logit = self.decode_grounding_logits(out, inputs)
         _, top_idx = exact_top_k(logit, topk)  # [B, Q, k]
         return {"txt_to_factor_idx": top_idx, "txt_to_img": factor2img}

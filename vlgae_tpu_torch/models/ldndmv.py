@@ -160,6 +160,8 @@ class DiscriminativeNDMV(nn.Module):
             bad = torch.isin(inputs["tag"], self.function_mask_ids)
             attach_prob = torch.where(bad[:, :, None, None], NEGINF, attach_prob)
         out["attach"] = attach_prob
+        # the vocabulary-level table in [b, n, n_token, dir, val] order
+        out["attach_rule"] = attach_rule_t.permute(0, 1, 4, 2, 3)
 
         dec_prob = torch.log_softmax(
             self.dec_scorer(h_parent, h_dec, tokens_last=True), -1)
@@ -169,6 +171,7 @@ class DiscriminativeNDMV(nn.Module):
             self.root_scorer(h_root, h_child).sum((-1, -2)), -1)[:, 0]
         root_prob = root_prob.expand(b, root_prob.shape[-1])
         out["root"] = torch.gather(root_prob, 1, token)
+        out["root_rule"] = root_prob
 
         out["merged_dec"], out["merged_attach"] = dmv_merge(
             out["dec"], out["attach"], out["root"])

@@ -103,6 +103,80 @@ class MLP(Dropping):
         return x
 
 
+class ResLayer(nn.Module):
+    """Residual two-layer ReLU block (then LeakyReLU when ``activate``)."""
+
+    def __init__(self, n_hidden: int, activate: bool = True):
+        super().__init__()
+        self.linear1 = nn.Linear(n_hidden, n_hidden)
+        self.linear2 = nn.Linear(n_hidden, n_hidden)
+        self.activate = activate
+
+    def forward(self, x):
+        h = torch.relu(self.linear2(torch.relu(self.linear1(x))))
+        if self.activate:
+            h = leaky_relu(h)
+        return h + x
+
+
+class Biaffine(nn.Module):
+    """Dozat's biaffine scorer: ``s[b, o, x, y] = [x; 1] W_o [y; 1]``
+    (``[b, x, y]`` when ``n_out == 1``)."""
+
+    def __init__(self, n_in_x: int, n_in_y: int, n_out: int = 1,
+                 bias_x: bool = True, bias_y: bool = True):
+        super().__init__()
+        self.bias_x, self.bias_y = bias_x, bias_y
+        self.weight = nn.Parameter(torch.zeros(n_out, n_in_x + bias_x, n_in_y + bias_y))
+
+    def forward(self, x, y):
+        if self.bias_x:
+            x = torch.cat([x, torch.ones_like(x[..., :1])], -1)
+        if self.bias_y:
+            y = torch.cat([y, torch.ones_like(y[..., :1])], -1)
+        s = torch.einsum("bxi,oij,byj->boxy", x, self.weight, y)
+        return s[:, 0] if self.weight.shape[0] == 1 else s
+
+
+class BiaffineScorer(nn.Module):
+    """Each input through its own MLP, both scaled by ``hidden_dim **
+    -0.25`` (a biaffine product of about unit variance), then
+    :class:`Biaffine`; scores ``[B, x, y, out_dim]``."""
+
+    def __init__(self, n_in: int, hidden_dim: int, out_dim: int = 1,
+                 mlp_dropout: float = 0.0, mlp_activate: bool = True,
+                 scale: bool = True, n_in2: int = None):
+        super().__init__()
+        self.mlp1 = MLP(n_in, hidden_dim, mlp_activate, dropout=mlp_dropout)
+        self.mlp2 = MLP(n_in2 or n_in, hidden_dim, mlp_activate, dropout=mlp_dropout)
+        self.affine = Biaffine(hidden_dim, hidden_dim, out_dim, bias_x=True,
+                               bias_y=out_dim > 1)
+        self.hidden_dim, self.out_dim, self.scale = hidden_dim, out_dim, scale
+
+    def forward(self, x, x2):
+        h1, h2 = self.mlp1(x), self.mlp2(x2)
+        if self.scale:
+            s = self.hidden_dim ** -0.25
+            h1, h2 = h1 * s, h2 * s
+        out = self.affine(h1, h2)
+        if self.out_dim == 1:
+            return out[..., None]
+        return torch.movedim(out, 1, -1)
+
+
+def multivariate_kl(mean_q, mean_p, lvar_q, lvar_p, reduction: str = "sum"):
+    """KL(q || p) between diagonal Gaussians, over the last axis, then
+    summed (``"sum"``), averaged (``"mean"``) or kept per row."""
+    var_q, var_p = torch.exp(lvar_q), torch.exp(lvar_p)
+    kl = 0.5 * ((lvar_p - lvar_q).sum(-1) + (var_q / var_p).sum(-1)
+                + ((mean_p - mean_q) ** 2 / var_p).sum(-1) - mean_q.shape[-1])
+    if reduction == "sum":
+        return kl.sum()
+    if reduction == "mean":
+        return kl.mean()
+    return kl
+
+
 class ScalarMix(Dropping):
     """Softmax-weighted layer mixture with gamma; layer dropout in
     training (a dropped layer's weight is 0, the kept ones / (1 - p))."""
@@ -170,8 +244,8 @@ class DMVSkipConnectEncoder(Dropping):
 
 
 class DMVFactorizedBilinear(nn.Module):
-    """Low-rank bilinear scorer. ``x2`` carries a leading batch axis of 1
-    (shared over the batch of ``x1``)."""
+    """Low-rank bilinear scorer of 5-D inputs; ``x2``'s leading batch axis
+    is 1 (shared over the batch of ``x1``) or ``x1``'s."""
 
     def __init__(self, n_in: int, r: int = 64):
         super().__init__()
@@ -181,7 +255,10 @@ class DMVFactorizedBilinear(nn.Module):
     def forward(self, x1, x2, tokens_last: bool = False):
         x1 = self.project1(x1)
         x2 = self.project2(x2)
-        if x1.dim() != 5 or x2.shape[0] != 1:
+        if x1.dim() != 5 or x2.dim() != 5:
             raise NotImplementedError("DMVFactorizedBilinear takes 5-D inputs")
-        spec = "bhdve,cdve->bhdvc" if tokens_last else "bhdve,cdve->bhcdv"
-        return torch.einsum(spec, x1, x2[0])
+        if x2.shape[0] == 1:
+            spec = "bhdve,cdve->bhdvc" if tokens_last else "bhdve,cdve->bhcdv"
+            return torch.einsum(spec, x1, x2[0])
+        spec = "bhdve,bcdve->bhdvc" if tokens_last else "bhdve,bcdve->bhcdv"
+        return torch.einsum(spec, x1, x2)

@@ -17,9 +17,15 @@ default ``outputs/<name>/<time>``) holds ``config.json``,
 JSON lines), ``dev.predict.txt`` and ``test.predict.txt``. ``device``
 defaults to ``cuda`` and raises without a card.
 
-Not ported (each raises ``NotImplementedError``): multirun (``-m``), wandb,
-the hyperparameter-search bridge (``VLGAE_SEARCH_PARAMS``) and the
-profiler trace (``profile``).
+``-m`` (or ``--multirun``) sweeps comma lists (``optimizer.args.lr=1e-3,2e-3``)
+over their cartesian product, one run each in ``outputs/multirun/<time>/<i>``,
+with one line a run in that directory's ``results.jsonl``; Hydra's sweep
+functions (``range(...)`` and the like) raise. ``VLGAE_SEARCH_PARAMS`` (a
+JSON object) adds its items as overrides, and ``VLGAE_SEARCH_RESULT`` names
+a file that receives ``{"best", "test"}`` at the end. ``wandb=true`` logs to
+wandb as well when the package is importable (and goes inert without it);
+``profile=true`` writes a ``torch.profiler`` trace of updates 3-5 to
+``<workdir>/profile/``.
 """
 
 from __future__ import annotations
@@ -34,24 +40,85 @@ import numpy as np
 from .predict import build_datamodule, compose, setup_device
 from .training.factory import build_model
 from .training.pipeline import Pipeline, init_params
+from .utils.logger import MetricLogger, WandbWatcher
 
 _OPTIONS = ("init_seed", "weights", "device")
+# Hydra's sweep functions, which a comma split would misread as choices
+_SWEEP_FUNCTIONS = ("range(", "glob(", "interval(", "shuffle(", "sort(", "tag(")
 
 
-class MetricLogger:
-    """JSON lines on stdout and in ``<workdir>/metrics.jsonl``."""
+def _sweep_axes(overrides):
+    """``(fixed overrides, [(key, choices)])``: a value with a comma is a
+    choice sweep unless bracketed, braced or quoted (a coefficient
+    schedule ``"[0@0, 0.5@100]"`` keeps its commas)."""
+    fixed, axes = [], []
+    for ov in overrides:
+        key, _, val = ov.partition("=")
+        if val.strip().startswith(_SWEEP_FUNCTIONS):
+            raise ValueError(
+                f"multirun: the Hydra sweep function in {ov!r} is not supported; "
+                "only comma-list choice sweeps (key=a,b,c) are")
+        if "," in val and val[:1] not in "[{'\"" and not val.endswith("]"):
+            axes.append((key, val.split(",")))
+        else:
+            fixed.append(ov)
+    return fixed, axes
 
-    def __init__(self, workdir: str):
-        self.path = os.path.join(workdir, "metrics.jsonl")
 
-    def log(self, metrics: dict, step=None):
-        rec = {"time": time.time(), **metrics}
-        if step is not None:
-            rec["step"] = step
-        line = json.dumps(rec, default=float)
-        print(line, flush=True)
-        with open(self.path, "a") as f:
-            f.write(line + "\n")
+def multirun(overrides):
+    """Every combination of the choice sweeps, one run each under
+    ``outputs/multirun/<time>/<job>`` (with a ``multirun.json``), and one
+    JSON line a run in ``results.jsonl``. The runs share a 4-character
+    group id, exported as ``MULTIRUN_ID`` while they run."""
+    import itertools
+    import random
+    import string
+
+    fixed, axes = _sweep_axes(overrides)
+    prior = os.environ.get("MULTIRUN_ID")
+    group = prior or "".join(random.choice(string.ascii_letters + string.digits)
+                             for _ in range(4))
+    os.environ["MULTIRUN_ID"] = group
+    sweep_dir = os.path.join("outputs", "multirun", time.strftime("%Y-%m-%d_%H-%M-%S"))
+    os.makedirs(sweep_dir, exist_ok=True)
+    results = []
+    try:
+        with open(os.path.join(sweep_dir, "results.jsonl"), "w") as rf:
+            for job, combo in enumerate(itertools.product(*(v for _, v in axes))):
+                swept = [f"{k}={v}" for (k, _), v in zip(axes, combo)]
+                workdir = os.path.join(sweep_dir, str(job))
+                pipe, test = main(fixed + swept + [f"workdir={workdir}"])
+                with open(os.path.join(workdir, "multirun.json"), "w") as f:
+                    json.dump({"group": group, "job": job, "overrides": fixed + swept}, f)
+                line = {"group": group, "job": job, "overrides": swept,
+                        "best": pipe.best, "test": test}
+                rf.write(json.dumps(line, default=float) + "\n")
+                rf.flush()
+                results.append(line)
+    finally:
+        if prior is None:
+            os.environ.pop("MULTIRUN_ID", None)
+    return results
+
+
+def _profiler(workdir, device):
+    """A ``torch.profiler`` stepped once an update: the first update
+    skipped, the second a warm-up, updates 3-5 recorded and exported as a
+    Chrome trace into ``<workdir>/profile``."""
+    import torch
+
+    folder = os.path.join(workdir, "profile")
+    os.makedirs(folder, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def export(prof):
+        prof.export_chrome_trace(os.path.join(folder, f"trace_step{prof.step_num}.json"))
+
+    return torch.profiler.profile(
+        activities=activities, on_trace_ready=export,
+        schedule=torch.profiler.schedule(wait=1, warmup=1, active=3, repeat=1))
 
 
 def _split_options(args):
@@ -69,9 +136,10 @@ def _split_options(args):
 def main(argv=None):
     args = list(argv if argv is not None else sys.argv[1:])
     if "-m" in args or "--multirun" in args:
-        raise NotImplementedError("multirun (-m) is not ported")
-    if os.environ.get("VLGAE_SEARCH_PARAMS"):
-        raise NotImplementedError("the hyperparameter-search bridge is not ported")
+        return multirun([a for a in args if a not in ("-m", "--multirun")])
+    search_params = os.environ.get("VLGAE_SEARCH_PARAMS")
+    if search_params:
+        args += [f"{k}={v}" for k, v in json.loads(search_params).items()]
     opts, overrides = _split_options(args)
     # reuse a previous run's overrides
     pre = []
@@ -84,10 +152,6 @@ def main(argv=None):
             overrides.remove(ov)
     overrides = pre + overrides
     cfg = compose(overrides)
-    if cfg.get("wandb"):
-        raise NotImplementedError("wandb logging is not ported")
-    if cfg.get("profile"):
-        raise NotImplementedError("the profiler trace of a training run is not ported")
 
     seed = cfg.get("seed") or 0
     np.random.seed(seed)
@@ -130,7 +194,14 @@ def main(argv=None):
 
     max_epochs = int(trainer_cfg.get("max_epochs", 50))
     max_steps = int(trainer_cfg.get("max_steps", -1) or -1)
-    mlog = MetricLogger(workdir)
+    mlog = MetricLogger(workdir, use_wandb=bool(cfg.get("wandb")),
+                        project=str(cfg.get("project", "vlgae_tpu")),
+                        name=str(cfg.get("name", "run")), config=cfg)
+    if cfg.get("wandb") and cfg.get("watch_model") is not None:
+        pipe.watcher = WandbWatcher(**dict(cfg.get("watch_model") or {}))
+    if cfg.get("profile"):
+        pipe.profiler = _profiler(workdir, device)
+        pipe.profiler.start()
     pipe.normalize_embeddings("begin")
     min_lr_stop = float(trainer_cfg.get("min_lr_stop", 0.0) or 0.0)
     val_check = float(trainer_cfg.get("val_check_interval", 1.0) or 1.0)
@@ -166,12 +237,20 @@ def main(argv=None):
             print(json.dumps({"early_stop": "lr below min", "epoch": epoch}))
             break
 
+    if pipe.profiler is not None:
+        pipe.profiler.stop()
+        pipe.profiler = None
+
     best_path = os.path.join(workdir, "checkpoint", "best.pt")
     if os.path.exists(best_path):
         pipe.load_checkpoint(best_path)
     test, test_out = pipe.evaluate("test", metric_idx=1)
     mlog.log({f"test/{k}": v for k, v in test.items()}, step=pipe.step)
     pipe.write_predictions(os.path.join(workdir, "test.predict.txt"), "test", test_out)
+    result_path = os.environ.get("VLGAE_SEARCH_RESULT")
+    if result_path:
+        with open(result_path, "w") as f:
+            json.dump({"best": pipe.best, "test": test}, f, default=float)
     return pipe, test
 
 

@@ -187,6 +187,7 @@ def build_joint(cfg: Dict[str, Any], dm) -> DependencyBoxRel:
         add_image=bool(mcfg.get("add_image", True)),
         add_marginal=bool(mcfg.get("add_marginal", True)),
         language_factor_mode=mcfg.get("language_factor_mode", "word+maxdep"),
+        visual_factor_mode=mcfg.get("visual_factor_mode", "unprune"),
         match_hidden=int(sub("visual_factor_cfg").get("n_hidden", 128)),
         feat_fuse_mode=mcfg.get("feat_fuse_mode", "attention"),
         fuse_aug_with_matching=bool(sub("feat_fuse_args").get("aug_with_matching", True)),

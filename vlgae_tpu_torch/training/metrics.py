@@ -85,6 +85,24 @@ class FactorImageMatchingMetric(MetricBase):
         return {"acc": 100 * self.s_correct / (self.s_total + 1e-6)}
 
 
+class CaptionImageMatchingMetric(MetricBase):
+    """caption->img retrieval: caption i found image i (ref: metric.py:86-105)."""
+
+    def __init__(self):
+        self.s_correct = 0.0
+        self.s_total = 0.0
+
+    def update(self, predict, gold, mask):
+        if "txt_to_img" not in predict:
+            return
+        t2i = np.asarray(predict["txt_to_img"])
+        self.s_total += len(t2i)
+        self.s_correct += (t2i == np.arange(len(t2i))).sum()
+
+    def compute(self):
+        return {"acc": 100 * self.s_correct / (self.s_total + 1e-6)}
+
+
 def box_area(boxes):
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 

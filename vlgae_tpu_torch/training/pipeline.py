@@ -86,9 +86,12 @@ class Pipeline:
     """Owns the model, the datamodule, the optimizer, the dropout
     generator and the metrics (dev and test)."""
 
-    def __init__(self, model, dm, cfg: Dict[str, Any], device="cpu",
+    def __init__(self, model, dm, cfg: Dict[str, Any], device="cuda",
                  workdir: str = ".", seed: int = 0):
-        self.device = torch.device(device)
+        from ..predict import setup_device  # (predict imports this module)
+
+        # the card unless the caller names the CPU; raises without a card
+        self.device = setup_device(device)
         self.model = model.to(self.device).eval()
         self.dm = dm
         self.cfg = cfg
@@ -134,6 +137,10 @@ class Pipeline:
         # forward, loss and decode, ending when the results reach the host
         self.step_times: List[float] = []
         self.step_sizes: List[int] = []
+        # wandb histograms of parameters and gradients, and a
+        # torch.profiler stepped once an update (train.py sets them)
+        self.watcher = None
+        self.profiler = None
 
     def _build_metric_node(self, node):
         """Instantiate a metric from a config node (``_target_`` matched by
@@ -261,9 +268,14 @@ class Pipeline:
             for p in self.optimizer.params:
                 if p.grad is not None:
                     p.grad.mul_(1.0 / n_accumulated)
+        if self.watcher is not None and self.watcher.should_log(self.step):
+            # this update's gradients, at the parameters before it
+            self.watcher.log_trees(self.step, self.model.named_parameters())
         self.optimizer.step(self.step)
         self.optimizer.zero_grad()
         self.step += 1
+        if self.profiler is not None:
+            self.profiler.step()
 
     def train_step(self, x, y, init_phase: bool, alpha: float):
         """One update on one padded batch; returns the loss and terms as
@@ -400,13 +412,15 @@ class Pipeline:
         heads = ldndmv_decode(out, lengths, mbr=self.dep_cfg.mbr_decoding)
         if not self.is_joint:
             return {"arc": heads.cpu().numpy(), "loss": total.cpu().numpy()}
-        total, _ = model.loss(out, inputs, total, alpha=alpha)
+        total, _ = model.loss(out, inputs, total, alpha=alpha, train=False)
         g = model.decode_grounding_device(out, inputs)
-        res = {"arc": heads, "loss": total, "txt_to_img": g["txt_to_img"],
-               "txt_to_factor_idx": g["txt_to_factor_idx"],
-               "txt_mask": out["txt_packed"][1]}
+        res = {"arc": heads, "loss": total, "txt_to_img": g["txt_to_img"]}
+        if "txt_to_factor_idx" in g:  # on_factor
+            res["txt_to_factor_idx"] = g["txt_to_factor_idx"]
+            res["txt_mask"] = out["txt_packed"][1]
         res = {k: v.cpu().numpy() for k, v in res.items()}
-        res["vis_split"] = np.asarray(out["vis_packed"][2])
+        if "txt_to_factor_idx" in res:
+            res["vis_split"] = np.asarray(out["vis_packed"][2])
         return res
 
     def evaluate(self, split: str = "dev", metric_idx: int = 0):
@@ -431,7 +445,7 @@ class Pipeline:
             mask = (np.arange(x["word"].shape[1])[None, :]
                     < np.asarray(x["seq_len"])[:, None])
             predict = {"arc": res["arc"]}
-            if self.is_joint:
+            if "txt_to_factor_idx" in res:
                 vis_split = tuple(int(s) for s in res["vis_split"])
                 box_index = x.get("vis_box_index", np.tile(
                     np.arange(vis_split[0])[None], (res["arc"].shape[0], 1)))
@@ -440,11 +454,13 @@ class Pipeline:
                     np.asarray(x["seq_len"]), box_index, res["txt_mask"])
                 predict["txt_to_img"] = [res["txt_to_img"][j][res["txt_mask"][j]]
                                          for j in range(res["arc"].shape[0])]
+            elif "txt_to_img" in res:  # on_img: one image per caption
+                predict["txt_to_img"] = list(res["txt_to_img"])
             metric.update(predict, y, mask)
             for j, sid in enumerate(np.asarray(x["id"])):
                 n = int(x["seq_len"][j])
                 rec = {"arc": res["arc"][j, :n].tolist()}
-                if self.is_joint:
+                if "txt_to_factor" in predict:
                     rec["txt_to_factor"] = predict["txt_to_factor"][j]
                 all_outputs[int(sid)] = rec
         result = metric.compute()
@@ -454,9 +470,14 @@ class Pipeline:
     # -- prediction writing -------------------------------------------------
     def write_predictions(self, path: str, split: str, outputs: Dict[int, dict]):
         """CoNLL rows ``ID FORM POS HEAD ALIGN`` (ALIGN: word factors, then
-        arc factors, tab-separated), the format ``eval.py`` scores; the
+        arc factors, tab-separated), the format ``eval.py`` scores; under
+        ``decode_grounding_mode='on_img'`` the column is the placeholder
+        ``X`` (two of them, tab-separated, with arc factors); the
         stand-alone parser writes no ALIGN column."""
         ds = self.dm.datasets[split]
+        jcfg = self.model.cfg if self.is_joint else None
+        on_img = jcfg is not None and jcfg.decode_grounding_mode == "on_img"
+        placeholder = "X" if on_img and jcfg.language_factor_mode == "word" else "X\tX"
         with open(path, "w", encoding="utf-8") as f:
             for inst in ds:
                 rec = outputs.get(inst["id"])
@@ -471,6 +492,8 @@ class Pipeline:
                     row = [i + 1, inst["raw_word"][i], tag, head]
                     if factors is not None:
                         row.append(self._format_factor(factors, i, n))
+                    elif on_img:
+                        row.append(placeholder)
                     rows.append(row)
                 write_conll_rows(f, rows)
 
