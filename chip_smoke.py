@@ -110,6 +110,26 @@ Phases, each printing one JSON line:
                  bounds and matmul yardsticks; each mode at small widths and
                  precision=32, the card against the CPU (dev predictions,
                  one train step's loss and gradients)
+ 19. struct    - the rest of the structured surface (the generic semiring
+                 fills, plain PyTorch on the card): every new method of
+                 ``DMV1o`` and ``DependencyCRF`` (entropy, cross-entropy,
+                 KL, risk, count, k-max, top-k) at B=64, n1 = 51 and 65,
+                 against the same call on the CPU on 16 of the sentences;
+                 the Log/Max generic totals against K2; ``kmax(5)[0]``
+                 against ``max``; 64 samples and a Gumbel relaxation per
+                 sentence are trees; ``count`` not finite exactly where f32
+                 overflows; each method's time on the card
+ 20. variational - the variational bottleneck (``z_dim = 64``) on the
+                 kernels' paths: ``exp=lang_only`` under ``all:vae``
+                 through ``train`` (one warm-up and one NLL epoch on phase
+                 ``lang_only``'s corpus) and ``predict``, the K3 pair per
+                 NLL step and K1 (max) with K2/K4 per eval step held to
+                 their plain versions on a step's own tensors; three
+                 ``exp=vlgae`` bf16 joint steps under ``all:ib`` (K1 twice,
+                 K5, K6 a step; K5 and K6 held to their plain versions);
+                 card against CPU at small widths and precision=32
+                 (identical dev predictions) under ``all:vae``, ``tag:ib``,
+                 ``context_mode=max`` and the joint model's ``all:ib``
 Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
 the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
 Then each phase's seconds, the card's name and power limit, the per-kernel
@@ -263,6 +283,19 @@ def time_ms(fn, reps=7, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_call(fn):
+    """``(fn(), ms)``: one call and its device time between two CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, n=20, reps=5):
@@ -3203,6 +3236,356 @@ def phase_grounding_modes(state):
                 state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
 
 
+# -- the structured surface: semirings, samplers, distributions ----------------------
+# card against CPU on the first STRUCT_REF_B sentences (the longest among
+# them), each method's card time at B = 64; tolerances of the CPU tests
+STRUCT_N1 = (51, 65)
+STRUCT_REF_B = 16
+STRUCT_EXPECT = dict(atol=1e-5, rtol=1e-4)  # entropy, cross-entropy, KL, risk
+STRUCT_EXACT = dict(atol=1e-5, rtol=1e-5)  # counts, k-max scores, top-k trees
+
+
+def _struct_close(got, want, tol, what):
+    """``got`` (card) against ``want`` (CPU) on the reference rows: entries
+    both below -1e8 (the semiring zero of k-max channels past a sentence's
+    trees) count as equal, and non-finite entries must be non-finite at the
+    same places."""
+    import torch
+
+    got = got.detach().cpu()
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise AssertionError(f"struct {what}: non-finite at other places")
+    both = (got < -1e8) & (want < -1e8)
+    g = torch.where(both | ~fin, 0.0, got)
+    w = torch.where(both | ~fin, 0.0, want)
+    err = float((g - w).abs().max())
+    if not close(g, w, tol["atol"], tol["rtol"]):
+        raise AssertionError(f"struct {what}: card and CPU differ by {err}")
+    return err
+
+
+def _trees_ok(ind, lengths):
+    """``ind [k, B, N1, N1]`` arc indicators: one head per word, and the
+    heads of each sample a projective tree."""
+    import torch
+
+    from vlgae_tpu_torch.struct.alg import istree
+
+    ind = ind.detach().cpu()
+    bad = 0
+    for b, n in enumerate(lengths.tolist()):
+        cols = ind[:, b, :, 1:n + 1]
+        if not bool((cols.sum(1) == 1).all()):
+            return False
+        for heads in torch.argmax(cols, 1).tolist():
+            bad += not istree(heads, proj=True)
+    return bad == 0
+
+
+def phase_struct(state):
+    """The rest of the parser's structured surface on the card (the generic
+    semiring fills of ``struct/dmv.py`` and ``struct/deptree.py``, plain
+    PyTorch on the tensors' device): every new method of ``DMV1o`` and
+    ``DependencyCRF`` at B = 64, n1 = 51 and 65 from seed 0, held to the same
+    call on the CPU; the Log/Max totals of the generic fills to the value-only
+    inside kernel (K2); the best k-max score to ``max``; 64 samples and a
+    Gumbel relaxation per sentence are trees; ``count`` not finite exactly
+    where f32 overflows (NaN from a 0 x inf chart cell, as in vlgae_tpu)."""
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.struct import (DependencyCRF, DMV1o, LogSemiring, MaxSemiring,
+                                        deptree_partition, deptree_total_fast,
+                                        dmv_merge, dmv_partition, dmv_total_fast)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    result = {"phase": "struct", "B": 64, "ref_B": STRUCT_REF_B, "cases": {}}
+    for n1 in STRUCT_N1:
+        B, N = 64, n1 - 1
+        lengths = rng.integers(1, n1, B)
+        lengths[:3] = (N, 1, 2)
+        dec, attach, root = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                             for s in ((B, N, 2, 2, 2), (B, N, N, 2), (B, N)))
+        ar = torch.arange(N)
+        pad = ar[None, :] >= torch.from_numpy(lengths)[:, None]
+        attach = attach.masked_fill(pad[:, :, None, None] | pad[:, None, :, None], -1e12)
+        root = root.masked_fill(pad, -1e12)
+        md, ma = dmv_merge(dec, attach, root)
+        other = [x + 0.5 * torch.randn(x.shape, generator=torch.Generator().manual_seed(n1))
+                 for x in (md, ma)]
+        arc = torch.from_numpy(rng.standard_normal((B, n1, n1)).astype(np.float32))
+        arc_q = arc + 0.5 * torch.from_numpy(rng.standard_normal(arc.shape).astype(np.float32))
+        cost = torch.from_numpy(rng.random(arc.shape).astype(np.float32))
+        lens = torch.from_numpy(lengths)
+        R = STRUCT_REF_B
+
+        def dists(device, rows):
+            m = lambda x: x[:rows].to(device)  # noqa: E731
+            return (DMV1o((m(md), m(ma)), m(lens)), DMV1o((m(other[0]), m(other[1])), m(lens)),
+                    DependencyCRF(m(arc), m(lens)), DependencyCRF(m(arc_q), m(lens)), m(cost))
+
+        card, cpu = dists(dev, B), dists("cpu", R)
+        case = {"errors": {}, "card_ms_B64": {}}
+
+        def methods(d, q, c, cq, cs):
+            return {
+                "dmv_entropy": (lambda: d.entropy, STRUCT_EXPECT),
+                "dmv_cross_entropy": (lambda: d.cross_entropy(q), STRUCT_EXPECT),
+                "dmv_kl": (lambda: d.kl(q), STRUCT_EXPECT),
+                "dmv_count": (lambda: d.count, STRUCT_EXACT),
+                "dmv_kmax5": (lambda: d.kmax(5), STRUCT_EXACT),
+                "dmv_topk3": (lambda: d.topk(3), STRUCT_EXACT),
+                "crf_entropy": (lambda: c.entropy, STRUCT_EXPECT),
+                "crf_cross_entropy": (lambda: c.cross_entropy(cq), STRUCT_EXPECT),
+                "crf_kl": (lambda: c.kl(cq), STRUCT_EXPECT),
+                "crf_risk": (lambda: c.risk(cs), STRUCT_EXPECT),
+                "crf_count": (lambda: c.count, STRUCT_EXACT),
+                "crf_kmax5": (lambda: c.kmax(5), STRUCT_EXACT),
+                "crf_topk3": (lambda: c.topk(3), STRUCT_EXACT),
+            }
+
+        card_m, cpu_m = methods(*card), methods(*cpu)
+        got = {}
+        # the checked call is the timed one: the fills are many small
+        # launches, and the host's dispatch sets their time
+        for name, (fn, tol) in card_m.items():
+            got[name], case["card_ms_B64"][name] = timed_call(fn)
+            want = cpu_m[name][0]()
+            g = got[name][..., :R] if got[name].dim() <= 2 else got[name][:, :R]
+            if name.endswith("topk3"):
+                # channels past a sentence's number of trees follow ties among
+                # semiring zeros: compare the trees each sentence has
+                counts = cpu_m[name.replace("topk3", "count")][0]()
+                k = torch.nan_to_num(counts, nan=3.0, posinf=3.0).clamp(max=3).long()
+                keep = torch.arange(3)[:, None] < k[None]
+                keep = keep.view(3, R, *([1] * (want.dim() - 2))).expand_as(want)
+                g, want = torch.where(keep, g.cpu(), 0.0), torch.where(keep, want, 0.0)
+            case["errors"][name] = _struct_close(g, want, tol, f"n1={n1} {name}")
+        d, _, c, _, _ = card
+        # the generic fill's Log/Max totals against K2 (dmv_total_fast on
+        # the card; deptree_total_fast rides it through eisner_as_dmv)
+        for kind, S in (("log", LogSemiring), ("max", MaxSemiring)):
+            for what, a, b in (
+                    ("dmv", dmv_partition(d.dec, d.attach, d.lengths, S),
+                     dmv_total_fast(d.dec, d.attach, d.lengths, kind)),
+                    ("crf", deptree_partition(c.arc, c.lengths, S),
+                     deptree_total_fast(c.arc, c.lengths, kind))):
+                err = float((a - b).abs().max())
+                case["errors"][f"{what}_{kind}_generic_vs_K2"] = err
+                if not close(a, b, K1_TOTAL_ATOL, K1_TOTAL_RTOL):
+                    raise AssertionError(f"struct n1={n1}: generic {what} {kind} vs K2: {err}")
+        for what, dist in (("dmv", d), ("crf", c)):
+            if not close(got[f"{what}_kmax5"][0], dist.max, K1_TOTAL_ATOL, K1_TOTAL_RTOL):
+                raise AssertionError(f"struct n1={n1}: {what} kmax(5)[0] != max")
+        gen = torch.Generator(device=dev).manual_seed(n1)
+        drawn = {}
+        for name, fn in (("dmv_sample64", lambda: d.sample(gen, 64).sum(-1)),
+                         ("crf_sample64", lambda: c.sample(gen, 64)),
+                         ("dmv_gumbel", lambda: d.gumbel_crf(gen).sum(-1)[None]),
+                         ("crf_gumbel", lambda: c.gumbel_crf(gen, temperature=0.5)[None])):
+            drawn[name], case["card_ms_B64"][name] = timed_call(fn)
+        for what, ind in drawn.items():
+            if not _trees_ok(ind, lens):
+                raise AssertionError(f"struct n1={n1}: {what} are not all trees")
+        counts = got["dmv_count"]
+        nonfinite = int((~torch.isfinite(counts)).sum())
+        case["count_nonfinite_sentences"] = nonfinite
+        case["count_nonfinite_lengths_min"] = (
+            int(lens[~torch.isfinite(counts).cpu()].min()) if nonfinite else None)
+        if (n1 == 51) != (nonfinite == 0):
+            raise AssertionError(f"struct n1={n1}: {nonfinite} counts not finite")
+        result["cases"][f"n1={n1}"] = case
+    result["tolerance"] = {"expectation": STRUCT_EXPECT, "exact": STRUCT_EXACT,
+                           "generic_vs_K2": [K1_TOTAL_ATOL, K1_TOTAL_RTOL]}
+    emit(result)
+
+
+# -- the parser's context and variational modes on the kernels' paths -----------------
+VARIATIONAL_LANG = ["model.variational_mode=all:vae", "model.z_dim=64"]
+VARIATIONAL_JOINT = ["model.dep_model_cfg.variational_mode=all:ib",
+                     "model.dep_model_cfg.z_dim=64"]
+
+
+def phase_variational(state):
+    """The variational bottleneck (the recipes ship ``variational_mode:
+    'none'``; ``z_dim = 64`` is this phase's choice) on the kernels' paths:
+    ``exp=lang_only`` under ``all:vae`` through ``train`` (one warm-up and one
+    NLL epoch on phase ``lang_only``'s corpus) and ``predict``, the K3 pair
+    in each NLL step and K1 (max) with K2/K4 in each eval step, held to
+    their plain versions on a step's own tensors; one ``exp=vlgae`` bf16
+    joint train step under ``all:ib`` (K1 twice, K5, K6); and card against
+    CPU at small widths and precision=32 (identical dev predictions, the
+    posterior mean at eval) under ``all:vae``, ``tag:ib`` and
+    ``context_mode=max`` for ``exp=lang_only`` and ``all:ib`` for
+    ``exp=vlgae``."""
+    import json as _json
+    import math
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import train
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    counts, reset = kernel_counts, reset_kernel_counts
+    result = {"phase": "variational", "lang_only": VARIATIONAL_LANG,
+              "vlgae": VARIATIONAL_JOINT}
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=LANG_N_IMGS, feat_dim=4,
+                    n_box=3, len_range=(3, 50), seed=0)
+        run = os.path.join(tmp, "run")
+        overrides = _lang_overrides(tmp, False) + VARIATIONAL_LANG
+        reset()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            pipe, test = train.main(overrides + [
+                "trainer.max_epochs=2", "model.init_epoch=1", f"workdir={run}",
+                "init_seed=0", "device=cuda"])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        result["train_s"] = round(time.perf_counter() - t0, 3)
+        by_path["lang_only_variational_train"] = counts()
+        raw = dmv_cuda.launch_counts()
+        if not (sum(raw["inside_save"].values()) == raw["outside"] > 0
+                and sum(raw["inside"].values()) == raw["fused"] > 0):
+            raise AssertionError(f"variational lang_only train: launches {raw}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            lines = [_json.loads(line) for line in f]
+        kl = [rec["train/lstm_kl"] for rec in lines if "train/loss" in rec]  # by epoch
+        bad = [k for rec in lines for k, v in rec.items()
+               if k.endswith(("loss", "nll", "enll", "kl")) and not math.isfinite(float(v))]
+        if len(kl) != 2 or bad:
+            raise AssertionError(f"variational lang_only: KL terms {kl}, non-finite {bad}")
+        result["train_lstm_kl"], result["test"] = kl, test
+
+        # NLL steps on batches of 64 training captions: the K3 pair once each
+        ds = pipe.dm.datasets["train"]
+        insts = [i for i in ds if 8 < i["seq_len"] <= 16][:64]
+        x, y = pipe.dm.collate("train", insts, 16)
+        xp, yp = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
+        reset()
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            loss, _ = pipe.train_step(xp, yp, False, 0.5)
+            float(loss)
+            times.append(time.perf_counter() - t0)
+        c = dmv_cuda.launch_counts()
+        if not (c["inside_save"]["smem"] == 4 == c["outside"] and c["fused"] == 0):
+            raise AssertionError(f"variational lang_only NLL step: launches {c}")
+        result["train_step_ms_B64_L16"] = {"median": statistics.median(times[1:]) * 1e3,
+                                           "all": [round(t * 1e3, 3) for t in times]}
+        result["kernels_on_batches"] = {"train_L=16": _check_lang_batch(pipe, xp, True)}
+        reset()
+        pipe.evaluate("dev")
+        c = dmv_cuda.launch_counts()
+        n_steps = len(pipe.step_times)
+        if not (c["fused"] == n_steps == sum(c["inside"].values())
+                and sum(c["inside_save"].values()) == 0 == c["outside"]):
+            raise AssertionError(f"variational lang_only eval: launches {c}")
+        x, _ = next(pipe.dm.batches("dev", shuffle=False))
+        result["kernels_on_batches"]["eval"] = _check_lang_batch(
+            pipe, pad_batch_pow2(x)[0], False)
+        result["eval_step_ms_median"] = statistics.median(pipe.step_times) * 1e3
+        reset()
+        t0 = time.perf_counter()
+        _, pres = _run_predict(tmp, overrides + [
+            f"checkpoint={os.path.join(run, 'checkpoint', 'last.pt')}", "device=cuda"])
+        torch.cuda.synchronize()
+        result["predict_s"] = round(time.perf_counter() - t0, 3)
+        by_path["lang_only_variational_predict"] = counts()
+        if not all(math.isfinite(float(r["loss"])) for r in pres.values()):
+            raise AssertionError(f"variational lang_only predict: {pres}")
+        result["predict"] = {k: pres[k] for k in ("dev", "test")}
+
+    # one exp=vlgae bf16 joint step under the bottleneck, at the recipe's widths
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048, n_box=36,
+                    len_range=(3, 50), seed=0)
+        pipe = _grounding_pipeline(tmp, _corpus_overrides(tmp) + [
+            f"datamodule.{s}_dataloader.num_bucket=1" for s in ("train", "dev", "test")]
+            + VARIATIONAL_JOINT, "cuda")
+        full = [b for b in pipe.dm.batches("train") if len(b[0]["seq_len"]) == 64]
+        if not full:
+            raise AssertionError("no training batch of 64 captions")
+        captured = {}
+        orig = {"fwd": match.match_maxes, "bwd": match.match_maxes_bwd}
+
+        def capturing(key):
+            def call(*args):
+                captured.setdefault(key, tuple(a.detach() for a in args))
+                return orig[key](*args)
+            return call
+
+        match.match_maxes, match.match_maxes_bwd = capturing("fwd"), capturing("bwd")
+        times = []
+        try:
+            reset()
+            for k in range(3):
+                x, y = full[k % len(full)]
+                t0 = time.perf_counter()
+                loss, aux = pipe.train_step(pad_batch_pow2(x)[0], pad_batch_pow2(y)[0],
+                                            False, 0.5)
+                float(loss)
+                times.append(time.perf_counter() - t0)
+        finally:
+            match.match_maxes, match.match_maxes_bwd = orig["fwd"], orig["bwd"]
+        step = counts()
+        by_path["vlgae_variational_train_steps"] = step
+        want = {"dmv_fused": 6, "match_fwd": 3, "match_bwd": 3}
+        if {k: v for k, v in step.items() if v} != want:
+            raise AssertionError(f"variational joint step: launches {step}")
+        if not ("lstm_kl" in aux and math.isfinite(float(aux["lstm_kl"]))):
+            raise AssertionError(f"variational joint step: loss terms {sorted(aux)}")
+        _, k5_err, _ = _check_k5(captured["fwd"], False, "on a variational joint step")
+        k6_err = _check_k6(captured["bwd"], False, "on a variational joint step")
+        result["vlgae_step"] = {"launches_3_steps": step, "k5_max_abs_err": k5_err,
+                                "k6_max_abs_err": k6_err,
+                                "lstm_kl": float(aux["lstm_kl"]),
+                                "train_step_ms_B64": [round(t * 1e3, 3) for t in times]}
+
+    # card against CPU at small widths, precision=32 (eval: the posterior mean)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=8, feat_dim=16, n_box=6,
+                    len_range=(3, 12), seed=1)
+        cases = {
+            "lang_only_all_vae": _lang_overrides(tmp, True) + ["model.variational_mode=all:vae",
+                                                               "model.z_dim=8"],
+            "lang_only_tag_ib": _lang_overrides(tmp, True) + ["model.variational_mode=tag:ib",
+                                                              "model.z_dim=8"],
+            "lang_only_max": _lang_overrides(tmp, True) + ["model.context_mode=max"],
+            "vlgae_all_ib": _small_overrides(tmp) + [
+                "model.dep_model_cfg.variational_mode=all:ib",
+                "model.dep_model_cfg.z_dim=8"],
+        }
+        result["card_vs_cpu"] = {}
+        for name, ovs in cases.items():
+            files = {}
+            for dev in ("cpu", "cuda"):
+                _run_predict(tmp, ovs + ["init_seed=0", f"device={dev}", f"name={name}_{dev}"])
+                with open(os.path.join(tmp, f"{name}_{dev}_dev.conll")) as f:
+                    files[dev] = f.read()
+            result["card_vs_cpu"][name] = files["cpu"] == files["cuda"]
+            if files["cpu"] != files["cuda"]:
+                emit(result)
+                raise AssertionError(f"variational {name}: card and CPU predict differently")
+    result["launches_by_path"] = by_path
+    emit(result)
+    for path, c in by_path.items():
+        for kname, n in c.items():
+            if n:
+                state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
+
+
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
@@ -3210,7 +3593,8 @@ PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "lang_only_reference": phase_lang_only_reference,
           "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
           "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
-          "grounding_modes": phase_grounding_modes}
+          "grounding_modes": phase_grounding_modes, "struct": phase_struct,
+          "variational": phase_variational}
 
 
 def main():

@@ -260,7 +260,42 @@ def test_totals_take_the_dmv_dispatch_by_what_is_needed(monkeypatch):
 @pytest.mark.parametrize("method", ["entropy", "count", "kl", "cross_entropy", "risk",
                                     "kmax", "topk", "sample", "gumbel_crf"])
 def test_semiring_methods_name_their_slice(method):
-    crf = DependencyCRF(*_t(*_arc("ragged")))
-    with pytest.raises(NotImplementedError, match="semiring slice"):
-        attr = getattr(crf, method)
-        attr(None)
+    """The methods of the semiring slice (PR 10) on the ragged case: each
+    agrees with vlgae_tpu's (the expectation semirings 1e-4 relative, the
+    rest 1e-5); samples and relaxations come from other random streams, so
+    they are held to vlgae_tpu's shapes and to being trees."""
+    arc, lengths = _arc("ragged")
+    other = _arc("ragged", seed=1)[0]
+    crf, jcrf = DependencyCRF(*_t(arc, lengths)), JaxCRF(jnp.asarray(arc),
+                                                         jnp.asarray(lengths))
+    args = {"kl": (other,), "cross_entropy": (other,), "risk": (np.abs(other),),
+            "kmax": (2,), "topk": (2,)}.get(method, ())
+    if method in ("sample", "gumbel_crf"):
+        got = (crf.sample(torch.Generator().manual_seed(0), 3) if method == "sample"
+               else crf.gumbel_crf(torch.Generator().manual_seed(0))[None]).numpy()
+        want = (jcrf.sample(jax.random.key(0), 3) if method == "sample"
+                else jcrf.gumbel_crf(jax.random.key(0))[None])
+        assert got.shape == want.shape
+        for k in range(got.shape[0]):
+            for b, n in enumerate(lengths):
+                cols = got[k, b, :, 1:n + 1]
+                np.testing.assert_allclose(cols.sum(0), 1.0, atol=1e-6)
+                assert n == 0 or istree(list(np.argmax(cols, 0)), proj=True)
+        return
+    if method in ("kl", "cross_entropy"):
+        targs, jargs = (DependencyCRF(*_t(other, lengths)),), (
+            JaxCRF(jnp.asarray(other), jnp.asarray(lengths)),)
+    else:
+        targs = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args)
+        jargs = tuple(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args)
+    got, want = getattr(crf, method), getattr(jcrf, method)
+    if callable(got):
+        got, want = got(*targs), want(*jargs)
+    got, want = got.numpy(), np.asarray(want)
+    if method == "topk":  # the second tree of a one-word sentence is no tree
+        got, want = got[:, lengths > 1], want[:, lengths > 1]
+    both = (got < -1e8) & (want < -1e8)
+    tol = (dict(rtol=1e-4, atol=1e-5) if method in ("kl", "cross_entropy", "risk",
+                                                  "entropy")
+           else dict(rtol=1e-5, atol=1e-5))
+    np.testing.assert_allclose(np.where(both, 0.0, got), np.where(both, 0.0, want), **tol)

@@ -146,12 +146,13 @@ def test_dispatch_by_what_the_caller_needs():
     ind = dmv_value_and_grads_plain(d.detach(), a, ln, "max")[2]
     assert torch.equal(plain.argmax, ind)
     assert torch.equal(plain.argmax_heads, ind.sum(-1)[:, :, 1:].argmax(1))
-    for name in ("entropy", "count"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(plain, name)
-    for name in ("cross_entropy", "kl", "kmax", "topk", "sample", "gumbel_crf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(plain, name)(1)
+    # the semiring surface takes the generic fill, not the kernels' dispatch
+    from vlgae_tpu_torch.struct import EntropySemiring, StdSemiring, dmv_partition
+
+    assert torch.equal(plain.entropy, dmv_partition(d.detach(), a, ln, EntropySemiring))
+    ones = [torch.where(x <= NEGINF / 2, 0.0, 1.0) for x in (d.detach(), a)]
+    assert torch.equal(plain.count, dmv_partition(*ones, ln, StdSemiring))
+    torch.testing.assert_close(plain.kmax(2)[0], plain.max, rtol=1e-6, atol=1e-5)
     with pytest.raises(RuntimeError):
         dmv_total_fast(d.detach().to("meta"), a.to("meta"), ln, "log")
 

@@ -11,9 +11,7 @@ EM cycle, the warm-up rule counts, the BiLSTM, embedding re-whitening)
 and ``trajectory_ref.npz`` (ten optimizer steps) with the tolerances of
 tests/test_nn_golden.py, test_model_golden.py and
 test_trajectory_golden.py. The reference's torch weights are copied into
-the port's modules by name. Entries of modules the port does not have yet
-(the variational context and embedding adaptor, the BiLSTM's concatenated
-and mixed layers) are listed in ROADMAP.md.
+the port's modules by name.
 
 The DMV goldens go through the plain DP and through the dispatch
 (``DMV1o``); the Eisner goldens through the plain fill and through
@@ -425,8 +423,81 @@ def test_model_rnn_last_and_hx_context(model_ref):
         EmbeddingItemCfg("word_embedding", "word", "static", n_vocab=9, embedding_dim=8),))
     dep = DiscriminativeNDMV(LDNDMVConfig(context_mode="hx", hidden_size=16,
                                           ff_dropout=0.0), emb, None, 8, token2word=(0,))
-    ctx = dep.extract_sent_repr({"x": d["out/x"], "hiddens": d["out/hiddens"][-2:]}, mask)
+    ctx, kl = dep.extract_sent_repr({"x": d["out/x"], "hiddens": d["out/hiddens"][-2:]},
+                                    mask)
+    assert kl is None
     np.testing.assert_allclose(_np(ctx), d["out/hx_context"].numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("tag,kw", [("rnn_concat", dict(output_layers=-2)),
+                                    ("rnn_mix", dict(output_layers=-2, mix=True))])
+def test_model_rnn_concat_and_mix(model_ref, tag, kw):
+    """``output_layers=-2``: both layers' outputs concatenated, or their
+    ScalarMix; the final states stay the last layer's."""
+    from vlgae_tpu_torch.models.text_encoder import RNNEncoder
+
+    d = _sub(model_ref, tag)
+    x, lengths = torch.from_numpy(model_ref["rnn/in/x"]), torch.from_numpy(
+        model_ref["rnn/in/lengths"])
+    mask = torch.arange(x.shape[1])[None] < lengths[:, None]
+    enc = RNNEncoder(12, hidden_size=4, num_layers=2, lstm_dropout=0.0,
+                     init_version="biased", **kw).eval()
+    _set_lstm(enc, d, "param/lstm.")
+    if kw.get("mix"):
+        with torch.no_grad():
+            enc.ScalarMix_0.weights.copy_(d["param/mix.weights"])
+            enc.ScalarMix_0.gamma.copy_(d["param/mix.gamma"])
+    got = enc(x, mask)
+    assert got["x"].shape[-1] == enc.n_hidden
+    np.testing.assert_allclose(_np(got["x"]), d["out/x"].numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(_np(got["hiddens"]), d["out/hiddens"].numpy()[-2:],
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("tag,mode", [("ldndmv_vae", "all:vae"), ("ldndmv_ib", "all:ib")])
+def test_model_variational_context(model_ref, tag, mode):
+    """The variational sentence context at eval: the posterior mean of the
+    mean context, and the VAE's / the bottleneck's KL."""
+    from vlgae_tpu_torch.models.embedding import CompositeEmbedding, EmbeddingItemCfg
+    from vlgae_tpu_torch.models.ldndmv import DiscriminativeNDMV, LDNDMVConfig
+
+    d = _sub(model_ref, tag)
+    x = torch.from_numpy(model_ref["in/x_enc"])
+    B, L, n_enc = x.shape
+    emb = CompositeEmbedding(items=(
+        EmbeddingItemCfg("word_embedding", "word", "static", n_vocab=9, embedding_dim=8),))
+    dep = DiscriminativeNDMV(LDNDMVConfig(context_mode="mean", variational_mode=mode,
+                                          z_dim=3, hidden_size=16, ff_dropout=0.0),
+                             emb, None, n_enc, token2word=(0,)).eval()
+    _set_linear(dep.variational_enc, d, "param/variational_enc")
+    if mode.endswith("ib"):
+        with torch.no_grad():
+            dep.target_mean.copy_(d["param/target_mean"])
+            dep.target_lvar.copy_(d["param/target_lvar"])
+    ctx, kl = dep.extract_sent_repr({"x": x}, torch.ones(B, L, dtype=torch.bool))
+    np.testing.assert_allclose(_np(ctx), d["out/context"].numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(kl), d["out/kl"].numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("vmode", ["vae", "ib"])
+def test_model_variational_embedding_adaptor(model_ref, vmode):
+    """The variational embedding item at eval: ``z`` the posterior mean, and
+    its VAE / bottleneck KL."""
+    from vlgae_tpu_torch.models.embedding import EmbeddingItemCfg, StaticItem
+
+    d = _sub(model_ref, f"embvar_{vmode}")
+    item = StaticItem(EmbeddingItemCfg("w", "word", "static", n_vocab=9, embedding_dim=8,
+                                       mode=vmode, out_dim=3)).eval()
+    with torch.no_grad():
+        item.embedding.copy_(d["param/emb.weight"])
+        if vmode == "ib":
+            item.target_mean.copy_(d["param/target_mean"])
+            item.target_lvar.copy_(d["param/target_lvar"])
+    _set_linear(item.enc, d, "param/enc")
+    words = torch.from_numpy(model_ref["in/token2word"][model_ref["in/tokens"]]).long()
+    z, kl = item.embed(words)
+    np.testing.assert_allclose(_np(z), d["out/z"].numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(kl), d["out/kl"].numpy(), rtol=1e-4, atol=1e-5)
 
 
 def test_model_embedding_normalize(model_ref):

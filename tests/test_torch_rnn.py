@@ -104,8 +104,8 @@ def test_init_versions():
     assert float(gates.ii.weight.detach().abs().max()) <= bound
     with pytest.raises(ValueError):
         RNNEncoder(D, init_version="other")
-    with pytest.raises(NotImplementedError):
-        RNNEncoder(D, mix=True)
+    with pytest.raises(NotImplementedError):  # as in vlgae_tpu
+        RNNEncoder(D, proj_size=4)
 
 
 def test_dropout_masks_shapes_and_scaling(monkeypatch):

@@ -10,13 +10,19 @@ flax paths, so a key maps mechanically:
 * a flax ``Conv`` ``kernel [kh, kw, in, out]`` (the ViT's patch
   projection) is a ``weight [out, in, kh, kw]``: the axes are permuted, not
   reversed, so a square patch cannot hide a swap of kh and kw;
-* the ``Dense_0`` inside ``MLP`` / ``MLPEncoder`` is ``linear``;
+* the ``Dense_0`` inside ``MLP`` / ``MLPEncoder`` is ``linear``; the
+  ``RNNEncoder``'s projections are flax's ``Dense_0`` and ``Dense_1`` in
+  the order it makes them (``reproject_emb`` first), so its first is
+  ``linear`` and its second ``Dense_1``;
 * the bottleneck pair ``<NAME>_down`` / ``<NAME>_up`` of
   ``DMVSkipConnectEncoder`` is the ``Sequential`` ``<NAME>.0`` / ``<NAME>.1``;
 * every other parameter (``arc_encoder_w1``, ``rel_fc_bias``, embedding
   tables, the BERT tree under ``.../transformer/bert/...``, the LSTM gates
-  ``encoder/fwd_0/cell/OptimizedLSTMCell_0/{ii..io,hi..ho}``) keeps its
-  path, as do the ViT's ``cls_token`` and ``position_embeddings`` under
+  ``encoder/fwd_0/cell/OptimizedLSTMCell_0/{ii..io,hi..ho}``, the mix
+  ``encoder/ScalarMix_0/{weights,gamma}``, the variational layers
+  ``variational_enc``, ``target_mean``/``target_lvar`` of the parser and
+  ``embedding/<item>/{enc,target_mean,target_lvar}`` of an embedding item)
+  keeps its path, as do the ViT's ``cls_token`` and ``position_embeddings`` under
   ``.../vis_encoder/vit/embeddings``. The stand-alone parser of
   ``exp=lang_only`` has the same names without the joint model's
   ``dependency/`` prefix.

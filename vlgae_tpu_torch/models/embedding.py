@@ -1,6 +1,7 @@
-"""Composite embeddings: static word and tag items and the subword BERT
-item (counterpart of vlgae_tpu/models/embedding.py), with the independent
-dropout across items in training, and the GloVe loader of the word table.
+"""Composite embeddings: static word and tag items (with their variational
+VAE/IB heads) and the subword BERT item (counterpart of
+vlgae_tpu/models/embedding.py), with the independent dropout across items in
+training, and the GloVe loader of the word table.
 
 The JAX package runs transformers' ``FlaxBertModule``; the card has no
 ``transformers``, so :class:`Bert` is a small BERT encoder written here
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nn import Dropping, ScalarMix, independent_dropout
+from .nn import Dropping, ScalarMix, independent_dropout, variational_kl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +37,8 @@ class EmbeddingItemCfg:
     kind: str  # 'static' | 'transformer'
     n_vocab: int = 0
     embedding_dim: int = 100
-    mode: str = "basic"
+    mode: str = "basic"  # 'basic' | 'vae' | 'ib'
+    out_dim: int = 0  # the variational output width
     normalize_method: str = "mean+std"
     normalize_time: str = "nowhere"  # nowhere | begin | epoch | batch
     # transformer-only
@@ -49,6 +51,8 @@ class EmbeddingItemCfg:
 
     @property
     def embed_size(self) -> int:
+        if self.mode != "basic":
+            return self.out_dim
         if self.kind == "transformer":
             return self.n_out if self.n_out else self.embedding_dim
         return self.embedding_dim
@@ -69,17 +73,30 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
 
 
-class StaticItem(nn.Module):
-    """Lookup table (``mode='basic'``), started from ``pretrained`` when
-    given. ``row_map`` remaps ids before the lookup: words that occur in
-    dev/test only and have no pretrained vector share the unk row, so they
-    never train private vectors."""
+class StaticItem(Dropping):
+    """Lookup table, started from ``pretrained`` when given. ``row_map``
+    remaps ids before the lookup: words that occur in dev/test only and
+    have no pretrained vector share the unk row, so they never train private
+    vectors.
+
+    ``mode='vae'`` / ``'ib'`` put a Gaussian head on the looked-up vectors
+    (a dense ``enc`` to mean and log-variance of ``out_dim`` each; ``ib``
+    also a learned prior ``target_mean``/``target_lvar``): in training the
+    reparameterised draw (noise from the generator of
+    :func:`~.nn.set_dropout_generator`), at eval the mean, with the KL term
+    alongside (:meth:`embed`)."""
 
     def __init__(self, cfg: EmbeddingItemCfg, pretrained=None, row_map=None):
         super().__init__()
-        if cfg.mode != "basic":
-            raise NotImplementedError(f"embedding mode {cfg.mode!r} is not ported")
+        if cfg.mode not in ("basic", "vae", "ib"):
+            raise ValueError(f"unknown embedding mode: {cfg.mode!r}")
+        self.mode = cfg.mode
         self.embedding = nn.Parameter(torch.randn(cfg.n_vocab, cfg.embedding_dim))
+        if cfg.mode != "basic":
+            self.enc = nn.Linear(cfg.embedding_dim, 2 * cfg.out_dim)
+        if cfg.mode == "ib":
+            self.target_mean = nn.Parameter(torch.zeros(1, cfg.out_dim))
+            self.target_lvar = nn.Parameter(torch.zeros(1, cfg.out_dim))
         # the table a fresh model starts from (kept out of the state dict)
         self.pretrained = (None if pretrained is None
                            else torch.as_tensor(np.asarray(pretrained), dtype=torch.float32))
@@ -87,11 +104,25 @@ class StaticItem(nn.Module):
             "row_map", None if row_map is None
             else torch.tensor(row_map, dtype=torch.long), persistent=False)
 
-    def forward(self, ids):
+    def embed(self, ids, sample: bool = True):
+        """``(vectors, kl)``: the table's rows (``kl`` None), or under a
+        variational mode the draw (with ``sample`` in training) or the mean,
+        and the KL term."""
         ids = ids.long()
         if self.row_map is not None:
             ids = self.row_map[ids]
-        return F.embedding(ids, self.embedding)
+        h = F.embedding(ids, self.embedding)
+        if self.mode == "basic":
+            return h, None
+        mean, lvar = self.enc(h).chunk(2, -1)
+        z = mean
+        if sample and self.training:
+            z = mean + torch.exp(0.5 * lvar) * self.noise(mean.shape, mean)
+        target = (self.target_mean, self.target_lvar) if self.mode == "ib" else None
+        return z, variational_kl(mean, lvar, target)
+
+    def forward(self, ids):
+        return self.embed(ids)[0]
 
 
 class _Table(nn.Module):
@@ -301,8 +332,10 @@ class CompositeEmbedding(Dropping):
         return sum(cfg.embed_size for cfg in self.items)
 
     def embed_item(self, name: str, ids):
-        """Embed raw ids with one item's table (used for token_emb)."""
-        return getattr(self, name)(ids)
+        """Embed raw ids with one item's table (used for token_emb); a
+        variational item gives its posterior mean, in training too."""
+        mod = getattr(self, name)
+        return mod.embed(ids, sample=False)[0] if isinstance(mod, StaticItem) else mod(ids)
 
     def forward(self, inputs):
         embs, aux = [], {}
@@ -312,7 +345,9 @@ class CompositeEmbedding(Dropping):
                 h = mod(inputs["subword"], inputs["subword_mask"],
                         inputs["subword_first"], inputs.get("subword_last"))
             else:
-                h = mod(inputs[cfg.field])
+                h, kl = mod.embed(inputs[cfg.field])
+                if kl is not None:
+                    aux["kl"] = kl if "kl" not in aux else aux["kl"] + kl
             aux[cfg.name] = h
             embs.append(h)
         if self.active(self.dropout) and embs:

@@ -1,6 +1,7 @@
 """Discriminative neural DMV (counterpart of vlgae_tpu/models/ldndmv.py):
 the forward (with the dropouts of its scorer stack in training), stand-alone
-(``exp=lang_only``) or inside the joint model; the NLL, as a straight-through
+(``exp=lang_only``) or inside the joint model, with its sentence contexts
+and the variational bottleneck on them; the NLL, as a straight-through
 linearisation around the reused DP results or as a DP of its own; the
 warm-up losses against rule-count targets and against a frozen DMV's expected
 counts; and the Viterbi and MBR decodes."""
@@ -15,26 +16,39 @@ from torch import nn
 
 from ..struct import NEGINF, DependencyCRF, DMV1o, dmv_merge, dmv_value_and_grads
 from ..struct.dmv import LEFT, RIGHT
-from .nn import MLP, DMVFactorizedBilinear, DMVSkipConnectEncoder
+from .nn import MLP, DMVFactorizedBilinear, DMVSkipConnectEncoder, Dropping, variational_kl
 
 # POS tags whose words may not act as heads
 FUNCTION_POS = ("ADP", "AUX", "CCONJ", "SCONJ", "CONJ", "DET", "PART")
+CONTEXT_MODES = ("hx", "mean", "max", "token", "passthrough", "none")
+VARIATIONAL_MODES = ("none", "all:vae", "all:ib", "tag:vae", "tag:ib")
 
 
 @dataclasses.dataclass(frozen=True)
 class LDNDMVConfig:
-    """The subset of vlgae_tpu's ``LDNDMVConfig`` that ``exp=vlgae`` and
-    ``exp=lang_only`` read."""
+    """vlgae_tpu's ``LDNDMVConfig`` without its vocabulary sizes (the port
+    reads them off the datamodule).
 
-    context_mode: str = "mean"  # hx | mean | none
+    ``context_mode``: the sentence context joined to each word's embedding
+    (``hx`` the BiLSTM's final states, ``mean``/``max`` over the words,
+    ``token`` each word's own encoding, ``passthrough`` that too but only
+    into the variational layer, ``none``). ``variational_mode``: a Gaussian
+    bottleneck on the context (``all:*`` joined to the whole embedding,
+    ``tag:*`` to the tag embedding alone; ``*:vae`` a KL to N(0, 1),
+    ``*:ib`` to a learned prior). ``init_method``: ``y`` (the rule-count
+    warm-up), ``none``, or a path to a pretrained DMV: as in vlgae_tpu, a
+    path turns the warm-up off and nothing is loaded."""
+
+    context_mode: str = "mean"
     strict_pad_context: bool = False
-    init_method: str = "y"  # 'y' | 'none'
+    init_method: str = "y"
     init_epoch: int = 0
     viterbi_training: bool = True
     mbr_decoding: bool = False
     extended_valence: bool = True
     function_mask: bool = False
     variational_mode: str = "none"
+    z_dim: int = 0
     hidden_size: int = 256
     mid_bottleneck: int = 0
     mid_n_mid: int = 0
@@ -47,18 +61,19 @@ class LDNDMVConfig:
     dec_emb_dim: int = 10
 
     def __post_init__(self):
-        if self.context_mode not in ("hx", "mean", "none"):
-            raise NotImplementedError(
-                f"context_mode={self.context_mode!r} is not ported")
-        if self.variational_mode != "none":
-            raise NotImplementedError(
-                f"variational_mode={self.variational_mode!r} is not ported")
-        if self.init_method not in ("y", "none"):
-            raise NotImplementedError(
-                f"init_method={self.init_method!r} (a pretrained DMV) is not ported")
+        if self.context_mode not in CONTEXT_MODES:
+            raise ValueError(f"unknown context_mode: {self.context_mode!r}")
+        if self.variational_mode not in VARIATIONAL_MODES:
+            raise ValueError(f"unknown variational_mode: {self.variational_mode!r}")
 
 
-class DiscriminativeNDMV(nn.Module):
+class DiscriminativeNDMV(Dropping):
+    """The parser. ``n_enc`` is the width of the encoder's ``x``; the ``hx``
+    context is the encoder's ``hx_size`` wide (both directions' final
+    states). In training the variational context is the reparameterised
+    draw (noise from the generator of :func:`~.nn.set_dropout_generator`),
+    at eval its posterior mean."""
+
     def __init__(self, cfg: LDNDMVConfig, embedding, encoder, n_enc: int,
                  token2word: Optional[Tuple[int, ...]] = None,
                  token2tag: Optional[Tuple[int, ...]] = None,
@@ -71,7 +86,22 @@ class DiscriminativeNDMV(nn.Module):
         n_tok = sum(item.embed_size for item in embedding.items
                     if (item.name == "word_embedding" and token2word is not None)
                     or (item.name == "tag_embedding" and token2tag is not None))
-        n_head_in = embedding.embed_size + (n_enc if cfg.context_mode != "none" else 0)
+        n_ctx = {"none": 0, "hx": getattr(encoder, "hx_size", n_enc)}.get(
+            cfg.context_mode, n_enc)
+        if cfg.variational_mode != "none" and n_ctx:
+            self.variational_enc = nn.Linear(n_ctx, 2 * cfg.z_dim)
+            if cfg.variational_mode.endswith("ib"):
+                self.target_mean = nn.Parameter(torch.zeros(1, cfg.z_dim))
+                self.target_lvar = nn.Parameter(torch.zeros(1, cfg.z_dim))
+            n_ctx = cfg.z_dim
+        if not n_ctx or (cfg.context_mode == "passthrough"
+                         and cfg.variational_mode == "none"):
+            n_head_in = embedding.embed_size
+        elif cfg.variational_mode.startswith("tag"):
+            n_head_in = next(item.embed_size for item in embedding.items
+                             if item.name == "tag_embedding") + n_ctx
+        else:
+            n_head_in = embedding.embed_size + n_ctx
         p = cfg.ff_dropout
         self.head_ff = MLP(n_head_in, H, dropout=p)
         self.child_ff = MLP(n_tok, H, dropout=p)
@@ -104,23 +134,56 @@ class DiscriminativeNDMV(nn.Module):
         return torch.cat(parts, -1)
 
     def extract_sent_repr(self, encoded, mask):
+        """``(context, kl)``: the sentence context (broadcast over the words)
+        and the KL term of the variational bottleneck (None without one)."""
         cfg = self.cfg
         if cfg.context_mode == "none":
-            return None
+            return None, None
         x = encoded["x"]
         B, L, _ = x.shape
         if cfg.context_mode == "hx":
             # the last layer's final states of both directions [2, B, H]
             context = encoded["hiddens"].transpose(0, 1).reshape(B, 1, -1)
-        elif cfg.strict_pad_context:
-            context = x.mean(1, keepdim=True)
-        else:
-            denom = torch.clamp_min(mask.sum(-1, keepdim=True), 1)
-            context = (torch.where(mask[..., None], x, 0.0).sum(1, keepdim=True)
-                       / denom[..., None])
-        if L > 1:
+        elif cfg.context_mode == "mean":
+            if cfg.strict_pad_context:  # the reference's mean over padding
+                context = x.mean(1, keepdim=True)
+            else:
+                denom = torch.clamp_min(mask.sum(-1, keepdim=True), 1)
+                context = (torch.where(mask[..., None], x, 0.0).sum(1, keepdim=True)
+                           / denom[..., None])
+        elif cfg.context_mode == "max":
+            if cfg.strict_pad_context:
+                context = torch.amax(x, 1, keepdim=True)
+            else:
+                context = torch.amax(torch.where(mask[..., None], x, -torch.inf), 1,
+                                     keepdim=True)
+            # an all-padding row's max is -inf: 0 before any arithmetic, so no
+            # NaN reaches the batch gradient (these rows are masked in the loss)
+            context = torch.where(mask.any(-1)[:, None, None], context, 0.0)
+        else:  # token, passthrough
+            context = x
+        kl = None
+        if cfg.variational_mode != "none":
+            mean, lvar = self.variational_enc(context).chunk(2, -1)
+            target = ((self.target_mean, self.target_lvar)
+                      if cfg.variational_mode.endswith("ib") else None)
+            kl = variational_kl(mean, lvar, target)
+            context = mean
+            if self.training:
+                context = mean + torch.exp(0.5 * lvar) * self.noise(mean.shape, mean)
+        if context.shape[1] == 1 and L > 1:
             context = context.expand(B, L, context.shape[-1])
-        return context
+        return context, kl
+
+    def construct_token_repr(self, emb, context, aux):
+        """The head-side input: the embedding, joined by the context."""
+        cfg = self.cfg
+        if context is None or (cfg.context_mode == "passthrough"
+                               and cfg.variational_mode == "none"):
+            return emb
+        if cfg.variational_mode.startswith("tag"):
+            return torch.cat([aux["tag_embedding"], context], -1)
+        return torch.cat([emb, context], -1)
 
     def forward(self, inputs: Dict[str, Any], encoded=None, emb_aux=None):
         """The score dict. The joint model hands over its own embedding and
@@ -135,8 +198,10 @@ class DiscriminativeNDMV(nn.Module):
         if encoded is None:
             encoded = self.encoder(emb, mask)
         out: Dict[str, Any] = {"encoded": encoded, "emb": emb}
-        context = self.extract_sent_repr(encoded, mask)
-        h = emb if context is None else torch.cat([emb, context], -1)
+        context, out["kl"] = self.extract_sent_repr(encoded, mask)
+        if "kl" in aux:
+            out["emb_kl"] = aux["kl"]
+        h = self.construct_token_repr(emb, context, aux)
 
         h_parent = self.mid_ff(self.head_ff(h))
         h_child = self.mid_ff(self.child_ff(self.token_emb()))[None]
@@ -200,7 +265,17 @@ def loss_nll(scores, lengths, viterbi: bool):
         dist = DMV1o((md, ma), lengths)
         total = dist.max if viterbi else dist.partition
     nll = -torch.where(lengths > 0, total, 0.0).sum()
-    return nll, {"nll": nll}
+    return _with_kl({"nll": nll}, scores)
+
+
+def _with_kl(out, scores):
+    """The loss dict with the variational KL terms (``lstm_kl`` of the
+    context, ``emb_kl`` of the embedding), and its total."""
+    if scores.get("kl") is not None:
+        out["lstm_kl"] = scores["kl"]
+    if scores.get("emb_kl") is not None:
+        out["emb_kl"] = scores["emb_kl"]
+    return sum(out.values()), out
 
 
 def loss_init_rules(scores, gold):
@@ -209,7 +284,7 @@ def loss_init_rules(scores, gold):
     enll = (-(gold["dec_rule"] * scores["dec"]).sum()
             - (gold["attach_rule"] * scores["attach"]).sum()
             - (gold["root_rule"] * scores["root"]).sum())
-    return enll, {"enll": enll}
+    return _with_kl({"enll": enll}, scores)
 
 
 def loss_init_pretrained(scores, dmv_scores, lengths):

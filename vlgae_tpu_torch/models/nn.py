@@ -4,11 +4,11 @@ Flax defaults are set explicitly: ``leaky_relu`` slope 0.01; a Dense
 layer's ``kernel [in, out]`` is the transposed ``Linear.weight`` (see
 :mod:`vlgae_tpu_torch.convert`).
 
-Dropout acts only in ``.train()`` mode and draws its masks from an
-explicit ``torch.Generator`` that the owner of the model hands to every
-dropping module (:func:`set_dropout_generator`); the formulas are those of
-the JAX package, written as functions of a given keep mask so the tests
-can feed both packages the same mask.
+Dropout and the reparameterised draws of the variational layers act only in
+``.train()`` mode and draw from an explicit ``torch.Generator`` that the
+owner of the model hands to every such module (:func:`set_dropout_generator`);
+the formulas are those of the JAX package, written as functions of a given
+keep mask or noise so the tests can feed both packages the same draws.
 """
 
 from __future__ import annotations
@@ -48,26 +48,37 @@ def independent_dropout(items, p: float, keeps):
 
 
 class Dropping(nn.Module):
-    """Base of the modules that drop in training: keeps the generator the
-    masks come from."""
+    """Base of the modules that draw at random in training (dropout masks,
+    the reparameterised draws of the variational layers): keeps the
+    generator the draws come from."""
 
     generator = None
 
-    def keep_mask(self, shape, p: float, like):
-        """A float 0/1 mask with P(1) = 1 - p, drawn from the generator."""
+    def _generator(self):
         if self.generator is None:
             raise RuntimeError(
-                f"{type(self).__name__} drops in training mode but has no "
-                "generator; call set_dropout_generator(model, generator)")
+                f"{type(self).__name__} draws at random in training mode but has "
+                "no generator; call set_dropout_generator(model, generator)")
+        return self.generator
+
+    def keep_mask(self, shape, p: float, like):
+        """A float 0/1 mask with P(1) = 1 - p, drawn from the generator."""
         return torch.empty(shape, dtype=like.dtype, device=like.device).bernoulli_(
-            1 - p, generator=self.generator)
+            1 - p, generator=self._generator())
+
+    def noise(self, shape, like):
+        """Standard normal draws from the generator (the reparameterised
+        sample ``mean + exp(lvar / 2) * noise``)."""
+        return torch.randn(shape, dtype=like.dtype, device=like.device,
+                           generator=self._generator())
 
     def active(self, p: float) -> bool:
         return self.training and p > 0
 
 
 def set_dropout_generator(model: nn.Module, generator) -> None:
-    """Hand ``generator`` to every dropping module of ``model``."""
+    """Hand ``generator`` to every module of ``model`` that draws at random
+    (dropout and the variational layers)."""
     for m in model.modules():
         if isinstance(m, Dropping):
             m.generator = generator
@@ -175,6 +186,18 @@ def multivariate_kl(mean_q, mean_p, lvar_q, lvar_p, reduction: str = "sum"):
     if reduction == "mean":
         return kl.mean()
     return kl
+
+
+def variational_kl(mean, lvar, target=None):
+    """The KL term of a Gaussian posterior ``N(mean, exp(lvar))``: against
+    a learned prior ``target = (target_mean, target_lvar)`` (each ``[1, z]``,
+    information bottleneck) summed over all rows, or without one against
+    ``N(0, 1)`` (VAE), summed."""
+    if target is not None:
+        z = mean.shape[-1]
+        m, lv = mean.reshape(-1, z), lvar.reshape(-1, z)
+        return multivariate_kl(m, target[0].expand_as(m), lv, target[1].expand_as(lv))
+    return -0.5 * torch.sum(lvar - mean ** 2 - torch.exp(lvar) + 1)
 
 
 class ScalarMix(Dropping):

@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nn import Dropping, shared_dropout, shared_keep_shape
+from .nn import Dropping, ScalarMix, shared_dropout, shared_keep_shape
 
 
 class MLPEncoder(Dropping):
@@ -104,12 +104,21 @@ class _LSTMLayer(Dropping):
 class RNNEncoder(Dropping):
     """BiLSTM encoder with variational dropout (``exp=lang_only``).
 
-    Returns ``x`` (the chosen layer's ``[fwd, bwd]`` outputs) and
-    ``hiddens [2, B, H]``: of the last layer, the forward direction's output
-    at each sentence's last word and the backward direction's at position
-    0. In training: element-wise then shared dropout on the input, shared
-    dropout (``lstm_dropout``) between layers below the top one, and
-    element-wise then shared dropout on the output."""
+    Returns ``x`` and ``hiddens [2, B, H]``: of the last layer, the forward
+    direction's output at each sentence's last word and the backward
+    direction's at position 0. ``x`` is the chosen layer's ``[fwd, bwd]``
+    outputs (``output_layers=-2``: every layer's, concatenated, or with
+    ``mix`` their ``ScalarMix``), then projected to ``reproject_out`` and
+    joined by the raw embedding (``cat_emb``). ``reproject_emb`` projects
+    the embedding before the first layer. In training: element-wise then
+    shared dropout on the input, shared dropout (``lstm_dropout``) between
+    layers below the top one, and element-wise then shared dropout on the
+    output before its projection.
+
+    The two projections are dense layers that flax names ``Dense_0``,
+    ``Dense_1`` in the order they are made (``Dense_0`` is the port's
+    ``linear``): ``reproject_emb`` first when both are set. ``proj_size``
+    raises, as in vlgae_tpu."""
 
     def __init__(self, n_in: int, hidden_size: int = 200, num_layers: int = 2,
                  reproject_emb: int = 0, reproject_out: int = 0, mix: bool = False,
@@ -119,13 +128,8 @@ class RNNEncoder(Dropping):
                  output_layers: int = -1, proj_size: int = 0,
                  init_version: str = "zy", cat_emb: bool = False):
         super().__init__()
-        for name, value in (("reproject_emb", reproject_emb), ("mix", mix),
-                            ("reproject_out", reproject_out), ("cat_emb", cat_emb),
-                            ("proj_size", proj_size)):
-            if value:
-                raise NotImplementedError(f"RNNEncoder {name}={value!r} is not ported")
-        if output_layers == -2:
-            raise NotImplementedError("RNNEncoder output_layers=-2 is not ported")
+        if proj_size:
+            raise NotImplementedError("proj_size > 0 is not supported")
         if init_version not in ("zy", "biased"):
             raise ValueError(f"unknown init_version: {init_version!r}")
         self.hidden_size = hidden_size
@@ -136,23 +140,51 @@ class RNNEncoder(Dropping):
         self.post_dropout = post_dropout
         self.lstm_dropout = lstm_dropout
         self.output_layers = output_layers
+        self.mix = mix
+        self.cat_emb = cat_emb
         self.init_version = init_version
+        dense = iter(("linear", "Dense_1"))
+        self.emb_proj = self.out_proj = None
+        if reproject_emb:
+            self.emb_proj = next(dense)
+            self.add_module(self.emb_proj, nn.Linear(n_in, reproject_emb))
         rec = lstm_dropout if shared_dropout_flag else 0.0
+        d_in = reproject_emb or n_in
         for i in range(num_layers):
-            d = n_in if i == 0 else 2 * hidden_size
+            d = d_in if i == 0 else 2 * hidden_size
             self.add_module(f"fwd_{i}", _LSTMLayer(d, hidden_size, False, rec))
             self.add_module(f"bwd_{i}", _LSTMLayer(d, hidden_size, True, rec))
+        n_out = 2 * hidden_size
+        if output_layers == -2:
+            if mix:
+                self.ScalarMix_0 = ScalarMix(num_layers)
+            else:
+                n_out *= num_layers
+        if reproject_out:
+            self.out_proj = next(dense)
+            self.add_module(self.out_proj, nn.Linear(n_out, reproject_out))
+            n_out = reproject_out
+        self._n_out = n_out + (n_in if cat_emb else 0)
 
     @property
     def n_hidden(self) -> int:
+        """The width of ``x``."""
+        return self._n_out
+
+    @property
+    def hx_size(self) -> int:
+        """The width of the ``hx`` context (both directions' final states)."""
         return 2 * self.hidden_size
 
     @torch.no_grad()
     def reset_parameters(self, generator=None) -> None:
         """``init_version``: ``zy`` orthogonal kernels and zero biases;
         ``biased`` Xavier-uniform kernels, zero biases with the forget gate's
-        at 1."""
+        at 1. The projections and the mix keep the init of
+        :func:`~vlgae_tpu_torch.training.pipeline.init_params`."""
         for name, p in self.named_parameters():
+            if not name.startswith(("fwd_", "bwd_")):
+                continue
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "bias":
                 p.fill_(1.0 if self.init_version == "biased"
@@ -176,7 +208,10 @@ class RNNEncoder(Dropping):
         return x
 
     def forward(self, emb, mask):
-        x = self._drop(emb, self.pre_dropout, self.pre_shared_dropout)
+        x = emb
+        if self.emb_proj is not None:
+            x = getattr(self, self.emb_proj)(x)
+        x = self._drop(x, self.pre_dropout, self.pre_shared_dropout)
         layer_outputs = []
         for i in range(self.num_layers):
             fwd = getattr(self, f"fwd_{i}")(x, mask)
@@ -187,6 +222,15 @@ class RNNEncoder(Dropping):
             layer_outputs.append(x)
         idx = torch.clamp_min(mask.sum(-1) - 1, 0)
         h_fwd = fwd[torch.arange(fwd.shape[0], device=fwd.device), idx]
-        out = self._drop(layer_outputs[self.output_layers], self.post_dropout,
-                         self.post_shared_dropout)
+        if self.output_layers != -2:
+            out = layer_outputs[self.output_layers]
+        elif self.mix:
+            out = self.ScalarMix_0(layer_outputs)
+        else:
+            out = torch.cat(layer_outputs, -1)
+        out = self._drop(out, self.post_dropout, self.post_shared_dropout)
+        if self.out_proj is not None:
+            out = getattr(self, self.out_proj)(out)
+        if self.cat_emb:
+            out = torch.cat([out, emb], -1)
         return {"x": out, "hiddens": torch.stack([h_fwd, bwd[:, 0]])}

@@ -1,9 +1,10 @@
 """Projective dependency tree (Eisner) inside pass, plain PyTorch, and the
 matrix-tree functions of non-projective trees.
 
-Counterpart of ``vlgae_tpu/struct/deptree.py`` for the Log and Max
-semirings (``kind="log"|"max"``). Chart semantics and recursions are those
-of the reference:
+Counterpart of ``vlgae_tpu/struct/deptree.py``: the Log and Max fill
+(``kind="log"|"max"``) and :func:`deptree_inside` in any semiring of
+:mod:`.semirings`. Chart semantics and recursions are those of the
+reference:
 
   - ``Cr[w, i]``: complete right span, head ``i`` covering ``i..i+w``;
   - ``Cl[w, i]``: complete left span, head ``i+w`` covering ``i..i+w``;
@@ -36,7 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .dmv import NEGINF, _reduce
+from .dmv import NEGINF, _convert, _reduce, _shift_generic, _step, _zero_fill
+from .semirings import LogSemiring
 
 
 def reduce_labels(arc, kind: str):
@@ -57,11 +59,15 @@ def _shift(rows, k):
     return F.pad(rows[:, -k:], (0, -k), value=NEGINF)
 
 
-def deptree_partition(arc, lengths, kind: str = "log", multiroot: bool = False):
+def deptree_partition(arc, lengths, kind="log", multiroot: bool = False):
     """Per-sentence log Z (``kind="log"``) or best-tree score (``"max"``),
     ``[B]``, of ``arc [B, N1, N1]`` (or labeled ``[B, N1, N1, L]``) with
     ``lengths [B]`` word counts (clamped to ``[0, N1 - 1]``). Differentiable
-    by autograd."""
+    by autograd. ``kind`` may also be a semiring class (:mod:`.semirings`):
+    then the total of :func:`deptree_inside` in that semiring, unconverted."""
+    if not isinstance(kind, str):
+        value, _ = deptree_inside(arc, lengths, kind, multiroot=multiroot)
+        return kind.unconvert(value)
     if kind not in ("log", "max"):
         raise ValueError(f"kind must be 'log' or 'max', got {kind!r}")
     arc = reduce_labels(arc, kind) if arc.dim() == 4 else arc.float()
@@ -107,9 +113,10 @@ def deptree_partition(arc, lengths, kind: str = "log", multiroot: bool = False):
     return torch.stack(Cr)[:, :, 0].gather(0, lengths[None, :])[0]
 
 
-def deptree_marginals(arc, lengths, kind: str = "log", multiroot: bool = False):
+def deptree_marginals(arc, lengths, kind="log", multiroot: bool = False):
     """``d sum(total) / d arc``: arc marginals (log) or the best tree's arc
-    indicators (max), in the shape of ``arc``. No graph is kept."""
+    indicators (max), in the shape of ``arc``; ``kind`` a string or a
+    semiring class, as in :func:`deptree_partition`. No graph is kept."""
     with torch.enable_grad():
         a = arc.detach().float().requires_grad_(True)
         total = deptree_partition(a, lengths, kind, multiroot).sum()
@@ -117,6 +124,80 @@ def deptree_marginals(arc, lengths, kind: str = "log", multiroot: bool = False):
             return torch.zeros_like(a)
         (g,) = torch.autograd.grad(total, a)
     return g
+
+
+def deptree_inside(arc, lengths, semiring=LogSemiring, remat: bool = False,
+                   multiroot: bool = False):
+    """Inside pass of the projective dependency CRF in any semiring.
+
+    ``arc [B, N1, N1]`` (head x child, root scores in row 0) or a pair of
+    them for the paired semirings; a labeled ``[B, N1, N1, L]`` table is
+    first summed over its labels in the semiring, and the gradient still
+    reaches the labeled table. ``lengths [B]`` word counts (clamped to
+    ``[0, N1 - 1]``); arcs beyond a sentence's length are the semiring zero.
+    ``multiroot`` skips the single-root zeroing of ``Cr[w, 0]``; ``remat``
+    recomputes each width step in the backward pass.
+
+    Returns ``(value [size, B], charts)``, charts ``Cr, Cl, Ir, Il`` stacked
+    ``[size, w, B, i]`` (``Ir``/``Il`` from width 1).
+    """
+    S = semiring
+    if not isinstance(arc, (tuple, list)) and arc.dim() == 4:
+        arc = S.sum(_convert(S, arc), axis=-1)
+    else:
+        arc = _convert(S, arc)
+    s, B, N1 = arc.shape[:3]
+    dev = arc.device
+    lengths = lengths.to(device=dev, dtype=torch.long).clamp(0, N1 - 1)
+    ar = torch.arange(N1, device=dev)
+    inside = ar[None, :] <= lengths[:, None]  # [B, N1]
+    arc = S.mask(arc, inside[:, :, None] & inside[:, None, :])
+
+    def diag(w, left):
+        i = ar[: N1 - w]
+        rows = arc[:, :, i + w, i] if left else arc[:, :, i, i + w]
+        return torch.cat([rows, _zero_fill(S, rows, (B, w))], 2)  # [s, B, N1]
+
+    def shifted(rows_by_t, k):  # [s, t, B, N1] -> shift along i
+        return _shift_generic(S, rows_by_t, k, 3)
+
+    one = S.ones((B, N1), arc.dtype, dev)
+    Cr, Cl, CrE, ClE = [one], [one], [one], [one]
+    Ir, Il, IlE = [None], [None], [None]
+
+    def step(w):
+        valid = (ar < N1 - w)[None, :]
+        crs = torch.stack(Cr[:w], 1)  # Cr[t, i]
+        cle = shifted(torch.stack([ClE[w - 1 - t] for t in range(w)], 1), -w)
+        ilr = S.sum(S.mul(crs, cle), axis=0)
+        il = S.mask(S.mul(ilr, diag(w, True)), valid)
+        ir = S.mask(S.mul(ilr, diag(w, False)), valid)
+        ile = shifted(torch.stack(
+            [_shift_generic(S, il, w, 2) if t == 0 else IlE[w - t]
+             for t in range(w)], 1), -w)  # Il[w-t, i+t]
+        cl = S.sum(S.mul(ile, torch.stack(Cl[:w], 1)), axis=0)
+        cre = shifted(torch.stack([CrE[w - 1 - t] for t in range(w)], 1), -w)
+        cr = S.sum(S.mul(torch.stack(Ir[1:w] + [ir], 1), cre), axis=0)
+        keep = valid if multiroot else valid & (
+            (ar[None, :] != 0) | (lengths[:, None] == w))
+        return il, ir, S.mask(cl, valid), S.mask(cr, keep)
+
+    for w in range(1, N1):
+        il, ir, cl, cr = _step(S, remat, step, w)
+        Il.append(il)
+        Ir.append(ir)
+        IlE.append(_shift_generic(S, il, w, 2))
+        Cr.append(cr)
+        Cl.append(cl)
+        CrE.append(_shift_generic(S, cr, w, 2))
+        ClE.append(_shift_generic(S, cl, w, 2))
+    cr_all = torch.stack(Cr, 1)  # [s, w, B, i]
+    value = cr_all[:, :, :, 0].gather(1, lengths[None, None, :].expand(s, 1, B))[:, 0]
+    charts = {"Cr": cr_all, "Cl": torch.stack(Cl, 1)}
+    if N1 > 1:
+        charts["Ir"] = torch.stack(Ir[1:], 1)
+        charts["Il"] = torch.stack(Il[1:], 1)
+    return value, charts
 
 
 def _laplacian(x, eps):

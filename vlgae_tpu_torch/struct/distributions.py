@@ -18,6 +18,11 @@ The projective dependency CRF (:class:`DependencyCRF`) rides the same
 dispatch when it has a single root: an Eisner CRF is a DMV with free (zero)
 decisions and valence-independent attach scores (:func:`eisner_as_dmv`).
 With ``multiroot`` it takes the plain fill of :mod:`.deptree` on any device.
+
+The rest of the surface (entropy, cross-entropy, KL, risk, counting, k-max,
+samples, Gumbel relaxations) runs the generic semiring fills of
+:mod:`.dmv` and :mod:`.deptree` on the tensors' own device, as vlgae_tpu
+runs them through its ``lax.scan`` fills rather than its kernels.
 """
 
 from __future__ import annotations
@@ -25,9 +30,12 @@ from __future__ import annotations
 import torch
 
 from . import deptree as _deptree
+from . import dmv as _dmv
 from .deptree import reduce_labels
 from .dmv import (HASCHILD, NEGINF, NOCHILD, RIGHT, dmv_inside_charts_plain,
                   dmv_outside_plain, dmv_total, dmv_value_and_grads_plain)
+from .semirings import (CrossEntropySemiring, EntropySemiring, KLDivergenceSemiring,
+                        KMaxSemiring, RiskSemiring, StdSemiring)
 
 
 def dmv_merge(dec, attach, root, one: float = 0.0, zero: float = NEGINF):
@@ -64,6 +72,12 @@ def dmv_value_and_grads(dec, attach, lengths, kind: str = "log"):
     if dec.device.type != "cpu":
         raise RuntimeError(f"dmv_value_and_grads: unsupported device {dec.device}")
     return dmv_value_and_grads_plain(dec, attach, lengths, kind)
+
+
+def dmv_grads_fast(dec, attach, lengths, kind: str = "log"):
+    """``(d/d dec, d/d attach)`` of the summed total: the tables of
+    :func:`dmv_value_and_grads`."""
+    return dmv_value_and_grads(dec, attach, lengths, kind)[1:]
 
 
 def _on_cpu(dec, what):
@@ -173,14 +187,75 @@ class DMV1o:
         ind = self.argmax.sum(-1)  # [B, N1, N1]
         return torch.argmax(ind[:, :, 1:], dim=1)
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "this DMV1o method needs a semiring or sampler that is not ported "
-            "yet; see the semiring slice of ROADMAP.md")
+    # -- the generic fill ------------------------------------------------
+    def _inside(self, semiring, attach=None, dec=None):
+        return _dmv.dmv_inside(self.dec if dec is None else dec,
+                               self.attach if attach is None else attach,
+                               self.lengths, semiring)[0]
 
-    entropy = property(_not_ported)
-    count = property(_not_ported)
-    cross_entropy = kl = kmax = topk = sample = gumbel_crf = _not_ported
+    @property
+    def entropy(self):
+        """Tree entropy ``[B]`` (the Entropy semiring)."""
+        return EntropySemiring.unconvert(self._inside(EntropySemiring))
+
+    def cross_entropy(self, other: "DMV1o"):
+        """H[self, other] ``[B]``."""
+        return CrossEntropySemiring.unconvert(self._inside(
+            CrossEntropySemiring, [self.attach, other.attach], [self.dec, other.dec]))
+
+    def kl(self, other: "DMV1o"):
+        """KL[self || other] ``[B]``."""
+        return KLDivergenceSemiring.unconvert(self._inside(
+            KLDivergenceSemiring, [self.attach, other.attach], [self.dec, other.dec]))
+
+    @property
+    def count(self):
+        """Number of trees ``[B]`` over the potentials above the semiring
+        zero (f32: not finite where the count overflows)."""
+        ones_d = torch.where(self.dec <= NEGINF / 2, 0.0, 1.0)
+        ones_a = torch.where(self.attach <= NEGINF / 2, 0.0, 1.0)
+        return StdSemiring.unconvert(self._inside(StdSemiring, ones_a, ones_d))
+
+    def kmax(self, k: int):
+        """Scores of the k best trees, ``[k, B]``."""
+        return self._inside(KMaxSemiring(k))
+
+    def topk(self, k: int):
+        """Attach indicators of the k best trees, ``[k, B, N1, N1, 2]``: the
+        gradient of the i-th k-max channel routes through that tree."""
+        S = KMaxSemiring(k)
+        with torch.enable_grad():
+            a = self.attach.detach().float().requires_grad_(True)
+            value = self._inside(S, a, self.dec.detach())
+            grads = [torch.autograd.grad(value[i].sum(), a, retain_graph=i + 1 < k)[0]
+                     for i in range(k)]
+        return torch.stack(grads)
+
+    def sample(self, generator, num_samples: int = 1):
+        """Exact forward-filter backward-sample trees: attach indicators
+        ``[num_samples, B, N1, N1, 2]``, one inside pass and one bit-packed
+        backward per 16 samples, drawn from ``generator`` (a
+        ``torch.Generator`` on the potentials' device)."""
+        from .sample import multi_sample_grads
+
+        dec = self.dec.detach()
+
+        def total(a, S):
+            return S.unconvert(self._inside(S, a, dec))
+
+        return multi_sample_grads(total, self.attach, generator, num_samples)
+
+    def gumbel_crf(self, generator, temperature: float = 1.0):
+        """A straight-through Gumbel relaxed sample of attach indicators
+        ``[B, N1, N1, 2]``, noise drawn from ``generator``."""
+        from .sample import GumbelCRFSemiring
+
+        S = GumbelCRFSemiring(generator, temperature)
+        with torch.enable_grad():
+            a = self.attach.detach().float().requires_grad_(True)
+            total = S.unconvert(self._inside(S, a, self.dec.detach())).sum()
+            (g,) = torch.autograd.grad(total, a)
+        return g
 
 
 def eisner_as_dmv(arc):
@@ -280,11 +355,63 @@ class DependencyCRF:
         score = torch.where(pos_ok, score, 0.0).sum(-1)
         return score - self.partition
 
-    def _not_ported(self, *args, **kwargs):
-        raise NotImplementedError(
-            "this DependencyCRF method needs a semiring or sampler that is not "
-            "ported yet; see the semiring slice of ROADMAP.md")
+    # -- the generic fill ------------------------------------------------
+    def _inside(self, semiring, arc=None):
+        return _deptree.deptree_inside(self.arc if arc is None else arc,
+                                       self.lengths, semiring,
+                                       multiroot=self.multiroot)[0]
 
-    entropy = property(_not_ported)
-    count = property(_not_ported)
-    cross_entropy = kl = risk = kmax = topk = sample = gumbel_crf = _not_ported
+    @property
+    def entropy(self):
+        return EntropySemiring.unconvert(self._inside(EntropySemiring))
+
+    def cross_entropy(self, other: "DependencyCRF"):
+        return CrossEntropySemiring.unconvert(
+            self._inside(CrossEntropySemiring, [self.arc, other.arc]))
+
+    def kl(self, other: "DependencyCRF"):
+        return KLDivergenceSemiring.unconvert(
+            self._inside(KLDivergenceSemiring, [self.arc, other.arc]))
+
+    def risk(self, cost):
+        """Expected ``cost`` (a table shaped as the arcs) under the CRF."""
+        return RiskSemiring.unconvert(self._inside(RiskSemiring, [self.arc, cost]))
+
+    @property
+    def count(self):
+        ones = torch.where(self.arc <= NEGINF / 2, 0.0, 1.0)
+        return StdSemiring.unconvert(self._inside(StdSemiring, ones))
+
+    def kmax(self, k: int):
+        """Scores of the k best trees, ``[k, B]``."""
+        return self._inside(KMaxSemiring(k))
+
+    def topk(self, k: int):
+        """Arc indicators of the k best trees, ``[k, *arc.shape]``."""
+        S = KMaxSemiring(k)
+        with torch.enable_grad():
+            a = self.arc.detach().float().requires_grad_(True)
+            value = self._inside(S, a)
+            grads = [torch.autograd.grad(value[i].sum(), a, retain_graph=i + 1 < k)[0]
+                     for i in range(k)]
+        return torch.stack(grads)
+
+    def sample(self, generator, num_samples: int = 1):
+        """Exact tree samples: arc indicators ``[num_samples, *arc.shape]``,
+        one inside pass and one bit-packed backward per 16 samples."""
+        from .sample import multi_sample_grads
+
+        def total(a, S):
+            return S.unconvert(self._inside(S, a))
+
+        return multi_sample_grads(total, self.arc, generator, num_samples)
+
+    def gumbel_crf(self, generator, temperature: float = 1.0):
+        """A straight-through Gumbel relaxed sample of arc indicators."""
+        from .sample import GumbelCRFSemiring
+
+        S = GumbelCRFSemiring(generator, temperature)
+        with torch.enable_grad():
+            a = self.arc.detach().float().requires_grad_(True)
+            (g,) = torch.autograd.grad(S.unconvert(self._inside(S, a)).sum(), a)
+        return g

@@ -1,13 +1,15 @@
 """First-order DMV (with valence) inside pass, plain PyTorch.
 
-Counterpart of ``vlgae_tpu/struct/dmv.py`` for the Log and Max semirings.
-These are the plain versions of the CUDA kernels in ``csrc/dmv_fused.cu``
+Counterpart of ``vlgae_tpu/struct/dmv.py``. The kind-string functions
+(``"log"``/``"max"``) are the plain versions of the CUDA kernels in ``csrc/dmv_fused.cu``
 (:func:`dmv_value_and_grads_plain`), ``csrc/dmv_inside.cu``
 (:func:`dmv_total`, :func:`dmv_inside_charts_plain`) and
 ``csrc/dmv_outside.cu`` (:func:`dmv_outside_plain`): the CPU tests and
 ``chip_smoke.py``'s comparison phases use them, the dispatch in
 :mod:`vlgae_tpu_torch.struct.distributions` takes them only for tensors
-that lie on the CPU.
+that lie on the CPU. :func:`dmv_inside` is the same recursion in any
+semiring of :mod:`.semirings` (entropy, k-max, sampling, ...), on the
+tensors' own device.
 
 Chart semantics and recursions are those of the reference
 (NC/HC = NOCHILD/HASCHILD, ⊗/⊕ = semiring mul/sum):
@@ -35,6 +37,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .semirings import LogSemiring
 
 # Constants of the reference (vlgae_tpu/struct/dmv.py, semirings.py).
 NOCHILD = 1
@@ -182,3 +186,144 @@ def dmv_outside_plain(dec, attach, lengths, gout, logz, charts, kind: str = "log
     _, gd, ga = dmv_value_and_grads_plain(dec, attach, lengths, kind)
     gout = gout.to(gd.dtype)
     return gout.view(-1, 1, 1, 1, 1) * gd, gout.view(-1, 1, 1, 1) * ga
+
+
+# -- the generic fill: any semiring -------------------------------------------
+# The kind-string functions above are the kernels' plain versions; the fill
+# below takes a semiring class (:mod:`.semirings`) and serves the rest of the
+# structured surface: entropy, the expectation semirings, k-max, counting,
+# sampling and sparsemax. Its rows are stacked ``[size, B, N1, 2]``.
+
+
+def _convert(S, x):
+    """Lift raw or paired potentials into the stacked semiring layout."""
+    if isinstance(x, (tuple, list)):
+        return S.convert(tuple(xi.float() for xi in x))
+    return S.convert(x.float())
+
+
+def _zero_fill(S, like, shape):
+    """The semiring zero, stacked, of per-channel ``shape``."""
+    return S.zeros(shape, like.dtype, like.device)
+
+
+def _shift_generic(S, rows, k, dim):
+    """``out[..., e, ...] = rows[..., e - k, ...]`` along the stacked ``dim``
+    (k > 0 right, k < 0 left), filled with the semiring zero."""
+    if k == 0:
+        return rows
+    n = rows.shape[dim]
+    fill_shape = list(rows.shape[1:])
+    fill_shape[dim - 1] = abs(k)
+    fill = _zero_fill(S, rows, fill_shape)
+    if k > 0:
+        return torch.cat([fill, rows.narrow(dim, 0, n - k)], dim)
+    return torch.cat([rows.narrow(dim, -k, n + k), fill], dim)
+
+
+def _step(S, remat, fn, *args):
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def dmv_inside(dec, attach, lengths, semiring=LogSemiring, remat: bool = False):
+    """Inside pass of the first-order valence DMV in any semiring.
+
+    ``dec [B, N1, 2, 2, 2]`` and ``attach [B, N1, N1, 2]`` are merged
+    log-potentials (or pairs of them, for the paired semirings; lists go
+    through ``semiring.convert``), ``lengths [B]`` word counts (clamped to
+    ``[0, N1 - 1]``). ``remat`` recomputes each width step in the backward
+    pass (``torch.utils.checkpoint``), trading compute for memory; the values
+    are the same.
+
+    Returns ``(value [size, B], charts)``: the stacked total (read it with
+    ``semiring.unconvert``) and the four charts ``Cr, Cl, Ir, Il`` stacked
+    ``[size, w, B, i, v]`` by width and span start (``Ir``/``Il`` from width
+    1).
+    """
+    S = semiring
+    dec = _convert(S, dec)  # [s, B, N1, 2, 2, 2]
+    attach = _convert(S, attach)  # [s, B, N1, N1, 2]
+    s, B, N1 = dec.shape[:3]
+    dev = dec.device
+    lengths = lengths.to(device=dev, dtype=torch.long).clamp(0, N1 - 1)
+    att_r = S.mul(attach, dec[:, :, :, None, RIGHT, :, GO])  # head i -> child c
+    att_l = S.mul(attach, dec[:, :, :, None, LEFT, :, GO])
+    ar = torch.arange(N1, device=dev)
+
+    def diag(table, w, left):
+        i = ar[: N1 - w]
+        rows = table[:, :, i + w, i] if left else table[:, :, i, i + w]
+        return torch.cat([rows, _zero_fill(S, rows, (B, w, 2))], 2)  # [s, B, N1, 2]
+
+    def shifted(rows_by_t, k):  # [s, t, B, N1, 2] -> shift along i
+        return _shift_generic(S, rows_by_t, k, 3)
+
+    Cr = [dec[:, :, :, RIGHT, :, STOP]]
+    Cl = [dec[:, :, :, LEFT, :, STOP]]
+    CrE, ClE = list(Cr), list(Cl)
+    Ir, Il, IlE = [None], [None], [None]
+
+    def step(w):
+        valid = (ar < N1 - w)[None, :, None]  # [B, i, v] per-channel view
+        crs = torch.stack(Cr[:w], 1)  # [s, t, B, i, v] = Cr[t, i, v]
+        cle = shifted(torch.stack([ClE[w - 1 - t] for t in range(w)], 1), -w)
+        # incomplete spans: ⊕_t Cr[t,i,·] ⊗ Cl[w-1-t,i+1+t,·]
+        a_l = S.sum(S.mul(crs[..., NOCHILD], cle[..., HASCHILD]), axis=0)
+        a_r = S.sum(S.mul(crs[..., HASCHILD], cle[..., NOCHILD]), axis=0)
+        il = S.mask(S.mul(a_l[..., None], diag(att_l, w, True)), valid)
+        ir = S.mask(S.mul(a_r[..., None], diag(att_r, w, False)), valid)
+        ile = shifted(torch.stack(
+            [_shift_generic(S, il, w, 2) if t == 0 else IlE[w - t]
+             for t in range(w)], 1), -w)  # Il[w-t, i+t]
+        cls = torch.stack(Cl[:w], 1)[..., NOCHILD, None]
+        cl = S.sum(S.mul(ile, cls), axis=0)
+        irs = torch.stack(Ir[1:w] + [ir], 1)  # Ir[t+1, i]
+        cre = shifted(torch.stack([CrE[w - 1 - t] for t in range(w)], 1),
+                      -w)[..., NOCHILD, None]  # Cr[w-1-t, i+1+t, NC]
+        cr = S.sum(S.mul(irs, cre), axis=0)
+        keep_root = (ar[None, :] != 0) | (lengths[:, None] == w)
+        cr = S.mask(cr, keep_root[..., None] & valid)
+        cl = S.mask(cl, valid)
+        return il, ir, cl, cr
+
+    for w in range(1, N1):
+        il, ir, cl, cr = _step(S, remat, step, w)
+        Il.append(il)
+        Ir.append(ir)
+        IlE.append(_shift_generic(S, il, w, 2))
+        Cr.append(cr)
+        Cl.append(cl)
+        CrE.append(_shift_generic(S, cr, w, 2))
+        ClE.append(_shift_generic(S, cl, w, 2))
+    cr_all = torch.stack(Cr, 1)  # [s, w, B, i, v]
+    root = cr_all[:, :, :, 0, NOCHILD]  # [s, w, B]
+    value = root.gather(1, lengths[None, None, :].expand(s, 1, B))[:, 0]
+    charts = {"Cr": cr_all, "Cl": torch.stack(Cl, 1)}
+    if N1 > 1:
+        charts["Ir"] = torch.stack(Ir[1:], 1)
+        charts["Il"] = torch.stack(Il[1:], 1)
+    return value, charts
+
+
+def dmv_partition(dec, attach, lengths, semiring=LogSemiring):
+    """Semiring total over all DMV trees, ``[B]`` (``semiring.unconvert``
+    of :func:`dmv_inside`'s value). Differentiable by autograd."""
+    value, _ = dmv_inside(dec, attach, lengths, semiring)
+    return semiring.unconvert(value)
+
+
+def dmv_marginals(dec, attach, lengths, semiring=LogSemiring):
+    """``(d/d dec, d/d attach)`` of the summed semiring total: expected rule
+    counts in the log semiring, Viterbi indicators in the max semiring. No
+    graph is kept."""
+    with torch.enable_grad():
+        d = dec.detach().float().requires_grad_(True)
+        a = attach.detach().float().requires_grad_(True)
+        total = dmv_partition(d, a, lengths, semiring).sum()
+        gd, ga = torch.autograd.grad(total, (d, a), allow_unused=True)
+    return (torch.zeros_like(d) if gd is None else gd,
+            torch.zeros_like(a) if ga is None else ga)

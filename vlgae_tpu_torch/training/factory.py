@@ -26,10 +26,11 @@ def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
         wcfg = emb_cfg.get("word_embedding", {}) or {}
         args = wcfg.get("args", {}) or {}
         dim = int(args.get("embedding_dim", 100))
-        mode = (wcfg.get("adaptor_args", {}) or {}).get("mode", "basic")
+        adaptor = wcfg.get("adaptor_args", {}) or {}
         items.append(EmbeddingItemCfg(
             "word_embedding", "word", "static", n_vocab=len(dm.vocabs["word"]),
-            embedding_dim=dim, mode=mode,
+            embedding_dim=dim, mode=adaptor.get("mode", "basic"),
+            out_dim=int(adaptor.get("out_dim", 0) or 0),
             normalize_method=wcfg.get("normalize_method", "mean+std"),
             normalize_time=wcfg.get("normalize_time", "nowhere")))
         # a GloVe text file starts the table; without one it starts at random
@@ -111,6 +112,7 @@ def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
         extended_valence=bool(mcfg.get("extended_valence", True)),
         function_mask=bool(mcfg.get("function_mask", False)),
         variational_mode=mcfg.get("variational_mode", "none"),
+        z_dim=int(mcfg.get("z_dim", 0) or 0),
         hidden_size=int((mcfg.get("head_ff", {}) or {}).get("n_hidden", 256)),
         mid_bottleneck=int(mid.get("n_bottleneck", 0) or 0),
         mid_n_mid=int(mid.get("n_mid", 0) or 0),
