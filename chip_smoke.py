@@ -130,6 +130,22 @@ Phases, each printing one JSON line:
                  card against CPU at small widths and precision=32
                  (identical dev predictions) under ``all:vae``, ``tag:ib``,
                  ``context_mode=max`` and the joint model's ``all:ib``
+ 21. data_options - the datamodule and embedding options: ``exp=vlgae``
+                 (bf16) with a local BERT directory at bert-base-cased's
+                 published widths (768 x 12, random weights) and a WordPiece
+                 ``vocab.txt`` of the corpus, three train steps at B = 64
+                 (K1 twice, K5, K6 each; held to their plain versions on a
+                 step's tensors), the steps' device-busy time, the BERT
+                 forward's device time and memory, ``predict`` and
+                 ``eval.py``; ``exp=lang_only`` through ``DepDataModule``
+                 (plain CoNLL) with ``ignore_stop_word`` (which stop-word
+                 list ran is printed): one warm-up and one NLL epoch,
+                 ``predict``, the K3 pair, K1 (max) and K2/K4 held on a
+                 batch's tensors; ``exp=vlgae`` with the gold scene graph and
+                 whole-image features: one train step (K1, K5, K6 held),
+                 ``predict``, ``eval.py``; each, card against CPU at small
+                 widths and precision=32 (dev files identical but for rows
+                 that a near tie decides)
 Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
 the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
 Then each phase's seconds, the card's name and power limit, the per-kernel
@@ -331,6 +347,8 @@ def nvidia_smi_line():
 
 
 def phase_env(state):
+    import importlib.util
+
     import torch
 
     nvcc = subprocess.run(["nvcc", "--version"], capture_output=True,
@@ -339,7 +357,11 @@ def phase_env(state):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc[-1] if nvcc else None,
           "gpu": nvidia_smi_line(),
-          "device_count": torch.cuda.device_count()})
+          "device_count": torch.cuda.device_count(),
+          # the packages the JAX package reads BERT/ViT checkpoints and stop
+          # words with; the port reads those formats without them
+          "installed": {m: importlib.util.find_spec(m) is not None for m in (
+              "transformers", "flax", "msgpack", "safetensors", "nltk")}})
 
 
 def phase_build(state):
@@ -3586,6 +3608,431 @@ def phase_variational(state):
                 state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
 
 
+# -- the datamodule and embedding options: a BERT directory, DepDataModule, gold graphs
+# bert-base-cased's published widths (its config.json on the Hugging Face hub)
+BERT_BASE = {"model_type": "bert", "vocab_size": 28996, "hidden_size": 768,
+             "num_hidden_layers": 12, "num_attention_heads": 12,
+             "intermediate_size": 3072, "max_position_embeddings": 512,
+             "type_vocab_size": 2, "hidden_act": "gelu", "layer_norm_eps": 1e-12}
+BERT_NARROW = dict(BERT_BASE, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                   intermediate_size=128)
+# the gold scene graph and whole-image features (vis_encoder.use_img)
+GOLD_IMG = ["datamodule.use_gold_scene_graph=true", "datamodule.use_img=true",
+            "vis_encoder.use_img=true"]
+
+
+def corpus_words(root):
+    """Every word of the corpus's CoNLL files."""
+    words = []
+    for split in ("train", "init", "val", "test"):
+        with open(os.path.join(root, f"{split}.conll")) as f:
+            words += [line.split("\t")[1] for line in f if line.strip()]
+    return words
+
+
+def write_bert_dir(path, words, config):
+    """A BERT directory without weights and without ``tokenizer_config.json``
+    (so ``do_lower_case`` takes its default, true): ``config.json`` and a
+    WordPiece ``vocab.txt`` of the special tokens, then of ``words``: every
+    other one whole, the rest as their first two letters and one ``##``
+    piece a letter, every fifth one left out (it tokenizes to ``[UNK]``)."""
+    os.makedirs(path, exist_ok=True)
+    pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    for i, w in enumerate(sorted({w.lower() for w in words})):
+        if i % 5 == 4:
+            continue
+        pieces += [w] if i % 2 == 0 or len(w) < 3 else [w[:2]] + [f"##{c}" for c in w[2:]]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(dict.fromkeys(pieces)) + "\n")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def write_gold_and_images(root, seed):
+    """Beside the corpus at ``root``: ``gold_feats/<img_id>.npy`` (one row an
+    object of the image's scene graph: features of the width of
+    ``det_feats/`` and box),
+    ``vlparse_train_sg_raw.json`` (the training images' scene graphs with
+    four objects and two relations in place of three and one) and
+    ``<split>.npy`` (one whole-image feature row an image)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "gold_feats"), exist_ok=True)
+    with open(os.path.join(root, "vlparse.json")) as f:
+        sg = {e["coco_id"]: e for e in json.load(f)}
+    feat_dim = np.load(os.path.join(root, "det_feats", f"{min(sg)}.npy")).shape[1] - 4
+    with open(os.path.join(root, "id_list", "train.txt")) as f:
+        train_ids = {int(line) for line in f if line.strip()}
+    raw = []
+    for img_id in sorted(sg):
+        entry = sg[img_id]
+        if img_id in train_ids:
+            objs = [dict(id=k, x=float(10 * k), y=5.0, width=20.0, height=30.0 + k)
+                    for k in range(4)]
+            rels = [dict(id=4, subj=0, obj=1, x=0.0, y=0.0, width=1.0, height=1.0),
+                    dict(id=5, subj=3, obj=2, x=0.0, y=0.0, width=1.0, height=1.0)]
+            txt2sg = [{"1": {"type": "OBJ", "preferred": s % 4, "candidates": [[s % 4, 1.0]]},
+                       "2": {"type": "REL", "preferred": 4 + s % 2, "candidates": [[4, 1.0]]},
+                       "0": {"type": "ATTR", "preferred": 3, "candidates": [[3, 1.0]]}}
+                      for s in range(5)]
+            entry = dict(entry, obj=objs, rel=rels, txt2sg=txt2sg)
+            raw.append(entry)
+        boxes = np.array([[o["x"], o["y"], o["x"] + o["width"], o["y"] + o["height"]]
+                          for o in entry["obj"]], np.float32)
+        feats = rng.standard_normal((len(boxes), feat_dim)).astype(np.float32)
+        np.save(os.path.join(root, "gold_feats", f"{img_id}.npy"),
+                np.concatenate([feats, boxes], 1))
+    with open(os.path.join(root, "vlparse_train_sg_raw.json"), "w") as f:
+        json.dump(raw, f)
+    for split in ("train", "init", "val", "test"):
+        with open(os.path.join(root, "id_list", f"{split}.txt")) as f:
+            n = len(f.read().split())
+        np.save(os.path.join(root, f"{split}.npy"),
+                rng.standard_normal((n, feat_dim)).astype(np.float32))
+
+
+def _dep_overrides(root):
+    """``datamodule._target_`` set to ``DepDataModule`` on the plain CoNLL
+    files of the corpus under ``root``, with ``ignore_stop_word``."""
+    v = os.path.join(root, "vlparse")
+    return ["datamodule._target_=vlgae_tpu.data.DepDataModule",
+            f"datamodule.train_path={v}/train.conll",
+            f"datamodule.train_init_path={v}/init.conll",
+            f"datamodule.dev_path={v}/val.conll", f"datamodule.test_path={v}/test.conll",
+            "datamodule.ignore_stop_word=true"]
+
+
+def _card_vs_cpu_dev(tmp, overrides, name, joint):
+    """``predict`` (weights from seed 0) on the CPU and on the card: the dev
+    files identical, or, for the joint model, a row differing only where a
+    near tie decides it: its ALIGN column where its grounding or its tree
+    holds a near tie (``_tied_align_rows``, as phase ``mbr`` allows), and its
+    arcs too where the sentence's Viterbi tree wins by less than
+    ``MBR_MARGIN`` (on an exact tie K1 marks every best tree where the CPU
+    splits, and the heads are an argmax over those marks); the dev losses
+    within 1e-4."""
+    import torch
+
+    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+
+    texts, losses, card = {}, {}, None
+    for dev in ("cpu", "cuda"):
+        pipe, res = _run_predict(tmp, overrides + ["init_seed=0", f"device={dev}",
+                                                   f"name={name}_{dev}"])
+        with open(os.path.join(tmp, f"{name}_{dev}_dev.conll")) as f:
+            texts[dev] = f.read()
+        losses[dev] = res["dev"]["loss"]
+        card = pipe if dev == "cuda" else card
+    blocks = [[b.splitlines() for b in texts[d].split("\n\n") if b.strip()]
+              for d in ("cuda", "cpu")]
+    ids = [inst["id"] for inst in card.dm.datasets["dev"]]
+    differ = {(sid, i): (ra.split("\t"), rb.split("\t")) for sid, a, b in zip(ids, *blocks)
+              for i, (ra, rb) in enumerate(zip(a, b)) if ra != rb}
+    untied, won = dict(differ), {}
+    if differ and joint:
+        tied = {}
+        with torch.no_grad():
+            for x, _ in card.dm.batches("dev", shuffle=False):
+                xp, real = pad_batch_pow2(x)
+                inputs = _to_device(xp, card.device)
+                o = card.model.eval()(inputs)
+                lens = inputs["seq_len"]
+                viterbi = torch.argmax(o["dep_reuse"]["max"][2].sum(-1)[:, :, 1:], dim=1)
+                m = dmv_margins(o["merged_dec"], o["merged_attach"], lens, viterbi)
+                for j, (sid, t) in enumerate(zip(x["id"][:real], _tied_align_rows(
+                        card.model, o, inputs, real))):
+                    tied[int(sid)], won[int(sid)] = t, float(m[j]) >= MBR_MARGIN
+        untied = {k: v for k, v in differ.items()
+                  if won[k[0]] and (v[0][:4] != v[1][:4] or not tied[k[0]][0]
+                                    and k[1] not in tied[k[0]][1])}
+    out = {"identical_dev_file": texts["cpu"] == texts["cuda"], "dev_loss": losses,
+           "sentences": len(ids), "rows_differing": len(differ),
+           "rows_differing_head": sum(a[:4] != b[:4] for a, b in differ.values()),
+           "sentences_won_by_less_than_margin": sum(not w for w in won.values()),
+           "rows_differing_untied": len(untied),
+           "untied_rows": {f"{sid}:{i}": v for (sid, i), v in list(untied.items())[:4]}}
+    if not (len(blocks[0]) == len(blocks[1]) == len(ids) and not untied
+            and abs(losses["cpu"] - losses["cuda"]) <= 1e-4 * (1 + abs(losses["cpu"]))):
+        raise AssertionError(f"data_options {name}: card and CPU disagree: {out}")
+    return out
+
+
+def _predict_steps(pipe):
+    """The eval steps of one ``predict`` run: every batch of its splits."""
+    return sum(len(list(pipe.dm.batches(s, shuffle=False)))
+               for s in ("train", "dev", "test") if s in pipe.dm.datasets)
+
+
+def _joint_steps(pipe, batches, n):
+    """``n`` joint train steps at B = 64 (host clock), K5's and K6's first
+    call captured; ``(times, launches, captured)``."""
+    from vlgae_tpu_torch.ops import match
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    captured = {}
+    orig = {"fwd": match.match_maxes, "bwd": match.match_maxes_bwd}
+
+    def capturing(key):
+        def call(*args):
+            captured.setdefault(key, tuple(a.detach() for a in args))
+            return orig[key](*args)
+        return call
+
+    match.match_maxes, match.match_maxes_bwd = capturing("fwd"), capturing("bwd")
+    times = []
+    try:
+        reset_kernel_counts()
+        for k in range(n):
+            x, y = batches[k % len(batches)]
+            t0 = time.perf_counter()
+            loss, _ = pipe.train_step(pad_batch_pow2(x)[0], pad_batch_pow2(y)[0], False, 0.5)
+            float(loss)
+            times.append(time.perf_counter() - t0)
+    finally:
+        match.match_maxes, match.match_maxes_bwd = orig["fwd"], orig["bwd"]
+    return times, kernel_counts(), captured
+
+
+def _joint_kernels_on_path(pipe, batch, captured, what):
+    """K1 (log and max) on the eval forward of a training batch, K5 and K6
+    on a train step's captured tensors, each against its plain version."""
+    import torch
+
+    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+
+    with torch.no_grad():
+        inputs = _to_device(pad_batch_pow2(batch[0])[0], pipe.device)
+        k1 = _check_dmv_on_path(pipe.model.eval()(inputs), inputs["seq_len"])
+    _, k5_err, k5_off = _check_k5(captured["fwd"], False, what)
+    k6_err = _check_k6(captured["bwd"], False, what)
+    return {"k1": k1, "k5_max_abs_err": k5_err, "k5_index_mismatch_within_tol": k5_off,
+            "k6_max_abs_err": k6_err, "vis": list(captured["fwd"][0].shape),
+            "txt": list(captured["fwd"][1].shape)}
+
+
+def phase_data_options(state):
+    """The datamodule and embedding options on the kernels' paths, random
+    weights from seed 0: (a) ``exp=vlgae`` at bf16 with a local BERT
+    directory at bert-base-cased's published widths (768 x 12, a WordPiece
+    ``vocab.txt`` of the corpus): three train steps at B = 64, K1 / K5 / K6
+    held to their plain versions on a step's tensors, the BERT forward's
+    device time and memory, ``predict`` and ``eval.py``; card against CPU
+    at 64 x 2 and precision=32. (b) ``exp=lang_only`` through
+    ``DepDataModule`` (plain CoNLL) with ``ignore_stop_word``: one warm-up
+    and one NLL epoch, ``predict``, the K3 pair, K1 (max) and K2/K4 held to
+    their plain versions on a batch's tensors; card against CPU. (c)
+    ``exp=vlgae`` with the gold scene graph and whole-image features: one
+    train step (K1, K5, K6 held), ``predict``, ``eval.py``; card against
+    CPU."""
+    import math
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import train
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    counts, reset = kernel_counts, reset_kernel_counts
+    result = {"phase": "data_options"}
+    by_path = {}
+    bucket1 = [f"datamodule.{s}_dataloader.num_bucket=1" for s in ("train", "dev", "test")]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=104, feat_dim=2048, n_box=36, len_range=(3, 50), seed=0)
+        # (a) a BERT directory at bert-base-cased's widths
+        bert = write_bert_dir(os.path.join(tmp, "bert-base"), corpus_words(root), BERT_BASE)
+        ovs = _corpus_overrides(tmp) + bucket1 + [f"embedding.transformer.args.model={bert}"]
+        t0 = time.perf_counter()
+        pipe = _grounding_pipeline(tmp, ovs, "cuda")
+        item = pipe.model.dependency.embedding.transformer
+        n_bert = sum(p.numel() for p in item.bert.parameters())
+        a = {"bert": {k: BERT_BASE[k] for k in ("hidden_size", "num_hidden_layers",
+                                                 "num_attention_heads", "intermediate_size",
+                                                 "vocab_size")},
+             "bert_params": n_bert, "bert_param_bytes": 4 * n_bert,
+             "build_s": round(time.perf_counter() - t0, 3)}
+        H, L, inter = (BERT_BASE[k] for k in ("hidden_size", "num_hidden_layers",
+                                              "intermediate_size"))
+        if item.bert.config.hidden_size != H or len(item.bert.encoder.layer) != L:
+            raise AssertionError(f"data_options: the BERT is {item.bert.config}")
+        ids = {i for inst in pipe.dm.datasets["train"] for i in inst["subword_ids"]}
+        if not ({1, 2, 3} <= ids and len(ids) > 10):
+            raise AssertionError(f"data_options: subword ids {sorted(ids)}")
+        full = [b for b in pipe.dm.batches("train") if len(b[0]["seq_len"]) == 64]
+        if not full:
+            raise AssertionError("no training batch of 64 captions")
+        times, step, captured = _joint_steps(pipe, full, 3)
+        want = {"dmv_fused": 6, "match_fwd": 3, "match_bwd": 3}
+        if {k: v for k, v in step.items() if v} != want:
+            raise AssertionError(f"bert-base joint steps: launches {step}")
+        by_path["bert_base_train_steps"] = step
+        a["kernels_on_path"] = _joint_kernels_on_path(pipe, full[0], captured,
+                                                      "on a bert-base joint step")
+        a["train_step_ms_B64"] = [round(t * 1e3, 3) for t in times]
+        # the steps' device-busy time under the profiler (kernel time only)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x, y in full[:2]:
+                loss, _ = pipe.train_step(pad_batch_pow2(x)[0], pad_batch_pow2(y)[0],
+                                          False, 0.5)
+                float(loss)
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / 2
+        a["profiled_train_step"] = {"wall_ms": wall * 1e3 / 2, "device_busy_ms": busy,
+                                    "idle_share": 1 - busy / (wall * 1e3 / 2),
+                                    "kernels": len(kern) / 2}
+        # the frozen BERT's forward alone on the longest batch's subwords
+        x = max(full, key=lambda b: b[0]["subword"].shape[1])[0]
+        sub = [torch.as_tensor(x[k]).cuda() for k in ("subword", "subword_mask",
+                                                     "subword_first", "subword_last")]
+        B, S = sub[0].shape
+        flops = B * L * (2 * S * (4 * H * H + 2 * H * inter) + 4 * S * S * H)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            ms = time_ms(lambda: item(*sub), reps=7)
+        a["bert_forward"] = {
+            "B": B, "S": S, "device_ms": ms, "flops": flops,
+            "bound_ms_f32": flops / PEAK_FLOPS["f32"] * 1e3,
+            "tflop_per_s": flops / ms / 1e9,
+            "activation_peak_bytes": torch.cuda.max_memory_allocated() - base}
+        # predict from the trained weights, eval.py on its dev file
+        pipe.save_checkpoint("last")
+        reset()
+        t0 = time.perf_counter()
+        ppipe, res = _run_predict(tmp, ovs + [
+            f"checkpoint={os.path.join(tmp, 'checkpoint', 'last.pt')}", "device=cuda",
+            "name=bert"])
+        torch.cuda.synchronize()
+        a["predict_s"] = round(time.perf_counter() - t0, 3)
+        c = counts()
+        n_steps = _predict_steps(ppipe)
+        if c["dmv_fused"] != 2 * n_steps or c["match_fwd"] != n_steps:
+            raise AssertionError(f"bert-base predict: launches {c} over {n_steps} steps")
+        by_path["bert_base_predict"] = c
+        if not all(math.isfinite(float(r["loss"])) for r in res.values()):
+            raise AssertionError(f"bert-base predict: {res}")
+        a["predict"] = {k: res[k] for k in ("dev", "test")}
+        a["eval_py_tail"] = check_eval(root, os.path.join(tmp, "bert_dev.conll"))
+        result["bert_base"] = a
+        del pipe, ppipe, item, sub
+        torch.cuda.empty_cache()
+
+        # (c) the gold scene graph and whole-image features on the same corpus
+        write_gold_and_images(root, seed=3)
+        ovs = _corpus_overrides(tmp) + bucket1 + GOLD_IMG
+        pipe = _grounding_pipeline(tmp, ovs, "cuda")
+        full = [b for b in pipe.dm.batches("train") if len(b[0]["seq_len"]) == 64]
+        x0 = full[0][0]
+        if not ("vis_img" in x0 and (x0["vis_box_mask"].sum(1) == 4).all()
+                and x0["vis_rel_mask"].any()):
+            raise AssertionError("gold scene graph: the batches hold no gold boxes")
+        times, step, captured = _joint_steps(pipe, full, 1)
+        if {k: v for k, v in step.items() if v} != {"dmv_fused": 2, "match_fwd": 1,
+                                                    "match_bwd": 1}:
+            raise AssertionError(f"gold scene graph step: launches {step}")
+        by_path["gold_img_train_step"] = step
+        c_res = {"train_step_ms_B64": [round(t * 1e3, 3) for t in times],
+                 "kernels_on_path": _joint_kernels_on_path(pipe, full[0], captured,
+                                                           "on a gold scene graph step")}
+        pipe.save_checkpoint("last")
+        reset()
+        ppipe, res = _run_predict(tmp, ovs + [
+            f"checkpoint={os.path.join(tmp, 'checkpoint', 'last.pt')}", "device=cuda",
+            "name=gold"])
+        c = counts()
+        n_steps = _predict_steps(ppipe)
+        if c["dmv_fused"] != 2 * n_steps or c["match_fwd"] != n_steps:
+            raise AssertionError(f"gold predict: launches {c} over {n_steps} steps")
+        by_path["gold_img_predict"] = c
+        c_res["predict"] = {k: res[k] for k in ("dev", "test")}
+        c_res["eval_py_tail"] = check_eval(root, os.path.join(tmp, "gold_dev.conll"))
+        result["gold_img"] = c_res
+        del pipe, ppipe
+
+    # card against CPU at small widths and precision=32
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=8, feat_dim=16, n_box=6, len_range=(3, 12), seed=1)
+        bert = write_bert_dir(os.path.join(tmp, "bert"), corpus_words(root), BERT_NARROW)
+        result["bert_base"]["card_vs_cpu"] = _card_vs_cpu_dev(
+            tmp, _small_overrides(tmp) + [f"embedding.transformer.args.model={bert}"],
+            "bert_narrow", joint=True)
+        result["dep_lang_only_card_vs_cpu"] = _card_vs_cpu_dev(
+            tmp, _lang_overrides(tmp, True) + _dep_overrides(tmp), "dep", joint=False)
+        write_gold_and_images(root, seed=4)
+        result["gold_img"]["card_vs_cpu"] = _card_vs_cpu_dev(
+            tmp, _small_overrides(tmp) + GOLD_IMG, "gold", joint=True)
+
+    # (b) exp=lang_only through DepDataModule, at the recipe's widths
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=400, feat_dim=4, n_box=3,
+                    len_range=(3, 50), seed=0)
+        run = os.path.join(tmp, "run")
+        ovs = _lang_overrides(tmp, False) + _dep_overrides(tmp)
+        reset()
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            pipe, test = train.main(ovs + ["trainer.max_epochs=2", "model.init_epoch=1",
+                                           f"workdir={run}", "init_seed=0", "device=cuda"])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        b = {"train_s": round(time.perf_counter() - t0, 3), "test": test,
+             "datamodule": type(pipe.dm).__name__,
+             "stop_words": pipe.dm.stop_words_source,
+             "dev_captions": len(pipe.dm.datasets["dev"])}
+        raw = dmv_cuda.launch_counts()
+        by_path["dep_lang_only_train"] = counts()
+        if not (sum(raw["inside_save"].values()) == raw["outside"] > 0
+                and sum(raw["inside"].values()) == raw["fused"] > 0
+                and b["datamodule"] == "DepDataModule"):
+            raise AssertionError(f"dep lang_only train: launches {raw}, {b}")
+        insts = [i for i in pipe.dm.datasets["train"] if i["seq_len"] <= 16][:64]
+        x, _ = pipe.dm.collate("train", insts, 16)
+        b["kernels_on_batches"] = {"train_L=16": _check_lang_batch(
+            pipe, pad_batch_pow2(x)[0], True)}
+        x, _ = next(pipe.dm.batches("dev", shuffle=False))
+        b["kernels_on_batches"]["eval"] = _check_lang_batch(pipe, pad_batch_pow2(x)[0], False)
+        reset()
+        ppipe, res = _run_predict(tmp, [
+            f"checkpoint={os.path.join(run, 'checkpoint', 'last.pt')}", "device=cuda",
+            "name=dep"])
+        c = dmv_cuda.launch_counts()
+        n_steps = _predict_steps(ppipe)
+        if not (c["fused"] == n_steps == sum(c["inside"].values())
+                and c["inside"]["warp"] > 0 and c["inside"]["smem"] > 0):
+            raise AssertionError(f"dep lang_only predict: launches {c} over {n_steps} steps")
+        by_path["dep_lang_only_predict"] = counts()
+        with open(os.path.join(tmp, "dep_dev.conll")) as f:
+            n_sent = f.read().count("\n\n")
+        if n_sent != len(ppipe.dm.datasets["dev"]) or not all(
+                math.isfinite(float(r["loss"])) for r in res.values()):
+            raise AssertionError(f"dep lang_only predict: {n_sent} sentences, {res}")
+        b["predict"] = {k: res[k] for k in ("dev", "test")}
+        result["dep_lang_only"] = b
+    result["launches_by_path"] = by_path
+    emit(result)
+    for path, c in by_path.items():
+        for kname, n in c.items():
+            if n:
+                state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
+
+
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
@@ -3594,7 +4041,7 @@ PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
           "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
           "grounding_modes": phase_grounding_modes, "struct": phase_struct,
-          "variational": phase_variational}
+          "variational": phase_variational, "data_options": phase_data_options}
 
 
 def main():

@@ -3,8 +3,13 @@ run: the multirun sweep (``-m``), the hyperparameter-search bridge
 (``VLGAE_SEARCH_PARAMS`` / ``VLGAE_SEARCH_RESULT``), wandb (inert without
 the package; with a stand-in module, the metric lines and the watcher's
 histograms), the ``torch.profiler`` trace (``profile=true``), and the
-pipeline's default device. ``exp=lang_only`` at narrow widths on the CPU,
-as tests/test_e2e.py drives the JAX CLI; no JAX here.
+pipeline's default device: ``exp=lang_only`` at narrow widths on the CPU,
+as tests/test_e2e.py drives the JAX CLI. Then the datamodule and embedding
+choices that the JAX CLIs make, held to vlgae_tpu: a plain CoNLL corpus
+through ``DepDataModule`` (``train`` and ``predict`` against the JAX
+``train.py``, prediction files and vocabularies byte-identical), and a
+local BERT directory (its ``config.json`` and WordPiece ``vocab.txt``;
+subword ids exact, dev predictions byte-identical at ``precision=32``).
 """
 
 import inspect
@@ -14,12 +19,13 @@ import sys
 import types
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import synth_data
-from test_torch_lang_only import overrides
+from test_torch_lang_only import REPO, overrides
 
 
 @pytest.fixture(scope="module")
@@ -141,3 +147,117 @@ def test_pipeline_defaults_to_the_card():
         pytest.skip("a card is present: the default is exercised on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Pipeline(model, None, {})
+
+
+def _dep_overrides(corpus, workdir):
+    v = f"{corpus}/vlparse"
+    return overrides(corpus) + [
+        "datamodule._target_=vlgae_tpu.data.DepDataModule",
+        f"datamodule.train_path={v}/train.conll", f"datamodule.train_init_path={v}/init.conll",
+        f"datamodule.dev_path={v}/val.conll", f"datamodule.test_path={v}/test.conll",
+        "datamodule.ignore_stop_word=true", "datamodule.use_char=true",
+        "embedding.word_embedding.normalize_time=nowhere",
+        "embedding.tag_embedding.normalize_time=nowhere",
+        "trainer.max_epochs=1", "optimizer.args.lr=0", f"workdir={workdir}"]
+
+
+def test_dep_datamodule_train_and_predict_match_jax_train(corpus, tmp_path, monkeypatch):
+    """``datamodule._target_`` without VLParse: both CLIs read the plain
+    CoNLL files (no image, every dev caption), with the stop-word option
+    (NLTK absent: the empty list) and the char field. The port starts from
+    the JAX run's weights; at lr 0 both keep them through one epoch, so the
+    dev and test files of ``train`` and the dev file of ``predict`` equal
+    the JAX ``train.py``'s."""
+    from vlgae_tpu_torch import predict, train
+
+    monkeypatch.syspath_prepend(str(REPO))
+    import train as jax_train
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "nltk.corpus", None)
+    jpipe, jtest = jax_train.main(_dep_overrides(corpus, "jrun"))
+    assert type(jpipe.dm).__name__ == "DepDataModule"
+    from flax import traverse_util
+
+    flat = traverse_util.flatten_dict(jax.device_get(jpipe.state.params))
+    np.savez(tmp_path / "jax.npz", **{"/".join(k): np.asarray(v) for k, v in flat.items()})
+    pipe, test = train.main(_dep_overrides(corpus, "run") + [
+        f"weights={tmp_path / 'jax.npz'}", "device=cpu"])
+    assert type(pipe.dm).__name__ == "DepDataModule" and pipe.dm.stop_words_source == "empty"
+    assert not any(k.startswith("vis") for k in next(pipe.dm.batches("dev"))[0])
+    jrun, run = tmp_path / "jrun", tmp_path / "run"
+    names = sorted(p.name for p in jrun.glob("vocab_*.txt"))
+    assert names == ["vocab_char.txt", "vocab_tag.txt", "vocab_token.txt", "vocab_word.txt"]
+    for name in names + ["dev.predict.txt", "test.predict.txt"]:
+        assert (run / name).read_bytes() == (jrun / name).read_bytes(), name
+    assert test["uas"] == pytest.approx(jtest["uas"])
+    predict.main([f"checkpoint={run / 'checkpoint' / 'last.pt'}", "device=cpu", "name=port"])
+    assert (tmp_path / "port_dev.conll").read_bytes() == (jrun / "dev.predict.txt").read_bytes()
+
+
+def write_bert_dir(path, words, hidden=64, layers=2):
+    """A BERT directory without weights: ``config.json`` (``hidden`` x
+    ``layers``) and a WordPiece ``vocab.txt`` built from ``words``: the
+    special tokens, every other word whole, the rest as a first piece and
+    ``##`` pieces, and every fifth word left out (``[UNK]``)."""
+    path.mkdir(parents=True, exist_ok=True)
+    pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    for i, w in enumerate(sorted(set(words))):
+        if i % 5 == 4:
+            continue
+        pieces += [w] if i % 2 == 0 or len(w) < 2 else [w[:2]] + [f"##{c}" for c in w[2:]]
+    (path / "vocab.txt").write_text("\n".join(dict.fromkeys(pieces)) + "\n")
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "bert", "vocab_size": 120, "hidden_size": hidden,
+        "num_hidden_layers": layers, "num_attention_heads": 4,
+        "intermediate_size": 2 * hidden, "max_position_embeddings": 64}))
+    return path
+
+
+def test_bert_directory_predictions_match_jax(corpus, tmp_path, monkeypatch):
+    """``embedding.transformer.args.model`` naming a local directory: the
+    port builds the BERT of its ``config.json`` (2 x 64) and tokenizes with
+    its ``vocab.txt``, as vlgae_tpu's ``train.py`` does with
+    ``AutoConfig`` and ``HFTokenizer``."""
+    from flax import traverse_util
+
+    from test_torch_slice import overrides as vlgae_overrides
+    from vlgae_tpu.data import VLParseDataModule
+    from vlgae_tpu.data.subword import HFTokenizer, attach_subwords
+    from vlgae_tpu.training import Pipeline, build_model
+    from vlgae_tpu.utils.config import ConfigComposer, resolve
+    from vlgae_tpu_torch import predict
+
+    words = [line.split("\t")[1] for split in ("train", "val", "test")
+             for line in (corpus / "vlparse" / f"{split}.conll").read_text().splitlines()
+             if line]
+    bert = write_bert_dir(tmp_path / "bert", words)
+    ovs = vlgae_overrides(corpus) + [f"embedding.transformer.args.model={bert}"]
+    cfg = resolve(ConfigComposer(str(REPO / "configs")).compose("config_train", ovs))
+    dm_cfg = dict(cfg["datamodule"])
+    dm_cfg.pop("_target_")
+    jdm = attach_subwords(VLParseDataModule(**dm_cfg).setup(), HFTokenizer(str(bert)))
+    jpipe = Pipeline(build_model(cfg, jdm), jdm, cfg, workdir=str(tmp_path),
+                     devices=jax.devices()[:1])
+    jpipe.init_state(next(jdm.batches("test", shuffle=False)), seed=0)
+    flat = {"/".join(k): np.asarray(v) for k, v in
+            traverse_util.flatten_dict(jax.device_get(jpipe.state.params)).items()}
+    assert flat["params/dependency/embedding/transformer/bert/encoder/layer/1/output/"
+                "dense/kernel"].shape == (128, 64)
+    np.savez(tmp_path / "jax.npz", **flat)
+    jres, jout = jpipe.evaluate("dev")
+    jpipe.write_predictions(str(tmp_path / "jax_dev.conll"), "dev", jout)
+    monkeypatch.chdir(tmp_path)
+    pipe, results = predict.main(ovs + [f"weights={tmp_path / 'jax.npz'}", "device=cpu",
+                                        "name=port"])
+    for split, ds in jdm.datasets.items():
+        for inst, jinst in zip(pipe.dm.datasets[split], ds, strict=True):
+            for k in ("subword_ids", "subword_first", "subword_last"):
+                assert inst[k] == jinst[k], (split, k)
+    ids = {i for ds in jdm.datasets.values() for inst in ds for i in inst["subword_ids"]}
+    # [UNK] (1) for the words left out; [CLS] (2) and [SEP] (3) around each caption
+    assert {1, 2, 3} <= ids and len(ids) > 10
+    assert pipe.dm.datasets["dev"][0]["subword_ids"][::len(pipe.dm.datasets["dev"][0][
+        "subword_ids"]) - 1] == [2, 3]
+    assert (tmp_path / "port_dev.conll").read_bytes() == (tmp_path / "jax_dev.conll").read_bytes()
+    np.testing.assert_allclose(results["dev"]["loss"], jres["loss"], rtol=1e-4, atol=1e-4)

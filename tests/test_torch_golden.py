@@ -249,19 +249,20 @@ def test_nn_multivariate_kl(nn_ref, reduction):
 
 def test_nn_vis_box_rel_encoder(nn_ref):
     """The port factorizes the pairwise-mean relation MLP (the linear layer
-    distributes over the mean), as vlgae_tpu does; there is no image
-    group (``use_img`` waits in ROADMAP), so its output is not checked."""
+    distributes over the mean), as vlgae_tpu does; the image group
+    (``use_img``) is ``img_fc`` over the mean box feature."""
     from vlgae_tpu_torch.models.vis_encoder import VisBoxRelSimpleEncoder
 
     d = _sub(nn_ref, "vis_box_rel")
-    m = VisBoxRelSimpleEncoder(16, 8, use_attr=True, img_feat=True).eval()
+    m = VisBoxRelSimpleEncoder(16, 8, use_attr=True, use_img=True, img_feat=True).eval()
     _set_linear(m.box_fc.linear, d, "param/box_fc.linear")
     _set_linear(m.attr_fc.linear, d, "param/attr_fc.linear")
+    _set_linear(m.img_fc.linear, d, "param/img_fc.linear")
     with torch.no_grad():
         m.rel_fc.weight.copy_(d["param/rel_fc.linear.weight"])
         m.rel_fc_bias.copy_(d["param/rel_fc.linear.bias"])
     got = m({"vis_box_feat": d["in/feat"]})
-    for key in ("box", "rel", "attr"):
+    for key in ("box", "rel", "attr", "img"):
         np.testing.assert_allclose(_np(got[key]), d[f"out/{key}"].numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=key)
 

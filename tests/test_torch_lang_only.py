@@ -378,15 +378,18 @@ def test_model_built_with_a_glove_file(corpus, tmp_path):
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
     """No file of the port, nor ``chip_smoke.py``, imports JAX, anything of
-    ``vlgae_tpu`` or ``transformers`` (comments and docstrings may name
-    their files)."""
+    ``vlgae_tpu``, ``transformers``, ``msgpack`` or ``safetensors``
+    (comments and docstrings may name their files); ``nltk`` only in the
+    stop-word branch of the datamodule, as in the JAX package."""
     import re
 
-    bad = re.compile(r"^\s*(from|import)\s+"
-                     r"(jax|jaxlib|flax|optax|orbax|transformers|vlgae_tpu)\b(?!_)")
+    bad = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|orbax|transformers|"
+                     r"vlgae_tpu|msgpack|safetensors|nltk)\b(?!_)")
+    allowed = {("vlgae_tpu_torch/data/datamodule.py", "from nltk.corpus import stopwords")}
     files = sorted((REPO / "vlgae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
             for f in files
-            for i, line in enumerate(f.read_text().splitlines(), 1) if bad.match(line)]
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if bad.match(line) and (str(f.relative_to(REPO)), line.strip()) not in allowed]
     assert not hits, hits

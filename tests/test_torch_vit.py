@@ -6,7 +6,9 @@ at the narrow widths of ``tests/test_e2e.py::test_vlgae_vit_swap_e2e`` and
 at the recipe's published 224/32/192/4/4/384 (f32, 1e-5 absolute on outputs
 of order 1, different summation orders); ``patch_boxes``, ``PixelLoader``,
 the ViT subtree of ``convert.py`` and ``load_vit_params`` equal to the
-reference's; one warm-up and one joint step of the recipe at narrow widths
+reference's (``.npz``, flax ``.msgpack`` through the port's own msgpack
+reader, HF directories with ``pytorch_model.bin``, ``model.safetensors``
+in f32, f16 and bf16, or ``flax_model.msgpack``); one warm-up and one joint step of the recipe at narrow widths
 under ``tests/test_torch_train.py``'s tolerances (f32 and bf16); dev
 predictions byte-identical at ``precision=32``; the frozen backbone out of
 the optimizer and unchanged; the port's CLIs and patch-box helper feeding
@@ -231,15 +233,108 @@ def test_load_vit_params_matches_reference(tmp_path):
     np.savez(tmp_path / "partial.npz", **partial)
     with pytest.raises(ValueError, match="cls_token MISSING"):
         load_vit_params(str(tmp_path / "partial.npz"), cfg)
-    # what the port cannot read names the .npz route
-    (tmp_path / "vit.msgpack").write_bytes(b"\x80")
-    with pytest.raises(ValueError, match=r"\.npz"):
-        load_vit_params(str(tmp_path / "vit.msgpack"), cfg)
+    # a flax .msgpack (bare and wrapped in params), read by the port's reader
+    from flax import serialization
+
+    for name, tree in (("vit.msgpack", _unflat(flat)),
+                       ("vit_wrapped.msgpack", {"params": _unflat(flat)})):
+        (tmp_path / name).write_bytes(serialization.msgpack_serialize(tree))
+        same(tmp_path / name)
+    # directories: model.safetensors only, flax_model.msgpack only
     st = tmp_path / "safetensors_only"
     hf.save_pretrained(str(st))
-    assert not (st / "pytorch_model.bin").exists()
-    with pytest.raises(ValueError, match=r"\.npz"):
-        load_vit_params(str(st), cfg)
+    assert sorted(p.name for p in st.iterdir()) == ["config.json", "model.safetensors"]
+    same(st)
+    for k, v in load_vit_params(str(st), cfg).items():
+        torch.testing.assert_close(v, loaded[k], rtol=0, atol=0)
+    fx = tmp_path / "flax_dir"
+    from transformers import FlaxViTModel
+
+    flax_vit = FlaxViTModel(hf_cfg, seed=1)
+    flax_vit.save_pretrained(str(fx))
+    assert (fx / "flax_model.msgpack").exists()
+    same(fx)
+    fx_st = tmp_path / "flax_safetensors"  # flax paths joined with "."
+    flax_vit.save_pretrained(str(fx_st), safe_serialization=True)
+    assert (fx_st / "model.safetensors").exists() and not (fx_st / "flax_model.msgpack").exists()
+    same(fx_st)
+    # safetensors.numpy files: f32 and f16 under the torch names, a bf16
+    # file through safetensors.torch
+    from safetensors.numpy import save_file
+    from safetensors.torch import save_file as save_torch
+
+    for dtype in (np.float32, np.float16, "bf16"):
+        d = tmp_path / f"st_{dtype if isinstance(dtype, str) else np.dtype(dtype).name}"
+        d.mkdir()
+        (d / "config.json").write_bytes((ckdir / "config.json").read_bytes())
+        if dtype == "bf16":
+            save_torch({k: v.to(torch.bfloat16).contiguous() for k, v in hf.state_dict().items()},
+                       str(d / "model.safetensors"), metadata={"format": "pt"})
+        else:
+            save_file({k: v.numpy().astype(dtype) for k, v in hf.state_dict().items()},
+                      str(d / "model.safetensors"), metadata={"format": "pt"})
+        same(d)
+    bare = tmp_path / "config_only"
+    bare.mkdir()
+    (bare / "config.json").write_bytes((ckdir / "config.json").read_bytes())
+    with pytest.raises(ValueError, match="flax_model.msgpack, model.safetensors or "
+                                         "pytorch_model.bin"):
+        load_vit_params(str(bare), cfg)
+
+
+def test_msgpack_reader_matches_flax(monkeypatch):
+    """``utils/serialization.msgpack_restore`` against flax's on what
+    ``msgpack_serialize`` writes: every msgpack width of maps, arrays,
+    strings and integers, floats, booleans, nil, bytes, array leaves of
+    several dtypes (bfloat16 widened to float32), numpy scalars, a complex
+    number, and an array cut into chunks."""
+    from flax import serialization
+
+    from vlgae_tpu_torch.utils.serialization import msgpack_restore
+
+    rng = np.random.default_rng(4)
+    tree = {
+        "ints": [0, 1, 127, 128, 255, 256, 65535, 65536, 2 ** 32, 2 ** 40, -1, -32, -33,
+                 -128, -129, -32768, -32769, -2 ** 31 - 1, -2 ** 40],
+        "floats": [0.5, -1e300, float("inf")], "flags": [True, False, None],
+        "strs": ["", "a" * 31, "b" * 32, "c" * 255, "d" * 256, "é" * 40000],
+        "bytes": [b"", b"x" * 300, b"y" * 70000],
+        "big_map": {f"k{i}": i for i in range(20)},
+        "long_list": list(range(20)),
+        "nested": {"a": {"b": {"c": np.arange(6, dtype=np.int64).reshape(2, 3)}}},
+        "f32": rng.standard_normal((3, 4)).astype(np.float32),
+        "f16": rng.standard_normal(5).astype(np.float16),
+        "i8": np.arange(-3, 3, dtype=np.int8), "bool": np.array([True, False]),
+        "empty": np.zeros((0, 2), np.float32), "scalar_array": np.array(2.5, np.float32),
+        "bf16": jnp.asarray(rng.standard_normal((2, 3)), jnp.bfloat16),
+        "np_scalar": np.float32(1.25), "complex": 1 + 2j,
+    }
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
+    tree["chunked"] = rng.standard_normal((7, 9)).astype(np.float32)
+    data = serialization.msgpack_serialize(tree)
+    want, got = serialization.msgpack_restore(data), msgpack_restore(data)
+
+    def same(g, w, path):
+        if isinstance(w, dict):
+            assert isinstance(g, dict) and sorted(g) == sorted(w), path
+            for k in w:
+                same(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, (list, tuple)):
+            assert len(g) == len(w), path
+            for i, (a, b) in enumerate(zip(g, w)):
+                same(a, b, f"{path}/{i}")
+        elif isinstance(w, (np.ndarray, np.generic)) or hasattr(w, "dtype"):
+            w = np.asarray(w)
+            if w.dtype == jnp.bfloat16:
+                w = w.astype(np.float32)
+            assert np.asarray(g).dtype == w.dtype and np.shape(g) == w.shape, path
+            np.testing.assert_array_equal(g, w, err_msg=path)
+        else:
+            assert type(g) is type(w) and g == w, path
+
+    same(got, want, "")
+    with pytest.raises(ValueError, match="truncated"):
+        msgpack_restore(data[:-3])
 
 
 def test_graft_vit_params_needs_a_backbone():

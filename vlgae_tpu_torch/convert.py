@@ -9,7 +9,9 @@ flax paths, so a key maps mechanically:
   ``nn.Linear``; a ``LayerNorm`` ``scale`` is its ``weight``;
 * a flax ``Conv`` ``kernel [kh, kw, in, out]`` (the ViT's patch
   projection) is a ``weight [out, in, kh, kw]``: the axes are permuted, not
-  reversed, so a square patch cannot hide a swap of kh and kw;
+  reversed, so a square patch cannot hide a swap of kh and kw; a 1-D
+  ``Conv`` ``kernel [k, in, out]`` (the char-CNN's ``conv<k>``) is a
+  ``Conv1d`` ``weight [out, in, k]``;
 * the ``Dense_0`` inside ``MLP`` / ``MLPEncoder`` is ``linear``; the
   ``RNNEncoder``'s projections are flax's ``Dense_0`` and ``Dense_1`` in
   the order it makes them (``reproject_emb`` first), so its first is
@@ -21,9 +23,12 @@ flax paths, so a key maps mechanically:
   ``encoder/fwd_0/cell/OptimizedLSTMCell_0/{ii..io,hi..ho}``, the mix
   ``encoder/ScalarMix_0/{weights,gamma}``, the variational layers
   ``variational_enc``, ``target_mean``/``target_lvar`` of the parser and
-  ``embedding/<item>/{enc,target_mean,target_lvar}`` of an embedding item)
-  keeps its path, as do the ViT's ``cls_token`` and ``position_embeddings`` under
-  ``.../vis_encoder/vit/embeddings``. The stand-alone parser of
+  ``embedding/<item>/{enc,target_mean,target_lvar}`` of an embedding item,
+  the char-CNN's ``char_embedding`` and ``proj``, the image head
+  ``img_fc``, a ``MultiEncoder``'s sub-encoders under flax's
+  ``encoders_<i>_1``) keeps its path, as do the ViT's ``cls_token`` and
+  ``position_embeddings`` under ``.../vis_encoder/vit/embeddings``. The BERT
+  tree is the same at any width (layers ``encoder/layer/<k>``). The stand-alone parser of
   ``exp=lang_only`` has the same names without the joint model's
   ``dependency/`` prefix.
 
@@ -43,16 +48,18 @@ import numpy as np
 import torch
 
 _BOTTLENECK = ("HASCHILD", "NOCHILD", "LEFT", "RIGHT")
-# a flax Conv kernel [kh, kw, in, out] <-> a torch weight [out, in, kh, kw]
-_CONV_TO_TORCH, _CONV_TO_FLAX = (3, 2, 0, 1), (2, 3, 1, 0)
+# a flax Conv kernel [kh, kw, in, out] <-> a torch weight [out, in, kh, kw];
+# [k, in, out] <-> [out, in, k]; a Dense kernel [in, out] <-> [out, in]
+_TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_TO_FLAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
-    return arr.transpose(_CONV_TO_TORCH) if arr.ndim == 4 else arr.T
+    return arr.transpose(_TO_TORCH[arr.ndim])
 
 
 def _kernel_to_flax(arr: np.ndarray) -> np.ndarray:
-    return arr.transpose(_CONV_TO_FLAX) if arr.ndim == 4 else arr.T
+    return arr.transpose(_TO_FLAX[arr.ndim])
 
 
 def _flax_to_torch_key(path: str):
@@ -94,7 +101,7 @@ def torch_to_flax_key(key: str, ndim: int) -> str:
         i += 1
     leaf = parts[-1]
     if leaf == "weight":
-        leaf = "kernel" if ndim in (2, 4) else "scale"
+        leaf = "kernel" if ndim in (2, 3, 4) else "scale"
     return "/".join(out + [leaf])
 
 

@@ -2,7 +2,7 @@
 
 from .conll import read_conll, write_conll_rows
 from .datamodule import DepDataModule, VLParseDataModule, normalize_word
-from .subword import HashSubwordTokenizer, attach_subwords
+from .subword import HashSubwordTokenizer, WordPieceTokenizer, attach_subwords
 
 __all__ = [
     "read_conll",
@@ -11,5 +11,6 @@ __all__ = [
     "VLParseDataModule",
     "normalize_word",
     "HashSubwordTokenizer",
+    "WordPieceTokenizer",
     "attach_subwords",
 ]

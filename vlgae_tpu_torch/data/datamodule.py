@@ -8,7 +8,14 @@ the collate of the training splits adds the rule-count targets of
 ``vis_source: pixels`` (``exp=vlgae_vit``) the batches carry raw pixels and
 the ViT patch grid as boxes (:class:`PixelLoader`). With ``load_vis=False``
 (a recipe without a visual encoder, ``exp=lang_only``) no region feature is
-read or batched.
+read or batched. ``DepDataModule`` reads a plain CoNLL corpus; its options
+``use_char`` (a ``[B, L, max_word_len]`` char-id field over a char vocabulary
+of the training words), ``ignore_stop_word`` (NLTK's English stop words kept
+out of the ``num_lex`` lexicalised words when the corpus is installed,
+nothing otherwise; nothing is downloaded) and, for VLParse,
+``use_gold_scene_graph`` and ``use_img`` (``<split>.npy`` whole-image
+features, one row an image, batched as ``vis_img``) are those of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -121,6 +128,9 @@ class DataModule:
             if vocab is None:
                 raise ValueError(f"vocab {name} not initialised")
 
+    def get_vocab_count(self):
+        return {f"n_{k}": len(v) for k, v in self.vocabs.items()}
+
     def apply_max_len(self):
         for name, limit in self.max_len.items():
             if name in self.datasets and limit:
@@ -219,20 +229,23 @@ class DepDataModule(DataModule):
 
     def __init__(self, use_tag=True, num_lex=0, num_token=99999,
                  ignore_stop_word=False, headers=None, indexes=None,
-                 use_char=False, **kw):
-        if use_char:
-            raise NotImplementedError("use_char (the char-CNN item) is not ported")
-        if ignore_stop_word:
-            raise NotImplementedError("ignore_stop_word is not ported")
+                 use_char=False, max_word_len=20, **kw):
         assert num_lex > 0 or use_tag, "nothing to build token"
         self.headers = headers or ["raw_word", "tag", "arc"]
         self.indexes = indexes or [1, 2, 3]
         self.use_tag = use_tag
+        self.use_char = use_char
+        self.max_word_len = max_word_len
         if use_tag:
             self.INPUTS = self.INPUTS + ("tag",)
             self.EXTRA_VOCAB = self.EXTRA_VOCAB + ("tag",)
+        if use_char:
+            self.INPUTS = self.INPUTS + ("char",)
         self.num_lex = num_lex
         self.num_token = num_token
+        self.ignore_stop_word = ignore_stop_word
+        # which stop-word list ``post_init_vocab`` used: "nltk", "empty" or None
+        self.stop_words_source = None
         super().__init__(**kw)
         self.vocabs["token"] = None  # manual init
         self.include_init_rules = False
@@ -265,6 +278,15 @@ class DepDataModule(DataModule):
         (ref: task/dep.py:81-132)."""
         from collections import Counter
 
+        if self.use_char:
+            # the char vocabulary of the training words (for CharItem)
+            cv = Vocabulary()
+            for inst in self.datasets["train"]:
+                for w in inst["word"]:
+                    cv.update(list(w.lower()))
+            cv.build()
+            self.vocabs["char"] = cv
+
         if self.token_mode == "tag":
             self.vocabs["token"] = self.vocabs["tag"]
             self.token2tag = list(range(len(self.vocabs["token"])))
@@ -277,7 +299,20 @@ class DepDataModule(DataModule):
             if self.token_mode == "joint":
                 count.update(zip(lowered, inst["tag"]))
 
-        used = set(w for w, _ in word_count.most_common(self.num_lex))
+        if self.ignore_stop_word:
+            try:
+                from nltk.corpus import stopwords
+
+                sw = set(stopwords.words("english"))
+                self.stop_words_source = "nltk"
+            except (ImportError, LookupError, OSError):  # no nltk, or no corpus
+                sw = set()
+                self.stop_words_source = "empty"
+            used = [w for w, _ in word_count.most_common(self.num_lex + len(sw))
+                    if w not in sw][: self.num_lex]
+            used = set(used)
+        else:
+            used = set(w for w, _ in word_count.most_common(self.num_lex))
 
         processed = {}
         if self.token_mode == "joint":
@@ -322,6 +357,7 @@ class DepDataModule(DataModule):
         batch per epoch is pure host-side waste."""
         wv, tv = self.vocabs["word"], self.vocabs.get("tag")
         kv = self.vocabs["token"]
+        cv = self.vocabs.get("char")
         inst["_word_ids"] = np.array([wv[w] for w in inst["word"]],
                                      np.int32)
         inst["_token_ids"] = np.array([kv[t] for t in inst["token"]],
@@ -329,6 +365,13 @@ class DepDataModule(DataModule):
         if self.use_tag:
             inst["_tag_ids"] = np.array([tv[t] for t in inst["tag"]],
                                         np.int32)
+        if self.use_char:
+            W = self.max_word_len
+            chars = np.zeros((len(inst["word"]), W), np.int32)
+            for i, w in enumerate(inst["word"]):
+                cs = [cv[c] for c in w.lower()[:W]]
+                chars[i, : len(cs)] = cs
+            inst["_char_ids"] = chars
         return inst
 
     def collate(self, name, insts, pad_len):
@@ -341,6 +384,8 @@ class DepDataModule(DataModule):
         }
         if self.use_tag:
             x["tag"] = np.zeros((B, L), np.int32)
+        if self.use_char:
+            x["char"] = np.zeros((B, L, self.max_word_len), np.int32)
         y = {"arc": np.zeros((B, L), np.int32)}
         for b, inst in enumerate(insts):
             n = inst["seq_len"]
@@ -350,6 +395,8 @@ class DepDataModule(DataModule):
             x["token"][b, :n] = inst["_token_ids"]
             if self.use_tag:
                 x["tag"][b, :n] = inst["_tag_ids"]
+            if self.use_char:
+                x["char"][b, :n] = inst["_char_ids"]
             y["arc"][b, :n] = inst["arc"]
         if self.include_init_rules and name in ("train", "train_init"):
             from ..models.dmv_init import generate_rule_1o
@@ -381,9 +428,7 @@ class VLParseDataModule(DepDataModule):
                  vis_source="det_feats", vit_image_size=224,
                  vit_patch_size=32, load_vis=True, **kw):
         self.load_vis = bool(load_vis)
-        # whole-image features feed vis_encoder.use_img, which is not ported
-        if use_img:
-            raise NotImplementedError("use_img (whole-image features) is not ported")
+        self.use_img = use_img
         self.use_gold_scene_graph = use_gold_scene_graph
         self.pad_boxes = pad_boxes
         self.sample_boxes = sample_boxes
@@ -421,9 +466,15 @@ class VLParseDataModule(DepDataModule):
             img_id = [int(line.strip()) for line in f]
         if len(img_id) != len(insts):
             img_id = [i for i in img_id for _ in range(5)]
+        # whole-image features, one row an image (five captions each)
+        img_feat = None
+        if self.load_vis and self.use_img and os.path.exists(path + ".npy"):
+            img_feat = np.load(path + ".npy").repeat(5, 0)
         for i, inst in enumerate(insts):
             inst["img_id"] = img_id[i]
             inst["img_sent_id"] = i % 5
+            if img_feat is not None and i < len(img_feat):
+                inst["vis_img"] = img_feat[i]
             self._process_sg(inst)
         feat_dir = Path(folder) / (
             "gold_feats" if self.use_gold_scene_graph else "det_feats"
@@ -492,6 +543,8 @@ class VLParseDataModule(DepDataModule):
             y["vis_box"] = vis.pop("vis_box")
             x.update(vis)
         x["img_id"] = np.array([i["img_id"] for i in insts], np.int64)
+        if "vis_img" in insts[0]:
+            x["vis_img"] = np.stack([i["vis_img"] for i in insts]).astype(np.float32)
         return x, y
 
 

@@ -1,23 +1,29 @@
 """Composite embeddings: static word and tag items (with their variational
-VAE/IB heads) and the subword BERT item (counterpart of
+VAE/IB heads), the char-CNN item and the subword BERT item (counterpart of
 vlgae_tpu/models/embedding.py), with the independent dropout across items in
 training, and the GloVe loader of the word table.
 
-The JAX package runs transformers' ``FlaxBertModule``; the card has no
-``transformers``, so :class:`Bert` is a small BERT encoder written here
+The JAX package runs transformers' ``FlaxBertModule``; the port imports
+no ``transformers`` (no package its card is sure to have), so
+:class:`Bert` is a small BERT encoder written here
 with the same parameter tree (``embeddings``, ``encoder.layer.<k>``):
 word + position + token-type embeddings and LayerNorm, then layers of
 self-attention and a GELU feed-forward, each closed by a residual
-LayerNorm. Flax's conventions are kept: LayerNorm eps 1e-12, exact GELU,
+LayerNorm. Flax's conventions are kept: the config's LayerNorm eps (1e-12
+by default), exact GELU,
 masked keys get the bias ``finfo(f32).min``. Attention is a plain matmul
 and softmax. A frozen BERT (``requires_grad: false``, the recipe) runs
 under ``torch.no_grad()``, as the JAX package stops its gradient, and its
-parameters stay out of the optimizer.
+parameters stay out of the optimizer. Its shape is the JAX package's
+fallback (:class:`BertConfig`) or a local directory's ``config.json``
+(:meth:`BertConfig.from_dir`, read with ``json``: no ``transformers``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,7 +40,7 @@ class EmbeddingItemCfg:
 
     name: str
     field: str
-    kind: str  # 'static' | 'transformer'
+    kind: str  # 'static' | 'transformer' | 'char'
     n_vocab: int = 0
     embedding_dim: int = 100
     mode: str = "basic"  # 'basic' | 'vae' | 'ib'
@@ -48,6 +54,10 @@ class EmbeddingItemCfg:
     pooling: str = "mean"  # first | last | mean
     stride: int = 256
     layer_dropout: float = 0.0  # ScalarMix layer dropout
+    # char-only
+    char_dim: int = 50
+    kernel_sizes: Tuple[int, ...] = (1, 3, 5)
+    filter_nums: Tuple[int, ...] = (20, 30, 40)
 
     @property
     def embed_size(self) -> int:
@@ -58,10 +68,20 @@ class EmbeddingItemCfg:
         return self.embedding_dim
 
 
+# transformers' BertConfig defaults, for the fields a config.json leaves out
+_HF_BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, intermediate_size=3072,
+                max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12)
+# the values of the fields that change the function, as the port's Bert computes it
+_BERT_FIXED = {"model_type": "bert", "hidden_act": "gelu",
+               "position_embedding_type": "absolute"}
+
+
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
-    """The random-init BERT of ``exp=vlgae`` when no local checkpoint
-    directory exists (vlgae_tpu/training/factory.py ``_bert_config``)."""
+    """The BERT's shape. The defaults are the random-init BERT of
+    ``exp=vlgae`` when no local checkpoint directory exists
+    (vlgae_tpu/training/factory.py ``_bert_config``)."""
 
     vocab_size: int = 8192
     hidden_size: int = 128
@@ -71,6 +91,25 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+
+    @classmethod
+    def from_dir(cls, path: str) -> "BertConfig":
+        """The shape in ``<path>/config.json`` (a field it leaves out takes
+        transformers' default). A value the port's :class:`Bert` does not
+        compute (another ``model_type``, ``hidden_act`` or
+        ``position_embedding_type``, heads that do not divide the width)
+        raises a ``ValueError``."""
+        with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+            disk = json.load(f)
+        for key, want in _BERT_FIXED.items():
+            if disk.get(key, want) != want:
+                raise ValueError(f"{path}/config.json: {key}={disk[key]!r}; the port's "
+                                 f"Bert computes {key}={want!r} only")
+        c = cls(**{k: type(v)(disk.get(k, v)) for k, v in _HF_BERT.items()})
+        if c.hidden_size % c.num_attention_heads:
+            raise ValueError(f"{path}/config.json: hidden_size {c.hidden_size} is not a "
+                             f"multiple of num_attention_heads {c.num_attention_heads}")
+        return c
 
 
 class StaticItem(Dropping):
@@ -123,6 +162,42 @@ class StaticItem(Dropping):
 
     def forward(self, ids):
         return self.embed(ids)[0]
+
+
+class CharItem(nn.Module):
+    """Char-CNN word embeddings: characters through a ``char_dim`` table,
+    one 1-D convolution a ``(kernel_size, filter_num)`` pair along the word
+    with flax's "SAME" padding (``k - 1`` in all, the larger half on the
+    right), ReLU, a max over the word's characters (padding ones masked
+    with -1e9), and ``proj`` to ``embedding_dim``. Char id 0 is padding; a
+    word of padding only embeds to exactly 0."""
+
+    def __init__(self, cfg: EmbeddingItemCfg):
+        super().__init__()
+        self.cfg = cfg
+        self.char_embedding = nn.Parameter(torch.randn(cfg.n_vocab, cfg.char_dim))
+        for k, nf in zip(cfg.kernel_sizes, cfg.filter_nums):
+            self.add_module(f"conv{k}", nn.Conv1d(cfg.char_dim, nf, k))
+        self.proj = nn.Linear(sum(cfg.filter_nums), cfg.embedding_dim)
+
+    def embed(self, chars):
+        """``([B, L, embedding_dim], None)`` of char ids ``[B, L, W]``."""
+        B, L, W = chars.shape
+        chars = chars.reshape(B * L, W).long()
+        cmask = (chars > 0)[..., None]  # [BL, W, 1]
+        h = torch.where(cmask, F.embedding(chars, self.char_embedding), 0.0)
+        h = h.transpose(1, 2)  # [BL, C, W]
+        pooled = []
+        for k in self.cfg.kernel_sizes:
+            c = getattr(self, f"conv{k}")(F.pad(h, ((k - 1) // 2, k // 2)))
+            c = torch.where(cmask, torch.relu(c.transpose(1, 2)), -1e9)
+            pooled.append(c.amax(1))
+        out = self.proj(torch.cat(pooled, -1))
+        out = torch.where(cmask.any(1), out, 0.0)
+        return out.view(B, L, -1), None
+
+    def forward(self, chars):
+        return self.embed(chars)[0]
 
 
 class _Table(nn.Module):
@@ -323,6 +398,8 @@ class CompositeEmbedding(Dropping):
             elif cfg.kind == "static":
                 mod = StaticItem(cfg, (pretrained or {}).get(cfg.name),
                                  (row_maps or {}).get(cfg.name))
+            elif cfg.kind == "char":
+                mod = CharItem(cfg)
             else:
                 raise NotImplementedError(f"embedding kind {cfg.kind!r} is not ported")
             self.add_module(cfg.name, mod)

@@ -1,8 +1,11 @@
 """Text encoders (counterpart of vlgae_tpu/models/text_encoder.py):
-the ``MLPEncoder`` of ``exp=vlgae`` and the BiLSTM ``RNNEncoder`` of
-``exp=lang_only``."""
+the ``MLPEncoder`` of ``exp=vlgae``, the BiLSTM ``RNNEncoder`` of
+``exp=lang_only``, the dropout-only ``BlankEncoder`` (any other encoder
+``_target_``) and the ``MultiEncoder`` that joins named sub-encoders."""
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +26,9 @@ class MLPEncoder(Dropping):
         self.dropout = dropout
         self.shared_dropout = shared_dropout
 
+    def get_dim(self, field: str = "x") -> int:
+        return self.n_hidden
+
     def forward(self, emb, mask):
         x = self.linear(emb)
         if self.active(self.dropout):
@@ -31,6 +37,60 @@ class MLPEncoder(Dropping):
             p = self.shared_dropout
             x = shared_dropout(x, p, self.keep_mask(shared_keep_shape(x), p, x))
         return {"x": x}
+
+
+class BlankEncoder(Dropping):
+    """The embedding passed through, with element-wise dropout in
+    training."""
+
+    def __init__(self, n_in: int, dropout: float = 0.0):
+        super().__init__()
+        self.n_hidden = n_in
+        self.dropout = dropout
+
+    def get_dim(self, field: str = "x") -> int:
+        return self.n_hidden
+
+    def forward(self, emb, mask):
+        x = emb
+        if self.active(self.dropout):
+            x = x * self.keep_mask(x.shape, self.dropout, x) / (1 - self.dropout)
+        return {"x": x}
+
+
+class MultiEncoder(nn.Module):
+    """Named sub-encoders over the same embedding, and a field mapping:
+    each output field is the concatenation of ``<encoder>.<field>``
+    sources. The sub-encoders sit under flax's names for them
+    (``encoders_<i>_1``, ``i`` their position), so their parameters carry
+    over from the JAX package by name."""
+
+    def __init__(self, encoders: Sequence[Tuple[str, nn.Module]],
+                 mapping: Sequence[Tuple[str, Sequence[str]]]):
+        super().__init__()
+        self.names = {}
+        for i, (name, enc) in enumerate(encoders):
+            self.add_module(f"encoders_{i}_1", enc)
+            self.names[name] = f"encoders_{i}_1"
+        self.mapping = tuple((field, tuple(src)) for field, src in mapping)
+
+    def encoder(self, name: str) -> nn.Module:
+        return getattr(self, self.names[name])
+
+    def get_dim(self, field: str = "x") -> int:
+        for out_field, sources in self.mapping:
+            if out_field == field:
+                return sum(self.encoder(src.split(".")[0]).get_dim(src.split(".")[1])
+                           for src in sources)
+        raise KeyError(field)
+
+    def forward(self, emb, mask):
+        outs = {name: self.encoder(name)(emb, mask) for name in self.names}
+        result = {}
+        for out_field, sources in self.mapping:
+            parts = [outs[e][f] for e, f in (src.split(".") for src in sources)]
+            result[out_field] = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+        return result
 
 
 class _Gates(nn.Module):
@@ -170,6 +230,9 @@ class RNNEncoder(Dropping):
     def n_hidden(self) -> int:
         """The width of ``x``."""
         return self._n_out
+
+    def get_dim(self, field: str = "x") -> int:
+        return self.n_hidden
 
     @property
     def hx_size(self) -> int:

@@ -2,7 +2,10 @@
 ``VisBoxRelSimpleEncoder``).
 
 Box / relation (box-pair) / attribute factor embeddings from Faster-RCNN
-box features. The pairwise-mean relation MLP is factorized: each box is
+box features, and with ``use_img`` an image embedding (``img_fc`` over the
+mean box feature, ``out["img"]``; the joint model's image factor is the
+mean box factor, as in the JAX package, so nothing reads it). The
+pairwise-mean relation MLP is factorized: each box is
 projected once and the pair sum is taken before the activation, so the
 ``[B, P, P, 2H]`` input never exists. At eval the relation group covers
 the full ``P * P`` pair axis; in training the caller may ask for only the
@@ -16,8 +19,10 @@ with the patch grid of a ViT over raw pixels: every patch is a "box" whose
 geometry is its rectangle (:func:`patch_boxes`). The port builds the ViT
 itself: the computation of ``transformers``' ``FlaxViTModule`` without its
 pooler, always in f32, under HF's module names. :func:`load_vit_params`
-reads pretrained backbone weights and :func:`graft_vit_params` puts them
-into a model.
+reads pretrained backbone weights (an ``.npz``, a flax ``.msgpack`` or a
+HF checkpoint directory, through the readers of
+:mod:`vlgae_tpu_torch.utils.serialization`) and :func:`graft_vit_params`
+puts them into a model.
 """
 
 from __future__ import annotations
@@ -40,8 +45,6 @@ class VisBoxRelSimpleEncoder(Dropping):
                  use_attr: bool = True, use_img: bool = False,
                  img_feat: bool = True, dtype=None, dropout: float = 0.0):
         super().__init__()
-        if use_img:
-            raise NotImplementedError("vis_encoder.use_img is not ported")
         d_in = 2 * n_in if img_feat else n_in
         self.img_feat = img_feat
         self.activate = activate
@@ -52,6 +55,8 @@ class VisBoxRelSimpleEncoder(Dropping):
         self.box_fc = MLP(d_in, n_hidden, activate, dtype=dtype, dropout=dropout)
         self.attr_fc = (MLP(d_in, n_hidden, activate, dtype=dtype, dropout=dropout)
                         if use_attr else None)
+        self.img_fc = (MLP(n_in, n_hidden, activate, dtype=dtype, dropout=dropout)
+                       if use_img else None)
 
     def forward(self, x, rel_pairs=None):
         """``rel_pairs``: optional ``(i_idx, j_idx)`` box-pair index tensors
@@ -83,6 +88,8 @@ class VisBoxRelSimpleEncoder(Dropping):
         out = {"box": self.box_fc(inputs), "rel": rel}
         if self.attr_fc is not None:
             out["attr"] = self.attr_fc(inputs)
+        if self.img_fc is not None:
+            out["img"] = self.img_fc(feat.mean(1, keepdim=True))
         return out
 
 
@@ -265,19 +272,44 @@ class VisViTPatchEncoder(nn.Module):
         return self.head({"vis_box_feat": hidden}, rel_pairs=rel_pairs)
 
 
-_NPZ_ROUTE = (
-    "vit_weights at {path}: {what} cannot be read here (no flax, msgpack or "
-    "safetensors); give an .npz of '/'-joined flax paths instead, written "
-    "where JAX runs: np.savez(out, **{{'/'.join(k): v for k, v in "
-    "flax.traverse_util.flatten_dict(vlgae_tpu.models.load_vit_params(path, "
-    "cfg)).items()}}), or a directory with config.json and pytorch_model.bin")
+def _flatten(tree, prefix=()) -> Dict[str, np.ndarray]:
+    """A nested dict of arrays as ``/``-joined paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out["/".join(prefix + (str(k),))] = np.asarray(v)
+    return out
+
+
+def _backbone(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The backbone's paths of a directory's flat flax params: unwrapped
+    from ``params``, and from ``vit`` for a ViTFor... head's tree."""
+    for prefix in ("params/", "vit/"):
+        if any(k.startswith(prefix) for k in flat) and not any(
+                k.startswith("embeddings/") for k in flat):
+            flat = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    return flat
+
+
+def _from_torch_state(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Flat flax params of a torch-layout state (a ViTFor... head keeps the
+    backbone under ``vit.``)."""
+    from ..convert import torch_to_flax
+
+    if any(k.startswith("vit.") for k in state):
+        state = {k[4:]: v for k, v in state.items() if k.startswith("vit.")}
+    return torch_to_flax({k: torch.from_numpy(np.array(v, np.float32))
+                          for k, v in state.items()})
 
 
 def _hf_dir_params(path: str, vit_config: ViTConfig) -> Dict[str, np.ndarray]:
-    """Flat flax params of a HF checkpoint directory (``config.json`` and a
-    torch ``pytorch_model.bin``), its dimensions checked against the
-    recipe's."""
-    from ..convert import torch_to_flax
+    """Flat flax params of a HF checkpoint directory (``config.json`` and
+    the first of ``flax_model.msgpack``, ``model.safetensors`` and
+    ``pytorch_model.bin``, the order in which transformers' flax loader
+    looks), its dimensions checked against the recipe's."""
+    from ..utils.serialization import msgpack_restore, read_safetensors
 
     with open(os.path.join(path, "config.json")) as f:
         disk = json.load(f)
@@ -289,30 +321,38 @@ def _hf_dir_params(path: str, vit_config: ViTConfig) -> Dict[str, np.ndarray]:
                 f"vit_weights checkpoint at {path} has {key}={got} but the "
                 f"recipe's vis_encoder expects {key}={want}; align "
                 "vis_encoder.vit_* with the checkpoint")
+    flax_path = os.path.join(path, "flax_model.msgpack")
+    st_path = os.path.join(path, "model.safetensors")
     bin_path = os.path.join(path, "pytorch_model.bin")
-    if not os.path.exists(bin_path):
-        raise ValueError(_NPZ_ROUTE.format(
-            path=path, what="a directory without pytorch_model.bin"))
-    state = torch.load(bin_path, map_location="cpu", weights_only=True)
-    # a ViTFor... head keeps the backbone under ``vit.``
-    if any(k.startswith("vit.") for k in state):
-        state = {k[4:]: v for k, v in state.items() if k.startswith("vit.")}
-    return torch_to_flax({k: v.float() for k, v in state.items()})
+    if os.path.exists(flax_path):
+        with open(flax_path, "rb") as f:
+            return _backbone(_flatten(msgpack_restore(f.read())))
+    if os.path.exists(st_path):
+        tensors, meta = read_safetensors(st_path)
+        if meta.get("format") == "flax":  # flax paths joined with "."
+            return _backbone({k.replace(".", "/"): v for k, v in tensors.items()})
+        return _from_torch_state(tensors)
+    if os.path.exists(bin_path):
+        state = torch.load(bin_path, map_location="cpu", weights_only=True)
+        return _from_torch_state({k: v.float().numpy() for k, v in state.items()})
+    raise ValueError(f"vit_weights at {path}: a checkpoint directory needs "
+                     "flax_model.msgpack, model.safetensors or pytorch_model.bin")
 
 
 def load_vit_params(path, vit_config: ViTConfig) -> Dict[str, torch.Tensor]:
     """Pretrained backbone weights for :class:`VisViTPatchEncoder`
     (``vis_encoder.vit_weights``), as a ``state_dict`` of its ``vit``.
 
-    Accepted: an ``.npz`` of ``/``-joined flax paths (a leading ``params/``
-    is dropped), or a HF checkpoint directory with ``config.json`` and a
-    torch ``pytorch_model.bin`` (dimensions checked against the recipe's).
-    Every parameter the backbone has must be there with its flax shape,
-    else a ``ValueError`` names the missing or misshapen paths; extra
-    entries (a pooler) are ignored. A flax ``.msgpack`` or a directory
-    without ``pytorch_model.bin`` raises a ``ValueError`` that names the
-    ``.npz`` route."""
+    Accepted, as by vlgae_tpu's ``load_vit_params``: a HF checkpoint
+    directory (``config.json``, its dimensions checked against the recipe's,
+    and ``flax_model.msgpack``, ``model.safetensors`` or a torch
+    ``pytorch_model.bin``), an ``.npz`` of ``/``-joined flax paths, or any
+    other file as a flax msgpack of the backbone's tree. A tree or a set of
+    paths wrapped in ``params`` is unwrapped. Every parameter the backbone
+    has must be there with its flax shape, else a ``ValueError`` names the
+    missing or misshapen paths; extra entries (a pooler) are ignored."""
     from ..convert import flax_to_torch, torch_to_flax
+    from ..utils.serialization import msgpack_restore
 
     path = str(path)
     if os.path.isdir(path):
@@ -323,7 +363,11 @@ def load_vit_params(path, vit_config: ViTConfig) -> Dict[str, torch.Tensor]:
         if flat and all(k.startswith("params/") for k in flat):
             flat = {k[len("params/"):]: v for k, v in flat.items()}
     else:
-        raise ValueError(_NPZ_ROUTE.format(path=path, what="a flax msgpack file"))
+        with open(path, "rb") as f:
+            tree = msgpack_restore(f.read())
+        if isinstance(tree, dict) and set(tree) == {"params"}:
+            tree = tree["params"]
+        flat = _flatten(tree) if isinstance(tree, dict) else {}
     module = ViTModel(vit_config)
     want = torch_to_flax(module.state_dict())
     missing = [k for k in want if k not in flat]

@@ -21,7 +21,8 @@ import sys
 
 import torch
 
-from .data import HashSubwordTokenizer, VLParseDataModule, attach_subwords
+from .data import (DepDataModule, HashSubwordTokenizer, VLParseDataModule,
+                   WordPieceTokenizer, attach_subwords)
 from .training.factory import build_model
 from .training.pipeline import Pipeline, init_params
 from .utils.config import ConfigComposer, resolve
@@ -46,16 +47,24 @@ def compose(overrides) -> dict:
                    .compose("config_train", list(overrides)))
 
 
-def build_datamodule(cfg) -> VLParseDataModule:
-    """The set-up VLParse datamodule of ``cfg`` (with the subword cache)."""
+def build_datamodule(cfg) -> DepDataModule:
+    """The set-up datamodule of ``cfg``: ``VLParseDataModule`` when its
+    ``_target_`` names VLParse, else ``DepDataModule`` (a plain CoNLL
+    corpus); with the subword cache when the embedding uses subwords, from
+    the local BERT directory's WordPiece vocabulary when
+    ``transformer.args.model`` is one, else hashed."""
     dm_cfg = dict(cfg["datamodule"])
     target = dm_cfg.pop("_target_", "VLParseDataModule")
-    if "VLParse" not in target:
-        raise NotImplementedError(f"datamodule {target!r} is not ported")
-    # a recipe without a visual encoder reads and batches no region feature
-    dm = VLParseDataModule(load_vis=bool(cfg.get("vis_encoder")), **dm_cfg).setup()
-    if cfg.get("embedding", {}).get("use_subword"):
-        attach_subwords(dm, HashSubwordTokenizer())
+    if "VLParse" in target:
+        # a recipe without a visual encoder reads and batches no region feature
+        dm = VLParseDataModule(load_vis=bool(cfg.get("vis_encoder")), **dm_cfg).setup()
+    else:
+        dm = DepDataModule(**dm_cfg).setup()
+    emb = cfg.get("embedding", {})
+    if emb.get("use_subword"):
+        model_path = str(((emb.get("transformer") or {}).get("args") or {}).get("model", ""))
+        attach_subwords(dm, WordPieceTokenizer(model_path) if os.path.isdir(model_path)
+                        else HashSubwordTokenizer())
     return dm
 
 

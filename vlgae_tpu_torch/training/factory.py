@@ -15,7 +15,7 @@ from ..models.embedding import (BertConfig, CompositeEmbedding, EmbeddingItemCfg
 from ..models.joint import (ATTR_POS, OBJ_POS, REL_POS, DependencyBoxRel,
                             DependencyBoxRelConfig)
 from ..models.ldndmv import FUNCTION_POS, DiscriminativeNDMV, LDNDMVConfig
-from ..models.text_encoder import MLPEncoder, RNNEncoder
+from ..models.text_encoder import BlankEncoder, MLPEncoder, RNNEncoder
 from ..models.vis_encoder import VisBoxRelSimpleEncoder, VisViTPatchEncoder, ViTConfig
 
 
@@ -52,11 +52,9 @@ def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
     if emb_cfg.get("use_subword", False):
         args = (emb_cfg.get("transformer", {}) or {}).get("args", {}) or {}
         model_name = args.get("model", "bert-base-cased")
-        if os.path.isdir(str(model_name)):
-            raise NotImplementedError(
-                "a local pretrained BERT directory is not ported; the port "
-                "builds the random-init BERT of the JAX package")
-        bert_config = BertConfig()
+        # a local directory gives the shape (still random-init); else the fallback
+        bert_config = (BertConfig.from_dir(model_name) if os.path.isdir(str(model_name))
+                       else BertConfig())
         items.append(EmbeddingItemCfg(
             "transformer", "subword", "transformer",
             embedding_dim=bert_config.hidden_size,
@@ -96,8 +94,7 @@ def build_encoder(enc_cfg: Dict[str, Any], n_in: int):
             init_version=str(kw.get("init_version", "zy")),
             cat_emb=bool(kw.get("cat_emb", False)))
         return enc, enc.n_hidden
-    raise NotImplementedError(
-        f"encoder {target!r} is not ported (MLPEncoder and RNNEncoder only)")
+    return BlankEncoder(n_in, dropout=float(kw.get("dropout", 0.0))), n_in
 
 
 def _ldndmv_cfg(mcfg: Dict[str, Any]) -> LDNDMVConfig:
