@@ -213,6 +213,13 @@ KERNELS = {
         "source": "vlgae_tpu_torch/csrc/match_bwd.cu",
         "replaces": "vlgae_tpu/ops/match_pallas.py:267",
     },
+    # the data-parallel wrapper of K5/K6: a rank's captions against the
+    # all-gathered images
+    "match_maxes_sharded": {
+        "route": "cuda",
+        "source": "vlgae_tpu_torch/ops/match.py",
+        "replaces": "vlgae_tpu/ops/match_pallas.py:546",
+    },
 }
 # tolerances of the kernel/plain comparisons (f32, different sum orders)
 K1_TOTAL_ATOL, K1_TOTAL_RTOL = 1e-3, 1e-5
@@ -510,7 +517,6 @@ def _check_k5(args, exact, what):
 
     from vlgae_tpu_torch.ops.match import match_maxes_cuda, match_maxes_plain
 
-    vis, txt, vb, tb = args
     with torch.no_grad():
         k = match_maxes_cuda(*args)
         p = match_maxes_plain(*args)
@@ -524,6 +530,17 @@ def _check_k5(args, exact, what):
             live.any()) else 0.0
         if not (torch.equal(kv, pv) if exact else close(kv, pv, K5_ATOL, K5_RTOL)):
             raise AssertionError(f"K5 {name} disagrees {what}: max err {errs[name]}")
+    return k, errs, _check_k5_indices(k, p, args, exact, what)
+
+
+def _check_k5_indices(k, p, args, exact, what):
+    """The winner indices of K5's outputs ``k`` against the plain version's
+    ``p`` on ``args``: equal when ``exact``; otherwise an index may differ
+    only where the two winners tie within tolerance. Returns the mismatch
+    counts."""
+    import torch
+
+    vis, txt, vb, tb = args
 
     def att_at(b, a, q, v):
         x = (txt.float()[b, q] * vis.float()[a, v]).sum(-1)
@@ -543,7 +560,7 @@ def _check_k5(args, exact, what):
         raise AssertionError(f"K5 indices disagree {what}: {off}")
     if not (ok_q and ok_v):
         raise AssertionError(f"K5 indices disagree beyond ties {what}: {off}")
-    return k, errs, off
+    return off
 
 
 # (A, V, B, Q, D) that hit the edges of K5's tiles: chunks of 104 words (the
@@ -670,6 +687,7 @@ def phase_k5(state):
           "exact_on_ties_at": list(tie_shape), "timing": timing,
           "timing_V739_by_Q": by_q, "timing_vit": at_vit,
           "tolerance": [K5_ATOL, K5_RTOL]})
+    _k5_shards(state, rng, dev)
     t = timing[703]
     state["match_fwd"] = {
         "max_abs_err": max(max(timing[V]["max_abs_err"].values()) for V in timing),
@@ -681,6 +699,202 @@ def phase_k5(state):
         **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
         "at_vit_shapes": {what: {k: v for k, v in r.items() if k != "plan"}
                           for what, r in at_vit.items()}}
+
+
+# a data-parallel step's shards: every image (A = 64) against one rank's
+# captions at world 2, 4 and 8, at the recipe's longest captions
+SHARD_A, SHARD_V, SHARD_Q, SHARD_D = 64, 739, 114, 128
+SHARD_BS = (32, 16, 8)
+
+
+def _shard_bound(A, V, B, Q, D):
+    """K5's bound at (A images, B captions): bf16 operands and f32 masks read
+    once, four [B, A, Q|V] outputs written once, a multiply-add per (a, b, q,
+    v, d) at the bf16 peak."""
+    return bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q) + 8 * B * A * (Q + V),
+                 2 * A * B * Q * V * D, "bf16")
+
+
+def _k5_shards(state, rng, dev):
+    """K5 at A != B: each rank's captions against all 64 images. The shards'
+    outputs, concatenated over the ranks, equal K5 on the whole batch exactly
+    (quarter-integer and normal operands); each shard is held against the
+    plain version; each shard's time beside its bound."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_maxes_cuda, match_maxes_plain
+
+    A, V, Q, D = SHARD_A, SHARD_V, SHARD_Q, SHARD_D
+    out = {}
+    for kind in ("quarter", "random"):
+        vis, txt, vb, tb = _k5_inputs(rng, A, V, A, Q, D, dev, kind)
+        with torch.no_grad():
+            whole = match_maxes_cuda(vis, txt, vb, tb)
+        for Bl in SHARD_BS:
+            parts, errs = [], 0.0
+            for r in range(A // Bl):
+                rows = slice(r * Bl, (r + 1) * Bl)
+                args = (vis, txt[rows].contiguous(), vb, tb[rows].contiguous())
+                k, err, _ = _check_k5(args, kind == "quarter",
+                                      f"on caption shard {r} of {A // Bl} ({kind})")
+                parts.append(k)
+                errs = max(errs, err["logit_unmasked"], err["logit_v_unmasked"])
+            for name, i in (("logit", 0), ("logit_idx", 1), ("logit_v", 2), ("logit_v_idx", 3)):
+                if not torch.equal(torch.cat([p[i] for p in parts]), whole[i]):
+                    raise AssertionError(f"K5's {name} over {A // Bl} caption shards "
+                                         f"differs from the whole batch's ({kind})")
+            if kind == "random":
+                args = (vis, txt[:Bl].contiguous(), vb, tb[:Bl].contiguous())
+                out[Bl] = {"world": A // Bl, "shape": {"A": A, "B": Bl, "Q": Q, "V": V, "D": D},
+                           "max_abs_err_unmasked": errs,
+                           "ms": time_ms(lambda: match_maxes_cuda(*args)),
+                           "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
+                           "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=3,
+                                               warmup=1),
+                           **_shard_bound(A, V, Bl, Q, D)}
+    emit({"phase": "k5", "shards": out, "concatenation_exact": True,
+          "gathered_bytes_per_step": A * V * D * 2 + A * V * 4})
+    state["match_maxes_sharded"] = {
+        "k5_by_world": {out[b]["world"]: {k: out[b][k] for k in
+                                          ("ms", "device_ms", "plain_ms", "bound_ms")}
+                        for b in out}}
+
+
+def _k6_shards(state, rng, dev):
+    """K6 at A != B: each rank's backward (all images, its captions). The
+    ranks' ``dvis`` summed (what the reduce-scatter sums) equals the whole
+    batch's within the bf16 roundings of the partial sums and of the whole
+    (the unit roundoff 2^-8 of each partial's and of the whole's magnitude,
+    plus K6's f32 tolerance); ``dtxt``
+    concatenated equals the whole batch's exactly; each shard is held to the
+    plain version; each shard's time beside its bound."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_maxes_bwd_cuda, match_maxes_bwd_plain
+
+    A, V, Q, D = SHARD_A, SHARD_V, SHARD_Q, SHARD_D
+    vis, txt, li, lvi, dm, dmv = _match_bwd_inputs(rng, A, V, A, Q, D, dev, "random")
+    whole_dvis, whole_dtxt = match_maxes_bwd_cuda(vis, txt, li, lvi, dm, dmv)
+    out = {}
+    for Bl in SHARD_BS:
+        dvis = torch.zeros(vis.shape, dtype=torch.float32, device=dev)
+        mag = whole_dvis.float().abs()
+        dtxt, err = [], 0.0
+        for r in range(A // Bl):
+            rows = slice(r * Bl, (r + 1) * Bl)
+            args = (vis, txt[rows].contiguous(), li[rows].contiguous(),
+                    lvi[rows].contiguous(), dm[rows].contiguous(), dmv[rows].contiguous())
+            err = max(err, _check_k6(args, False, f"on caption shard {r} of {A // Bl}"))
+            part, t = match_maxes_bwd_cuda(*args)
+            dvis += part.float()
+            mag += part.float().abs()
+            dtxt.append(t)
+        gap = (dvis - whole_dvis.float()).abs()
+        if not bool((gap <= 2.0 ** -8 * mag + K6_ATOL).all()):
+            raise AssertionError(f"K6's dvis summed over {A // Bl} shards differs from the "
+                                 f"whole batch's: max {float(gap.max())}")
+        if not torch.equal(torch.cat(dtxt), whole_dtxt):
+            raise AssertionError(f"K6's dtxt over {A // Bl} shards differs from the whole's")
+        args = (vis, txt[:Bl].contiguous(), li[:Bl].contiguous(), lvi[:Bl].contiguous(),
+                dm[:Bl].contiguous(), dmv[:Bl].contiguous())
+        out[Bl] = {"world": A // Bl, "max_abs_err": err, "dvis_sum_max_gap": float(gap.max()),
+                   "dvis_sum_gap_over_magnitude": float((gap / mag.clamp_min(1e-30)).max()),
+                   "ms": time_ms(lambda: match_maxes_bwd_cuda(*args)),
+                   "device_ms": device_ms(lambda: match_maxes_bwd_cuda(*args), n=10),
+                   "plain_ms": time_ms(lambda: match_maxes_bwd_plain(*args), reps=3, warmup=1),
+                   **_k6_bound(*args)}
+    emit({"phase": "k6", "shards": out, "shape": {"A": A, "Q": Q, "V": V, "D": D},
+          "dtxt_concatenation_exact": True})
+    state["match_maxes_sharded"]["k6_by_world"] = {
+        out[b]["world"]: {k: out[b][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "dvis_sum_max_gap")} for b in out}
+
+
+def _sharded_wrapper(state, rng, dev):
+    """``match_maxes_sharded`` itself on the card: each rank's call after
+    the gather (all 64 images, its captions; no group on one card), forward
+    and backward through autograd, held against the plain versions on the
+    same shard. On quarter-integer operands and cotangents, for every shard
+    at world 2, 4 and 8, all four outputs and both gradients are equal. On
+    normal ones (a rank's shard at each world) the values are within K5's
+    tolerance, an index differs only at a tie, and the gradients are within
+    K6's tolerance of the plain backward routed by the wrapper's own
+    winners. Timed (forward and backward) at world 2 beside the sum of K5's
+    and K6's bounds."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import (match_maxes_bwd_plain, match_maxes_plain,
+                                           match_maxes_sharded)
+
+    A, V, Q, D = SHARD_A, SHARD_V, SHARD_Q, SHARD_D
+
+    def wrapper(vis, txt, vb, tb, dm, dmv):
+        vis, txt = vis.detach().requires_grad_(True), txt.detach().requires_grad_(True)
+        out = match_maxes_sharded(vis, txt, vb, tb, None)
+        ((out[0] * dm).sum() + (out[2] * dmv).sum()).backward()
+        return (*(o.detach() for o in out), vis.grad, txt.grad)
+
+    def plain(vis, txt, vb, tb, dm, dmv):
+        out = match_maxes_plain(vis, txt, vb, tb)
+        return (*out, *match_maxes_bwd_plain(vis, txt, out[1], out[3], dm, dmv))
+
+    names = ("logit", "logit_idx", "logit_v", "logit_v_idx", "dvis", "dtxt")
+    errs, ties = dict.fromkeys(("logit", "logit_v", "dvis", "dtxt"), 0.0), {}
+    for kind in ("quarter", "random"):
+        vis, txt, vb, tb = _k5_inputs(rng, A, V, A, Q, D, dev, kind)
+        draw = ((lambda *sh: rng.integers(-8, 9, sh) * 0.25) if kind == "quarter"
+                else lambda *sh: rng.standard_normal(sh))
+        dm = torch.tensor(draw(A, A, Q), dtype=torch.float32, device=dev)
+        dmv = torch.tensor(draw(A, A, V), dtype=torch.float32, device=dev)
+        for Bl in SHARD_BS:
+            for r in range(A // Bl) if kind == "quarter" else (0,):
+                rows = slice(r * Bl, (r + 1) * Bl)
+                args = (vis, txt[rows].contiguous(), vb, tb[rows].contiguous(),
+                        dm[rows].contiguous(), dmv[rows].contiguous())
+                what = f"on caption shard {r} of {A // Bl} ({kind})"
+                got = wrapper(*args)
+                with torch.no_grad():
+                    want = plain(*args)
+                    if kind == "random":  # the backward routed by the wrapper's winners
+                        ties[A // Bl] = _check_k5_indices(got, want, args[:4], False, what)
+                        want = (*want[:4], *match_maxes_bwd_plain(
+                            args[0], args[1], got[1], got[3], args[4], args[5]))
+                for name, g, w in zip(names, got, want):
+                    if kind == "quarter":
+                        ok = torch.equal(g, w)
+                    elif name.endswith("idx"):
+                        continue
+                    else:
+                        g, w = g.float(), w.float()
+                        live = w > -1e8  # a masked cell sits near -1e9
+                        errs[name] = max(errs[name], float((g - w)[live].abs().max()))
+                        ok = (close(g, w, K5_ATOL, K5_RTOL) if name.startswith("logit")
+                              else close(g, w, K6_ATOL, K6_RTOL))
+                    if not ok:
+                        raise AssertionError(f"match_maxes_sharded's {name} disagrees "
+                                             f"with the plain version {what}")
+    Bl = SHARD_BS[0]
+    args = (vis, txt[:Bl].contiguous(), vb, tb[:Bl].contiguous(), dm[:Bl].contiguous(),
+            dmv[:Bl].contiguous())
+    out = match_maxes_plain(*args[:4])
+    k5 = _shard_bound(A, V, Bl, Q, D)
+    k6 = _k6_bound(args[0], args[1], out[1], out[3], args[4], args[5])
+    state["match_maxes_sharded"].update({
+        "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+        "library_ms": None, "index_ties_by_world": ties,
+        "what": "one rank's forward and backward at world 2 (all 64 images, its 32 "
+                "captions) through autograd; the all-gather and reduce-scatter of the "
+                "images are not in it (one card)",
+        "ms": time_ms(lambda: wrapper(*args)),
+        "device_ms": device_ms(lambda: wrapper(*args), n=10),
+        "plain_ms": time_ms(lambda: plain(*args), reps=3, warmup=1),
+        **bound(k5["bound_bytes"] + k6["bound_bytes"], k5["bound_ops"] + k6["bound_ops"],
+                "bf16"),
+        "k5_bound_ms": k5["bound_ms"], "k6_bound_ms": k6["bound_ms"]})
+    emit({"phase": "k6", "sharded_wrapper": {
+        k: state["match_maxes_sharded"][k] for k in
+        ("max_abs_err_by_output", "index_ties_by_world", "ms", "device_ms", "plain_ms",
+         "bound_ms", "bound_by")}, "shards_exact_on_quarter": list(SHARD_BS)})
 
 
 def _match_bwd_inputs(rng, A, V, B, Q, D, dev, kind):
@@ -887,6 +1101,8 @@ def phase_k6(state):
     emit({"phase": "k6", "shape": vit_shape, "exact_at": vit_shape,
           "lists_equal_plain": True, "max_abs_err": verr,
           "tolerance": [K6_ATOL, K6_RTOL], **vtimed})
+    _k6_shards(state, rng, dev)
+    _sharded_wrapper(state, rng, dev)
     keep = ("ms", "device_ms", "kernels_ms", "plain_ms", "product_only_library_ms",
             "winning_cells", "scratch_bytes", "bound_ms", "bound_by", "bound_bytes",
             "bound_ops")
@@ -903,15 +1119,12 @@ def k6_timing(args):
     plan and the bound of what this run's winners need: one multiply-add
     per feature and output (dvis, dtxt) for each distinct winning cell
     (b, a, q, v)."""
-    import torch
-
     from vlgae_tpu_torch.ops.match import (match_bwd_plan, match_maxes_bwd_cuda,
                                            match_maxes_bwd_plain)
 
     vis, txt, li, lvi, dm, dmv = args
     A, V, D = vis.shape
     B, Q, _ = txt.shape
-    dev = vis.device
     plan = match_bwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr())
     out = {"ms": time_ms(lambda: match_maxes_bwd_cuda(*args)),
            "device_ms": device_ms(lambda: match_maxes_bwd_cuda(*args), n=20),
@@ -920,11 +1133,22 @@ def k6_timing(args):
            "product_only_library_ms": k6_product_library_ms(*args),
            "list_lengths": k6_list_stats(li, lvi), "plan": plan,
            "scratch_bytes": plan["bytes"]}
+    return {**out, **_k6_bound(*args)}
+
+
+def _k6_bound(vis, txt, li, lvi, dm, dmv):
+    """K6's bound for what these winners need: one multiply-add per feature
+    and output (dvis, dtxt) for each distinct winning cell (b, a, q, v)."""
+    import torch
+
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    dev = vis.device
     ba = torch.arange(B * A, device=dev).view(B, A, 1)
     q_side = (ba * Q + torch.arange(Q, device=dev)) * V + li.long()
     v_side = (ba * Q + lvi.long()) * V + torch.arange(V, device=dev)
     cells = int(torch.unique(torch.cat([q_side.flatten(), v_side.flatten()])).numel())
-    return {**out, "winning_cells": cells,
+    return {"winning_cells": cells,
             **bound(2 * 2 * (A * V + B * Q) * D + 8 * B * A * (Q + V),
                     4 * cells * D, "bf16")}
 
@@ -1846,7 +2070,7 @@ def phase_lang_only(state):
                                   "eval": eval_sent_s},
           "shape": {"len": "3-49 (training captions up to 10)", "B": 64,
                     "lstm": "2 x 200", "hidden": 500, "rank": 32}})
-    for name in KERNELS:
+    for name in launches:
         by_path = {"lang_only_train": launches[name],
                    "lang_only_predict": predict_launches[name],
                    "lang_only_long_predict": long_launches[name]}
@@ -4033,6 +4257,196 @@ def phase_data_options(state):
                 state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
 
 
+# launches of one step on the data-parallel path (exp=vlgae, bf16): a
+# warm-up step launches nothing; a joint train step K1 twice (log and max
+# trees), K5 and K6 through match_maxes_sharded; an eval step K1 twice and K5
+PARALLEL_STEP_LAUNCHES = {
+    "warmup": {"dmv_fused": 0, "match_fwd": 0, "match_bwd": 0, "match_maxes_sharded": 0},
+    "train": {"dmv_fused": 2, "match_fwd": 1, "match_bwd": 1, "match_maxes_sharded": 1},
+    "eval": {"dmv_fused": 2, "match_fwd": 1, "match_bwd": 0, "match_maxes_sharded": 1},
+}
+PARALLEL_LOSS_RTOL = 1e-6
+
+
+def torchrun_worker(out_path, module, args):
+    """``vlgae_tpu_torch.<module>.main(args)`` in this process (a rank under
+    ``torchrun``, or a plain process), with PyTorch's deterministic
+    algorithms where it has them, so that two runs of the same steps add in
+    the same order; writes the launches of each train and eval step and
+    where the process group ran to ``out_path`` (rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    sys.path.insert(0, ROOT)
+    from vlgae_tpu_torch import predict, train
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.parallel.mesh import is_sharded, shutdown
+    from vlgae_tpu_torch.training.pipeline import Pipeline
+
+    def counts():
+        return {"dmv_fused": dmv_cuda.n_launches, "match_fwd": match.n_launches,
+                "match_bwd": match.n_bwd_launches,
+                "match_maxes_sharded": match.n_sharded_launches}
+
+    steps = []
+
+    def counting(kind, fn):
+        def step(self, x, *rest):
+            before = counts()
+            out = fn(self, x, *rest)
+            torch.cuda.synchronize()
+            after = counts()
+            what = "warmup" if kind == "train" and rest[1] else kind
+            steps.append({"kind": what, **{k: after[k] - before[k] for k in after}})
+            return out
+        return step
+
+    Pipeline.train_step = counting("train", Pipeline.train_step)
+    Pipeline.eval_step = counting("eval", Pipeline.eval_step)
+    try:
+        pipe, _ = {"train": train, "predict": predict}[module].main(args)
+        grouped = dist.is_initialized()
+        info = {"backend": dist.get_backend() if grouped else None,
+                "world": dist.get_world_size() if grouped else 1,
+                "rank": pipe.dp.rank, "device": str(pipe.device),
+                "group": pipe.dp.group is not None, "steps": steps, "launches": counts(),
+                # (the state dict's leaves: FSDP registers them sharded for it)
+                "sharded_params": sum(is_sharded(t) for t in pipe.model.state_dict().values()),
+                "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+        if pipe.dp.rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(info, f)
+    finally:
+        shutdown()
+
+
+def _torchrun(module, args, cwd, tag, launcher=True):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=1`` of
+    :func:`torchrun_worker` (with ``launcher=False``, the worker alone, as a
+    plain process); its JSON."""
+    out = os.path.join(cwd, f"{tag}.json")
+    launch = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=1"] if launcher else [sys.executable])
+    # cuBLAS's deterministic workspace, for the deterministic algorithms
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        launch + [os.path.abspath(__file__), "--torchrun-worker", out, module, *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {module} ({tag}) rc {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _run_losses(workdir):
+    import json as _json
+
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [_json.loads(line) for line in f]
+    return [{k: v for k, v in rec.items()
+             if k.startswith(("train/", "val/", "test/")) and not k.endswith("time")}
+            for rec in lines]
+
+
+def phase_parallel(state):
+    """Data-parallel training on the card. NCCL refuses two ranks on one
+    device, so the world is 1: ``train`` under ``torchrun
+    --nproc_per_node=1`` with ``model.match_kernel=pallas_sharded`` at the
+    recipe's widths and bf16 on the corpus of phase ``train`` (one warm-up
+    and one joint epoch of 3 steps each), replicated and with
+    ``trainer.fsdp``: the NCCL group on cuda:0, each step's launches (K1
+    twice, K5 and K6 through ``match_maxes_sharded``), the metric lines equal
+    the plain run's (one process, no torchrun) within
+    ``PARALLEL_LOSS_RTOL``; then ``predict`` under torchrun and ``eval.py``.
+    Every run is a fresh process with PyTorch's deterministic algorithms
+    (atomic adds in some backward kernels would otherwise reorder sums, and
+    Adam's first steps turn that into 1e-6 of the loss within 3 steps)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
+                    n_box=36, len_range=(3, 50), seed=0)
+        base = _corpus_overrides(tmp) + [
+            f"datamodule.{s}_dataloader.num_bucket=1" for s in ("train", "dev", "test")] + [
+            "trainer.max_epochs=2", "model.init_epoch=1", "trainer.fast_dev_run=3",
+            "init_seed=0", "device=cuda"]
+        t0 = time.perf_counter()
+        info = _torchrun("train", base + [f"workdir={os.path.join(tmp, 'plain')}"], tmp,
+                         "plain", launcher=False)
+        if info["backend"] is not None:
+            raise AssertionError(f"the plain run joined a process group: {info}")
+        plain = _run_losses(os.path.join(tmp, "plain"))
+        result = {"phase": "parallel", "plain_s": round(time.perf_counter() - t0, 3),
+                  "runs": {}}
+        launches = {}
+        for tag, extra in (("replicated", []), ("fsdp", ["trainer.fsdp=true"])):
+            workdir = os.path.join(tmp, tag)
+            t0 = time.perf_counter()
+            info = _torchrun("train", base + ["model.match_kernel=pallas_sharded",
+                                              f"workdir={workdir}"] + extra, tmp, tag)
+            run = {"s": round(time.perf_counter() - t0, 3),
+                   **{k: info[k] for k in ("backend", "world", "device", "nccl",
+                                           "sharded_params", "launches")}}
+            if (info["backend"], info["world"], info["device"], info["group"]) != (
+                    "nccl", 1, "cuda:0", True):
+                raise AssertionError(f"torchrun {tag}: the group ran {info}")
+            # the JAX rule shards nothing over one rank: trainer.fsdp leaves
+            # the model whole at world 1 (FSDP2 runs at world >= 2 only)
+            if info["sharded_params"]:
+                raise AssertionError(f"torchrun {tag}: {info['sharded_params']} sharded "
+                                     "leaves at world 1")
+            kinds = {}
+            for step in info["steps"]:
+                kind = step.pop("kind")
+                if step != PARALLEL_STEP_LAUNCHES[kind]:
+                    raise AssertionError(f"torchrun {tag}: a {kind} step launched {step}")
+                kinds[kind] = kinds.get(kind, 0) + 1
+            if not (kinds.get("train") and kinds.get("eval") and kinds.get("warmup")):
+                raise AssertionError(f"torchrun {tag}: steps {kinds}")
+            got = _run_losses(workdir)
+            worst = 0.0
+            if len(got) != len(plain):
+                raise AssertionError(f"torchrun {tag}: {len(got)} metric lines, plain {len(plain)}")
+            for a, b in zip(got, plain):
+                for k, v in b.items():
+                    if not isinstance(v, float) or "loss" not in k and not k.endswith(
+                            ("nll", "enll", "txt2vis", "vis2txt")):
+                        continue
+                    rel = abs(a[k] - v) / max(abs(v), 1e-30)
+                    worst = max(worst, rel)
+                    if rel > PARALLEL_LOSS_RTOL:
+                        raise AssertionError(f"torchrun {tag}: {k} {a[k]} vs plain {v}")
+            run.update(steps=kinds, loss_max_rel_vs_plain=worst,
+                       per_step=PARALLEL_STEP_LAUNCHES)
+            result["runs"][tag] = run
+            launches[f"parallel_train_{tag}"] = info["launches"]
+        # predict under torchrun on the FSDP run's checkpoint, then eval.py
+        pdir = os.path.join(tmp, "predict")
+        os.makedirs(pdir)
+        info = _torchrun("predict", [
+            f"checkpoint={os.path.join(tmp, 'fsdp', 'checkpoint', 'last.pt')}",
+            "device=cuda", "name=dp"], pdir, "predict")
+        for step in info["steps"]:
+            kind = step.pop("kind")
+            if step != PARALLEL_STEP_LAUNCHES[kind]:
+                raise AssertionError(f"torchrun predict: an {kind} step launched {step}")
+        result["predict"] = {"eval_steps": len(info["steps"]), "backend": info["backend"],
+                             "eval_py": check_eval(os.path.join(tmp, "vlparse"),
+                                                   os.path.join(pdir, "dp_dev.conll"))}
+        launches["parallel_predict"] = info["launches"]
+        result["launches_by_path"] = launches
+        emit(result)
+    for path, c in launches.items():
+        for kname, n in c.items():
+            if n:
+                state.setdefault(kname, {}).setdefault("launches_by_path", {})[path] = n
+    if not state["match_maxes_sharded"].get("launches_by_path"):
+        raise AssertionError("match_maxes_sharded was never launched on the parallel path")
+
+
 PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
@@ -4041,10 +4455,14 @@ PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
           "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
           "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
           "grounding_modes": phase_grounding_modes, "struct": phase_struct,
-          "variational": phase_variational, "data_options": phase_data_options}
+          "variational": phase_variational, "data_options": phase_data_options,
+          "parallel": phase_parallel}
 
 
 def main():
+    if sys.argv[1:2] == ["--torchrun-worker"]:
+        torchrun_worker(sys.argv[2], sys.argv[3], sys.argv[4:])
+        return 0
     try:
         import torch
     except ImportError:

@@ -388,6 +388,7 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
     allowed = {("vlgae_tpu_torch/data/datamodule.py", "from nltk.corpus import stopwords")}
     files = sorted((REPO / "vlgae_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert REPO / "vlgae_tpu_torch" / "parallel" / "mesh.py" in files
     hits = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
             for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)

@@ -15,6 +15,13 @@ the full map with one einsum, as the JAX package does outside any kernel,
 and reduces it at once. At eval the grounding decode takes the exact
 top-5 (``on_factor``) or the best image of each caption (``on_img``).
 
+Under a data group (``data_group``, set by the pipeline; world 1 by
+default) each rank holds its rows of the batch: its captions are matched
+against every rank's images (gathered; ``match_maxes_sharded`` under bf16),
+and the grounding losses are each rank's share of the global loss, their
+counts and normalisers summed over ranks, so that the ranks' gradients sum
+to the single-process gradient of the same global batch.
+
 In ``.train()`` mode the dropouts act and the relation group is built
 compactly: the inclusive upper triangle of box pairs (rel(i, j) ==
 rel(j, i)), with +ln 2 on the off-diagonal pairs in the fusion softmax so
@@ -34,8 +41,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.match import MatchMaxesFn
+from ..ops.match import match_maxes_sharded
 from ..ops.topk import exact_top_k
+from ..parallel.mesh import DataGroup, gather_rows, global_sum, log_softmax_across
 from ..struct import dmv_value_and_grads
 from .ldndmv import DiscriminativeNDMV, LDNDMVConfig
 from .nn import MLP
@@ -76,9 +84,14 @@ class DependencyBoxRelConfig:
     compact_rel_train: bool = True
     word_encoder_dropout: float = 0.33
     bf16_matmul: bool = False
+    # the JAX package's formulation switch: every value takes K5/K6 under
+    # bf16 and the f32 stream at precision 32 (a CUDA tensor never leaves
+    # the kernels), and under a data group the sharded form
+    match_kernel: str = "auto"
 
     def __post_init__(self):
         allowed = {
+            "match_kernel": ("auto", "pallas", "pallas_sharded", "xla"),
             "language_factor_mode": ("word", "word+maxdep", "word+alldep"),
             "visual_factor_mode": ("unprune",),
             "feat_fuse_mode": ("none", "attention"),
@@ -103,15 +116,15 @@ class DependencyBoxRelConfig:
             raise ValueError("eval_match_chunk must be positive")
 
 
-def _check_match_budget(B, Q, chunk, cfg):
+def _check_match_budget(B, A, Q, chunk, cfg):
     """Loud gate on the f32 stream's [B, A, Q, chunk] block: fail with the
     mode and the shape instead of an opaque out-of-memory error."""
-    est_bytes = B * B * Q * chunk * 4
+    est_bytes = B * A * Q * chunk * 4
     budget = int(float(os.environ.get("VLGAE_MATCH_EINSUM_BUDGET_GB", "4"))
                  * 2**30)
     if est_bytes > budget:
         raise ValueError(
-            f"matching stream would materialize a [B={B}, A={B}, Q={Q}, "
+            f"matching stream would materialize a [B={B}, A={A}, Q={Q}, "
             f"chunk={chunk}] f32 block (~{est_bytes / 2**30:.1f} GiB > budget "
             f"{budget / 2**30:.1f} GiB) under language_factor_mode="
             f"{cfg.language_factor_mode!r}; lower model.eval_match_chunk, "
@@ -119,6 +132,9 @@ def _check_match_budget(B, Q, chunk, cfg):
 
 
 class DependencyBoxRel(nn.Module):
+    # this process's rows of the batch and the group they are split over
+    data_group = DataGroup()
+
     def __init__(self, cfg: DependencyBoxRelConfig, dep_cfg: LDNDMVConfig,
                  dependency: DiscriminativeNDMV, vis_encoder, n_enc: int,
                  n_vis: int, pos_for_obj=(), pos_for_rel=(), pos_for_attr=()):
@@ -311,7 +327,9 @@ class DependencyBoxRel(nn.Module):
         compact training axis is used as it is. Under bf16 the fused
         kernels compute it (:class:`MatchMaxesFn`: K5, and K6 for the
         gradient); at f32 a factor-chunked stream under autograd, as in the
-        JAX package, which also computes that case outside any kernel.
+        JAX package, which also computes that case outside any kernel. Under
+        a data group the captions are this rank's and the images every
+        rank's: ``[B_local, A, *]``.
         """
         maps = self._rel_tri_maps(vis[2], vis[0].device)
         vis_feat, vis_mask = vis[0], vis[1]
@@ -322,16 +340,18 @@ class DependencyBoxRel(nn.Module):
         Q = txt_mask.shape[1]
         vb = -INF * (1.0 - vis_mask.float())
         tb = -INF * (1.0 - txt_mask.float())
+        dp = self.data_group
         if self.cfg.bf16_matmul:
             args = (vis_feat.to(torch.bfloat16).contiguous(),
                     txt_feat.to(torch.bfloat16).contiguous(),
                     vb.contiguous(), tb.contiguous())
-            logit, _, logit_v, _ = MatchMaxesFn.apply(*args)
+            logit, _, logit_v, _ = match_maxes_sharded(*args, dp)
         else:
             chunk = min(V, self.cfg.eval_match_chunk)
-            _check_match_budget(B, Q, chunk, self.cfg)
+            _check_match_budget(B, B * dp.world, Q, chunk, self.cfg)
             logit, logit_v = self._match_maxes_chunked(
-                vis_feat.float(), txt_feat.float(), vb, tb, chunk)
+                gather_rows(vis_feat.float(), dp), txt_feat.float(),
+                gather_rows(vb, dp), tb, chunk)
         return logit, self._expand_rel_tri(logit_v, maps)
 
     @staticmethod
@@ -384,8 +404,11 @@ class DependencyBoxRel(nn.Module):
         the full ``[B, A, Q, V]`` map (masked to -INF), each word's best
         factor, averaged over the caption with ``txt_marginal``. Under bf16
         the operands are rounded to bf16 and multiplied with f32
-        accumulation, as the JAX package's einsum does."""
-        vis_feat, vis_mask = vis[0], vis[1]
+        accumulation, as the JAX package's einsum does. Under a data group,
+        ``[B_local, A]``: this rank's captions against every image."""
+        dp = self.data_group
+        vis_feat = gather_rows(vis[0], dp)
+        vis_mask = gather_rows(vis[1].float(), dp) > 0
         txt_feat, txt_mask, txt_marginal = txt[:3]
         if self.cfg.bf16_matmul:
             vis_feat = vis_feat.to(torch.bfloat16).float()
@@ -480,45 +503,62 @@ class DependencyBoxRel(nn.Module):
             offset += width
         return pen
 
+    def _own_images(self, B, device):
+        """``(own [B, A], offset)``: each of this rank's captions marks its
+        own image among all ranks' (the diagonal, offset by this rank's first
+        row)."""
+        dp = self.data_group
+        offset = dp.rank * B
+        rows = torch.arange(B, device=device)[:, None] + offset
+        return rows == torch.arange(B * dp.world, device=device)[None, :], offset
+
     def loss_grounding_factor_ce(self, out, inputs):
         """The factor CE on the reduced maxes, their own-image entries from
-        the recomputed diagonal block that carries the POS-prior penalty."""
+        the recomputed diagonal block that carries the POS-prior penalty.
+        Under a data group the text axis of ``logit_v`` is split over the
+        ranks (its log-softmax sums across them) and the token count and
+        the normalisers are global sums."""
         cfg = self.cfg
+        dp = self.data_group
         txt_marginal = out["txt_packed"][2]
         vis_mask = out["vis_packed"][1]
         logit, logit_v = out["match_reduced"]
         B = logit.shape[0]
         att_d = self._diag_att(out, inputs, with_pen=cfg.loss_use_pos_prior)
-        eye = torch.eye(B, dtype=torch.bool, device=logit.device)
+        eye, offset = self._own_images(B, logit.device)
         logit = torch.where(eye[:, :, None], att_d.amax(-1)[:, None, :], logit)
         logit_v = torch.where(eye[:, :, None], att_d.amax(-2)[:, None, :], logit_v)
         # filler rows of the batch padding are masked out of both axes
         row = inputs["seq_len"] > 0
-        num_token = inputs["seq_len"].sum()
-        logit = torch.where(row[None, :, None], logit, -INF)
+        row_all = gather_rows(row.float(), dp) > 0
+        num_token = global_sum(inputs["seq_len"].sum(), dp)
+        logit = torch.where(row_all[None, :, None], logit, -INF)
         logit = torch.log_softmax(logit, 1)
-        diag = torch.diagonal(logit, 0, 0, 1).T  # [B, Q]
+        diag = torch.diagonal(logit, offset, 0, 1).T  # [B, Q]
         txt2vis = -(diag * txt_marginal * row[:, None]).sum()
         # each term is normalised by a detached copy of itself: the value
         # is num_token, the gradient that of the term / its value
-        loss = {"txt2vis": txt2vis / (txt2vis.detach() + 1e-6) * num_token}
+        loss = {"txt2vis": txt2vis / (global_sum(txt2vis.detach(), dp) + 1e-6)
+                * num_token}
         if cfg.loss_vis2txt > 0:
             logit_v = torch.where(row[:, None, None], logit_v, -INF)
-            logit_v = torch.log_softmax(logit_v, 0)
-            diag_v = torch.diagonal(logit_v, 0, 0, 1).T  # [B, V]
+            logit_v = log_softmax_across(logit_v, dp)
+            diag_v = torch.diagonal(logit_v, offset, 0, 1).T  # [B, V]
             vis2txt = -(diag_v * vis_mask * row[:, None]).sum()
             loss["mt_vis2txt"] = (cfg.loss_vis2txt * vis2txt
-                                  / (vis2txt.detach() + 1e-6) * num_token)
+                                  / (global_sum(vis2txt.detach(), dp) + 1e-6) * num_token)
         return sum(loss.values()), loss
 
     def loss_grounding_cap_img(self, out, inputs):
         """Caption-image CE over the ``[B, A]`` caption logits of the
         reduced map, averaged over the real captions; filler rows of the
         batch padding are masked out of both axes."""
+        dp = self.data_group
         row = inputs["seq_len"] > 0
-        logit = torch.where(row[None, :], out["match_logit"], -INF)
-        diag = torch.diagonal(torch.log_softmax(logit, 1))
-        loss = -(diag * row).sum() / torch.clamp_min(row.sum(), 1)
+        row_all = gather_rows(row.float(), dp) > 0
+        logit = torch.where(row_all[None, :], out["match_logit"], -INF)
+        diag = torch.diagonal(torch.log_softmax(logit, 1), dp.rank * row.shape[0])
+        loss = -(diag * row).sum() / torch.clamp_min(global_sum(row.sum(), dp), 1)
         return loss, {"mt": loss}
 
     def loss(self, out, inputs, dep_loss, dep_aux=None, alpha=None,
@@ -536,7 +576,7 @@ class DependencyBoxRel(nn.Module):
         else:
             mt_loss, mt_aux = self.loss_grounding_cap_img(out, inputs)
         real_avail = inputs["vis_available"] & (inputs["seq_len"] > 0)
-        enough = (real_avail.sum() >= 2).to(mt_loss.dtype)
+        enough = (global_sum(real_avail.sum(), self.data_group) >= 2).to(mt_loss.dtype)
         mt_loss = mt_loss * enough * float(alpha > 0)
         return (alpha * mt_loss + (1 - alpha) * dep_loss,
                 {**(dep_aux or {}), **mt_aux})

@@ -104,9 +104,10 @@ class DiscriminativeNDMV(Dropping):
             n_head_in = embedding.embed_size + n_ctx
         p = cfg.ff_dropout
         self.head_ff = MLP(n_head_in, H, dropout=p)
-        self.child_ff = MLP(n_tok, H, dropout=p)
-        self.root_ff = MLP(cfg.root_emb_dim, H, dropout=p)
-        self.dec_ff = MLP(cfg.dec_emb_dim, H, dropout=p)
+        # the child, root and decision sides run over tables, not the batch
+        self.child_ff = MLP(n_tok, H, dropout=p, batched=False)
+        self.root_ff = MLP(cfg.root_emb_dim, H, dropout=p, batched=False)
+        self.dec_ff = MLP(cfg.dec_emb_dim, H, dropout=p, batched=False)
         self.mid_ff = DMVSkipConnectEncoder(H, cfg.mid_bottleneck, cfg.mid_n_mid,
                                             cfg.mid_dropout)
         self.attach_scorer = DMVFactorizedBilinear(H, cfg.attach_rank)
@@ -204,9 +205,9 @@ class DiscriminativeNDMV(Dropping):
         h = self.construct_token_repr(emb, context, aux)
 
         h_parent = self.mid_ff(self.head_ff(h))
-        h_child = self.mid_ff(self.child_ff(self.token_emb()))[None]
-        h_root = self.mid_ff(self.root_ff(self.root_emb))[None]
-        h_dec = self.mid_ff(self.dec_ff(self.dec_emb))[None]
+        h_child = self.mid_ff.table(self.child_ff(self.token_emb()))[None]
+        h_root = self.mid_ff.table(self.root_ff(self.root_emb))[None]
+        h_dec = self.mid_ff.table(self.dec_ff(self.dec_emb))[None]
 
         # attach: [b, n, dir, val, n_token] -> gather child tokens
         attach_rule_t = torch.log_softmax(

@@ -9,6 +9,9 @@ Dropout and the reparameterised draws of the variational layers act only in
 owner of the model hands to every such module (:func:`set_dropout_generator`);
 the formulas are those of the JAX package, written as functions of a given
 keep mask or noise so the tests can feed both packages the same draws.
+Under data parallelism a draw over the batch is made at the global batch's
+size and each rank keeps its rows (:func:`set_batch_rows`), so the masks
+are those of one process over the whole batch.
 """
 
 from __future__ import annotations
@@ -50,9 +53,13 @@ def independent_dropout(items, p: float, keeps):
 class Dropping(nn.Module):
     """Base of the modules that draw at random in training (dropout masks,
     the reparameterised draws of the variational layers): keeps the
-    generator the draws come from."""
+    generator the draws come from and, under data parallelism, this rank's
+    rows ``(start, stop, total)`` of the global batch."""
 
     generator = None
+    batch_rows = None
+    # dim 0 of what the module draws for is the batch (not a table)
+    batched = True
 
     def _generator(self):
         if self.generator is None:
@@ -61,16 +68,40 @@ class Dropping(nn.Module):
                 "no generator; call set_dropout_generator(model, generator)")
         return self.generator
 
+    def _draw_shape(self, shape, batched: bool):
+        """``(shape to draw, rows to keep)``: a draw over the batch
+        (``batched``, dim 0 the batch) is made for the whole global batch
+        when this rank holds only some of its rows."""
+        rows = self.batch_rows if batched else None
+        if rows is None:
+            return tuple(shape), None
+        start, stop, total = rows
+        if shape[0] != stop - start:
+            raise ValueError(f"{type(self).__name__}: a batched draw of {tuple(shape)} "
+                             f"on rows {start}:{stop} of {total}")
+        return (total,) + tuple(shape[1:]), slice(start, stop)
+
     def keep_mask(self, shape, p: float, like):
         """A float 0/1 mask with P(1) = 1 - p, drawn from the generator."""
-        return torch.empty(shape, dtype=like.dtype, device=like.device).bernoulli_(
+        return self._keep_mask(shape, p, like, self.batched)
+
+    def table_keep_mask(self, shape, p: float, like):
+        """:meth:`keep_mask` for a table (dim 0 not the batch)."""
+        return self._keep_mask(shape, p, like, False)
+
+    def _keep_mask(self, shape, p, like, batched):
+        shape, rows = self._draw_shape(shape, batched)
+        keep = torch.empty(shape, dtype=like.dtype, device=like.device).bernoulli_(
             1 - p, generator=self._generator())
+        return keep if rows is None else keep[rows]
 
     def noise(self, shape, like):
         """Standard normal draws from the generator (the reparameterised
         sample ``mean + exp(lvar / 2) * noise``)."""
-        return torch.randn(shape, dtype=like.dtype, device=like.device,
-                           generator=self._generator())
+        shape, rows = self._draw_shape(shape, self.batched)
+        z = torch.randn(shape, dtype=like.dtype, device=like.device,
+                        generator=self._generator())
+        return z if rows is None else z[rows]
 
     def active(self, p: float) -> bool:
         return self.training and p > 0
@@ -84,6 +115,15 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
+def set_batch_rows(model: nn.Module, rows) -> None:
+    """Tell every module of ``model`` that draws at random which rows
+    ``(start, stop, total)`` of the global batch this rank holds (``None``:
+    all of them)."""
+    for m in model.modules():
+        if isinstance(m, Dropping):
+            m.batch_rows = rows
+
+
 def linear(x, layer: nn.Linear, dtype=None):
     """``layer(x)``; with ``dtype`` (bf16) operands and bias are cast to it
     and the output returns as f32 (flax ``Dense(dtype=...)`` + astype)."""
@@ -94,15 +134,17 @@ def linear(x, layer: nn.Linear, dtype=None):
 
 
 class MLP(Dropping):
-    """Linear -> LeakyReLU -> shared dropout (in training)."""
+    """Linear -> LeakyReLU -> shared dropout (in training). ``batched``:
+    dim 0 of the input is the batch (not a vocabulary table)."""
 
     def __init__(self, n_in: int, n_hidden: int, activate: bool = True,
-                 dtype=None, dropout: float = 0.0):
+                 dtype=None, dropout: float = 0.0, batched: bool = True):
         super().__init__()
         self.linear = nn.Linear(n_in, n_hidden)
         self.activate = activate
         self.dtype = dtype
         self.dropout = dropout
+        self.batched = batched
 
     def forward(self, x):
         x = linear(x, self.linear, self.dtype)
@@ -204,6 +246,8 @@ class ScalarMix(Dropping):
     """Softmax-weighted layer mixture with gamma; layer dropout in
     training (a dropped layer's weight is 0, the kept ones / (1 - p))."""
 
+    batched = False  # one weight a layer
+
     def __init__(self, n_layers: int, dropout: float = 0.0):
         super().__init__()
         self.weights = nn.Parameter(torch.zeros(n_layers))
@@ -250,6 +294,14 @@ class DMVSkipConnectEncoder(Dropping):
         self.mid2 = nn.Linear(n_mid or H, H)
 
     def forward(self, x):
+        return self._encode(x, self.keep_mask)
+
+    def table(self, x):
+        """:meth:`forward` over a table (dim 0 not the batch): the same
+        weights, the dropout mask drawn whole on every rank."""
+        return self._encode(x, self.table_keep_mask)
+
+    def _encode(self, x, keep_mask):
         has_child = self.HASCHILD(x) + x
         no_child = self.NOCHILD(x) + x
         h = torch.stack([has_child, no_child], dim=-2)
@@ -261,7 +313,7 @@ class DMVSkipConnectEncoder(Dropping):
         h = leaky_relu(self.direction(leaky_relu(h)))
         if self.active(self.dropout):
             # element-wise (full-shape) mask
-            h = h * self.keep_mask(h.shape, self.dropout, h) / (1 - self.dropout)
+            h = h * keep_mask(h.shape, self.dropout, h) / (1 - self.dropout)
         h = self.mid1(h)
         return self.mid2(leaky_relu(h))
 

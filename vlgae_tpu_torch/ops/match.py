@@ -1,8 +1,10 @@
 """Matching maxes: the plain versions and the wrappers of kernels K5
 (``csrc/match_fwd.cu``, replacing ``_fwd_kernel`` of
 vlgae_tpu/ops/match_pallas.py) and K6 (``csrc/match_bwd.cu``, replacing
-``_bwd_kernel``), and :class:`MatchMaxesFn`, the autograd function that
-joins them.
+``_bwd_kernel``), :class:`MatchMaxesFn`, the autograd function that
+joins them, and :func:`match_maxes_sharded`, the data-parallel form
+(replacing ``match_maxes_pallas_sharded``): this rank's captions against
+every rank's images.
 
     att[b, a, q, v] = txt[b, q] . vis[a, v] + vis_bias[a, v] + txt_bias[b, q]
     logit[b, a, q]   = max_v att   (int32 index of the first maximal v)
@@ -21,13 +23,16 @@ import math
 
 import torch
 
+from ..parallel.mesh import gather_rows
 from . import _build
 
 # launches of K5 / K6 in this process (chip_smoke resets and reads them),
-# and of K5 by the number of q-chunks it took
+# of K5 by the number of q-chunks it took, and the calls of the sharded
+# wrapper that sent CUDA tensors to K5
 n_launches = 0
 n_launches_by_q_chunks = {}
 n_bwd_launches = 0
+n_sharded_launches = 0
 
 _lib = None
 _bwd_lib = None
@@ -420,3 +425,23 @@ class MatchMaxesFn(torch.autograd.Function):
             vis, txt, logit_idx, logit_v_idx,
             dlogit.float().contiguous(), dlogit_v.float().contiguous())
         return dvis, dtxt, None, None
+
+
+def match_maxes_sharded(vis, txt, vis_bias, txt_bias, dp):
+    """:class:`MatchMaxesFn` over a data group: ``vis [A_local, V, D]``
+    (bf16) and its bias ``[A_local, V]`` (f32) are this rank's images and
+    ``txt [B_local, Q, D]``, ``txt_bias`` its captions; every rank passes
+    the same numbers of each (its rows of a batch that split evenly, as
+    ``parallel.shard_batch`` gives them). The images are all-gathered (one
+    gather a call; its backward reduce-scatters ``dvis`` in bf16, as JAX
+    transposes a bf16 all-gather) and K5 / K6 run at (all images, local
+    captions): outputs ``[B_local, A, Q]`` and ``[B_local, A, V]``. At world
+    1, or without a group (``dp`` None), it is :class:`MatchMaxesFn`
+    itself. CPU tensors take the plain versions under the same wrapper."""
+    global n_sharded_launches
+    if dp is not None and dp.sharded:
+        vis, vis_bias = gather_rows(vis, dp), gather_rows(vis_bias.detach(), dp)
+    out = MatchMaxesFn.apply(vis, txt, vis_bias, txt_bias)
+    if vis.is_cuda:
+        n_sharded_launches += 1
+    return out

@@ -9,7 +9,9 @@ Composes ``configs/config_train`` with the run's saved ``overrides.json``
 overrides, restores or draws the weights, evaluates train/dev/test,
 prints one JSON result line per split and writes ``{name}_{split}.conll``
 in the working directory. ``device`` defaults to ``cuda`` and raises when
-no CUDA device is present. On the card, TF32 is switched off for matmuls
+no CUDA device is present. Under ``python -m torch.distributed.run
+--nproc_per_node=N -m vlgae_tpu_torch.predict ...`` each rank evaluates
+its rows of every batch and rank 0 prints and writes. On the card, TF32 is switched off for matmuls
 and cuDNN, so f32 products stay f32.
 """
 
@@ -112,11 +114,17 @@ def main(argv=None):
             continue
         result, outputs = pipe.evaluate(split)
         results[split] = result
-        print(json.dumps({f"{split}/{k}": v for k, v in result.items()}),
-              flush=True)
-        pipe.write_predictions(f"{name}_{split}.conll", split, outputs)
+        if pipe.dp.rank == 0:
+            print(json.dumps({f"{split}/{k}": v for k, v in result.items()}),
+                  flush=True)
+            pipe.write_predictions(f"{name}_{split}.conll", split, outputs)
     return pipe, results
 
 
 if __name__ == "__main__":
-    main()
+    from .parallel.mesh import shutdown
+
+    try:
+        main()
+    finally:
+        shutdown()

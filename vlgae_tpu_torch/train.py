@@ -26,6 +26,15 @@ a file that receives ``{"best", "test"}`` at the end. ``wandb=true`` logs to
 wandb as well when the package is importable (and goes inert without it);
 ``profile=true`` writes a ``torch.profiler`` trace of updates 3-5 to
 ``<workdir>/profile/``.
+
+Data-parallel over N devices, one process each, unchanged otherwise:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m vlgae_tpu_torch.train exp=vlgae ... [device=cuda|cpu]
+
+(NCCL on ``cuda:LOCAL_RANK``, gloo with ``device=cpu``). Each rank steps on
+its rows of the same global batches; rank 0 writes the run directory,
+the checkpoints, the predictions and the metric lines.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import time
 
 import numpy as np
 
+from .parallel.mesh import init_distributed, rank0_value, shutdown
 from .predict import build_datamodule, compose, setup_device
 from .training.factory import build_model
 from .training.pipeline import Pipeline, init_params
@@ -70,30 +80,38 @@ def multirun(overrides):
     ``outputs/multirun/<time>/<job>`` (with a ``multirun.json``), and one
     JSON line a run in ``results.jsonl``. The runs share a 4-character
     group id, exported as ``MULTIRUN_ID`` while they run."""
+    import contextlib
     import itertools
     import random
     import string
 
     fixed, axes = _sweep_axes(overrides)
+    # under torchrun every rank runs the same jobs in rank 0's directories
+    dp = init_distributed(setup_device(_split_options(fixed)[0]["device"]))
     prior = os.environ.get("MULTIRUN_ID")
     group = prior or "".join(random.choice(string.ascii_letters + string.digits)
                              for _ in range(4))
     os.environ["MULTIRUN_ID"] = group
-    sweep_dir = os.path.join("outputs", "multirun", time.strftime("%Y-%m-%d_%H-%M-%S"))
-    os.makedirs(sweep_dir, exist_ok=True)
+    group, sweep_dir = rank0_value(
+        (group, os.path.join("outputs", "multirun", time.strftime("%Y-%m-%d_%H-%M-%S"))), dp)
+    writer = dp.rank == 0
+    if writer:
+        os.makedirs(sweep_dir, exist_ok=True)
     results = []
     try:
-        with open(os.path.join(sweep_dir, "results.jsonl"), "w") as rf:
+        with (open(os.path.join(sweep_dir, "results.jsonl"), "w") if writer
+              else contextlib.nullcontext()) as rf:
             for job, combo in enumerate(itertools.product(*(v for _, v in axes))):
                 swept = [f"{k}={v}" for (k, _), v in zip(axes, combo)]
                 workdir = os.path.join(sweep_dir, str(job))
                 pipe, test = main(fixed + swept + [f"workdir={workdir}"])
-                with open(os.path.join(workdir, "multirun.json"), "w") as f:
-                    json.dump({"group": group, "job": job, "overrides": fixed + swept}, f)
                 line = {"group": group, "job": job, "overrides": swept,
                         "best": pipe.best, "test": test}
-                rf.write(json.dumps(line, default=float) + "\n")
-                rf.flush()
+                if writer:
+                    with open(os.path.join(workdir, "multirun.json"), "w") as f:
+                        json.dump({"group": group, "job": job, "overrides": fixed + swept}, f)
+                    rf.write(json.dumps(line, default=float) + "\n")
+                    rf.flush()
                 results.append(line)
     finally:
         if prior is None:
@@ -155,26 +173,31 @@ def main(argv=None):
 
     seed = cfg.get("seed") or 0
     np.random.seed(seed)
-    workdir = cfg.get("workdir") or os.path.join(
-        "outputs", str(cfg.get("name", "run")), time.strftime("%Y-%m-%d_%H-%M-%S"))
-    os.makedirs(os.path.join(workdir, "checkpoint"), exist_ok=True)
-    with open(os.path.join(workdir, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=2, default=str)
-    with open(os.path.join(workdir, "overrides.json"), "w") as f:
-        json.dump(overrides, f)
-    latest = os.path.join("outputs", "0_latest_run")
-    try:
-        if os.path.islink(latest):
-            os.unlink(latest)
-        os.makedirs("outputs", exist_ok=True)
-        os.symlink(os.path.abspath(workdir), latest)
-    except OSError:
-        pass
-
     device = setup_device(opts["device"])
+    # under torchrun: this rank's device; rank 0 writes the run directory
+    dp = init_distributed(device)
+    writer = dp.rank == 0
+    workdir = rank0_value(cfg.get("workdir") or os.path.join(
+        "outputs", str(cfg.get("name", "run")), time.strftime("%Y-%m-%d_%H-%M-%S")), dp)
+    if writer:
+        os.makedirs(os.path.join(workdir, "checkpoint"), exist_ok=True)
+        with open(os.path.join(workdir, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
+        with open(os.path.join(workdir, "overrides.json"), "w") as f:
+            json.dump(overrides, f)
+        latest = os.path.join("outputs", "0_latest_run")
+        try:
+            if os.path.islink(latest):
+                os.unlink(latest)
+            os.makedirs("outputs", exist_ok=True)
+            os.symlink(os.path.abspath(workdir), latest)
+        except OSError:
+            pass
+
     dm = build_datamodule(cfg)
-    for vname, vocab in dm.vocabs.items():
-        vocab.save(os.path.join(workdir, f"vocab_{vname}.txt"))
+    if writer:
+        for vname, vocab in dm.vocabs.items():
+            vocab.save(os.path.join(workdir, f"vocab_{vname}.txt"))
     model = build_model(cfg, dm)
     init_params(model, int(opts["init_seed"]) if opts["init_seed"] is not None else seed)
     pipe = Pipeline(model, dm, cfg, device=device, workdir=workdir, seed=seed)
@@ -194,12 +217,13 @@ def main(argv=None):
 
     max_epochs = int(trainer_cfg.get("max_epochs", 50))
     max_steps = int(trainer_cfg.get("max_steps", -1) or -1)
-    mlog = MetricLogger(workdir, use_wandb=bool(cfg.get("wandb")),
+    mlog = MetricLogger(workdir if writer else None,
+                        use_wandb=writer and bool(cfg.get("wandb")),
                         project=str(cfg.get("project", "vlgae_tpu")),
-                        name=str(cfg.get("name", "run")), config=cfg)
+                        name=str(cfg.get("name", "run")), config=cfg, quiet=not writer)
     if cfg.get("wandb") and cfg.get("watch_model") is not None:
-        pipe.watcher = WandbWatcher(**dict(cfg.get("watch_model") or {}))
-    if cfg.get("profile"):
+        pipe.watcher = WandbWatcher(**dict(cfg.get("watch_model") or {}), writer=writer)
+    if writer and cfg.get("profile"):
         pipe.profiler = _profiler(workdir, device)
         pipe.profiler.start()
     pipe.normalize_embeddings("begin")
@@ -213,8 +237,9 @@ def main(argv=None):
         if epoch >= start_patience and pipe.is_better(watch):
             pipe.best = watch
             pipe.save_checkpoint("best")
-            pipe.write_predictions(os.path.join(workdir, "dev.predict.txt"),
-                                   "dev", val_out)
+            if writer:
+                pipe.write_predictions(os.path.join(workdir, "dev.predict.txt"),
+                                       "dev", val_out)
         if mid_epoch:
             mlog.log({**pipe.window_train_terms,
                       **{f"val/{k}": v for k, v in val.items()},
@@ -234,7 +259,8 @@ def main(argv=None):
         if 0 < max_steps <= pipe.step:
             break
         if min_lr_stop > 0 and pipe.current_lr() < min_lr_stop:
-            print(json.dumps({"early_stop": "lr below min", "epoch": epoch}))
+            if writer:
+                print(json.dumps({"early_stop": "lr below min", "epoch": epoch}))
             break
 
     if pipe.profiler is not None:
@@ -246,13 +272,17 @@ def main(argv=None):
         pipe.load_checkpoint(best_path)
     test, test_out = pipe.evaluate("test", metric_idx=1)
     mlog.log({f"test/{k}": v for k, v in test.items()}, step=pipe.step)
-    pipe.write_predictions(os.path.join(workdir, "test.predict.txt"), "test", test_out)
+    if writer:
+        pipe.write_predictions(os.path.join(workdir, "test.predict.txt"), "test", test_out)
     result_path = os.environ.get("VLGAE_SEARCH_RESULT")
-    if result_path:
+    if result_path and writer:
         with open(result_path, "w") as f:
             json.dump({"best": pipe.best, "test": test}, f, default=float)
     return pipe, test
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        shutdown()

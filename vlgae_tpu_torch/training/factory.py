@@ -202,6 +202,7 @@ def build_joint(cfg: Dict[str, Any], dm) -> DependencyBoxRel:
         compact_rel_train=bool(mcfg.get("compact_rel_train", True)),
         word_encoder_dropout=float(sub("word_encoder").get("dropout", 0.33)),
         bf16_matmul=bf16,
+        match_kernel=str(mcfg.get("match_kernel", "auto")),
     )
     tag_vocab = dm.vocabs["tag"]
     to_ids = lambda tags: tuple(tag_vocab[t] for t in tags if t in tag_vocab)  # noqa: E731

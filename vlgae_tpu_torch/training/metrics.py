@@ -23,6 +23,18 @@ class MetricBase:
     def _state_names(self) -> List[str]:
         return [k for k in vars(self) if k.startswith("s_")]
 
+    def state_vector(self) -> np.ndarray:
+        return np.array([getattr(self, k) for k in sorted(self._state_names())])
+
+    def load_state_vector(self, vec):
+        for k, v in zip(sorted(self._state_names()), vec):
+            setattr(self, k, float(v))
+
+    def sync(self, reduce_fn):
+        """Reduce the summed states across processes before compute
+        (``reduce_fn``: a vector to its sum over ranks)."""
+        self.load_state_vector(reduce_fn(self.state_vector()))
+
     def compute(self) -> Dict[str, float]:
         raise NotImplementedError
 
@@ -210,6 +222,10 @@ class MultiMetric(MetricBase):
     def update(self, predict, gold, mask):
         for m in self._all():
             m.update(predict, gold, mask)
+
+    def sync(self, reduce_fn):
+        for m in self._all():
+            m.sync(reduce_fn)
 
     def compute(self):
         out = dict(self.main.compute()) if self.main is not None else {}

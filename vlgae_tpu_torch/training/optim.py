@@ -9,6 +9,12 @@ optimizer. Every parameter of the optimizer steps on every update (a
 parameter that received no gradient steps with a zero one), so the
 bias corrections of Adam count updates as optax's global count does, and
 the learning rate of update ``k`` (0-based) is ``schedule(k)``.
+
+Under data parallelism the gradients are summed over the ranks before the
+clip; with FSDP each rank's Adam steps the local shards of the sharded
+parameters in place (plain tensors, so the foreach update is that of whole
+tensors, elementwise), its moments are shards too, and the clip's norm
+sums the shards' squares over the ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..convert import torch_to_flax_key
+from ..parallel.mesh import (DataGroup, all_reduce_grads, global_sum, is_sharded, local,
+                             shard_like)
 
 
 def _linear(init: float, end: float, steps: int):
@@ -110,16 +118,27 @@ class ReduceLROnPlateau:
         self.best, self.bad, self.scale = state["best"], state["bad"], state["scale"]
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, dp: DataGroup = DataGroup()
+                         ) -> torch.Tensor:
     """Scale every gradient by ``max_norm / norm`` when the global norm of
     all of them is at least ``max_norm`` (``optax.clip_by_global_norm``: no
-    epsilon, unlike ``clip_grad_norm_``). Returns the norm; no host sync."""
+    epsilon, unlike ``clip_grad_norm_``). Sharded gradients count with every
+    rank's shard (their squares summed over ``dp``), whole ones once.
+    Returns the norm; no host sync."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    parts = [local(g) for g in grads]
+    norms = torch.stack(torch._foreach_norm(parts))
+    split = [is_sharded(g) for g in grads]
+    if not any(split):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        sq = norms * norms
+        split = torch.tensor(split, device=sq.device)
+        norm = torch.sqrt(sq[~split].sum() + global_sum(sq[split].sum(), dp))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(parts, scale)
     return norm
 
 
@@ -131,7 +150,8 @@ class Optimizer:
     def __init__(self, model: torch.nn.Module, optimizer_cfg: Dict[str, Any],
                  scheduler_cfg: Optional[Dict[str, Any]] = None,
                  steps_per_epoch: int = 1, gradient_clip_val: float = 0.0,
-                 frozen_patterns: Optional[List[str]] = None):
+                 frozen_patterns: Optional[List[str]] = None,
+                 dp: DataGroup = DataGroup()):
         args = dict(optimizer_cfg.get("args", {"lr": 1e-3}))
         args.pop("_target_", None)
         self.base_lr = float(args.pop("lr", 1e-3))
@@ -164,8 +184,13 @@ class Optimizer:
         self.schedules = [
             make_schedule(sched_args, lr, steps_per_epoch) if sched_args
             else (lambda count, lr=lr: lr) for lr in lrs]
+        self.dp = dp
         self.params = [p for b in buckets for p in b]
-        param_groups = [{"params": b, "lr": lr} for b, lr in zip(buckets, lrs) if b]
+        # Adam steps what this rank holds: a sharded parameter's local shard
+        # (a view of its storage), a whole parameter itself
+        self._held = {id(p): local(p).detach() if is_sharded(p) else p for p in self.params}
+        param_groups = [{"params": [self._held[id(p)] for p in b], "lr": lr}
+                        for b, lr in zip(buckets, lrs) if b]
         self._sched_of_group = [s for b, s in zip(buckets, self.schedules) if b]
         cls = torch.optim.AdamW if wd > 0 else torch.optim.Adam
         kw = {"weight_decay": wd} if wd > 0 else {}
@@ -182,23 +207,54 @@ class Optimizer:
             p.grad = None
 
     def step(self, step: int) -> None:
-        """Clip, set each group's learning rate for update ``step``, and
-        apply Adam."""
+        """:meth:`sum_grads`, then :meth:`update`."""
+        self.sum_grads()
+        self.update(step)
+
+    def sum_grads(self) -> None:
+        """Sum the gradients over the ranks (zeros where none flowed): the
+        gradient of the global batch's loss on every rank."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_grads(self.params, self.dp)
+
+    def update(self, step: int) -> None:
+        """Clip the summed gradients, set each group's learning rate for
+        update ``step``, and apply Adam."""
         if self.clip > 0:
-            clip_by_global_norm_(self.params, self.clip)
+            clip_by_global_norm_(self.params, self.clip, self.dp)
+        for p in self.params:
+            held = self._held[id(p)]
+            if held is not p:
+                held.grad = local(p.grad).detach()
         scale = self.plateau.scale if self.plateau is not None else 1.0
         for group, sched in zip(self.opt.param_groups, self._sched_of_group):
             group["lr"] = float(sched(step)) * scale
         self.opt.step()
 
+    def _moments(self, adam, convert):
+        """``adam`` (an Adam state dict) with each sharded parameter's
+        moments passed through ``convert(moment, param)``."""
+        state = {i: {k: convert(v, p) if k != "step" and is_sharded(p) else v
+                     for k, v in st.items()}
+                 for i, st in adam["state"].items()
+                 for p in (self.params[int(i)],)}
+        return {**adam, "state": state}
+
     def state_dict(self):
-        return {"adam": self.opt.state_dict(),
+        """Adam's and the plateau's state, the moments whole: the same dict
+        with FSDP as without."""
+        from torch.distributed.tensor import DTensor
+
+        def whole(m, p):
+            return DTensor.from_local(m, p.device_mesh, p.placements).full_tensor()
+
+        return {"adam": self._moments(self.opt.state_dict(), whole),
                 "plateau": self.plateau.state_dict() if self.plateau else None}
 
     def load_state_dict(self, state):
-        self.opt.load_state_dict(state["adam"])
+        self.opt.load_state_dict(self._moments(
+            state["adam"], lambda m, p: shard_like(m.to(local(p).device), p).clone()))
         if self.plateau is not None and state.get("plateau"):
             self.plateau.load_state_dict(state["plateau"])

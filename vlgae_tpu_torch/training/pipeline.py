@@ -5,6 +5,14 @@ Adam) and its accumulation form, the epoch loop with the warm-up phase,
 the per-epoch grounding coefficient, mid-epoch validation and device-side
 loss sums, checkpoints with ``torch.save``, the eval step, metrics and the
 CoNLL+ALIGN prediction writer.
+
+Under ``torchrun`` the pipeline is one rank of a data-parallel world
+(:mod:`vlgae_tpu_torch.parallel`): every rank walks the same global
+batches, pads each to a power of two and a multiple of the world size,
+steps on its own rows and sums the gradients; evaluation sums the metric
+states and merges the predictions on every rank; only rank 0 writes
+checkpoints, which hold the whole state at every world size, with FSDP or
+without (the CLIs write the predictions on rank 0).
 """
 
 from __future__ import annotations
@@ -21,8 +29,12 @@ from ..data.conll import write_conll_rows
 from ..models.embedding import StaticItem, normalize_embedding_
 from ..models.ldndmv import decode as ldndmv_decode
 from ..models.ldndmv import loss_init_rules, loss_nll
-from ..models.nn import set_dropout_generator
+from ..models.nn import set_batch_rows, set_dropout_generator
 from ..models.text_encoder import RNNEncoder
+from ..parallel.mesh import (barrier, full_state_dict, full_tensor, gather_predictions,
+                             global_sum, init_distributed, load_full_state_dict, local,
+                             pad_batch_to_devices, replicate, shard_batch, shard_like,
+                             shard_params, sum_across_processes)
 from ..utils.fn import coeff_at, parse_coeff_schedule, reduce_loss
 from . import metrics as metrics_mod
 from .optim import Optimizer
@@ -36,18 +48,7 @@ def pad_batch_pow2(batch: dict, min_b: int = 8):
     cross-image argmax of the decode, so predictions depend on them.
     Returns (batch, real_size).
     """
-    B = next(iter(batch.values())).shape[0]
-    target = max(min_b, 1 << (B - 1).bit_length())
-    pad = target - B
-    if pad == 0:
-        return batch, B
-    out = {}
-    for k, v in batch.items():
-        filler = np.repeat(np.asarray(v[:1]), pad, axis=0)
-        if k == "seq_len":
-            filler = np.zeros_like(filler)
-        out[k] = np.concatenate([np.asarray(v), filler], axis=0)
-    return out, B
+    return pad_batch_to_devices(batch, 1, pow2=True, min_b=min_b)
 
 
 def init_params(model: torch.nn.Module, seed: int) -> None:
@@ -84,20 +85,31 @@ def _to_device(x: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 class Pipeline:
     """Owns the model, the datamodule, the optimizer, the dropout
-    generator and the metrics (dev and test)."""
+    generator, the metrics (dev and test) and this process's place in the
+    data-parallel world (``dp``)."""
 
     def __init__(self, model, dm, cfg: Dict[str, Any], device="cuda",
                  workdir: str = ".", seed: int = 0):
         from ..predict import setup_device  # (predict imports this module)
 
-        # the card unless the caller names the CPU; raises without a card
-        self.device = setup_device(device)
+        trainer = cfg.get("trainer") or {}
+        if int(trainer.get("model_parallel", 1) or 1) > 1:
+            raise NotImplementedError(
+                "trainer.model_parallel > 1: tensor parallelism is not ported "
+                "(ROADMAP Queue 1, the tensor-parallel item); use data parallelism "
+                "(torchrun) with trainer.model_parallel=1")
+        # the card unless the caller names the CPU; raises without a card.
+        # Under torchrun: cuda:LOCAL_RANK (NCCL) or the CPU (gloo)
+        self.dp = init_distributed(setup_device(device))
+        self.device = self.dp.device
         self.model = model.to(self.device).eval()
         self.dm = dm
         self.cfg = cfg
         self.workdir = workdir
         # the joint model wraps the parser; ``exp=lang_only`` is the parser alone
         self.is_joint = hasattr(model, "dependency")
+        if self.is_joint:
+            model.data_group = self.dp
         self.dep = model.dependency if self.is_joint else model
         self.dep_cfg = self.dep.cfg
         self.loss_reduction_mode = (cfg.get("pipeline") or {}).get(
@@ -133,6 +145,11 @@ class Pipeline:
                 raise ValueError("vis_encoder.vit_weights is set but the model's "
                                  "vis_encoder is not a VisViTPatchEncoder")
             graft_vit_params(self.model, load_vit_params(str(vit_weights), vis.vit_config))
+        # the same weights on every rank; trainer.fsdp shards the large leaves
+        # (a single process without a group has nothing to shard them over)
+        replicate(self.model, self.dp)
+        if trainer.get("fsdp") and self.dp.group is not None:
+            shard_params(self.model, self.dp, int(trainer.get("fsdp_min_size", 1 << 16)))
         # seconds of each eval step of the last evaluate(): batch upload,
         # forward, loss and decode, ending when the results reach the host
         self.step_times: List[float] = []
@@ -180,7 +197,7 @@ class Pipeline:
             self.model, self.cfg.get("optimizer", {"args": {"lr": 1e-3}}),
             self.cfg.get("scheduler"), steps_per_epoch=n_batches,
             gradient_clip_val=self.cfg.get("trainer", {}).get("gradient_clip_val", 0.0),
-            frozen_patterns=frozen)
+            frozen_patterns=frozen, dp=self.dp)
         return self.optimizer
 
     def normalize_embeddings(self, when: str) -> None:
@@ -194,8 +211,12 @@ class Pipeline:
             counts = None
             if vocab is not None and getattr(vocab, "word_count", None):
                 counts = [vocab.word_count.get(w, 1) for w in vocab.idx2word]
-            normalize_embedding_(getattr(emb, item.name).embedding,
-                                 item.normalize_method, counts)
+            table = getattr(emb, item.name).embedding
+            whole = full_tensor(table)  # a sharded table's statistics span its rows
+            with torch.no_grad():
+                normalize_embedding_(whole, item.normalize_method, counts)
+                if whole is not table:
+                    local(table).copy_(shard_like(whole, table))
 
     def load_weights(self, path: str) -> None:
         """A port checkpoint (``.pt``: the ``torch.save`` of a training
@@ -210,7 +231,7 @@ class Pipeline:
         else:
             state = torch.load(path, map_location="cpu", weights_only=True)
             state = state.get("model", state)
-        self.model.load_state_dict(state, strict=True)
+        load_full_state_dict(self.model, state)
 
     def current_lr(self) -> float:
         if self.optimizer is not None:
@@ -245,33 +266,43 @@ class Pipeline:
             total, aux = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
             if self.is_joint:
                 total, aux = model.loss(out, inputs, total, aux, alpha)
-        num_token = torch.clamp_min(lengths.sum(), 1)
-        n_sent = torch.clamp_min((lengths > 0).sum(), 1)
+        # the counts of the global batch: each rank's loss is its share
+        num_token = torch.clamp_min(global_sum(lengths.sum(), self.dp), 1)
+        n_sent = torch.clamp_min(global_sum((lengths > 0).sum(), self.dp), 1)
         mode = self.loss_reduction_mode
         total = reduce_loss(total, num_token, n_sent, mode)
         aux = {k: reduce_loss(v, num_token, n_sent, mode) for k, v in aux.items()}
         return total, aux
 
     def grad_step(self, x, y, init_phase: bool, alpha: float):
-        """Upload a padded batch, run forward and backward (gradients add
-        into ``.grad``). Returns the detached loss and terms on the device."""
+        """Upload this rank's rows of a padded batch, run forward and
+        backward (gradients add into ``.grad``). Returns the detached loss
+        and terms (this rank's shares) on the device."""
         self.model.train()
-        inputs = _to_device(x, self.device)
-        gold = _to_device(y, self.device)
+        inputs = shard_batch(x, self.dp)
+        gold = shard_batch(y, self.dp)
+        B = len(x["seq_len"])
+        set_batch_rows(self.model, (*self.dp.rows(B), B) if self.dp.sharded else None)
         loss, aux = self.compute_loss(inputs, gold, init_phase, alpha)
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def apply_step(self, n_accumulated: int = 1) -> None:
-        """Average the accumulated gradients, clip, update, clear."""
+        """Average the accumulated gradients, sum them over the ranks,
+        clip, update, clear."""
         if n_accumulated > 1:
             for p in self.optimizer.params:
                 if p.grad is not None:
-                    p.grad.mul_(1.0 / n_accumulated)
+                    local(p.grad).mul_(1.0 / n_accumulated)
+        self.optimizer.sum_grads()
         if self.watcher is not None and self.watcher.should_log(self.step):
-            # this update's gradients, at the parameters before it
-            self.watcher.log_trees(self.step, self.model.named_parameters())
-        self.optimizer.step(self.step)
+            # this update's global gradients, at the parameters before it;
+            # every rank gathers the sharded leaves, the writer logs them
+            self.watcher.log_trees(self.step, (
+                (n, full_tensor(p.detach()),
+                 None if p.grad is None else full_tensor(p.grad))
+                for n, p in self.model.named_parameters()))
+        self.optimizer.update(self.step)
         self.optimizer.zero_grad()
         self.step += 1
         if self.profiler is not None:
@@ -290,7 +321,8 @@ class Pipeline:
         ``epoch < init_epoch`` (``init_method='y'``), the epoch's grounding
         coefficient, batches padded to a power of two (x and y), loss sums
         kept on the device and read once per validation window and at the
-        end, and ``val_fn()`` every ``val_check_interval`` of the epoch."""
+        end (summed over the ranks), and ``val_fn()`` every
+        ``val_check_interval`` of the epoch."""
         if self.optimizer is None:
             self.setup_optimizer()
         self.epoch = epoch
@@ -322,7 +354,8 @@ class Pipeline:
                 break
             if val_every and i > 0 and i % val_every == 0:
                 self.window_train_terms = {
-                    f"train/{k}": float(v) / max(win_n, 1) for k, v in win_sums.items()}
+                    f"train/{k}": v / max(win_n, 1)
+                    for k, v in self._host_sums(win_sums).items()}
                 win_sums, win_n = {}, 0
                 val_fn()
             if self._batch_normalize:
@@ -331,8 +364,8 @@ class Pipeline:
                 raise RuntimeError(
                     "init_method='y' warm-up needs dec_rule/attach_rule/root_rule "
                     "in the batch; set dm.include_init_rules")
-            x, _ = pad_batch_pow2(x)
-            y, _ = pad_batch_pow2(y)
+            x, _ = pad_batch_to_devices(x, self.dp.world, pow2=True)
+            y, _ = pad_batch_to_devices(y, self.dp.world, pow2=True)
             if accum <= 1:
                 loss, aux = self.train_step(x, y, init_phase, alpha)
             else:
@@ -349,32 +382,46 @@ class Pipeline:
             win_n += 1
         if pending:
             self.apply_step(pending)
-        stats = {"train/loss": float(loss_sum) / loss_n if loss_n else 0.0,
+        sums = self._host_sums({"loss": loss_sum, **aux_sums} if loss_n else {})
+        stats = {"train/loss": sums.pop("loss") / loss_n if loss_n else 0.0,
                  "train/time": time.time() - t0,
                  "train/init_phase": init_phase}
-        for k, v in aux_sums.items():
-            stats[f"train/{k}"] = float(v) / loss_n
+        for k, v in sums.items():
+            stats[f"train/{k}"] = v / loss_n
         return stats
+
+    def _host_sums(self, sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Device-side loss sums read on the host, each summed over the
+        ranks (one all-reduce)."""
+        if not sums:
+            return {}
+        total = global_sum(torch.stack([v.float() for v in sums.values()]), self.dp)
+        return dict(zip(sums, (float(v) for v in total.cpu())))
 
     # -- checkpoints -------------------------------------------------------------
     def save_checkpoint(self, name: str = "last") -> str:
         """``<workdir>/checkpoint/<name>.pt``: weights, Adam and plateau
         state, the dropout generator, step, epoch, best, and the host RNG
-        state of the training data (sampler epochs, box sampling)."""
+        state of the training data (sampler epochs, box sampling). The
+        weights and moments are whole at every world size, with FSDP or
+        without; every rank takes part in gathering them and rank 0
+        writes."""
         folder = os.path.join(self.workdir, "checkpoint")
-        os.makedirs(folder, exist_ok=True)
         path = os.path.join(folder, f"{name}.pt")
         state = {
-            "model": self.model.state_dict(),
+            "model": full_state_dict(self.model),
             "optimizer": (self.optimizer.state_dict()
                           if self.optimizer is not None else None),
             "generator": self.generator.get_state(),
             "step": self.step, "epoch": self.epoch, "best": self.best,
             "data": self.dm.train_state(),
         }
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        if self.dp.rank == 0:
+            os.makedirs(folder, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        barrier(self.dp)
         return path
 
     def load_checkpoint(self, path: str, load_training_state: bool = False):
@@ -384,7 +431,7 @@ class Pipeline:
             self.load_weights(path)
             return
         state = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(state["model"], strict=True)
+        load_full_state_dict(self.model, state["model"])
         if self.optimizer is None:
             self.setup_optimizer()
         if state.get("optimizer") is not None:
@@ -404,8 +451,10 @@ class Pipeline:
     @torch.no_grad()
     def eval_step(self, x: Dict[str, np.ndarray], alpha: float = 0.5
                   ) -> Dict[str, np.ndarray]:
+        """The eval step on this rank's rows of the padded batch ``x``: its
+        heads, decodes and its share of the loss."""
         model = self.model.eval()
-        inputs = _to_device(x, self.device)
+        inputs = shard_batch(x, self.dp)
         out = model(inputs)
         lengths = inputs["seq_len"]
         total, _ = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
@@ -424,6 +473,10 @@ class Pipeline:
         return res
 
     def evaluate(self, split: str = "dev", metric_idx: int = 0):
+        """Metrics and predictions (by sample id) of ``split``: each rank
+        evaluates its rows of every batch; the metric states and the loss
+        sums are summed over the ranks and the predictions merged, on every
+        rank."""
         metric = self.metrics[metric_idx]
         metric.reset()
         # the epoch's grounding coefficient: val/loss is the trained objective
@@ -432,16 +485,24 @@ class Pipeline:
         all_outputs = {}
         self.step_times, self.step_sizes = [], []
         for x, y in self.dm.batches(split, shuffle=False):
-            xp, real = pad_batch_pow2(x)
+            xp, real = pad_batch_to_devices(x, self.dp.world, pow2=True)
+            start, stop = self.dp.rows(len(xp["seq_len"]))
             t0 = time.perf_counter()
             res = self.eval_step(xp, alpha)
             self.step_times.append(time.perf_counter() - t0)
             self.step_sizes.append(real)
-            res = {k: v[:real] if (v.ndim > 0 and v.shape[0] >= real
-                                   and k != "vis_split") else v
+            # this rank's real rows: [start, start + mine) of the batch
+            mine = max(0, min(stop, real) - start)
+            res = {k: v[:mine] if (v.ndim > 0 and k != "vis_split") else v
                    for k, v in res.items()}
             loss_sum += float(res["loss"])
+            x = {k: v[start:start + mine] for k, v in x.items()}
+            y = {k: v[start:start + mine] for k, v in y.items()}
             token_sum += int(x["seq_len"].sum())
+            if mine == 0:
+                continue
+            if "txt_to_img" in res:  # image indices relative to this rank's rows
+                res["txt_to_img"] = res["txt_to_img"] - start
             mask = (np.arange(x["word"].shape[1])[None, :]
                     < np.asarray(x["seq_len"])[:, None])
             predict = {"arc": res["arc"]}
@@ -463,8 +524,12 @@ class Pipeline:
                 if "txt_to_factor" in predict:
                     rec["txt_to_factor"] = predict["txt_to_factor"][j]
                 all_outputs[int(sid)] = rec
+        if self.dp.group is not None:
+            metric.sync(lambda vec: sum_across_processes(vec, self.dp))
+            all_outputs = gather_predictions(all_outputs, self.dp)
+            loss_sum, token_sum = sum_across_processes([loss_sum, token_sum], self.dp)
         result = metric.compute()
-        result["loss"] = loss_sum / max(token_sum, 1)
+        result["loss"] = float(loss_sum) / max(int(token_sum), 1)
         return result, all_outputs
 
     # -- prediction writing -------------------------------------------------
@@ -473,7 +538,8 @@ class Pipeline:
         arc factors, tab-separated), the format ``eval.py`` scores; under
         ``decode_grounding_mode='on_img'`` the column is the placeholder
         ``X`` (two of them, tab-separated, with arc factors); the
-        stand-alone parser writes no ALIGN column."""
+        stand-alone parser writes no ALIGN column. (Under data parallelism
+        the CLIs call it on rank 0 alone.)"""
         ds = self.dm.datasets[split]
         jcfg = self.model.cfg if self.is_joint else None
         on_img = jcfg is not None and jcfg.decode_grounding_mode == "on_img"

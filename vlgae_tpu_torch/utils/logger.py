@@ -13,10 +13,14 @@ from typing import Optional
 
 
 class MetricLogger:
+    """``quiet``: print nothing (the ranks other than 0 of a data-parallel
+    run, which also pass no ``workdir``)."""
+
     def __init__(self, workdir: Optional[str] = None, use_wandb: bool = False,
                  project: str = "vlgae_tpu", name: Optional[str] = None,
-                 config: Optional[dict] = None):
+                 config: Optional[dict] = None, quiet: bool = False):
         self.path = os.path.join(workdir, "metrics.jsonl") if workdir else None
+        self.quiet = quiet
         self._wandb = None
         if use_wandb:
             try:
@@ -31,7 +35,8 @@ class MetricLogger:
         if step is not None:
             rec["step"] = step
         line = json.dumps(rec, default=float)
-        print(line, flush=True)
+        if not self.quiet:
+            print(line, flush=True)
         if self.path:
             with open(self.path, "a") as f:
                 f.write(line + "\n")
@@ -42,12 +47,15 @@ class MetricLogger:
 class WandbWatcher:
     """Histograms of the parameters and/or gradients every ``log_freq``
     updates (``log``: gradients | parameters | all | none, as
-    ``wandb.watch``), built on the host from ``named_parameters()``. Inert
-    when the wandb package is absent or no run is active."""
+    ``wandb.watch``), built on the host. Inert when the wandb package is
+    absent or no run is active. In a data-parallel run every rank holds
+    one and passes it the whole tensors at the same updates (gathering a
+    sharded leaf is a collective); only the ``writer`` logs them."""
 
-    def __init__(self, log: str = "gradients", log_freq: int = 100):
+    def __init__(self, log: str = "gradients", log_freq: int = 100, writer: bool = True):
         self.log_mode = log
         self.log_freq = max(1, int(log_freq))
+        self.writer = writer
         try:
             import wandb
 
@@ -57,23 +65,27 @@ class WandbWatcher:
 
     @property
     def active(self) -> bool:
-        return (self._wandb is not None
+        return (self.writer and self._wandb is not None
                 and getattr(self._wandb, "run", None) is not None
                 and self.log_mode != "none")
 
     def should_log(self, step: int) -> bool:
-        return self.active and step % self.log_freq == 0
+        """Whether update ``step`` is logged: the same answer on every rank."""
+        return (self._wandb is not None and self.log_mode != "none"
+                and step % self.log_freq == 0)
 
-    def log_trees(self, step: int, named_parameters):
-        if not self.active:
-            return
+    def log_trees(self, step: int, trees):
+        """``trees``: ``(name, value, gradient or None)`` of every parameter,
+        consumed whole on every rank."""
         payload = {}
-        for name, p in named_parameters:
+        for name, value, grad in trees:
+            if not self.active:
+                continue
             if self.log_mode in ("parameters", "all"):
                 payload[f"parameters/{name}"] = self._wandb.Histogram(
-                    p.detach().float().cpu().numpy().ravel())
-            if self.log_mode in ("gradients", "all") and p.grad is not None:
+                    value.detach().float().cpu().numpy().ravel())
+            if self.log_mode in ("gradients", "all") and grad is not None:
                 payload[f"gradients/{name}"] = self._wandb.Histogram(
-                    p.grad.detach().float().cpu().numpy().ravel())
+                    grad.detach().float().cpu().numpy().ravel())
         if payload:
             self._wandb.log(payload, step=step)
