@@ -6,6 +6,12 @@ Phases, each printing one JSON line:
   1. env       - torch / CUDA / nvcc versions and the card (nvidia-smi)
   2. build     - compile every kernel from csrc/ (one nvcc per source, in
                  parallel)
+  2a. native_io - the det-feature packer (csrc/vlgae_io.cpp, built here by
+                 g++): at sample=0 bit-equal to a NumPy packing of the
+                 recipe's 36 boxes of 2048-d features, at sample=35 35
+                 distinct sorted rows per image, the same rows for the same
+                 seed, the masks, the features in page-locked memory; the
+                 pack time of 64 images
   3. k1        - the fused DMV kernel against its plain version (log + max),
                  at B=64 with ragged lengths 1..50, a batch with lengths up
                  to 80 and n1 < 10; reruns bit-identical
@@ -37,7 +43,16 @@ Phases, each printing one JSON line:
                  checkpoints, ``eval.py`` on the test predictions, K5 and
                  K6 on a joint step's own tensors (K6's time and list
                  lengths there too), and the train-step time
-                 at B=64
+                 at B=64; the pageable and the pinned upload of a B=64
+                 batch's box features (18.9 MB), host and device ms
+  9a. export   - ``training/export.py``: the joint model's deterministic
+                 forward at the recipe's widths (bf16), B=64, exported with
+                 ``torch.export`` on the card, loaded back and run: its
+                 ``merged_dec``/``merged_attach`` against the eager forward
+                 (``EXPORT_ATOL``), the artifact's bytes, the loaded
+                 program's time beside the eager forward's and the kernel
+                 launches it makes (K1 twice and K5, as the custom ops
+                 ``vlgae::dmv_fused`` and ``vlgae::match_maxes``)
  10. k2        - the value-only inside kernel against ``dmv_total`` (log +
                  max) at B=64 with ragged lengths, in its three mappings: a
                  warp per sentence (n1 = 2, 3, 5, 9), a block per sentence
@@ -74,7 +89,9 @@ Phases, each printing one JSON line:
                  each held against its plain version on the path's own
                  tensors), the frozen ViT bit-identical after training,
                  ``eval.py`` on the predictions with the patch grid as
-                 proposal boxes, step times and the kernels' times there;
+                 proposal boxes, step times and the kernels' times there,
+                 the pageable and the pinned upload of a B=64 batch's
+                 pixels (38.5 MB);
                  one eval step with ``mbr_decoding`` on at n1 = 65 (three
                  K1 launches in global scratch, heads held to the plain
                  Eisner fill)
@@ -146,6 +163,13 @@ Phases, each printing one JSON line:
                  ``predict``, ``eval.py``; each, card against CPU at small
                  widths and precision=32 (dev files identical but for rows
                  that a near tie decides)
+ 22. parallel  - ``train`` under ``torchrun`` on one card (world 1, plain
+                 and FSDP) against the plain run, then ``predict``; with two
+                 cards or more also ``trainer.model_parallel=2`` on the
+                 (1, 2) grid at bf16 and at precision 32, with four the
+                 (2, 2) grid with FSDP, each against a plain run
+                 (``TP_BF16_RTOL``, ``TP_F32_RTOL``; on one card it prints
+                 why not)
 Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
 the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
 Then each phase's seconds, the card's name and power limit, the per-kernel
@@ -153,7 +177,8 @@ table (launches on the main paths, error, time, the plain version's time,
 the bound the card's peaks set for the same work, a library call's time
 where one exists) and, as the last line, ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero without that line. Needs
-one CUDA device.
+one CUDA device. ``--phases a,b,...`` runs only those phases (after ``env``
+and ``build``) and prints no kernel table.
 """
 
 from __future__ import annotations
@@ -169,47 +194,56 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("dmv_fused", "dmv_inside", "dmv_outside", "match_fwd", "match_bwd")
+# each kernel's wrapper, and the torch.library custom op it is called through
 KERNELS = {
     "dmv_fused": {
         "route": "cuda",
+        "op": "vlgae::dmv_fused",
         "source": "vlgae_tpu_torch/csrc/dmv_fused.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:878",
     },
     # the inside pass alone: a block per sentence, charts in shared memory
     "dmv_inside": {
         "route": "cuda",
+        "op": "vlgae::dmv_inside",
         "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:546",
     },
     "dmv_inside_save": {
         "route": "cuda",
+        "op": "vlgae::dmv_inside_save",
         "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:555",
     },
     "dmv_outside": {
         "route": "cuda",
+        "op": "vlgae::dmv_outside",
         "source": "vlgae_tpu_torch/csrc/dmv_outside.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:861",
     },
     # the same two inside functions in the warp mapping (n1 <= 9) ...
     "dmv_inside_small": {
         "route": "cuda",
+        "op": "vlgae::dmv_inside, vlgae::dmv_inside_save",
         "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:569",
     },
     # ... and with charts in global memory (beyond shared memory)
     "dmv_inside_long": {
         "route": "cuda",
+        "op": "vlgae::dmv_inside, vlgae::dmv_inside_save",
         "source": "vlgae_tpu_torch/csrc/dmv_inside.cu",
         "replaces": "vlgae_tpu/ops/dmv_pallas.py:590",
     },
     "match_fwd": {
         "route": "cuda",
+        "op": "vlgae::match_maxes",
         "source": "vlgae_tpu_torch/csrc/match_fwd.cu",
         "replaces": "vlgae_tpu/ops/match_pallas.py:195",
     },
     "match_bwd": {
         "route": "cuda",
+        "op": "vlgae::match_maxes_bwd",
         "source": "vlgae_tpu_torch/csrc/match_bwd.cu",
         "replaces": "vlgae_tpu/ops/match_pallas.py:267",
     },
@@ -217,6 +251,7 @@ KERNELS = {
     # all-gathered images
     "match_maxes_sharded": {
         "route": "cuda",
+        "op": "vlgae::match_maxes, vlgae::match_maxes_bwd",
         "source": "vlgae_tpu_torch/ops/match.py",
         "replaces": "vlgae_tpu/ops/match_pallas.py:546",
     },
@@ -230,6 +265,9 @@ K5_ATOL, K5_RTOL = 1e-3, 1e-6
 # K6: exact bf16 x bf16 products summed in f32 in different orders, then
 # rounded to bf16: one bf16 ulp (2^-8 relative) plus f32 order noise
 K6_ATOL, K6_RTOL = 1e-4, 2.0 ** -7
+# the exported forward against the eager one: the same operations, bit-equal
+# expected; f32 round-off of a reordered product allowed
+EXPORT_ATOL, EXPORT_RTOL = 1e-5, 1e-6
 # card vs CPU train step at precision=32 (f32, different summation orders)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
@@ -345,6 +383,46 @@ def device_ms(fn, n=20, reps=5):
     return statistics.median(times)
 
 
+def upload_numbers(arr, device, reps=7):
+    """One batch array uploaded two ways, each timed on the host clock (the
+    call's return) and between two CUDA events around it (median of
+    ``reps`` after one warm-up): from a pageable copy, as the port uploaded
+    before its batches were packed into page-locked memory, and from the
+    page-locked array itself with ``non_blocking=True``, as
+    ``parallel.shard_batch`` uploads it. Both arrive equal to the array."""
+    import numpy as np
+    import torch
+
+    from vlgae_tpu_torch.utils.pinned import pinned_rows
+
+    src = pinned_rows(arr)
+    if src is None:
+        raise AssertionError(f"a batch array of {arr.nbytes} bytes is not page-locked")
+    pageable = np.array(arr)
+
+    def timed(fn):
+        host, dev = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            dev.append(start.elapsed_time(end))
+        if not torch.equal(out.cpu(), torch.from_numpy(pageable)):
+            raise AssertionError("an upload changed the batch")
+        return {"host_ms": statistics.median(host[1:]),
+                "device_ms": statistics.median(dev[1:])}
+
+    return {"bytes": int(arr.nbytes), "shape": list(arr.shape),
+            "pageable": timed(lambda: torch.as_tensor(pageable).to(device)),
+            "pinned": timed(lambda: src.to(device, non_blocking=True))}
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -391,6 +469,85 @@ def phase_build(state):
         out = dict(zip(SOURCES, pool.map(one, SOURCES)))
     emit({"phase": "build", "seconds": out,
           "wall_s": round(time.perf_counter() - t0, 3)})
+
+
+def phase_native_io(state):
+    """The port's det-feature packer, built from csrc/vlgae_io.cpp on this
+    machine, on the recipe's feature files (36 boxes of 2048-d features):
+    bit-equal to a NumPy packing at sample=0; at sample=35 35 distinct,
+    sorted rows of each image's file, the same for the same seed, others
+    for another, the masks; the features land in page-locked memory; the
+    pack time of 64 images."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.data import native_io
+    from vlgae_tpu_torch.ops import _build
+    from vlgae_tpu_torch.utils.pinned import is_pinned
+
+    so = os.path.join(_build.BUILD, "libvlgae_io.so")
+    if os.path.exists(so):
+        os.remove(so)
+    native_io._LIB = None
+    t0 = time.perf_counter()
+    native_io.load_library()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=64, feat_dim=2048, n_box=36,
+                    len_range=(3, 10), seed=0)
+        feat_dir = os.path.join(tmp, "vlparse", "det_feats")
+        paths = sorted(os.path.join(feat_dir, f) for f in os.listdir(feat_dir))[:64]
+        files = [np.load(p) for p in paths]
+        P, F = 36, files[0].shape[1] - 4
+        feats, boxes, mask = native_io.load_det_feats_batch(paths, P, F, 0, 0)
+        want = np.zeros_like(feats), np.zeros_like(boxes), np.zeros_like(mask)
+        for i, f in enumerate(files):
+            n = min(len(f), P)
+            want[0][i, :n], want[1][i, :n], want[2][i, :n] = f[:n, :-4], f[:n, -4:], True
+        if not all(np.array_equal(g, w) for g, w in zip((feats, boxes, mask), want)):
+            raise AssertionError("native_io: sample=0 differs from the NumPy packing")
+        if not is_pinned(feats):
+            raise AssertionError("native_io: the features are not in page-locked memory")
+        drawn = native_io.load_det_feats_batch(paths, P, F, 35, 12345)
+        again = native_io.load_det_feats_batch(paths, P, F, 35, 12345)
+        other = native_io.load_det_feats_batch(paths, P, F, 35, 54321)
+        if not all(np.array_equal(a, b) for a, b in zip(drawn, again)):
+            raise AssertionError("native_io: the same seed drew other rows")
+        if np.array_equal(drawn[0], other[0]):
+            raise AssertionError("native_io: another seed drew the same rows")
+        for i, f in enumerate(files):
+            if not (drawn[2][i, :35].all() and not drawn[2][i, 35:].any()):
+                raise AssertionError(f"native_io: image {i}'s mask {drawn[2][i]}")
+            rows = [int(np.flatnonzero((f[:, :-4] == r).all(1))[0]) for r in drawn[0][i, :35]]
+            if rows != sorted(set(rows)) or not np.array_equal(drawn[1][i, :35], f[rows, -4:]):
+                raise AssertionError(f"native_io: image {i} drew rows {rows}")
+
+        def pack_ms(pack):
+            times = []
+            for k in range(6):
+                t0 = time.perf_counter()
+                pack(k)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times[1:])
+
+        def numpy_pack(_):
+            out = np.zeros((len(paths), P, F), np.float32)
+            for i, path in enumerate(paths):
+                out[i] = np.load(path)[:P, :-4]
+
+        emit({"phase": "native_io", "build_s": round(build_s, 3), "library": so,
+              "sample0_equals_numpy": True, "sample35_rows_distinct_sorted": True,
+              "pinned": True, "bytes_B64": int(feats.nbytes),
+              "pack_ms_B64": {
+                  "sample35": pack_ms(lambda k: native_io.load_det_feats_batch(
+                      paths, P, F, 35, k)),
+                  "sample0": pack_ms(lambda k: native_io.load_det_feats_batch(
+                      paths, P, F, 0, k)),
+                  # np.load of the same files into one array, for scale
+                  "numpy_first_rows": pack_ms(numpy_pack)},
+              "shape": {"B": 64, "P": P, "feat": F}})
 
 
 def _dmv_inputs(rng, lengths, n1, device, quarter=False):
@@ -1238,7 +1395,8 @@ def phase_slice(state):
     from vlgae_tpu_torch.ops import dmv_cuda, match
     from vlgae_tpu_torch.ops.match import match_maxes_plain
     from vlgae_tpu_torch.struct import dmv_value_and_grads_plain
-    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1282,7 +1440,7 @@ def phase_slice(state):
         x, _ = next(pipe.dm.batches("dev", shuffle=False))
         xp, _ = pad_batch_pow2(x)
         with torch.no_grad():
-            inputs = _to_device(xp, pipe.device)
+            inputs = shard_batch(xp, pipe.dp)
             out = pipe.model(inputs)
             path_err = _check_dmv_on_path(out, inputs["seq_len"])
             keep, inv = pipe.model._rel_tri_maps(out["vis_packed"][2], pipe.device)
@@ -1506,6 +1664,7 @@ def phase_train(state):
         finally:
             match.match_maxes, match.match_maxes_bwd = orig["fwd"], orig["bwd"]
         step_s = statistics.median(times[1:])
+        upload = upload_numbers(xp["vis_box_feat"], pipe.device)
         _, k5_err, k5_off = _check_k5(captured["fwd"], False,
                                       "on a joint step's tensors")
         path_err = _check_k6(captured["bwd"], False, "on a joint step's tensors")
@@ -1524,12 +1683,84 @@ def phase_train(state):
               "train_step_ms_median_B64": step_s * 1e3,
               "train_step_ms_B64": [round(t * 1e3, 3) for t in times],
               "sentences_per_s_B64": 64 / step_s,
+              "box_feat_upload_B64": upload,
               "shape": {"len": "3-50", "B": 64, "P": 36, "feat": 2048,
                         "precision": "bf16"}})
         for name, n in launches.items():
             state.setdefault(name, {}).setdefault("launches_by_path", {})[
                 "vlgae_train"] = n
         state["train_step_ms"] = step_s * 1e3
+
+
+def phase_export(state):
+    """``export_forward`` / ``load_forward`` of the joint model at the
+    recipe's widths (bf16), B = 64, on the card."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.predict import build_pipeline
+    from vlgae_tpu_torch.training.export import KEYS, export_forward, load_forward
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
+
+    def counts():
+        return {"dmv_fused": dmv_cuda.n_launches, "match_fwd": match.n_launches}
+
+    def host_ms(fn, reps=7):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_corpus(os.path.join(tmp, "vlparse"), n_imgs=104, feat_dim=2048,
+                    n_box=36, len_range=(3, 50), seed=0)
+        pipe = build_pipeline(_corpus_overrides(tmp) + [
+            f"datamodule.{s}_dataloader.num_bucket=1" for s in ("train", "dev", "test")],
+            device="cuda", init_seed=0)
+        x = next(b for b, _ in pipe.dm.batches("dev", shuffle=False)
+                 if len(b["seq_len"]) == 64)
+        x = {k: v for k, v in pad_batch_pow2(x)[0].items() if v.dtype != object}
+        path = os.path.join(tmp, "forward.pt2")
+        t0 = time.perf_counter()
+        n_bytes = export_forward(pipe.model, x, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = load_forward(path)
+        load_s = time.perf_counter() - t0
+        inputs = shard_batch(x, pipe.dp)
+        model = pipe.model.eval()
+        with torch.no_grad():
+            before = counts()
+            got = program(inputs)
+            torch.cuda.synchronize()
+            after = counts()
+            want = model(inputs)
+            launches = {k: after[k] - before[k] for k in after}
+            err = {k: float((got[k] - want[k]).abs().max()) for k in KEYS}
+            exact = all(torch.equal(got[k], want[k]) for k in KEYS)
+            if sorted(got) != sorted(KEYS) or not all(
+                    close(got[k], want[k], EXPORT_ATOL, EXPORT_RTOL) for k in KEYS):
+                raise AssertionError(f"export: the loaded program differs: {err}")
+            if launches != {"dmv_fused": 2, "match_fwd": 1}:
+                raise AssertionError(f"export: the loaded program launched {launches}")
+            ms = {"loaded": host_ms(lambda: program(inputs)),
+                  "eager": host_ms(lambda: model(inputs))}
+        emit({"phase": "export", "bytes": n_bytes, "export_s": round(export_s, 3),
+              "load_s": round(load_s, 3), "max_abs_err": err, "bit_equal": exact,
+              "tolerance": {"atol": EXPORT_ATOL, "rtol": EXPORT_RTOL},
+              "launches_per_call": launches, "forward_ms_B64": ms,
+              "shape": {"B": 64, "len": int(x["word"].shape[1]), "P": 36, "feat": 2048,
+                        "precision": "bf16"}})
+    for name, n in launches.items():
+        state.setdefault(name, {}).setdefault("launches_by_path", {})["export_forward"] = n
 
 
 # n1 of the batches that hold the separate inside/outside kernels against
@@ -1858,10 +2089,10 @@ def _check_lang_batch(pipe, x, train):
                                               dmv_outside)
     from vlgae_tpu_torch.struct import (dmv_inside_charts_plain, dmv_total,
                                         dmv_value_and_grads_plain)
-    from vlgae_tpu_torch.training.pipeline import _to_device
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
 
     with torch.no_grad():
-        inputs = _to_device(x, pipe.device)
+        inputs = shard_batch(x, pipe.dp)
         out = pipe.model.eval()(inputs)
     dec, attach, lens = out["merged_dec"], out["merged_attach"], inputs["seq_len"]
     want_total, want_gd, want_ga = dmv_value_and_grads_plain(dec, attach, lens, "max")
@@ -2226,7 +2457,8 @@ def phase_vit(state):
     from vlgae_tpu_torch import patch_roi_boxes, train
     from vlgae_tpu_torch.ops import dmv_cuda, match
     from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused
-    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     def reset():
         dmv_cuda.reset_launch_counts()
@@ -2343,7 +2575,7 @@ def phase_vit(state):
         # K1 on the potentials of a training batch (eval forward): n1 = 65
         x = next(b for b, _ in full if b["word"].shape[1] + 1 == 65)
         with torch.no_grad():
-            inputs = _to_device(x, pipe.device)
+            inputs = shard_batch(x, pipe.dp)
             g0 = dmv_cuda.n_fused_global_launches
             out = pipe.model.eval()(inputs)
             on_path["k1"] = _check_dmv_on_path(out, inputs["seq_len"])
@@ -2355,7 +2587,7 @@ def phase_vit(state):
             # the frozen ViT's forward and the pageable upload of the pixels
             px = inputs["vis_pixels"]
             vit_ms = device_ms(lambda: pipe.model.vis_encoder.vit(px), n=10)
-            upload_ms = time_ms(lambda: torch.as_tensor(x["vis_pixels"]).to(pipe.device))
+        upload = upload_numbers(x["vis_pixels"], pipe.device)
         if (VIT_V["train"], VIT_Q) != (k5_args[0].shape[1], k5_args[1].shape[1]):
             raise AssertionError(f"vit: the timed step's K5 shapes {on_path}")
 
@@ -2379,7 +2611,7 @@ def phase_vit(state):
         if not (mbr_counts["dmv_fused"] == mbr_counts["dmv_fused_global"] == 3):
             raise AssertionError(f"vit MBR eval step: launches {mbr_counts}")
         with torch.no_grad():
-            inputs = _to_device(x, pipe.device)
+            inputs = shard_batch(x, pipe.dp)
             arc = pipe.model.eval()(inputs)["dep_reuse"]["log"][2].sum(-1)
             mbr_check = check_mbr_heads(arc, inputs["seq_len"],
                                         torch.as_tensor(mbr_arc).to(arc.device),
@@ -2420,8 +2652,7 @@ def phase_vit(state):
           "eval_py_tail": {"train_dev": eval_dev, "predict_dev": eval_predict},
           "vit_frozen_bit_identical": True, "kernels_on_path": on_path,
           "mbr_eval_step_n1_65": mbr_check,
-          "vit_forward_device_ms_B64": vit_ms, "pixel_upload_ms_B64": upload_ms,
-          "pixel_bytes_B64": int(x["vis_pixels"].nbytes),
+          "vit_forward_device_ms_B64": vit_ms, "pixel_upload_B64": upload,
           "train_step_ms_median_B64": step_s * 1e3,
           "train_step_ms_B64": [round(t * 1e3, 3) for t in times],
           "train_sentences_per_s_B64": 64 / step_s,
@@ -2695,7 +2926,8 @@ def phase_mbr(state):
     from vlgae_tpu_torch.ops import dmv_cuda, match
     from vlgae_tpu_torch.predict import build_pipeline
     from vlgae_tpu_torch.struct import DependencyCRF, DMV1o
-    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     def reset():
         dmv_cuda.reset_launch_counts()
@@ -2755,7 +2987,7 @@ def phase_mbr(state):
         with torch.no_grad():
             for x, _ in card.dm.batches("dev", shuffle=False):
                 xp, real = pad_batch_pow2(x)
-                inputs = _to_device(xp, card.device)
+                inputs = shard_batch(xp, card.dp)
                 out = card.model.eval()(inputs)
                 lens = inputs["seq_len"]
                 arc = out["dep_reuse"]["log"][2].sum(-1)
@@ -2848,7 +3080,7 @@ def phase_mbr(state):
         pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=True)
         heads = torch.as_tensor(pipe.eval_step(x)["arc"]).to(dev)
         with torch.no_grad():
-            inputs = _to_device(x, pipe.device)
+            inputs = shard_batch(x, pipe.dp)
             out = pipe.model.eval()(inputs)
             lens = inputs["seq_len"]
             arc = DMV1o((out["merged_dec"], out["merged_attach"]), lens).marginals.sum(-1)
@@ -3234,7 +3466,8 @@ def _grounding_reference(tmp, name):
     import torch
 
     from vlgae_tpu_torch.struct import dmv_value_and_grads_plain
-    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     small = ["datamodule.pad_boxes=6", "_hidden_size=32", "_match_hidden_size=16",
              "_rank=4", "vis_encoder.n_in=16", "vis_encoder.n_hidden=32",
@@ -3262,7 +3495,7 @@ def _grounding_reference(tmp, name):
     for x, y in pipes["cpu"].dm.batches("train", shuffle=False):
         x, y = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
         with torch.no_grad():
-            o = pipes["cpu"].model.eval()(_to_device(x, "cpu"))
+            o = pipes["cpu"].model.eval()(shard_batch(x, pipes["cpu"].dp))
             ind = dmv_value_and_grads_plain(o["merged_dec"], o["merged_attach"],
                                             torch.as_tensor(x["seq_len"]), "max")[2]
         if bool(((ind % 1) != 0).flatten(1).any(1).any()):
@@ -3939,7 +4172,8 @@ def _card_vs_cpu_dev(tmp, overrides, name, joint):
     within 1e-4."""
     import torch
 
-    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     texts, losses, card = {}, {}, None
     for dev in ("cpu", "cuda"):
@@ -3960,7 +4194,7 @@ def _card_vs_cpu_dev(tmp, overrides, name, joint):
         with torch.no_grad():
             for x, _ in card.dm.batches("dev", shuffle=False):
                 xp, real = pad_batch_pow2(x)
-                inputs = _to_device(xp, card.device)
+                inputs = shard_batch(xp, card.dp)
                 o = card.model.eval()(inputs)
                 lens = inputs["seq_len"]
                 viterbi = torch.argmax(o["dep_reuse"]["max"][2].sum(-1)[:, :, 1:], dim=1)
@@ -4024,10 +4258,11 @@ def _joint_kernels_on_path(pipe, batch, captured, what):
     on a train step's captured tensors, each against its plain version."""
     import torch
 
-    from vlgae_tpu_torch.training.pipeline import _to_device, pad_batch_pow2
+    from vlgae_tpu_torch.parallel.mesh import shard_batch
+    from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     with torch.no_grad():
-        inputs = _to_device(pad_batch_pow2(batch[0])[0], pipe.device)
+        inputs = shard_batch(pad_batch_pow2(batch[0])[0], pipe.dp)
         k1 = _check_dmv_on_path(pipe.model.eval()(inputs), inputs["seq_len"])
     _, k5_err, k5_off = _check_k5(captured["fwd"], False, what)
     k6_err = _check_k6(captured["bwd"], False, what)
@@ -4266,13 +4501,22 @@ PARALLEL_STEP_LAUNCHES = {
     "eval": {"dmv_fused": 2, "match_fwd": 1, "match_bwd": 0, "match_maxes_sharded": 1},
 }
 PARALLEL_LOSS_RTOL = 1e-6
+# a (data, model) grid against the plain run. The first step's loss: the
+# row-parallel product sums the model ranks' partial products, an f32
+# reordering; under bf16 a reordered sum can round an operand to the next
+# bf16 value, one bf16 ulp relative. The metric lines after a warm-up and a
+# joint epoch of 3 steps: near-tied Viterbi trees and matching winners flip
+# under that round-off and Adam's first steps carry it on (1.1e-3 at f32,
+# 4.3e-4 at bf16 on four H100s); a wrong collective moves them by far more
+TP_F32_RTOL, TP_BF16_RTOL, TP_LINES_RTOL = 1e-5, 2.0 ** -8, 1e-2
 
 
 def torchrun_worker(out_path, module, args):
     """``vlgae_tpu_torch.<module>.main(args)`` in this process (a rank under
     ``torchrun``, or a plain process), with PyTorch's deterministic
     algorithms where it has them, so that two runs of the same steps add in
-    the same order; writes the launches of each train and eval step and
+    the same order; writes the launches of each train and eval step, each
+    train step's loss (summed over the data group: the global batch's) and
     where the process group ran to ``out_path`` (rank 0)."""
     import torch
     import torch.distributed as dist
@@ -4281,7 +4525,7 @@ def torchrun_worker(out_path, module, args):
     sys.path.insert(0, ROOT)
     from vlgae_tpu_torch import predict, train
     from vlgae_tpu_torch.ops import dmv_cuda, match
-    from vlgae_tpu_torch.parallel.mesh import is_sharded, shutdown
+    from vlgae_tpu_torch.parallel.mesh import global_sum, is_sharded, shutdown
     from vlgae_tpu_torch.training.pipeline import Pipeline
 
     def counts():
@@ -4289,7 +4533,7 @@ def torchrun_worker(out_path, module, args):
                 "match_bwd": match.n_bwd_launches,
                 "match_maxes_sharded": match.n_sharded_launches}
 
-    steps = []
+    steps, losses = [], []
 
     def counting(kind, fn):
         def step(self, x, *rest):
@@ -4299,6 +4543,8 @@ def torchrun_worker(out_path, module, args):
             after = counts()
             what = "warmup" if kind == "train" and rest[1] else kind
             steps.append({"kind": what, **{k: after[k] - before[k] for k in after}})
+            if kind == "train":
+                losses.append(float(global_sum(out[0].detach(), self.dp)))
             return out
         return step
 
@@ -4309,25 +4555,27 @@ def torchrun_worker(out_path, module, args):
         grouped = dist.is_initialized()
         info = {"backend": dist.get_backend() if grouped else None,
                 "world": dist.get_world_size() if grouped else 1,
-                "rank": pipe.dp.rank, "device": str(pipe.device),
-                "group": pipe.dp.group is not None, "steps": steps, "launches": counts(),
+                "grid": [pipe.dp.world, pipe.mp.size],
+                "rank": pipe.world.rank, "device": str(pipe.device),
+                "group": pipe.dp.group is not None, "steps": steps, "losses": losses,
+                "launches": counts(),
                 # (the state dict's leaves: FSDP registers them sharded for it)
                 "sharded_params": sum(is_sharded(t) for t in pipe.model.state_dict().values()),
                 "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
-        if pipe.dp.rank == 0:
+        if pipe.world.rank == 0:
             with open(out_path, "w") as f:
                 json.dump(info, f)
     finally:
         shutdown()
 
 
-def _torchrun(module, args, cwd, tag, launcher=True):
-    """``python -m torch.distributed.run --standalone --nproc_per_node=1`` of
-    :func:`torchrun_worker` (with ``launcher=False``, the worker alone, as a
-    plain process); its JSON."""
+def _torchrun(module, args, cwd, tag, launcher=True, nproc=1):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=<nproc>``
+    of :func:`torchrun_worker` (with ``launcher=False``, the worker alone, as
+    a plain process); rank 0's JSON."""
     out = os.path.join(cwd, f"{tag}.json")
     launch = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc_per_node=1"] if launcher else [sys.executable])
+               f"--nproc_per_node={nproc}"] if launcher else [sys.executable])
     # cuBLAS's deterministic workspace, for the deterministic algorithms
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     proc = subprocess.run(
@@ -4363,6 +4611,8 @@ def phase_parallel(state):
     Every run is a fresh process with PyTorch's deterministic algorithms
     (atomic adds in some backward kernels would otherwise reorder sums, and
     Adam's first steps turn that into 1e-6 of the loss within 3 steps)."""
+    import torch
+
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from synth_data import make_corpus
 
@@ -4374,8 +4624,8 @@ def phase_parallel(state):
             "trainer.max_epochs=2", "model.init_epoch=1", "trainer.fast_dev_run=3",
             "init_seed=0", "device=cuda"]
         t0 = time.perf_counter()
-        info = _torchrun("train", base + [f"workdir={os.path.join(tmp, 'plain')}"], tmp,
-                         "plain", launcher=False)
+        info = plain_info = _torchrun("train", base + [
+            f"workdir={os.path.join(tmp, 'plain')}"], tmp, "plain", launcher=False)
         if info["backend"] is not None:
             raise AssertionError(f"the plain run joined a process group: {info}")
         plain = _run_losses(os.path.join(tmp, "plain"))
@@ -4437,6 +4687,68 @@ def phase_parallel(state):
                              "eval_py": check_eval(os.path.join(tmp, "vlparse"),
                                                    os.path.join(pdir, "dp_dev.conll"))}
         launches["parallel_predict"] = info["launches"]
+        # trainer.model_parallel=2 over several cards, each grid against a
+        # plain run: the (1, 2) grid at bf16 (the recipe: K5/K6 on the path)
+        # and at precision 32, with four cards the (2, 2) grid with FSDP at
+        # bf16. A model rank sums the row-parallel product in another order
+        # than one process: the first step's loss (before any update) is
+        # held to that round-off, f32 (TP_F32_RTOL) or one bf16 ulp
+        # (TP_BF16_RTOL); the metric lines after two epochs, where Viterbi
+        # trees and matching winners flip on near ties and Adam's first
+        # steps carry the difference on, to TP_LINES_RTOL
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            result["grids"] = ("not run: one card; NCCL refuses two ranks on one device, "
+                               "so trainer.model_parallel=2 needs two cards or more")
+        else:
+            f32 = ["trainer.precision=32"]
+            plain32_info = _torchrun("train", base + f32 + [
+                f"workdir={os.path.join(tmp, 'plain32')}"], tmp, "plain32", launcher=False)
+            plain32 = _run_losses(os.path.join(tmp, "plain32"))
+            steps_f32 = {kind: {**n, "match_fwd": 0, "match_bwd": 0, "match_maxes_sharded": 0}
+                         for kind, n in PARALLEL_STEP_LAUNCHES.items()}
+            grids = [("grid_1x2", 2, [], (plain, plain_info), TP_BF16_RTOL,
+                      PARALLEL_STEP_LAUNCHES),
+                     ("grid_1x2_f32", 2, f32, (plain32, plain32_info), TP_F32_RTOL, steps_f32)]
+            if cards >= 4:
+                grids.append(("grid_2x2", 4, ["trainer.fsdp=true"], (plain, plain_info),
+                              TP_BF16_RTOL, PARALLEL_STEP_LAUNCHES))
+            result["grids"] = {}
+            for tag, nproc, extra, (ref, ref_info), rtol, per_step in grids:
+                workdir = os.path.join(tmp, tag)
+                t0 = time.perf_counter()
+                info = _torchrun("train", base + ["model.match_kernel=pallas_sharded",
+                                                  "trainer.model_parallel=2",
+                                                  f"workdir={workdir}"] + extra,
+                                 tmp, tag, nproc=nproc)
+                if (info["backend"], info["world"], tuple(info["grid"])) != (
+                        "nccl", nproc, (nproc // 2, 2)):
+                    raise AssertionError(f"torchrun {tag}: the group ran {info}")
+                for step in info["steps"]:
+                    kind = step.pop("kind")
+                    if step != per_step[kind]:
+                        raise AssertionError(f"torchrun {tag}: a {kind} step launched {step}")
+                got = _run_losses(workdir)
+                gaps = {}  # the largest relative gap of each metric over the lines
+                for a, b in zip(got, ref):
+                    for k, v in b.items():
+                        if isinstance(v, float) and ("loss" in k or k.endswith(
+                                ("nll", "enll", "txt2vis", "vis2txt"))):
+                            gaps[k] = max(gaps.get(k, 0.0),
+                                          abs(a[k] - v) / max(abs(v), 1e-30))
+                first = abs(info["losses"][0] - ref_info["losses"][0]) / abs(
+                    ref_info["losses"][0])
+                if first > rtol or len(got) != len(ref) or max(gaps.values()) > TP_LINES_RTOL:
+                    raise AssertionError(
+                        f"torchrun {tag}: the first step's loss {first} from the plain "
+                        f"run's (limit {rtol}); {len(got)} metric lines against {len(ref)}, "
+                        f"relative gaps {gaps} (limit {TP_LINES_RTOL})")
+                result["grids"][tag] = {"s": round(time.perf_counter() - t0, 3),
+                                        "sharded_params": info["sharded_params"],
+                                        "first_step_loss_rel_gap": first, "limit": rtol,
+                                        "lines_rel_gap_vs_plain": gaps,
+                                        "launches": info["launches"]}
+                launches[f"parallel_train_{tag}"] = info["launches"]
         result["launches_by_path"] = launches
         emit(result)
     for path, c in launches.items():
@@ -4447,10 +4759,10 @@ def phase_parallel(state):
         raise AssertionError("match_maxes_sharded was never launched on the parallel path")
 
 
-PHASES = {"env": phase_env, "build": phase_build, "k1": phase_k1,
-          "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
+PHASES = {"env": phase_env, "build": phase_build, "native_io": phase_native_io,
+          "k1": phase_k1, "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
-          "train": phase_train, "k2": phase_k2, "k3": phase_k3,
+          "train": phase_train, "export": phase_export, "k2": phase_k2, "k3": phase_k3,
           "lang_only_reference": phase_lang_only_reference,
           "lang_only": phase_lang_only, "vit_reference": phase_vit_reference,
           "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
@@ -4478,12 +4790,25 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     state = {}
     seconds = {}
+    only = None
+    if sys.argv[1:2] == ["--phases"]:
+        only = {"env", "build", *sys.argv[2].split(",")}
+        unknown = only - set(PHASES)
+        if unknown:
+            raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
     for name, phase in PHASES.items():
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         phase(state)
         seconds[name] = round(time.perf_counter() - t0, 3)
     emit({"phase_seconds": seconds, "total_s": round(sum(seconds.values()), 3)})
     print(nvidia_smi_line())
+    if only is not None:  # a subset drives only some paths: no kernel table
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     rows = []
     required = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")

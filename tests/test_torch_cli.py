@@ -261,3 +261,28 @@ def test_bert_directory_predictions_match_jax(corpus, tmp_path, monkeypatch):
         "subword_ids"]) - 1] == [2, 3]
     assert (tmp_path / "port_dev.conll").read_bytes() == (tmp_path / "jax_dev.conll").read_bytes()
     np.testing.assert_allclose(results["dev"]["loss"], jres["loss"], rtol=1e-4, atol=1e-4)
+
+
+def test_progress_bar_is_the_iterator_off_a_terminal(monkeypatch):
+    """``trainer.progress_bar``: as in vlgae_tpu, the plain iterator when
+    disabled or when stderr is not a terminal, else an ASCII tqdm bar."""
+    import io
+    import sys
+
+    from vlgae_tpu.training.pipeline import _progress_bar as jbar
+    from vlgae_tpu_torch.training.pipeline import _progress_bar
+
+    it = iter(range(3))
+    monkeypatch.setattr(sys, "stderr", io.StringIO())
+    assert _progress_bar(it, 3, "epoch 0") is it is jbar(it, 3, "epoch 0")
+
+    class Tty(io.StringIO):
+        def isatty(self):
+            return True
+
+    monkeypatch.setattr(sys, "stderr", Tty())
+    assert _progress_bar(it, 3, "epoch 0", enable=False) is it
+    import tqdm
+
+    bar = _progress_bar(range(3), 3, "epoch 0")
+    assert isinstance(bar, tqdm.tqdm) and bar.ascii and list(bar) == [0, 1, 2]

@@ -247,11 +247,18 @@ def _corpus(root):
 
 
 def test_model_parallel_raises(tmp_path):
+    """``trainer.model_parallel=2`` in one process: a world of 1 that 2 does
+    not divide raises the JAX package's ``ValueError`` (the ``(data,
+    model)`` grids that run are in tests/test_torch_tensor_parallel.py)."""
+    from vlgae_tpu.parallel import data_parallel_mesh
     from vlgae_tpu_torch.predict import build_pipeline
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2") as want:
+        data_parallel_mesh(jax.devices()[:1], model=2)
+    with pytest.raises(ValueError) as got:
         build_pipeline(_corpus(tmp_path) + ["trainer.model_parallel=2"], device="cpu",
                        init_seed=0)
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_match_kernel_raises_as_in_jax(tmp_path):

@@ -86,10 +86,12 @@ def predictions(data, rows):
 
 def job_slice(args, dp, out):
     """``exp=vlgae`` on this rank's rows: one joint step's loss and summed
-    gradients for each precision; at the first, the dev evaluation (rank 0
-    writes the prediction file) and one joint epoch."""
+    gradients for each precision (a key of ``args["overrides"]``); at the
+    first, the dev evaluation (rank 0 writes the prediction file) and one
+    joint epoch. Under ``trainer.model_parallel`` the rows are those of the
+    rank's data group and the tensor-parallel leaves come back whole."""
     from vlgae_tpu_torch import convert
-    from vlgae_tpu_torch.parallel.mesh import full_tensor, is_sharded, local
+    from vlgae_tpu_torch.parallel.mesh import full_tensor, is_sharded, local, tp_spec
 
     res = {}
     for precision in args["precisions"]:
@@ -97,10 +99,14 @@ def job_slice(args, dp, out):
         x, y = first_batch(pipe, dp)
         loss, aux = pipe.grad_step(x, y, False, 0.5)
         res[precision] = {"loss": pipe._host_sums({"loss": loss, **aux}),
-                          "grads": summed_grads(pipe, dp, convert)}
+                          "grads": summed_grads(pipe, convert)}
         if precision == args["precisions"][0]:
             res["sharded"] = {n: (is_sharded(p), local(p).numel(), p.numel())
                               for n, p in pipe.model.named_parameters()}
+            res["tp"] = {n: (tp_spec(p)[0], p.numel()) for n, p in pipe.model.named_parameters()
+                         if tp_spec(p) is not None}
+            res["groups"] = {"data": (pipe.dp.rank, pipe.dp.world),
+                             "model": (pipe.mp.rank, pipe.mp.size)}
             res["eval"], res["outputs"] = pipe.evaluate("dev")
             if dp.rank == 0:
                 pipe.write_predictions(os.path.join(out, "dev.predict.txt"), "dev",
@@ -120,7 +126,7 @@ def job_slice(args, dp, out):
                 pipe.workdir = out
                 res["checkpoint"] = pipe.save_checkpoint("last")
                 res["epoch2"] = pipe.train_epoch(2)
-            res["params"] = {n: full_tensor(p.detach()).clone()
+            res["params"] = {n: full_tensor(p.detach(), p).clone()
                              for n, p in pipe.model.named_parameters()}
     return res
 
@@ -160,17 +166,17 @@ def first_batch(pipe, dp):
             pad_batch_to_devices(y, dp.world, pow2=True)[0])
 
 
-def summed_grads(pipe, dp, convert):
-    """Every gradient summed over the ranks (whole), by flax path; clears
-    them."""
+def summed_grads(pipe, convert):
+    """Every gradient summed over the data group (whole), by flax path;
+    clears them."""
     from vlgae_tpu_torch.parallel.mesh import all_reduce_grads, full_tensor
 
     params = [p for _, p in pipe.model.named_parameters()]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    all_reduce_grads(params, dp)
-    grads = convert.torch_to_flax({n: full_tensor(p.grad).detach().clone()
+    all_reduce_grads(params, pipe.dp)
+    grads = convert.torch_to_flax({n: full_tensor(p.grad, p).detach().clone()
                                    for n, p in pipe.model.named_parameters()})
     for p in params:
         p.grad = None

@@ -105,9 +105,12 @@ def torch_to_flax_key(key: str, ndim: int) -> str:
     return "/".join(out + [leaf])
 
 
-def flax_to_torch(flat: Dict[str, np.ndarray], model: torch.nn.Module):
-    """Flat flax params -> a ``state_dict`` for ``model`` (strict)."""
+def flax_to_torch(flat: Dict[str, np.ndarray], model: torch.nn.Module, shapes=None):
+    """Flat flax params -> a ``state_dict`` for ``model`` (strict), each
+    tensor of the shape ``shapes`` gives its key (the model's own shapes by
+    default; the whole shapes for a model sharded over processes)."""
     want = model.state_dict()
+    shapes = shapes or {k: tuple(v.shape) for k, v in want.items()}
     state = {}
     for path, value in flat.items():
         key, transpose = _flax_to_torch_key(path)
@@ -117,9 +120,8 @@ def flax_to_torch(flat: Dict[str, np.ndarray], model: torch.nn.Module):
         if transpose:
             arr = _kernel_to_torch(arr)
         t = torch.from_numpy(np.array(arr)).to(want[key].dtype)
-        if t.shape != want[key].shape:
-            raise ValueError(
-                f"{path!r}: shape {tuple(t.shape)} != {tuple(want[key].shape)}")
+        if tuple(t.shape) != tuple(shapes[key]):
+            raise ValueError(f"{path!r}: shape {tuple(t.shape)} != {tuple(shapes[key])}")
         state[key] = t
     missing = sorted(set(want) - set(state))
     if missing:

@@ -1,12 +1,16 @@
-"""Per-image detection-feature and pixel loading and batch packing (NumPy).
+"""Per-image detection-feature and pixel loading and batch packing
+(counterpart of ``vlgae_tpu/data/features.py``).
 
-A copy of the NumPy path of ``vlgae_tpu/data/features.py``: per-image
-``det_feats/<img_id>.npy`` files of shape [n_box, feat_dim + 4]
+Per-image ``det_feats/<img_id>.npy`` files of shape [n_box, feat_dim + 4]
 (Faster-RCNN features + box coords) are loaded at batch time, optionally
 subsampled to ``sample`` boxes for training, and packed into arrays padded
-to a fixed box count (``pad_boxes``). :class:`PixelLoader` reads raw
-``imgs/<img_id>.npy`` pixels instead, for the ViT patch grid of
-``exp=vlgae_vit``.
+to a fixed box count (``pad_boxes``): by the native packer
+(:mod:`.native_io`) wherever the JAX package takes it (every mode but the
+gold scene graph), so that the same seed draws the same boxes, else by
+NumPy. :class:`PixelLoader` reads raw ``imgs/<img_id>.npy`` pixels instead,
+for the ViT patch grid of ``exp=vlgae_vit``. ``vis_box_feat`` and
+``vis_pixels`` are written into page-locked memory when a card is present
+(:mod:`vlgae_tpu_torch.utils.pinned`).
 """
 
 from __future__ import annotations
@@ -15,6 +19,9 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from ..utils.pinned import host_zeros
+from . import native_io
 
 
 class DetFeatureLoader:
@@ -38,7 +45,21 @@ class DetFeatureLoader:
             first = np.load(str(self.root / f"{img_ids[0]}.npy"),
                             mmap_mode="r")
             self.feat_dim = first.shape[1] - 4
-        feats = np.zeros((B, P, self.feat_dim), np.float32)
+        if not self.gold:
+            # one seed draw a batch, as the JAX package's native path draws it
+            seed = int(self.rng.integers(0, 2 ** 62))
+            feats, boxes, masks = native_io.load_det_feats_batch(
+                [self.root / f"{i}.npy" for i in img_ids], P, self.feat_dim,
+                self.sample, seed)
+            return {
+                "vis_box_feat": feats,
+                "vis_box_mask": masks,
+                "vis_rel_mask": np.zeros((B, P, P), bool),
+                "vis_available": masks[:, 0].copy(),
+                "vis_box": boxes,
+                "vis_box_index": np.tile(np.arange(P)[None], (B, 1)),
+            }
+        feats = host_zeros((B, P, self.feat_dim), np.float32)
         boxes = np.zeros((B, P, 4), np.float32)
         masks = np.zeros((B, P), bool)
         rel_masks = np.zeros((B, P, P), bool)
@@ -109,7 +130,7 @@ class PixelLoader:
 
     def __call__(self, img_ids: List[int]) -> Dict[str, np.ndarray]:
         B, P, S = len(img_ids), self.n_patches, self.image_size
-        pixels = np.zeros((B, S, S, 3), np.float32)
+        pixels = host_zeros((B, S, S, 3), np.float32)
         for i, img_id in enumerate(img_ids):
             path = self.root / f"{img_id}.npy"
             if not path.exists():

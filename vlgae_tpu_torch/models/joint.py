@@ -15,6 +15,12 @@ the full map with one einsum, as the JAX package does outside any kernel,
 and reduces it at once. At eval the grounding decode takes the exact
 top-5 (``on_factor``) or the best image of each caption (``on_img``).
 
+Under tensor parallelism (``model_group``, :meth:`set_model_group`) the
+visual factor heads are column-parallel and ``vis_mlp_pre_matching``
+row-parallel: its partial products are summed over the model group, and the
+pre-projection features that the fusion adds to the text encoding are
+gathered whole.
+
 Under a data group (``data_group``, set by the pipeline; world 1 by
 default) each rank holds its rows of the batch: its captions are matched
 against every rank's images (gathered; ``match_maxes_sharded`` under bf16),
@@ -43,7 +49,8 @@ from torch import nn
 
 from ..ops.match import match_maxes_sharded
 from ..ops.topk import exact_top_k
-from ..parallel.mesh import DataGroup, gather_rows, global_sum, log_softmax_across
+from ..parallel.mesh import (DataGroup, ModelGroup, gather_from_model, gather_rows,
+                             global_sum, log_softmax_across, reduce_from_model)
 from ..struct import dmv_value_and_grads
 from .ldndmv import DiscriminativeNDMV, LDNDMVConfig
 from .nn import MLP
@@ -132,8 +139,10 @@ def _check_match_budget(B, A, Q, chunk, cfg):
 
 
 class DependencyBoxRel(nn.Module):
-    # this process's rows of the batch and the group they are split over
+    # this process's rows of the batch and the group they are split over; the
+    # model group the visual features are sharded over
     data_group = DataGroup()
+    model_group = ModelGroup()
 
     def __init__(self, cfg: DependencyBoxRelConfig, dep_cfg: LDNDMVConfig,
                  dependency: DiscriminativeNDMV, vis_encoder, n_enc: int,
@@ -161,6 +170,9 @@ class DependencyBoxRel(nn.Module):
                           ("attr", pos_for_attr)):
             self.register_buffer(f"pos_for_{name}", torch.tensor(ids, dtype=torch.long),
                                  persistent=False)
+
+    def set_model_group(self, mp: ModelGroup) -> None:
+        self.model_group = mp
 
     @property
     def vis_factor_names(self):
@@ -200,8 +212,8 @@ class DependencyBoxRel(nn.Module):
             feat.append(vis_encoded["box"].mean(1, keepdim=True))
             mask.append(torch.ones(B, 1, dtype=torch.bool, device=box_mask.device))
             split.append(1)
-        mid = torch.cat(feat, 1)
-        vis = self.vis_mlp_pre_matching(mid)
+        mid = torch.cat(feat, 1)  # this model rank's features
+        vis = reduce_from_model(self.vis_mlp_pre_matching(mid), self.model_group)
         vis_mask = torch.cat(mask, 1)
         if return_mid:
             return vis, vis_mask, tuple(split), mid
@@ -442,7 +454,8 @@ class DependencyBoxRel(nn.Module):
         if compact:
             fuse_logits = fuse_logits + self._rel_logmult(vis[2], vis[0].device)
         attmap = torch.softmax(fuse_logits, 2)
-        x_aug = torch.einsum("bqv,bvh->bqh", attmap, vis[3])
+        mid = gather_from_model(vis[3], self.model_group)
+        x_aug = torch.einsum("bqv,bvh->bqh", attmap, mid)
         return {**encoded, "x": self.feat_layernorm(encoded["x"] + x_aug)}
 
     # -- forward --------------------------------------------------------------

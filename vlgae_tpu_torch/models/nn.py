@@ -11,7 +11,9 @@ the formulas are those of the JAX package, written as functions of a given
 keep mask or noise so the tests can feed both packages the same draws.
 Under data parallelism a draw over the batch is made at the global batch's
 size and each rank keeps its rows (:func:`set_batch_rows`), so the masks
-are those of one process over the whole batch.
+are those of one process over the whole batch. A module whose outputs are
+sharded over a model group (tensor parallelism) draws at the full feature
+width and keeps its columns (``feature_cols``) likewise.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ class Dropping(nn.Module):
 
     generator = None
     batch_rows = None
+    # (start, stop, total) of the last axis this rank holds, under tensor
+    # parallelism
+    feature_cols = None
     # dim 0 of what the module draws for is the batch (not a table)
     batched = True
 
@@ -69,17 +74,26 @@ class Dropping(nn.Module):
         return self.generator
 
     def _draw_shape(self, shape, batched: bool):
-        """``(shape to draw, rows to keep)``: a draw over the batch
+        """``(shape to draw, index to keep)``: a draw over the batch
         (``batched``, dim 0 the batch) is made for the whole global batch
-        when this rank holds only some of its rows."""
+        when this rank holds only some of its rows, and at the full feature
+        width when it holds only some columns (``feature_cols``)."""
+        shape = tuple(shape)
         rows = self.batch_rows if batched else None
-        if rows is None:
-            return tuple(shape), None
-        start, stop, total = rows
-        if shape[0] != stop - start:
-            raise ValueError(f"{type(self).__name__}: a batched draw of {tuple(shape)} "
-                             f"on rows {start}:{stop} of {total}")
-        return (total,) + tuple(shape[1:]), slice(start, stop)
+        cols = self.feature_cols
+        if rows is None and cols is None:
+            return shape, None
+        keep = [slice(None)] * len(shape)
+        if rows is not None:
+            start, stop, total = rows
+            if shape[0] != stop - start:
+                raise ValueError(f"{type(self).__name__}: a batched draw of {shape} "
+                                 f"on rows {start}:{stop} of {total}")
+            shape, keep[0] = (total,) + shape[1:], slice(start, stop)
+        if cols is not None:
+            start, stop, total = cols
+            shape, keep[-1] = shape[:-1] + (total,), slice(start, stop)
+        return shape, tuple(keep)
 
     def keep_mask(self, shape, p: float, like):
         """A float 0/1 mask with P(1) = 1 - p, drawn from the generator."""
@@ -90,18 +104,18 @@ class Dropping(nn.Module):
         return self._keep_mask(shape, p, like, False)
 
     def _keep_mask(self, shape, p, like, batched):
-        shape, rows = self._draw_shape(shape, batched)
+        shape, index = self._draw_shape(shape, batched)
         keep = torch.empty(shape, dtype=like.dtype, device=like.device).bernoulli_(
             1 - p, generator=self._generator())
-        return keep if rows is None else keep[rows]
+        return keep if index is None else keep[index]
 
     def noise(self, shape, like):
         """Standard normal draws from the generator (the reparameterised
         sample ``mean + exp(lvar / 2) * noise``)."""
-        shape, rows = self._draw_shape(shape, self.batched)
+        shape, index = self._draw_shape(shape, self.batched)
         z = torch.randn(shape, dtype=like.dtype, device=like.device,
                         generator=self._generator())
-        return z if rows is None else z[rows]
+        return z if index is None else z[index]
 
     def active(self, p: float) -> bool:
         return self.training and p > 0

@@ -37,16 +37,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import ModelGroup, copy_to_model
 from .nn import MLP, Dropping, leaky_relu, linear, shared_dropout, shared_keep_shape
 
 
 class VisBoxRelSimpleEncoder(Dropping):
+    """The factor heads. Under tensor parallelism (:meth:`set_model_group`)
+    every head is column-parallel: this rank holds a slice of the output
+    features, draws its dropout masks at full width and keeps its columns,
+    and the gradient of the input features is summed over the model
+    group."""
+
+    model_group = ModelGroup()
+
     def __init__(self, n_in: int, n_hidden: int, activate: bool = True,
                  use_attr: bool = True, use_img: bool = False,
                  img_feat: bool = True, dtype=None, dropout: float = 0.0):
         super().__init__()
         d_in = 2 * n_in if img_feat else n_in
         self.img_feat = img_feat
+        self.n_hidden = n_hidden
         self.activate = activate
         self.dtype = dtype
         self.dropout = dropout
@@ -58,11 +68,20 @@ class VisBoxRelSimpleEncoder(Dropping):
         self.img_fc = (MLP(n_in, n_hidden, activate, dtype=dtype, dropout=dropout)
                        if use_img else None)
 
+    def set_model_group(self, mp: ModelGroup) -> None:
+        """Serve this model rank's slice of the output features (the
+        parameters were cut by ``parallel.tensor_parallel``)."""
+        self.model_group = mp
+        cols = (*mp.cols(self.n_hidden), self.n_hidden)
+        for m in (self, self.box_fc, self.attr_fc, self.img_fc):
+            if m is not None:
+                m.feature_cols = cols
+
     def forward(self, x, rel_pairs=None):
         """``rel_pairs``: optional ``(i_idx, j_idx)`` box-pair index tensors
         on the input's device; the relation group then holds only those
         pairs ([B, K, h])."""
-        feat = x["vis_box_feat"].float()  # [B, P, F]
+        feat = copy_to_model(x["vis_box_feat"].float(), self.model_group)  # [B, P, F]
         B, P, _ = feat.shape
         if self.img_feat:
             inputs = torch.cat([feat, feat.mean(1, keepdim=True).expand_as(feat)], -1)

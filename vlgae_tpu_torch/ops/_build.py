@@ -1,4 +1,4 @@
-"""Build the CUDA sources under ``csrc/`` at first use and load them.
+"""Build the sources under ``csrc/`` at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -6,7 +6,9 @@ by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 ``ctypes``. The library is rebuilt when its source, or a header
 (``csrc/*.cuh``) beside it, is newer. Pointers and
 the stream pass as ``c_void_p``; each launcher returns the CUDA error code,
-and :func:`check` raises on a non-zero one.
+and :func:`check` raises on a non-zero one. The host library
+``csrc/vlgae_io.cpp`` (the det-feature packer) is built the same way by
+``g++ -O3 -fPIC -shared -std=c++17`` (:func:`build_host`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 ARCH = "arch=compute_90a,code=sm_90a"
+CXX = "g++"  # plain ``cc`` mislinks the C++ runtime
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -37,28 +40,47 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
 
 
-def build(name: str, verbose: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` (when stale) and return the .so path."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    out = os.path.join(BUILD, f"lib{name}.so")
-    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                    if f.endswith(".cuh")]
+def _compile(src: str, out: str, cmd, deps=(), verbose: bool = False) -> str:
+    """Run ``cmd + ["-o", <tmp>, src]`` when ``out`` is older than ``src`` or
+    ``deps`` (or missing), then move the result to ``out`` in one rename, so
+    that processes building at once never load a half-written library.
+    Raises, naming the command and its stderr, when the compiler fails or
+    cannot be run; ``verbose`` prints the stderr of a build that worked."""
+    deps = [src, *deps]
     if os.path.exists(out) and os.path.getmtime(out) >= max(map(os.path.getmtime, deps)):
         return out
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, src]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [*cmd, "-o", tmp, src]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {' '.join(cmd)}: {e}") from e
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {src} (rc {res.returncode}):\n{res.stderr}")
+            f"{' '.join(cmd)} failed (rc {res.returncode}):\n{res.stderr}")
     if verbose and res.stderr:
         print(res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build(name: str, verbose: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` (when stale) and return the .so path."""
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC"]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    return _compile(os.path.join(CSRC, f"{name}.cu"),
+                    os.path.join(BUILD, f"lib{name}.so"), cmd, headers, verbose)
+
+
+def build_host(name: str) -> str:
+    """Compile the host library ``csrc/<name>.cpp`` with :data:`CXX` (when
+    stale) into ``_build/lib<name>.so`` and return its path."""
+    return _compile(os.path.join(CSRC, f"{name}.cpp"), os.path.join(BUILD, f"lib{name}.so"),
+                    [CXX, "-O3", "-fPIC", "-shared", "-std=c++17"])
 
 
 def load(name: str) -> ctypes.CDLL:

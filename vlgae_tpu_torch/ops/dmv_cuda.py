@@ -13,8 +13,12 @@ They replace the TPU launches of vlgae_tpu/ops/dmv_pallas.py reached from
   inside kernels and ``_outside_kernel``): the two-launch pair of a
   differentiable total, whose cotangent arrives later.
 
-The plain versions are in :mod:`vlgae_tpu_torch.struct.dmv`. Every wrapper
-takes CUDA tensors only and counts its launches. What a wrapper decides
+Each wrapper is a ``torch.library.custom_op`` (``vlgae::dmv_fused``,
+``vlgae::dmv_inside``, ``vlgae::dmv_inside_save``, ``vlgae::dmv_outside``):
+its CUDA implementation launches the kernel and counts the launch, its CPU
+implementation is the plain version of :mod:`vlgae_tpu_torch.struct.dmv`,
+and its fake implementation gives the outputs' shapes and dtypes, so that
+``torch.export`` traces a forward that reaches them. What a wrapper decides
 before a launch (bytes of shared memory per sentence, charts in shared or
 in global memory, threads per block) is a pure function of ``n1`` and the
 card's opt-in shared memory: :func:`chart_pitch`, :func:`fused_smem_bytes`,
@@ -25,9 +29,12 @@ card's opt-in shared memory: :func:`chart_pitch`, :func:`fused_smem_bytes`,
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch import Tensor
 
+from ..struct import dmv as _plain
 from . import _build
 
 # launches in this process (chip_smoke resets and reads them): K1, and
@@ -173,11 +180,15 @@ def _checked(what, dec, attach, lengths, kind):
     return dec.contiguous(), attach.contiguous(), lengths, B, n1
 
 
-def dmv_fused(dec, attach, lengths, kind: str = "log"):
-    """``(total [B], g_dec [B,N1,2,2,2], g_attach [B,N1,N1,2])`` on the card.
+@torch.library.custom_op("vlgae::dmv_fused", mutates_args=(), device_types="cuda")
+def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
+              kind: str = "log") -> Tuple[Tensor, Tensor, Tensor]:
+    """``(total [B], g_dec [B,N1,2,2,2], g_attach [B,N1,N1,2])``: K1 on the
+    card, :func:`~vlgae_tpu_torch.struct.dmv.dmv_value_and_grads_plain` on
+    the CPU.
 
-    ``dec``/``attach`` are f32 CUDA tensors; ``lengths`` (int) is moved to
-    the card as int32. Lengths are clamped to ``[0, N1-1]`` in the kernel.
+    ``dec``/``attach`` are f32; ``lengths`` (int) is moved to the card as
+    int32. Lengths are clamped to ``[0, N1-1]`` in the kernel.
     """
     global n_launches, n_fused_global_launches
     dec, attach, lengths, B, n1 = _checked("dmv_fused", dec, attach, lengths, kind)
@@ -201,6 +212,31 @@ def dmv_fused(dec, attach, lengths, kind: str = "log"):
     n_launches += 1
     n_fused_global_launches += int(not use_smem)
     return out, g_dec, g_attach
+
+
+def _with_autograd(fn, *args):
+    """``fn(*args)`` with autograd dispatch back on: an op's implementation
+    runs below it, and the plain versions of K1 and K3b take their tables
+    from ``torch.autograd.grad`` of the inside pass."""
+    keys = torch._C.DispatchKey
+    excluded = torch._C._dispatch_tls_local_exclude_set()
+    for key in (keys.AutogradCPU, keys.AutogradCUDA, keys.ADInplaceOrView):
+        excluded = excluded.remove(key)
+    with torch._C._ForceDispatchKeyGuard(torch._C._dispatch_tls_local_include_set(),
+                                         excluded):
+        return fn(*args)
+
+
+@dmv_fused.register_kernel("cpu")
+def _dmv_fused_cpu(dec, attach, lengths, kind="log"):
+    return _with_autograd(_plain.dmv_value_and_grads_plain, dec, attach, lengths, kind)
+
+
+@dmv_fused.register_fake
+def _dmv_fused_fake(dec, attach, lengths, kind="log"):
+    return (dec.new_empty(dec.shape[:1], dtype=torch.float32),
+            torch.empty_like(dec, dtype=torch.float32),
+            torch.empty_like(attach, dtype=torch.float32))
 
 
 def _inside_library():
@@ -250,23 +286,56 @@ def _inside(dec, attach, lengths, kind, save):
     return out, charts
 
 
-def dmv_inside(dec, attach, lengths, kind: str = "log"):
+@torch.library.custom_op("vlgae::dmv_inside", mutates_args=(), device_types="cuda")
+def dmv_inside(dec: Tensor, attach: Tensor, lengths: Tensor, kind: str = "log") -> Tensor:
     """The per-sentence total ``[B]`` alone (K2; K4 for tiny and for long
-    charts), on the card. No chart leaves the kernel."""
+    charts) on the card, :func:`~vlgae_tpu_torch.struct.dmv.dmv_total` on
+    the CPU. No chart leaves the kernel."""
     return _inside(dec, attach, lengths, kind, save=False)[0]
 
 
-def dmv_inside_save(dec, attach, lengths, kind: str = "log"):
+@dmv_inside.register_kernel("cpu")
+def _dmv_inside_cpu(dec, attach, lengths, kind="log"):
+    with torch.no_grad():
+        return _plain.dmv_total(dec, attach, lengths, kind)
+
+
+@dmv_inside.register_fake
+def _dmv_inside_fake(dec, attach, lengths, kind="log"):
+    return dec.new_empty(dec.shape[:1], dtype=torch.float32)
+
+
+@torch.library.custom_op("vlgae::dmv_inside_save", mutates_args=(), device_types="cuda")
+def dmv_inside_save(dec: Tensor, attach: Tensor, lengths: Tensor,
+                    kind: str = "log") -> Tuple[Tensor, Tensor]:
     """``(total [B], charts [B, 4, N1, N1, 2])``: the inside pass that keeps
     its charts Cr, Cl, Ir, Il for :func:`dmv_outside` (K3a; K4 for tiny and
-    for long charts). ``charts[b, c, w, i, v]`` is the span ``[i, i+w]``
-    with valence ``v``; cells outside the span triangle hold -1e12."""
+    for long charts; on the CPU
+    :func:`~vlgae_tpu_torch.struct.dmv.dmv_inside_charts_plain`).
+    ``charts[b, c, w, i, v]`` is the span ``[i, i+w]`` with valence ``v``;
+    cells outside the span triangle hold -1e12."""
     return _inside(dec, attach, lengths, kind, save=True)
 
 
-def dmv_outside(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
+@dmv_inside_save.register_kernel("cpu")
+def _dmv_inside_save_cpu(dec, attach, lengths, kind="log"):
+    with torch.no_grad():
+        return _plain.dmv_inside_charts_plain(dec, attach, lengths, kind)
+
+
+@dmv_inside_save.register_fake
+def _dmv_inside_save_fake(dec, attach, lengths, kind="log"):
+    B, n1 = dec.shape[:2]
+    return (dec.new_empty((B,), dtype=torch.float32),
+            dec.new_empty((B, 4, n1, n1, 2), dtype=torch.float32))
+
+
+@torch.library.custom_op("vlgae::dmv_outside", mutates_args=(), device_types="cuda")
+def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz: Tensor,
+                charts: Tensor, kind: str = "log") -> Tuple[Tensor, Tensor]:
     """``(g_dec, g_attach)``: the gradient of ``sum(gout * total)`` from the
-    saved charts of :func:`dmv_inside_save` (K3b), already scaled by
+    saved charts of :func:`dmv_inside_save` (K3b; on the CPU
+    :func:`~vlgae_tpu_torch.struct.dmv.dmv_outside_plain`), already scaled by
     ``gout [B]``; ``logz [B]`` is that pass's total."""
     global n_outside_launches, _outside_lib
     dec, attach, lengths, B, n1 = _checked("dmv_outside", dec, attach, lengths, kind)
@@ -302,3 +371,15 @@ def dmv_outside(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
     _build.check(err, "dmv_outside_launch")
     n_outside_launches += 1
     return g_dec, g_attach
+
+
+@dmv_outside.register_kernel("cpu")
+def _dmv_outside_cpu(dec, attach, lengths, gout, logz, charts, kind="log"):
+    return _with_autograd(_plain.dmv_outside_plain, dec, attach, lengths, gout, logz,
+                          charts, kind)
+
+
+@dmv_outside.register_fake
+def _dmv_outside_fake(dec, attach, lengths, gout, logz, charts, kind="log"):
+    return (torch.empty_like(dec, dtype=torch.float32),
+            torch.empty_like(attach, dtype=torch.float32))

@@ -14,14 +14,21 @@ Operands are bf16, products and sums f32, biases f32 (the -1e9 visibility
 masks). No ``[B, A, Q, V]`` tensor is stored by either kernel. The
 backward routes each cotangent to its first winner only (the TPU kernel's
 contract); the biases get no gradient.
+
+The two wrappers are ``torch.library.custom_op`` s, ``vlgae::match_maxes``
+and ``vlgae::match_maxes_bwd``: the CUDA implementation launches the kernel
+(and counts it), the CPU implementation is the plain version, and a fake
+implementation gives the outputs' shapes for ``torch.export``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
+from torch import Tensor
 
 from ..parallel.mesh import gather_rows
 from . import _build
@@ -188,14 +195,37 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
     return logit, logit_idx, logit_v, logit_v_idx
 
 
-def match_maxes(vis, txt, vis_bias, txt_bias):
-    """Dispatch: CUDA tensors launch K5 (or raise), CPU tensors take the
-    plain version."""
-    if vis.is_cuda:
-        return match_maxes_cuda(vis, txt, vis_bias, txt_bias)
-    if vis.device.type != "cpu":
-        raise RuntimeError(f"match_maxes: unsupported device {vis.device}")
+@torch.library.custom_op("vlgae::match_maxes", mutates_args=(), device_types="cuda")
+def _match_maxes_op(vis: Tensor, txt: Tensor, vis_bias: Tensor,
+                    txt_bias: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    return match_maxes_cuda(vis, txt, vis_bias, txt_bias)
+
+
+@_match_maxes_op.register_kernel("cpu")
+def _match_maxes_cpu(vis, txt, vis_bias, txt_bias):
     return match_maxes_plain(vis, txt, vis_bias, txt_bias)
+
+
+@_match_maxes_op.register_fake
+def _match_maxes_fake(vis, txt, vis_bias, txt_bias):
+    A, V = vis.shape[:2]
+    B, Q = txt.shape[:2]
+    return (vis.new_empty((B, A, Q), dtype=torch.float32),
+            vis.new_empty((B, A, Q), dtype=torch.int32),
+            vis.new_empty((B, A, V), dtype=torch.float32),
+            vis.new_empty((B, A, V), dtype=torch.int32))
+
+
+def _on_card_or_cpu(t, what):
+    if t.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"{what}: unsupported device {t.device}")
+
+
+def match_maxes(vis, txt, vis_bias, txt_bias):
+    """``vlgae::match_maxes``: CUDA tensors launch K5 (or raise), CPU tensors
+    take the plain version."""
+    _on_card_or_cpu(vis, "match_maxes")
+    return _match_maxes_op(vis, txt, vis_bias, txt_bias)
 
 
 def match_maxes_bwd_plain(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
@@ -387,22 +417,34 @@ def match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
     return match_bwd_launch(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)[:2]
 
 
-def match_maxes_bwd(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
-    """Dispatch: CUDA tensors launch K6 (or raise), CPU tensors take the
-    plain version."""
-    if vis.is_cuda:
-        return match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx,
-                                    dlogit, dlogit_v)
-    if vis.device.type != "cpu":
-        raise RuntimeError(f"match_maxes_bwd: unsupported device {vis.device}")
+@torch.library.custom_op("vlgae::match_maxes_bwd", mutates_args=(), device_types="cuda")
+def _match_maxes_bwd_op(vis: Tensor, txt: Tensor, logit_idx: Tensor, logit_v_idx: Tensor,
+                        dlogit: Tensor, dlogit_v: Tensor) -> Tuple[Tensor, Tensor]:
+    return match_maxes_bwd_cuda(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
+
+
+@_match_maxes_bwd_op.register_kernel("cpu")
+def _match_maxes_bwd_cpu(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
     return match_maxes_bwd_plain(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
+
+
+@_match_maxes_bwd_op.register_fake
+def _match_maxes_bwd_fake(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    return torch.empty_like(vis), torch.empty_like(txt)
+
+
+def match_maxes_bwd(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
+    """``vlgae::match_maxes_bwd``: CUDA tensors launch K6 (or raise), CPU
+    tensors take the plain version."""
+    _on_card_or_cpu(vis, "match_maxes_bwd")
+    return _match_maxes_bwd_op(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
 
 
 class MatchMaxesFn(torch.autograd.Function):
     """``(logit, logit_idx, logit_v, logit_v_idx)`` of :func:`match_maxes`
     with the argmax-routed backward of :func:`match_maxes_bwd` (K5 forward,
-    K6 backward on the card). The indices are not differentiable; the
-    biases (visibility masks) get no gradient."""
+    K6 backward on the card; the two ops). The indices are not
+    differentiable; the biases (visibility masks) get no gradient."""
 
     @staticmethod
     def forward(ctx, vis, txt, vis_bias, txt_bias):

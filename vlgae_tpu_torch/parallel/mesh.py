@@ -1,4 +1,4 @@
-"""Data parallelism over processes (counterpart of
+"""Data and tensor parallelism over processes (counterpart of
 vlgae_tpu/parallel/mesh.py).
 
 One process per device under ``torchrun``: NCCL on ``cuda:LOCAL_RANK``,
@@ -18,6 +18,21 @@ FSDP2 (:func:`shard_params`, by the JAX package's shape rule
 all-reduce. Metric states are summed (:func:`sum_across_processes`) and
 predictions merged by sample id (:func:`gather_predictions`).
 
+With ``trainer.model_parallel = m`` the world splits into a ``(data,
+model)`` grid as the JAX package reshapes its devices, ``n // m`` rows of
+``m`` adjacent ranks (:func:`split_mesh`): a data group (the ranks of one
+model rank, which split the batch) and a model group (the ``m`` ranks that
+hold the same rows). :data:`DEFAULT_MODEL_RULES` shards the visual factor
+heads column-parallel and ``vis_mlp_pre_matching`` row-parallel over the
+model group (:func:`tensor_parallel`), Megatron style: the heads' input is
+copied in (its gradient summed over the model group, :func:`copy_to_model`),
+the row-parallel product is summed (:func:`reduce_from_model`) and the
+pre-projection features that the text side reads whole are gathered
+(:func:`gather_from_model`). The batch split, the gradient sum, the
+sharded matching and the metric and prediction merges span the data group
+only; FSDP shards only what no tensor-parallel rule takes, over the data
+group; checkpoints hold every leaf whole.
+
 Without ``torchrun``'s variables the world is one process with no process
 group, and every helper here is the identity.
 """
@@ -27,11 +42,14 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Dict, List, Optional
+import re
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils.pinned import host_empty, is_pinned, pinned_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +115,56 @@ def data_parallel_mesh(dp: DataGroup):
     return init_device_mesh(dp.device.type, (dp.world,), mesh_dim_names=("data",))
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """This process's place on the model axis: its rank among the ``size``
+    processes that hold the same rows, and their group (``None`` when the
+    axis has one process)."""
+
+    rank: int = 0
+    size: int = 1
+    group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.size > 1
+
+    def cols(self, n: int) -> Tuple[int, int]:
+        """``(start, stop)``: this rank's contiguous slice of ``n`` features."""
+        if n % self.size:
+            raise ValueError(f"{n} features do not split over model={self.size}")
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
+
+def split_mesh(world: DataGroup, model: int = 1):
+    """``(data group, model group, device mesh)`` of a world of processes laid
+    out as the JAX package's ``("data", "model")`` mesh: ``world // model``
+    rows of ``model`` adjacent ranks. ``model=1`` is the world itself as the
+    data group (no mesh). A world that ``model`` does not divide raises the
+    JAX package's ``ValueError``."""
+    model = max(1, int(model))
+    if world.world % model:
+        raise ValueError(f"{world.world} devices not divisible by model={model}")
+    if model == 1:
+        return world, ModelGroup(), None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(world.device.type, (world.world // model, model),
+                            mesh_dim_names=("data", "model"))
+    dp = DataGroup(mesh.get_local_rank("data"), world.world // model,
+                   mesh.get_group("data"), world.device)
+    mp = ModelGroup(mesh.get_local_rank("model"), model, mesh.get_group("model"))
+    return dp, mp, mesh
+
+
 # -- batches --------------------------------------------------------------------
 def pad_batch_to_devices(batch: dict, n_devices: int, pow2: bool = False,
                          min_b: int = 8):
     """Pad the batch axis to a multiple of ``n_devices``; with ``pow2`` first
     to the next power of two (at least ``min_b``). Filler rows replicate row
-    0 with ``seq_len`` zeroed; losses mask zero-length rows. Returns
+    0 with ``seq_len`` zeroed; losses mask zero-length rows. An array in
+    page-locked memory is padded into page-locked memory. Returns
     ``(batch, real_size)``."""
     some = next(iter(batch.values()))
     B = some.shape[0]
@@ -118,17 +180,32 @@ def pad_batch_to_devices(batch: dict, n_devices: int, pow2: bool = False,
         filler = np.repeat(np.asarray(v[:1]), pad, axis=0)
         if k == "seq_len":
             filler = np.zeros_like(filler)
-        out[k] = np.concatenate([np.asarray(v), filler], axis=0)
+        if is_pinned(v):
+            padded = host_empty((target,) + v.shape[1:], v.dtype)
+            padded[:B], padded[B:] = v, filler
+            out[k] = padded
+        else:
+            out[k] = np.concatenate([np.asarray(v), filler], axis=0)
     return out, B
 
 
 def shard_batch(batch: Dict[str, np.ndarray], dp: DataGroup) -> Dict[str, torch.Tensor]:
     """This rank's contiguous rows of a padded host batch, on its device
-    (the whole batch at world 1)."""
+    (the whole batch at world 1). Every copy is ``non_blocking`` on the
+    current stream: rows in page-locked memory are copied asynchronously
+    from a view of their pinned tensor (the caching host allocator keeps
+    the block until the copy is done), pageable ones are staged by CUDA
+    into its own buffer before the call returns."""
     B = next(iter(batch.values())).shape[0]
     start, stop = dp.rows(B)
-    return {k: torch.as_tensor(np.asarray(v)[start:stop]).to(dp.device)
-            for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        rows = np.asarray(v)[start:stop]
+        src = pinned_rows(rows)
+        if src is None:
+            src = torch.as_tensor(rows)
+        out[k] = src.to(dp.device, non_blocking=True)
+    return out
 
 
 # -- collectives with autograd --------------------------------------------------------
@@ -181,8 +258,9 @@ def sum_across(x: torch.Tensor, dp: DataGroup) -> torch.Tensor:
     return _SumAcross.apply(x, dp.group) if dp.sharded else x
 
 
-def global_sum(x: torch.Tensor, dp: DataGroup) -> torch.Tensor:
-    """The sum of ``x`` over ranks, outside autograd (counts, normalisers)."""
+def global_sum(x: torch.Tensor, dp) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``dp`` (a data or a model group),
+    outside autograd (counts, normalisers, norms)."""
     if not dp.sharded:
         return x
     out = x.detach().clone()
@@ -210,6 +288,73 @@ def log_softmax_across(x: torch.Tensor, dp: DataGroup) -> torch.Tensor:
     return x - lse
 
 
+# -- collectives over the model group ------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the cotangent over the model group (the
+    input of column-parallel layers, each rank's share of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce (sum) over the model group (the partial products of a
+    row-parallel layer); every rank's consumer is the same, so the backward
+    is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather of the last axis over the model group, in rank order; the
+    backward keeps this rank's columns of the (same on every rank)
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        x = x.contiguous()
+        parts = x.new_empty((mp.size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(parts, x, group=mp.group)
+        return torch.cat(parts.chunk(mp.size, 0), -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, stop = ctx.mp.cols(grad.shape[-1])
+        return grad[..., start:stop].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, mp: ModelGroup) -> torch.Tensor:
+    """``x``; its gradient summed over the model group."""
+    return _CopyToModel.apply(x, mp.group) if mp.sharded else x
+
+
+def reduce_from_model(x: torch.Tensor, mp: ModelGroup) -> torch.Tensor:
+    """The sum of ``x`` over the model group, differentiable."""
+    return _ReduceFromModel.apply(x, mp.group) if mp.sharded else x
+
+
+def gather_from_model(x: torch.Tensor, mp: ModelGroup) -> torch.Tensor:
+    """Every model rank's columns (last axis) of ``x``, differentiable."""
+    return _GatherFromModel.apply(x, mp) if mp.sharded else x
+
+
 # -- parameters -------------------------------------------------------------------
 def replicate(model: torch.nn.Module, dp: DataGroup) -> None:
     """Broadcast rank 0's parameters and buffers to every rank."""
@@ -218,6 +363,58 @@ def replicate(model: torch.nn.Module, dp: DataGroup) -> None:
     with torch.no_grad():
         for t in list(model.parameters()) + list(model.buffers()):
             dist.broadcast(t.data, src=0, group=dp.group)
+
+
+# The model axis of the JAX package's DEFAULT_MODEL_RULES on the port's
+# parameter names: the output features of the visual factor heads under
+# vis_encoder (box_fc, rel_fc with rel_fc_bias, attr_fc, img_fc; for the ViT
+# encoder its head, never the backbone) are column-parallel, the input
+# features of vis_mlp_pre_matching row-parallel. A rule gives the axis of the
+# torch tensor that is sharded (a Linear's weight is [out, in]).
+DEFAULT_MODEL_RULES: Tuple[Tuple[str, int], ...] = (
+    (r"(.*\.)?vis_encoder\.(.*\.)?(box_fc|rel_fc|attr_fc|img_fc)(\.[^.]+)?\.(weight|bias)", 0),
+    (r"(.*\.)?vis_encoder\.(.*\.)?rel_fc_bias", 0),
+    (r"(.*\.)?vis_mlp_pre_matching\.weight", 1),
+)
+
+
+def param_spec(name: str, rules=DEFAULT_MODEL_RULES) -> Optional[int]:
+    """The axis the parameter ``name`` is sharded on over the model group
+    (the first rule that matches the whole name), ``None`` if none does."""
+    for pattern, axis in rules:
+        if re.fullmatch(pattern, name):
+            return axis
+    return None
+
+
+def tensor_parallel(model: torch.nn.Module, mp: ModelGroup) -> Dict[str, int]:
+    """Keep this model rank's slice of each parameter of
+    :data:`DEFAULT_MODEL_RULES` (whole on entry, the same on every rank) and
+    hand the model group to the modules that communicate over it (those
+    with a ``set_model_group`` method: the column-parallel heads and the
+    joint model). A sharded parameter carries ``tp = (axis, mp)``. Returns
+    ``{name: axis}``; nothing at ``mp.size == 1``."""
+    if not mp.sharded:
+        return {}
+    sharded = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            axis = param_spec(name)
+            if axis is None:
+                continue
+            start, stop = mp.cols(p.shape[axis])
+            p.data = p.data.narrow(axis, start, stop - start).clone()
+            p.tp = (axis, mp)
+            sharded[name] = axis
+    for m in model.modules():
+        if hasattr(m, "set_model_group"):
+            m.set_model_group(mp)
+    return sharded
+
+
+def tp_spec(t) -> Optional[tuple]:
+    """``(axis, model group)`` of a tensor-parallel parameter, else ``None``."""
+    return getattr(t, "tp", None)
 
 
 def fsdp_leaf_spec(shape, dp: int, min_size: int = 1 << 16) -> Optional[int]:
@@ -234,24 +431,27 @@ def fsdp_leaf_spec(shape, dp: int, min_size: int = 1 << 16) -> Optional[int]:
     return None
 
 
-def shard_params(model: torch.nn.Module, dp: DataGroup, min_size: int = 1 << 16):
-    """FSDP2 (``fully_shard``) over the data mesh: each leaf of
-    :func:`fsdp_leaf_spec` becomes a DTensor sharded on that axis; the rest
-    stay whole (FSDP's ``ignored_params``; their gradients take
-    :func:`all_reduce_grads`, which also turns the mean of FSDP's gradient
-    reduce-scatter into the sum). Returns the set of sharded parameters:
-    empty at world 1, where the rule shards nothing and the model stays
-    as it is."""
+def shard_params(model: torch.nn.Module, dp: DataGroup, min_size: int = 1 << 16,
+                 mesh=None):
+    """FSDP2 (``fully_shard``) over the data mesh (the ``"data"`` axis of a
+    2-D ``mesh`` under tensor parallelism): each leaf of
+    :func:`fsdp_leaf_spec` that no tensor-parallel rule took becomes a
+    DTensor sharded on that axis; the rest stay as they are (FSDP's
+    ``ignored_params``; their gradients take :func:`all_reduce_grads`, which
+    also turns the mean of FSDP's gradient reduce-scatter into the sum).
+    Returns the set of sharded parameters: empty at data world 1, where the
+    rule shards nothing and the model stays as it is."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     if dp.group is None:
         raise ValueError("trainer.fsdp needs a process group (launch with torchrun)")
-    axes = {p: fsdp_leaf_spec(p.shape, dp.world, min_size) for p in model.parameters()}
+    axes = {p: None if tp_spec(p) else fsdp_leaf_spec(p.shape, dp.world, min_size)
+            for p in model.parameters()}
     whole = {p for p, a in axes.items() if a is None}
     if whole == set(axes):
         return set()
-    fully_shard(model, mesh=data_parallel_mesh(dp),
+    fully_shard(model, mesh=mesh["data"] if mesh is not None else data_parallel_mesh(dp),
                 shard_placement_fn=lambda p: Shard(axes[p]), ignored_params=whole)
     return {p for p in model.parameters() if is_sharded(p)}
 
@@ -267,14 +467,27 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if is_sharded(t) else t
 
 
-def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """The whole value of a sharded tensor (a collective), else ``t``."""
+def full_tensor(t: torch.Tensor, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole value of ``t`` (a collective), laid out as the parameter
+    ``like`` (``t`` itself by default) is: a DTensor's full tensor, a
+    tensor-parallel slice gathered over the model group, else ``t``."""
+    tp = tp_spec(t if like is None else like)
+    if tp is not None:
+        axis, mp = tp
+        parts = [torch.empty_like(t) for _ in range(mp.size)]
+        dist.all_gather(parts, t.detach().contiguous(), group=mp.group)
+        return torch.cat(parts, axis)
     return t.full_tensor() if is_sharded(t) else t
 
 
 def shard_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """This rank's shard of the whole tensor ``value``, laid out as the
-    sharded tensor ``like`` is (``value`` itself for a whole ``like``)."""
+    parameter ``like`` is (``value`` itself for a whole ``like``)."""
+    tp = tp_spec(like)
+    if tp is not None:
+        axis, mp = tp
+        start, stop = mp.cols(value.shape[axis])
+        return value.narrow(axis, start, stop - start)
     if not is_sharded(like):
         return value
     (placement,) = like.placements
@@ -282,28 +495,48 @@ def shard_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return value.chunk(mesh.size(), placement.dim)[mesh.get_local_rank()]
 
 
+def _whole_shape(t: torch.Tensor, like: torch.Tensor) -> tuple:
+    shape = list(t.shape)
+    tp = tp_spec(like)
+    if tp is not None:
+        shape[tp[0]] *= tp[1].size
+    return tuple(shape)
+
+
+def full_shapes(model: torch.nn.Module) -> Dict[str, tuple]:
+    """The whole shape of every entry of ``model.state_dict()``."""
+    params = dict(model.named_parameters())
+    return {k: _whole_shape(v, params.get(k, v)) for k, v in model.state_dict().items()}
+
+
 def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` with every sharded leaf gathered whole, on the
-    CPU: the same dict at every world size, with FSDP or without."""
-    return {k: full_tensor(v).detach().cpu() for k, v in model.state_dict().items()}
+    CPU: the same dict at every world size and ``(data, model)`` shape, with
+    FSDP or without."""
+    params = dict(model.named_parameters())
+    return {k: full_tensor(v, params.get(k)).detach().cpu()
+            for k, v in model.state_dict().items()}
 
 
 def load_full_state_dict(model: torch.nn.Module, state: Dict[str, torch.Tensor]) -> None:
     """Load a whole state dict (strict) into ``model``, each sharded leaf
     taking its shard."""
     own = model.state_dict()
+    params = dict(model.named_parameters())
     missing, unexpected = set(own) - set(state), set(state) - set(own)
     if missing or unexpected:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)}, "
                        f"unexpected {sorted(unexpected)}")
-    wrong = [k for k, t in own.items() if tuple(state[k].shape) != tuple(t.shape)]
+    whole = full_shapes(model)
+    wrong = [k for k in own if tuple(state[k].shape) != whole[k]]
     if wrong:
         raise ValueError("state dict shape mismatch: " + ", ".join(
-            f"{k} {tuple(state[k].shape)} vs {tuple(own[k].shape)}" for k in wrong))
+            f"{k} {tuple(state[k].shape)} vs {whole[k]}" for k in wrong))
     with torch.no_grad():
         for k, t in own.items():
+            like = params.get(k, t)
             value = state[k].to(device=t.device, dtype=t.dtype)
-            local(t).copy_(shard_like(value, t))
+            local(t).copy_(shard_like(value, like))
 
 
 # -- gradients ---------------------------------------------------------------------

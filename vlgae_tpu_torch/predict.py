@@ -114,7 +114,7 @@ def main(argv=None):
             continue
         result, outputs = pipe.evaluate(split)
         results[split] = result
-        if pipe.dp.rank == 0:
+        if pipe.world.rank == 0:
             print(json.dumps({f"{split}/{k}": v for k, v in result.items()}),
                   flush=True)
             pipe.write_predictions(f"{name}_{split}.conll", split, outputs)

@@ -11,7 +11,8 @@ The dispatch is by what the caller needs:
   :class:`DMVTotalFn`: the chart-saving inside kernel in the forward, the
   outside kernel in the backward.
 
-A CPU tensor takes the plain versions of :mod:`.dmv`; a CUDA tensor goes to
+Each goes through a custom op of :mod:`vlgae_tpu_torch.ops.dmv_cuda`: a
+CPU tensor takes the plain versions of :mod:`.dmv`; a CUDA tensor goes to
 the kernel or the call raises.
 
 The projective dependency CRF (:class:`DependencyCRF`) rides the same
@@ -32,8 +33,7 @@ import torch
 from . import deptree as _deptree
 from . import dmv as _dmv
 from .deptree import reduce_labels
-from .dmv import (HASCHILD, NEGINF, NOCHILD, RIGHT, dmv_inside_charts_plain,
-                  dmv_outside_plain, dmv_total, dmv_value_and_grads_plain)
+from .dmv import HASCHILD, NEGINF, NOCHILD, RIGHT
 from .semirings import (CrossEntropySemiring, EntropySemiring, KLDivergenceSemiring,
                         KMaxSemiring, RiskSemiring, StdSemiring)
 
@@ -62,16 +62,18 @@ def dmv_value_and_grads(dec, attach, lengths, kind: str = "log"):
     Returns ``(per_sentence [B], d/d dec [B,N1,2,2,2], d/d attach
     [B,N1,N1,2])``: marginals in the log semiring, Viterbi indicators in
     the max semiring. A CUDA tensor goes to the fused kernel (K1); a CPU
-    tensor takes the plain version. Nothing differentiates through the
-    result.
+    tensor takes the plain version (``vlgae::dmv_fused``). Nothing
+    differentiates through the result.
     """
-    if dec.is_cuda:
-        from ..ops.dmv_cuda import dmv_fused
+    from ..ops.dmv_cuda import dmv_fused
 
-        return dmv_fused(dec, attach, lengths, kind)
-    if dec.device.type != "cpu":
-        raise RuntimeError(f"dmv_value_and_grads: unsupported device {dec.device}")
-    return dmv_value_and_grads_plain(dec, attach, lengths, kind)
+    _on_card_or_cpu(dec, "dmv_value_and_grads")
+    return dmv_fused(dec, attach, lengths, kind)
+
+
+def _on_card_or_cpu(dec, what):
+    if dec.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"{what}: unsupported device {dec.device}")
 
 
 def dmv_grads_fast(dec, attach, lengths, kind: str = "log"):
@@ -80,23 +82,16 @@ def dmv_grads_fast(dec, attach, lengths, kind: str = "log"):
     return dmv_value_and_grads(dec, attach, lengths, kind)[1:]
 
 
-def _on_cpu(dec, what):
-    if dec.device.type != "cpu":
-        raise RuntimeError(f"{what}: unsupported device {dec.device}")
-
-
 @torch.no_grad()
 def dmv_total_fast(dec, attach, lengths, kind: str = "log"):
     """Per-sentence totals ``[B]`` (log Z or the Viterbi score) when no
     gradient is wanted: the value-only inside kernel (K2; K4 for tiny and
-    long charts) on a CUDA tensor, :func:`~.dmv.dmv_total` on the CPU. The
-    result carries no graph."""
-    if dec.is_cuda:
-        from ..ops.dmv_cuda import dmv_inside
+    long charts) on a CUDA tensor, :func:`~.dmv.dmv_total` on the CPU
+    (``vlgae::dmv_inside``). The result carries no graph."""
+    from ..ops.dmv_cuda import dmv_inside
 
-        return dmv_inside(dec, attach, lengths, kind)
-    _on_cpu(dec, "dmv_total_fast")
-    return dmv_total(dec, attach, lengths, kind)
+    _on_card_or_cpu(dec, "dmv_total_fast")
+    return dmv_inside(dec, attach, lengths, kind)
 
 
 class DMVTotalFn(torch.autograd.Function):
@@ -104,19 +99,16 @@ class DMVTotalFn(torch.autograd.Function):
     of vlgae_tpu/ops/dmv_pallas.py ``_make_dmv_total``: the forward runs
     the inside pass that saves its charts (K3a; K4 for tiny and long
     charts) and keeps them with the total; the backward runs the outside
-    pass (K3b) with the cotangent that has arrived. On the CPU both are the
-    plain versions. Lengths get no gradient."""
+    pass (K3b) with the cotangent that has arrived (``vlgae::dmv_inside_save``,
+    ``vlgae::dmv_outside``). On the CPU both are the plain versions. Lengths
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, dec, attach, lengths, kind="log"):
-        dec, attach = dec.detach().float(), attach.detach().float()
-        if dec.is_cuda:
-            from ..ops.dmv_cuda import dmv_inside_save
+        from ..ops.dmv_cuda import dmv_inside_save
 
-            total, charts = dmv_inside_save(dec, attach, lengths, kind)
-        else:
-            _on_cpu(dec, "DMVTotalFn")
-            total, charts = dmv_inside_charts_plain(dec, attach, lengths, kind)
+        dec, attach = dec.detach().float(), attach.detach().float()
+        total, charts = dmv_inside_save(dec, attach, lengths, kind)
         ctx.save_for_backward(dec, attach, lengths, total, charts)
         ctx.kind = kind
         return total
@@ -124,15 +116,10 @@ class DMVTotalFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dec, attach, lengths, total, charts = ctx.saved_tensors
-        g = g.to(total.dtype).contiguous()
-        if dec.is_cuda:
-            from ..ops.dmv_cuda import dmv_outside
+        from ..ops.dmv_cuda import dmv_outside
 
-            g_dec, g_attach = dmv_outside(dec, attach, lengths, g, total, charts,
-                                          ctx.kind)
-        else:
-            g_dec, g_attach = dmv_outside_plain(dec, attach, lengths, g, total,
-                                                charts, ctx.kind)
+        g = g.to(total.dtype).contiguous()
+        g_dec, g_attach = dmv_outside(dec, attach, lengths, g, total, charts, ctx.kind)
         return g_dec, g_attach, None, None
 
 

@@ -14,7 +14,9 @@ Under data parallelism the gradients are summed over the ranks before the
 clip; with FSDP each rank's Adam steps the local shards of the sharded
 parameters in place (plain tensors, so the foreach update is that of whole
 tensors, elementwise), its moments are shards too, and the clip's norm
-sums the shards' squares over the ranks.
+sums the shards' squares over the ranks. A tensor-parallel parameter is a
+plain tensor holding this model rank's slice: Adam steps it as it is, and
+the clip sums its squares over the model group.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..convert import torch_to_flax_key
-from ..parallel.mesh import (DataGroup, all_reduce_grads, global_sum, is_sharded, local,
-                             shard_like)
+from ..parallel.mesh import (DataGroup, all_reduce_grads, full_tensor, global_sum,
+                             is_sharded, local, shard_like, tp_spec)
 
 
 def _linear(init: float, end: float, steps: int):
@@ -123,20 +125,28 @@ def clip_by_global_norm_(params, max_norm: float, dp: DataGroup = DataGroup()
     """Scale every gradient by ``max_norm / norm`` when the global norm of
     all of them is at least ``max_norm`` (``optax.clip_by_global_norm``: no
     epsilon, unlike ``clip_grad_norm_``). Sharded gradients count with every
-    rank's shard (their squares summed over ``dp``), whole ones once.
-    Returns the norm; no host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    rank's shard (their squares summed over ``dp``, or over the model group
+    for a tensor-parallel slice), whole ones once. Returns the norm; no host
+    sync."""
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return torch.zeros(())
+    grads = [p.grad for p in params]
     parts = [local(g) for g in grads]
     norms = torch.stack(torch._foreach_norm(parts))
     split = [is_sharded(g) for g in grads]
-    if not any(split):
+    tp = [tp_spec(p) for p in params]
+    if not any(split) and not any(tp):
         norm = torch.linalg.vector_norm(norms)
     else:
         sq = norms * norms
+        mp = next((t[1] for t in tp if t is not None), None)
         split = torch.tensor(split, device=sq.device)
-        norm = torch.sqrt(sq[~split].sum() + global_sum(sq[split].sum(), dp))
+        sliced = torch.tensor([t is not None for t in tp], device=sq.device)
+        total = sq[~split & ~sliced].sum() + global_sum(sq[split].sum(), dp)
+        if mp is not None:
+            total = total + global_sum(sq[sliced].sum(), mp)
+        norm = torch.sqrt(total)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(parts, scale)
     return norm
@@ -234,9 +244,11 @@ class Optimizer:
         self.opt.step()
 
     def _moments(self, adam, convert):
-        """``adam`` (an Adam state dict) with each sharded parameter's
-        moments passed through ``convert(moment, param)``."""
-        state = {i: {k: convert(v, p) if k != "step" and is_sharded(p) else v
+        """``adam`` (an Adam state dict) with each sharded or
+        tensor-parallel parameter's moments passed through ``convert(moment,
+        param)``."""
+        state = {i: {k: convert(v, p) if k != "step" and (is_sharded(p) or tp_spec(p))
+                     else v
                      for k, v in st.items()}
                  for i, st in adam["state"].items()
                  for p in (self.params[int(i)],)}
@@ -248,6 +260,8 @@ class Optimizer:
         from torch.distributed.tensor import DTensor
 
         def whole(m, p):
+            if tp_spec(p):
+                return full_tensor(m, p)
             return DTensor.from_local(m, p.device_mesh, p.placements).full_tensor()
 
         return {"adam": self._moments(self.opt.state_dict(), whole),

@@ -12,13 +12,20 @@ batches, pads each to a power of two and a multiple of the world size,
 steps on its own rows and sums the gradients; evaluation sums the metric
 states and merges the predictions on every rank; only rank 0 writes
 checkpoints, which hold the whole state at every world size, with FSDP or
-without (the CLIs write the predictions on rank 0).
+without (the CLIs write the predictions on rank 0). With
+``trainer.model_parallel = m`` the world is a ``(data, model)`` grid: the
+``m`` ranks of a model group hold the same rows and a slice each of the
+tensor-parallel parameters, and everything above spans the data group.
+
+``trainer.progress_bar`` (default on) shows an ASCII ``tqdm`` bar over an
+epoch's batches when ``tqdm`` imports and stderr is a terminal.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import sys
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -31,10 +38,11 @@ from ..models.ldndmv import decode as ldndmv_decode
 from ..models.ldndmv import loss_init_rules, loss_nll
 from ..models.nn import set_batch_rows, set_dropout_generator
 from ..models.text_encoder import RNNEncoder
-from ..parallel.mesh import (barrier, full_state_dict, full_tensor, gather_predictions,
-                             global_sum, init_distributed, load_full_state_dict, local,
-                             pad_batch_to_devices, replicate, shard_batch, shard_like,
-                             shard_params, sum_across_processes)
+from ..parallel.mesh import (barrier, full_shapes, full_state_dict, full_tensor,
+                             gather_predictions, global_sum, init_distributed,
+                             load_full_state_dict, local, pad_batch_to_devices, replicate,
+                             shard_batch, shard_like, shard_params, split_mesh,
+                             sum_across_processes, tensor_parallel)
 from ..utils.fn import coeff_at, parse_coeff_schedule, reduce_loss
 from . import metrics as metrics_mod
 from .optim import Optimizer
@@ -79,28 +87,35 @@ def init_params(model: torch.nn.Module, seed: int) -> None:
                 m.embedding.copy_(m.pretrained)
 
 
-def _to_device(x: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in x.items()}
+def _progress_bar(it, total, desc, enable=True):
+    """An ASCII ``tqdm`` bar over ``it``, or ``it`` itself when disabled,
+    when stderr is not a terminal or when ``tqdm`` does not import."""
+    if not enable or not sys.stderr.isatty():
+        return it
+    try:
+        from tqdm import tqdm
+    except Exception:
+        return it
+    return tqdm(it, total=total, desc=desc, ascii=True, leave=False)
 
 
 class Pipeline:
     """Owns the model, the datamodule, the optimizer, the dropout
     generator, the metrics (dev and test) and this process's place in the
-    data-parallel world (``dp``)."""
+    world of processes (``world``), on the data axis (``dp``) and on the
+    model axis (``mp``)."""
 
     def __init__(self, model, dm, cfg: Dict[str, Any], device="cuda",
                  workdir: str = ".", seed: int = 0):
         from ..predict import setup_device  # (predict imports this module)
 
         trainer = cfg.get("trainer") or {}
-        if int(trainer.get("model_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                "trainer.model_parallel > 1: tensor parallelism is not ported "
-                "(ROADMAP Queue 1, the tensor-parallel item); use data parallelism "
-                "(torchrun) with trainer.model_parallel=1")
         # the card unless the caller names the CPU; raises without a card.
-        # Under torchrun: cuda:LOCAL_RANK (NCCL) or the CPU (gloo)
-        self.dp = init_distributed(setup_device(device))
+        # Under torchrun: cuda:LOCAL_RANK (NCCL) or the CPU (gloo), the
+        # world split into (data, model) by trainer.model_parallel
+        self.world = init_distributed(setup_device(device))
+        self.dp, self.mp, mesh = split_mesh(
+            self.world, int(trainer.get("model_parallel", 1) or 1))
         self.device = self.dp.device
         self.model = model.to(self.device).eval()
         self.dm = dm
@@ -145,11 +160,15 @@ class Pipeline:
                 raise ValueError("vis_encoder.vit_weights is set but the model's "
                                  "vis_encoder is not a VisViTPatchEncoder")
             graft_vit_params(self.model, load_vit_params(str(vit_weights), vis.vit_config))
-        # the same weights on every rank; trainer.fsdp shards the large leaves
-        # (a single process without a group has nothing to shard them over)
-        replicate(self.model, self.dp)
+        # the same weights on every rank, then each model rank's slice of the
+        # tensor-parallel leaves; trainer.fsdp shards the large leaves no
+        # tensor-parallel rule took (a single process without a group has
+        # nothing to shard them over)
+        replicate(self.model, self.world)
+        tensor_parallel(self.model, self.mp)
         if trainer.get("fsdp") and self.dp.group is not None:
-            shard_params(self.model, self.dp, int(trainer.get("fsdp_min_size", 1 << 16)))
+            shard_params(self.model, self.dp, int(trainer.get("fsdp_min_size", 1 << 16)),
+                         mesh)
         # seconds of each eval step of the last evaluate(): batch upload,
         # forward, loss and decode, ending when the results reach the host
         self.step_times: List[float] = []
@@ -227,7 +246,7 @@ class Pipeline:
 
             with np.load(path) as f:
                 flat = {k: f[k] for k in f.files}
-            state = flax_to_torch(flat, self.model)
+            state = flax_to_torch(flat, self.model, full_shapes(self.model))
         else:
             state = torch.load(path, map_location="cpu", weights_only=True)
             state = state.get("model", state)
@@ -299,8 +318,8 @@ class Pipeline:
             # this update's global gradients, at the parameters before it;
             # every rank gathers the sharded leaves, the writer logs them
             self.watcher.log_trees(self.step, (
-                (n, full_tensor(p.detach()),
-                 None if p.grad is None else full_tensor(p.grad))
+                (n, full_tensor(p.detach(), p),
+                 None if p.grad is None else full_tensor(p.grad, p))
                 for n, p in self.model.named_parameters()))
         self.optimizer.update(self.step)
         self.optimizer.zero_grad()
@@ -349,7 +368,9 @@ class Pipeline:
         fast_dev_run = int(trainer.get("fast_dev_run", 0) or 0)
         accum = int(trainer.get("accumulate_grad_batches", 1) or 1)
         pending = 0
-        for i, (x, y) in enumerate(self.dm.batches(split)):
+        bar = _progress_bar(self.dm.batches(split), total=sampler_len,
+                            desc=f"epoch {epoch}", enable=trainer.get("progress_bar", True))
+        for i, (x, y) in enumerate(bar):
             if fast_dev_run and i >= fast_dev_run:
                 break
             if val_every and i > 0 and i % val_every == 0:
@@ -364,8 +385,8 @@ class Pipeline:
                 raise RuntimeError(
                     "init_method='y' warm-up needs dec_rule/attach_rule/root_rule "
                     "in the batch; set dm.include_init_rules")
-            x, _ = pad_batch_to_devices(x, self.dp.world, pow2=True)
-            y, _ = pad_batch_to_devices(y, self.dp.world, pow2=True)
+            x, _ = pad_batch_to_devices(x, self.world.world, pow2=True)
+            y, _ = pad_batch_to_devices(y, self.world.world, pow2=True)
             if accum <= 1:
                 loss, aux = self.train_step(x, y, init_phase, alpha)
             else:
@@ -404,8 +425,8 @@ class Pipeline:
         state, the dropout generator, step, epoch, best, and the host RNG
         state of the training data (sampler epochs, box sampling). The
         weights and moments are whole at every world size, with FSDP or
-        without; every rank takes part in gathering them and rank 0
-        writes."""
+        without, and at every ``(data, model)`` shape; every rank takes part
+        in gathering them and rank 0 writes."""
         folder = os.path.join(self.workdir, "checkpoint")
         path = os.path.join(folder, f"{name}.pt")
         state = {
@@ -416,12 +437,12 @@ class Pipeline:
             "step": self.step, "epoch": self.epoch, "best": self.best,
             "data": self.dm.train_state(),
         }
-        if self.dp.rank == 0:
+        if self.world.rank == 0:
             os.makedirs(folder, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             torch.save(state, tmp)
             os.replace(tmp, path)
-        barrier(self.dp)
+        barrier(self.world)
         return path
 
     def load_checkpoint(self, path: str, load_training_state: bool = False):
@@ -485,7 +506,7 @@ class Pipeline:
         all_outputs = {}
         self.step_times, self.step_sizes = [], []
         for x, y in self.dm.batches(split, shuffle=False):
-            xp, real = pad_batch_to_devices(x, self.dp.world, pow2=True)
+            xp, real = pad_batch_to_devices(x, self.world.world, pow2=True)
             start, stop = self.dp.rows(len(xp["seq_len"]))
             t0 = time.perf_counter()
             res = self.eval_step(xp, alpha)
