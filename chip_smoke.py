@@ -56,14 +56,24 @@ Phases, each printing one JSON line:
  10. k2        - the value-only inside kernel against ``dmv_total`` (log +
                  max) at B=64 with ragged lengths, in its three mappings: a
                  warp per sentence (n1 = 2, 3, 5, 9), a block per sentence
-                 with charts in shared memory (n1 = 10, 17, 51) and in
-                 global memory (n1 = 101); exact in the max semiring on
-                 quarter-integer potentials
+                 with charts in shared memory (n1 = 10, 17, 51, 56, 57, 59,
+                 60, 75, 76: the word path's 57 and each side of the pair's
+                 staging and shared/global boundaries) and in global memory
+                 (n1 = 101); reruns bit-identical; exact in the max semiring
+                 on quarter-integer potentials; its time, dependent width
+                 steps and ms a step at n1 = 9, 17, 51, 57, 59, 60, 101
  11. k3        - the chart-saving inside kernel against the plain charts,
                  the outside kernel against its plain version under a
                  cotangent with zeros (on the kernel's charts and on the
-                 plain charts uploaded), the pair against K1 scaled by the
-                 cotangent, reruns bit-identical; the same n1 groups
+                 plain charts uploaded; each launch on the mapping its rule
+                 names), the pair against K1 scaled by the cotangent, reruns
+                 bit-identical; the same n1 groups; times as in ``k2``.
+                 Phases ``k2`` and ``k3`` also time the parent commit's
+                 kernels in the same call when copies of its
+                 ``dmv_inside.cu``, ``dmv_outside.cu`` and ``dmv_common.cuh``
+                 sit in the gitignored ``_checkouts/parent_dmv/`` (built in
+                 phase ``build``, never imported by the port); their lines
+                 say whether that ran
  12. lang_only_reference - ``exp=lang_only`` at small widths and
                  precision=32: the card and the CPU write the same dev
                  predictions and take the same NLL train step
@@ -458,17 +468,102 @@ def phase_build(state):
 
     # always from the sources: drop libraries left by an earlier run
     shutil.rmtree(_build.BUILD, ignore_errors=True)
+    parent = os.path.isdir(PARENT_DMV)
+    if parent:
+        shutil.rmtree(os.path.join(PARENT_DMV, "_build"), ignore_errors=True)
 
     def one(name):
         t0 = time.perf_counter()
-        _build.build(name, verbose=True)
+        if name.startswith("parent:"):
+            state["parent_dmv"].build(name[7:])
+        else:
+            _build.build(name, verbose=True)
         return round(time.perf_counter() - t0, 3)
 
+    names = SOURCES + (("parent:dmv_inside", "parent:dmv_outside") if parent else ())
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        out = dict(zip(SOURCES, pool.map(one, SOURCES)))
+    if parent:
+        state["parent_dmv"] = ParentDMV()
+    with ThreadPoolExecutor(len(names)) as pool:
+        out = dict(zip(names, pool.map(one, names)))
     emit({"phase": "build", "seconds": out,
-          "wall_s": round(time.perf_counter() - t0, 3)})
+          "wall_s": round(time.perf_counter() - t0, 3),
+          "parent_dmv": (f"built from {os.path.relpath(PARENT_DMV, ROOT)}" if parent
+                         else f"absent: no {os.path.relpath(PARENT_DMV, ROOT)}")})
+
+
+# Timing-only copies of the parent commit's dmv_inside.cu, dmv_outside.cu and
+# dmv_common.cuh, placed by hand in this gitignored directory (`git show
+# <parent>:vlgae_tpu_torch/csrc/<file>`); phases k2 and k3 time them beside
+# this tree's kernels in the same call when it is present. The port never
+# imports them.
+PARENT_DMV = os.path.join(ROOT, "_checkouts", "parent_dmv")
+
+
+class ParentDMV:
+    """The parent's inside and outside kernels, built by nvcc from
+    ``PARENT_DMV`` and launched by the parent's own rules (mapping, threads,
+    shared memory, scratch) through their C interface, which takes no
+    ``stage`` argument."""
+
+    def __init__(self):
+        self.libs = {}
+
+    def build(self, name):
+        import ctypes
+
+        from vlgae_tpu_torch.ops import _build
+
+        cmd = [_build.nvcc_path(), "-gencode", _build.ARCH, "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC"]
+        lib = ctypes.CDLL(_build._compile(
+            os.path.join(PARENT_DMV, f"{name}.cu"),
+            os.path.join(PARENT_DMV, "_build", f"lib{name}.so"), cmd,
+            [os.path.join(PARENT_DMV, "dmv_common.cuh")]))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 if name == "dmv_inside"
+                       else [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self.libs[name] = fn
+
+    def inside(self, dec, attach, lens, kind, save):
+        import torch
+
+        from vlgae_tpu_torch.ops import _build, dmv_cuda
+
+        B, n1 = dec.shape[:2]
+        dmv_cuda._inside_library()  # the card's shared-memory limit
+        mapping = dmv_cuda.inside_mapping(n1, dmv_cuda._smem_optin)
+        out = torch.empty(B, device=dec.device)
+        charts = torch.empty((B, 4, n1, n1, 2), device=dec.device) if save else None
+        scratch = torch.empty(B * 32 * n1 * n1, device=dec.device, dtype=torch.uint8
+                              ) if mapping == "global" and not save else None
+        _build.check(self.libs["dmv_inside"](
+            _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(out),
+            None if charts is None else _build.ptr(charts),
+            None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
+            int(save), dmv_cuda.MAPPINGS.index(mapping), dmv_cuda.inside_threads(n1),
+            _build.stream_ptr(dec.device)), "parent dmv_inside_launch")
+        return out, charts
+
+    def outside(self, dec, attach, lens, gout, logz, charts, kind):
+        import torch
+
+        from vlgae_tpu_torch.ops import _build, dmv_cuda
+
+        B, n1 = dec.shape[:2]
+        dmv_cuda._inside_library()
+        use_smem = dmv_cuda.fused_uses_smem(n1, dmv_cuda._smem_optin)
+        g_dec, g_attach = torch.empty_like(dec), torch.empty_like(attach)
+        scratch = None if use_smem else torch.empty(
+            B * 40 * n1 * n1, device=dec.device, dtype=torch.uint8)
+        _build.check(self.libs["dmv_outside"](
+            _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(gout),
+            _build.ptr(logz), _build.ptr(charts), _build.ptr(g_dec), _build.ptr(g_attach),
+            None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
+            int(use_smem), dmv_cuda.block_threads(n1), _build.stream_ptr(dec.device)),
+            "parent dmv_outside_launch")
+        return g_dec, g_attach
 
 
 def phase_native_io(state):
@@ -1764,9 +1859,27 @@ def phase_export(state):
 
 
 # n1 of the batches that hold the separate inside/outside kernels against
-# their plain versions, by the mapping of dmv_inside.cu they take
-INSIDE_GROUPS = {"warp": (2, 3, 5, 9), "smem": (10, 17, 51), "global": (101,)}
-TIMED_N1 = (9, 17, 51, 101)
+# their plain versions, by the mapping of dmv_inside.cu they take: 57 is the
+# word path's; on an H100 (232,448 bytes of opt-in shared memory) 56/57 and
+# 59/60 lie each side of the outside kernel's staging and shared/global
+# boundaries, 75/76 each side of the inside kernel's staging boundary
+INSIDE_GROUPS = {"warp": (2, 3, 5, 9),
+                 "smem": (10, 17, 51, 56, 57, 59, 60, 75, 76), "global": (101,)}
+TIMED_N1 = (9, 17, 51, 57, 59, 60, 101)
+
+
+def dmv_pass_steps(n1, parent=False):
+    """Dependent width steps of one pass over a sentence of ``n1 - 1`` words:
+    one a width in the one-barrier fills of the block mappings, two in the
+    warp mapping's fill and in the parent's kernels (the log outside pass
+    has one more, width 0, in both)."""
+    return 2 * (n1 - 1) if parent or n1 <= 9 else n1 - 1
+
+
+def _parent_note(state):
+    return ("ran: the parent commit's dmv_inside.cu, dmv_outside.cu and dmv_common.cuh "
+            f"from {os.path.relpath(PARENT_DMV, ROOT)}, in this call" if "parent_dmv" in state
+            else f"not run: no {os.path.relpath(PARENT_DMV, ROOT)}")
 
 
 def _ragged(rng, n1, B=64):
@@ -1820,9 +1933,11 @@ def phase_k2(state):
                     "mapping": mapping, "total": err,
                     "vs_fused": float((got - fused).abs().max())}
                 worst[mapping] = max(worst[mapping], err)
-                ok = (torch.equal(got, want) and torch.equal(got, fused)
-                      if kind == "max" else
-                      close(got, want, K1_TOTAL_ATOL, K1_TOTAL_RTOL))
+                again = dmv_inside(dec, attach, lens, kind)
+                ok = (torch.equal(got.view(torch.int32), again.view(torch.int32))
+                      and (torch.equal(got, want) and torch.equal(got, fused)
+                           if kind == "max" else
+                           close(got, want, K1_TOTAL_ATOL, K1_TOTAL_RTOL)))
                 if not ok:
                     emit(result)
                     raise AssertionError(f"K2 n1={n1}/{kind} disagrees: {err}")
@@ -1831,10 +1946,13 @@ def phase_k2(state):
             if not torch.equal(dmv_inside(dec, attach, lens, "max"),
                                dmv_total(dec, attach, lens, "max")):
                 raise AssertionError(f"K2 n1={n1}: max total not exact on quarter-integers")
+    parent = state.get("parent_dmv")
+    result["parent"] = _parent_note(state)
     for n1 in TIMED_N1:
         lengths = _ragged(rng, n1)
         dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
         timing = {}
+        steps = dmv_pass_steps(n1)
         for kind in ("log", "max"):
             timing[kind] = {
                 "ms": device_ms(lambda: dmv_inside(dec, attach, lens, kind)),
@@ -1842,9 +1960,20 @@ def phase_k2(state):
                 "plain_ms": time_ms(lambda: dmv_total(dec, attach, lens, kind),
                                     reps=3, warmup=1),
                 "fused_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind))}
+            timing[kind]["ms_per_step"] = timing[kind]["ms"] / steps
+            if parent is not None:
+                got = dmv_inside(dec, attach, lens, kind)
+                old = parent.inside(dec, attach, lens, kind, save=False)[0]
+                timing[kind]["parent_ms"] = device_ms(
+                    lambda: parent.inside(dec, attach, lens, kind, save=False))
+                timing[kind]["parent_ms_per_step"] = (
+                    timing[kind]["parent_ms"] / dmv_pass_steps(n1, parent=True))
+                timing[kind]["parent_vs_new"] = float((got - old).abs().max())
         result["timing_B64"][f"n1={n1}"] = {
             **timing, **dmv_bound(lengths, n1, "inside"),
-            "dependent_steps": 2 * (n1 - 1)}
+            "plan": dmv_cuda.inside_plan(n1, dmv_cuda._smem_optin),
+            "dependent_steps": steps,
+            "parent_dependent_steps": dmv_pass_steps(n1, parent=True)}
     result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL], "max": "exact"}
     emit(result)
     for name, mapping, n1 in (("dmv_inside", "smem", 51), ("dmv_inside_small", "warp", 9),
@@ -1856,7 +1985,10 @@ def phase_k2(state):
             "plain_ms": t["max"]["plain_ms"], "library_ms": None,
             "ms_log": t["log"]["ms"], "call_ms": t["max"]["call_ms"], "timed_at": {"B": 64, "n1": n1, "kind": "max"},
             **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops",
-                                 "dependent_steps")}}
+                                 "dependent_steps")},
+            "ms_per_step": t["max"]["ms_per_step"],
+            **({"parent_ms": t["max"]["parent_ms"], "parent_ms_log": t["log"]["parent_ms"]}
+               if parent is not None else {})}
 
 
 def phase_k3(state):
@@ -1870,6 +2002,7 @@ def phase_k3(state):
     rng = np.random.default_rng(4)
     dev = torch.device("cuda")
     result = {"phase": "k3", "cases": {}, "timing_B64": {}}
+    parent = state.get("parent_dmv")
     worst = {"charts": 0.0, "outside": 0.0}
     bits = lambda t: t.view(torch.int32)  # noqa: E731
     for mapping, sizes in INSIDE_GROUPS.items():
@@ -1884,16 +2017,25 @@ def phase_k3(state):
                     raise AssertionError(f"K3a n1={n1} did not take the {mapping} mapping")
                 p_total, p_charts = dmv_inside_charts_plain(dec, attach, lens, kind)
                 off = p_charts == -1e12
+                out_global = dmv_cuda.n_outside_global_launches
                 got = dmv_outside(dec, attach, lens, gout, total, charts, kind)
+                out_mapping = dmv_cuda.outside_mapping(n1, dmv_cuda._smem_optin)
+                if dmv_cuda.n_outside_global_launches != out_global + (out_mapping == "global"):
+                    raise AssertionError(f"K3b n1={n1} did not take the {out_mapping} mapping")
                 again = dmv_outside(dec, attach, lens, gout, total, charts, kind)
                 on_plain = dmv_outside(dec, attach, lens, gout, p_total,
                                        p_charts.contiguous(), kind)
-                want = dmv_outside_plain(dec, attach, lens, gout, total, charts, kind)
+                # log: the plain version in f64, whose round-off is far below
+                # the tolerance; in f32 its own reaches it at n1 = 101 (a GO
+                # count of 44.3195 against 44.3204 in f64)
+                want = tuple(x.float() for x in dmv_outside_plain(
+                    dec, attach, lens, gout, total, charts, kind,
+                    torch.float64 if kind == "log" else torch.float32))
                 _, fd, fa = dmv_fused(dec, attach, lens, kind)
                 fused = (gout.view(-1, 1, 1, 1, 1) * fd, gout.view(-1, 1, 1, 1) * fa)
                 torch.cuda.synchronize()
                 errs = {
-                    "mapping": mapping,
+                    "mapping": mapping, "outside_mapping": out_mapping,
                     "total": float((total - p_total).abs().max()),
                     "charts": float((charts[~off] - p_charts[~off]).abs().max()),
                     "outside": max(float((g - w).abs().max()) for g, w in zip(got, want)),
@@ -1901,6 +2043,10 @@ def phase_k3(state):
                         float((g - w).abs().max()) for g, w in zip(on_plain, want)),
                     "pair_vs_fused": max(
                         float((g - f).abs().max()) for g, f in zip(got, fused))}
+                if parent is not None:  # the parent's error on the same charts
+                    p_got = parent.outside(dec, attach, lens, gout, total, charts, kind)
+                    errs["parent_outside"] = max(
+                        float((g - w).abs().max()) for g, w in zip(p_got, want))
                 result["cases"][f"n1={n1}/{kind}"] = errs
                 worst["charts"] = max(worst["charts"], errs["charts"])
                 worst["outside"] = max(worst["outside"], errs["outside"])
@@ -1918,7 +2064,15 @@ def phase_k3(state):
                       and all(bool((g[gout == 0] == 0).all()) for g in got))
                 if not ok:
                     emit(result)
-                    raise AssertionError(f"K3 n1={n1}/{kind} disagrees: {errs}")
+                    worst_at = {}
+                    for name, g, w, f in zip(("g_dec", "g_attach"), got, want, fused):
+                        excess = (g - w).abs() - (K1_GRAD_ATOL + K1_GRAD_RTOL * w.abs())
+                        k = int(excess.argmax())
+                        worst_at[name] = {"at": list(np.unravel_index(k, tuple(g.shape))),
+                                          "kernel": float(g.flatten()[k]),
+                                          "plain": float(w.flatten()[k]),
+                                          "k1": float(f.flatten()[k])}
+                    raise AssertionError(f"K3 n1={n1}/{kind} disagrees: {errs} {worst_at}")
             # quarter-integers tie often: the pair must mark every best tree
             # as K1 does (the plain version splits ties, so it is no judge)
             dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev, quarter=True)
@@ -1929,14 +2083,16 @@ def phase_k3(state):
                     and torch.equal(got[0], gout.view(-1, 1, 1, 1, 1) * fd)
                     and torch.equal(got[1], gout.view(-1, 1, 1, 1) * fa)):
                 raise AssertionError(f"K3 n1={n1}: the pair and K1 differ on tied trees")
+    result["parent"] = _parent_note(state)
     for n1 in TIMED_N1:
         lengths = _ragged(rng, n1)
         gout = _gout(len(lengths), dev)
         dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
         timing = {}
+        steps = dmv_pass_steps(n1)
         for kind in ("log", "max"):
             total, charts = dmv_inside_save(dec, attach, lens, kind)
-            timing[kind] = {
+            t = timing[kind] = {
                 "save_ms": device_ms(lambda: dmv_inside_save(dec, attach, lens, kind)),
                 "outside_ms": device_ms(
                     lambda: dmv_outside(dec, attach, lens, gout, total, charts, kind)),
@@ -1952,27 +2108,56 @@ def phase_k3(state):
                 "outside_plain_ms": time_ms(
                     lambda: dmv_outside_plain(dec, attach, lens, gout, total, charts, kind),
                     reps=3, warmup=1)}
-            timing[kind]["pair_ms"] = timing[kind]["save_ms"] + timing[kind]["outside_ms"]
+            t["pair_ms"] = t["save_ms"] + t["outside_ms"]
+            t["save_ms_per_step"] = t["save_ms"] / steps
+            t["outside_ms_per_step"] = t["outside_ms"] / steps
+            if parent is not None:
+                p_total, p_charts = parent.inside(dec, attach, lens, kind, save=True)
+                p_grads = parent.outside(dec, attach, lens, gout, total, charts, kind)
+                grads = dmv_outside(dec, attach, lens, gout, total, charts, kind)
+                t["parent_save_ms"] = device_ms(
+                    lambda: parent.inside(dec, attach, lens, kind, save=True))
+                t["parent_outside_ms"] = device_ms(
+                    lambda: parent.outside(dec, attach, lens, gout, total, charts, kind))
+                t["parent_pair_ms"] = t["parent_save_ms"] + t["parent_outside_ms"]
+                psteps = dmv_pass_steps(n1, parent=True)
+                t["parent_save_ms_per_step"] = t["parent_save_ms"] / psteps
+                t["parent_outside_ms_per_step"] = t["parent_outside_ms"] / psteps
+                t["parent_vs_new"] = {
+                    "total": float((p_total - total).abs().max()),
+                    "charts": float((p_charts - charts).abs().max()),
+                    "grads": max(float((a - b).abs().max()) for a, b in zip(p_grads, grads))}
         result["timing_B64"][f"n1={n1}"] = {
             **timing, "save_bound": dmv_bound(lengths, n1, "save"),
             "outside_bound": dmv_bound(lengths, n1, "outside"),
             "fused_bound": dmv_bound(lengths, n1, "fused"),
-            "dependent_steps": {"save": 2 * (n1 - 1), "outside": 2 * (n1 - 1)}}
+            "save_plan": dmv_cuda.inside_plan(n1, dmv_cuda._smem_optin),
+            "outside_plan": dmv_cuda.outside_plan(n1, dmv_cuda._smem_optin),
+            "dependent_steps": {"save": steps, "outside": steps},
+            "parent_dependent_steps": {"save": dmv_pass_steps(n1, parent=True),
+                                       "outside": dmv_pass_steps(n1, parent=True)}}
     result["tolerance"] = {"total_and_charts": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
                            "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL], "max": "exact"}
     emit(result)
     t = result["timing_B64"]["n1=51"]
     keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
+    parent_keys = lambda what: ({  # noqa: E731
+        "parent_ms": t["max"][f"parent_{what}_ms"],
+        "parent_ms_log": t["log"][f"parent_{what}_ms"]} if parent is not None else {})
     state["dmv_inside_save"] = {
         "max_abs_err": worst["charts"], "ms": t["max"]["save_ms"],
         "plain_ms": t["max"]["save_plain_ms"], "library_ms": None,
         "ms_log": t["log"]["save_ms"], "timed_at": {"B": 64, "n1": 51, "kind": "max"},
-        **{k: t["save_bound"][k] for k in keys}, "dependent_steps": 100}
+        **{k: t["save_bound"][k] for k in keys},
+        "dependent_steps": t["dependent_steps"]["save"],
+        "ms_per_step": t["max"]["save_ms_per_step"], **parent_keys("save")}
     state["dmv_outside"] = {
         "max_abs_err": worst["outside"], "ms": t["max"]["outside_ms"],
         "plain_ms": t["max"]["outside_plain_ms"], "library_ms": None,
         "ms_log": t["log"]["outside_ms"], "timed_at": {"B": 64, "n1": 51, "kind": "max"},
-        **{k: t["outside_bound"][k] for k in keys}, "dependent_steps": 100}
+        **{k: t["outside_bound"][k] for k in keys},
+        "dependent_steps": t["dependent_steps"]["outside"],
+        "ms_per_step": t["max"]["outside_ms_per_step"], **parent_keys("outside")}
     # the warp and the global mapping serve both inside functions: their
     # rows keep the value-only time and add the chart-saving one
     for name, n1 in (("dmv_inside_small", 9), ("dmv_inside_long", 101)):

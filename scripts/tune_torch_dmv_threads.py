@@ -1,0 +1,115 @@
+"""Threads per block of the two-launch DMV pair (``csrc/dmv_inside.cu``'s
+block mappings, K2/K3a, and ``csrc/dmv_outside.cu``, K3b), swept on one GPU
+at B = 64 with the ragged lengths of ``chip_smoke.py`` phases ``k2``/``k3``.
+
+    python scripts/tune_torch_dmv_threads.py [--n1 17,51,57,63,64,101]
+
+Each kernel is launched through its C interface with every power of two from
+32 to 1024 threads (the wrapper's mapping and staging rules otherwise), its
+outputs held against the wrapper's own launch (bit-equal in the max
+semiring, the butterflies' order aside within 1e-4 in log), and timed as
+``chip_smoke.device_ms`` times it (calls queued behind a busy device).
+Prints the card, then a JSON line per (kernel, n1, semiring) with the ms of
+each thread count and the count the wrapper's rule picks
+(``dmv_cuda.inside_block_threads`` / ``outside_threads``).
+"""
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+THREADS = (32, 64, 128, 256, 512, 1024)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n1", default="17,51,57,63,64,101")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import chip_smoke  # stdlib only at import
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tune_torch_dmv_threads: no CUDA device", file=sys.stderr)
+        return 2
+    from vlgae_tpu_torch.ops import _build, dmv_cuda
+
+    print(chip_smoke.nvidia_smi_line(), flush=True)
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    for n1 in (int(x) for x in args.n1.split(",")):
+        lengths = chip_smoke._ragged(rng, n1)
+        dec, attach, lens = chip_smoke._dmv_inputs(rng, lengths, n1, dev)
+        B = len(lengths)
+        gout = chip_smoke._gout(B, dev)
+        for kind in ("log", "max"):
+            want_total, want_charts = dmv_cuda.dmv_inside_save(dec, attach, lens, kind)
+            want_grads = dmv_cuda.dmv_outside(dec, attach, lens, gout, want_total,
+                                              want_charts, kind)
+            optin = dmv_cuda._smem_optin
+            ip, op = dmv_cuda.inside_plan(n1, optin), dmv_cuda.outside_plan(n1, optin)
+            if ip["mapping"] == "warp":
+                continue
+            stream = _build.stream_ptr(dev)
+
+            def inside(threads, save):
+                out = torch.empty(B, device=dev)
+                charts = torch.empty((B, 4, n1, n1, 2), device=dev) if save else None
+                scratch = torch.empty(B * dmv_cuda.INSIDE_BYTES_PER_N1SQ * n1 * n1, device=dev,
+                                      dtype=torch.uint8
+                                      ) if ip["mapping"] == "global" and not save else None
+                _build.check(dmv_cuda._inside_lib.dmv_inside_launch(
+                    _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(out),
+                    None if charts is None else _build.ptr(charts),
+                    None if scratch is None else _build.ptr(scratch), B, n1,
+                    int(kind == "max"), int(save), dmv_cuda.MAPPINGS.index(ip["mapping"]),
+                    threads, int(ip["stage"]), stream), "dmv_inside_launch")
+                return out, charts
+
+            def outside(threads):
+                g_dec, g_attach = torch.empty_like(dec), torch.empty_like(attach)
+                smem = op["mapping"] == "smem"
+                scratch = None if smem else torch.empty(
+                    B * dmv_cuda.OUTSIDE_SCRATCH_PER_N1SQ * n1 * n1, device=dev,
+                    dtype=torch.uint8)
+                _build.check(dmv_cuda._outside_lib.dmv_outside_launch(
+                    _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(gout),
+                    _build.ptr(want_total), _build.ptr(want_charts), _build.ptr(g_dec),
+                    _build.ptr(g_attach), None if scratch is None else _build.ptr(scratch),
+                    B, n1, int(kind == "max"), int(smem), int(op["stage"]), threads, stream),
+                    "dmv_outside_launch")
+                return g_dec, g_attach
+
+            rows = {"inside": {}, "inside_save": {}, "outside": {}}
+            errs = {"inside": 0.0, "inside_save": 0.0, "outside": 0.0}
+            for threads in THREADS:
+                total, charts = inside(threads, True)
+                grads = outside(threads)
+                value = inside(threads, False)[0]
+                torch.cuda.synchronize()
+                for what, got, want in (("inside", [value], [want_total]),
+                                        ("inside_save", [total, charts],
+                                         [want_total, want_charts]),
+                                        ("outside", grads, want_grads)):
+                    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                    if (err != 0.0) if kind == "max" else not err <= 1e-4 * max(
+                            1.0, max(float(w.abs().max()) for w in want)):
+                        raise AssertionError(f"{what} n1={n1}/{kind} at {threads} threads: {err}")
+                    errs[what] = max(errs[what], err)
+                rows["inside"][threads] = chip_smoke.device_ms(lambda: inside(threads, False))
+                rows["inside_save"][threads] = chip_smoke.device_ms(lambda: inside(threads, True))
+                rows["outside"][threads] = chip_smoke.device_ms(lambda: outside(threads))
+            print(json.dumps({
+                "n1": n1, "kind": kind, "B": B, "ms_by_threads": rows, "max_err": errs,
+                "rule": {"inside": ip["threads"], "outside": op["threads"]},
+                "plans": {"inside": ip, "outside": op},
+                "best": {k: min(v, key=v.get) for k, v in rows.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

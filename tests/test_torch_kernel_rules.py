@@ -32,6 +32,53 @@ def test_shared_memory_bytes_per_sentence(n1, fused, inside):
     assert dmv_cuda.inside_smem_bytes(n1) == inside
 
 
+@pytest.mark.parametrize("n1,outside,potentials", [
+    (1, 64 * 1, 8 + 32), (9, 64 * 81, 8 * 81 + 32 * 9), (10, 64 * 110, 800 + 320),
+    (51, 64 * 51 * 51, 8 * 51 * 51 + 32 * 51), (57, 64 * 57 * 57, 8 * 57 * 57 + 32 * 57),
+    (64, 64 * 64 * 65, 8 * 64 * 64 + 32 * 64), (101, 64 * 101 * 101, 8 * 101 * 101 + 32 * 101)])
+def test_the_pairs_shared_memory_bytes_per_sentence(n1, outside, potentials):
+    """The outside kernel keeps the four saved charts and four adjoint charts
+    (OCr, OCl, and OA or the incomplete spans' flags OIr, OIl) at the odd
+    pitch; the potentials staged beside the charts of either kernel are
+    attach [n1][n1][2] and dec [n1][8] f32."""
+    assert dmv_cuda.outside_smem_bytes(n1) == outside
+    assert dmv_cuda.potential_smem_bytes(n1) == potentials
+    optin = H100_OPTIN
+    ip, op = dmv_cuda.inside_plan(n1, optin), dmv_cuda.outside_plan(n1, optin)
+    charts = {"warp": 4 * dmv_cuda.inside_smem_bytes(n1), "smem": dmv_cuda.inside_smem_bytes(n1),
+              "global": 0}[ip["mapping"]]
+    assert ip["smem_bytes"] == charts + (potentials if ip["stage"] else 0) <= optin
+    charts = outside if op["mapping"] == "smem" else 0
+    assert op["smem_bytes"] == charts + (potentials if op["stage"] else 0) <= optin
+
+
+# the last n1 of each placement of the pair's kernels: (mapping, staged)
+@pytest.mark.parametrize("optin,inside,outside", [
+    (H100_OPTIN, {("warp", False): 9, ("smem", True): 75, ("smem", False): 85,
+                  ("global", True): 168},
+     {("smem", True): 56, ("smem", False): 59, ("global", True): 168}),
+    (49152, {("warp", False): 9, ("smem", True): 34, ("smem", False): 39,
+             ("global", True): 76},
+     {("smem", True): 25, ("smem", False): 27, ("global", True): 76}),
+    (101376, {("warp", False): 9, ("smem", True): 49, ("smem", False): 55,
+              ("global", True): 110},
+     {("smem", True): 37, ("smem", False): 39, ("global", True): 110})])
+def test_the_pairs_placements_follow_the_cards_limit(optin, inside, outside):
+    """Charts in shared memory while they fit, the potentials staged beside
+    them while both fit, else read from global memory; past the last
+    threshold charts and potentials both stay in global memory."""
+    for plan, lasts in ((dmv_cuda.inside_plan, inside), (dmv_cuda.outside_plan, outside)):
+        bounds = sorted(lasts.items(), key=lambda kv: kv[1])
+        for n1 in range(1, 200):
+            got = plan(n1, optin)
+            want = next((k for k, last in bounds if n1 <= last), ("global", False))
+            assert (got["mapping"], got["stage"]) == want, (plan.__name__, n1)
+    # the wrappers' mapping rules say the same
+    for n1 in range(1, 200):
+        assert dmv_cuda.outside_mapping(n1, optin) == dmv_cuda.outside_plan(n1, optin)["mapping"]
+        assert dmv_cuda.inside_mapping(n1, optin) == dmv_cuda.inside_plan(n1, optin)["mapping"]
+
+
 @pytest.mark.parametrize("optin,last_fused,last_inside", [
     (H100_OPTIN, 56, 85), (49152, 25, 39), (101376, 37, 55)])
 def test_shared_or_global_thresholds_follow_the_cards_limit(optin, last_fused, last_inside):
@@ -61,6 +108,26 @@ def test_inside_threads_is_one_lane_a_cell(n1, want):
     assert t >= min(2 * n1, dmv_cuda.MAX_THREADS)
 
 
+@pytest.mark.parametrize("n1,inside,outside", [
+    (10, 32, 64), (16, 32, 64), (17, 64, 128), (32, 64, 128), (33, 128, 256),
+    (51, 128, 256), (57, 128, 256), (59, 128, 256), (60, 128, 512), (64, 128, 512),
+    (65, 256, 1024), (85, 256, 1024), (86, 512, 1024), (101, 512, 1024),
+    (129, 1024, 1024), (400, 1024, 1024)])
+def test_the_pairs_threads_by_n1(n1, inside, outside):
+    """Threads per block of the pair's one-barrier kernels on an H100 (chosen
+    on the card by scripts/tune_torch_dmv_threads.py): the inside kernel
+    about two lanes a task with charts in shared memory, four in global
+    memory; the outside kernel four and eight. K1's counts stay as they
+    were."""
+    got = (dmv_cuda.inside_block_threads(n1, H100_OPTIN),
+           dmv_cuda.outside_threads(n1, H100_OPTIN))
+    assert got == (inside, outside)
+    assert dmv_cuda.inside_plan(n1, H100_OPTIN)["threads"] == inside
+    assert dmv_cuda.outside_plan(n1, H100_OPTIN)["threads"] == outside
+    for t in got:
+        assert t & (t - 1) == 0 and 32 <= t <= dmv_cuda.MAX_THREADS
+
+
 @pytest.mark.parametrize("ntasks,nterms,threads,want", [
     (50, 1, 512, 1), (50, 50, 512, 8), (26, 25, 512, 16), (100, 25, 512, 4),
     (5, 46, 512, 32), (2, 100, 1024, 32), (8, 8, 32, 4), (1, 3, 32, 4),
@@ -72,13 +139,23 @@ def test_group_lanes(ntasks, nterms, threads, want):
 def test_the_card_tests_reach_every_group_width():
     """The n1 of tests/test_torch_kernels_cuda.py's DMV cases, with the
     threads their mapping gives them, use every sub-warp width from one
-    lane to a whole warp."""
+    lane to a whole warp: in the two-barrier inside fill (the warp mapping,
+    K1), and in the one-barrier fills of the inside kernel's block mappings
+    and of the outside kernel."""
     seen = set()
     for n1 in (2, 3, 5, 9):
         seen |= dmv_cuda.inside_group_widths(n1, 32)
     for n1 in (10, 17, 51, 57, 101):
         seen |= dmv_cuda.inside_group_widths(n1, dmv_cuda.inside_threads(n1))
     assert seen == {1, 2, 4, 8, 16, 32}
+    inside, outside = set(), set()
+    for n1 in (10, 17, 51, 57, 85, 86, 100):
+        threads = dmv_cuda.inside_block_threads(n1, H100_OPTIN)
+        inside |= dmv_cuda.inside_1b_group_widths(n1, threads)
+    for n1 in (1, 2, 3, 5, 9, 10, 17, 51, 57, 85, 86, 100):
+        threads = dmv_cuda.outside_threads(n1, H100_OPTIN)
+        outside |= dmv_cuda.outside_1b_group_widths(n1, threads)
+    assert inside == outside == {1, 2, 4, 8, 16, 32}
 
 
 def test_match_fwd_plan_at_the_recipes_shapes():

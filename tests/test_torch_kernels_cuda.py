@@ -40,8 +40,11 @@ small enough for every f32 sum to stay exact, up to D = 384.
 
 K2/K4 (``dmv_inside``), K3a/K4 (``dmv_inside_save``) and K3b
 (``dmv_outside``): the same tie-free potentials at n1 = 1..9 (a warp per
-sentence), 10, 17, 51 and 85 (a block per sentence, charts in shared
-memory) and 86, 100 (charts in global memory). Totals as K1's (max exact,
+sentence), 10, 17, 51, 56, 57, 60, 76 and 85 (a block per sentence, charts in
+shared memory) and 86, 100, 170 (charts in global memory), which put both
+kernels of the pair on each side of their staging and shared/global
+boundaries (each outside launch counted on the mapping its rule names).
+Totals as K1's (max exact,
 and equal to K1's bit for bit); the saved charts within 1e-3 + 1e-5|x| of
 the plain charts on the span triangle (max exact) and exactly -1e12 off it;
 the outside pass, with a cotangent that has zeros, within K1's gradient
@@ -521,12 +524,17 @@ def test_match_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                                dtype=torch.bfloat16), li, lvi, dm, dmv)
 
 
+# on an H100 the outside kernel stages its potentials up to n1 = 56 and keeps
+# its charts in shared memory up to 59, the inside kernel stages up to 75 and
+# keeps its charts in shared memory up to 85; neither stages past 168
 DMV_CASES = [
     ((0,), 1), ((1, 0), 2), ((2, 1), 3), ((4, 0, 3), 5), ((0, 1, 8, 3, 8, 5), 9),
     ((9, 1, 0, 4), 10), ((16, 3, 0, 9), 17), ((50, 1, 0, 27, 13), 51),
-    ((56, 2, 0, 33), 57), ((84, 2, 40), 85), ((85, 0, 52, 7), 86), ((99, 86, 0, 1), 100)]
+    ((55, 1, 30), 56), ((56, 2, 0, 33), 57), ((59, 0, 21), 60), ((75, 3, 0), 76),
+    ((84, 2, 40), 85), ((85, 0, 52, 7), 86), ((99, 86, 0, 1), 100), ((169, 0, 120), 170)]
 DMV_MAPPING = {1: "warp", 2: "warp", 3: "warp", 5: "warp", 9: "warp", 10: "smem",
-               17: "smem", 51: "smem", 57: "smem", 85: "smem", 86: "global", 100: "global"}
+               17: "smem", 51: "smem", 56: "smem", 57: "smem", 60: "smem", 76: "smem",
+               85: "smem", 86: "global", 100: "global", 170: "global"}
 
 
 def _cotangent(B, device):
@@ -584,6 +592,8 @@ def test_dmv_inside_save_and_outside_match_plain_and_fused(cuda, kind, lengths, 
     gout = _cotangent(B, cuda)
     got = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
     assert dmv_cuda.n_outside_launches == after["outside"] + 1
+    out_global = dmv_cuda.outside_mapping(n1, dmv_cuda._smem_optin) == "global"
+    assert dmv_cuda.n_outside_global_launches == after["outside_global"] + out_global
     again = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
     on_plain = dmv_cuda.dmv_outside(dec, attach, lens, gout, want_total,
                                     want_charts.contiguous(), kind)
@@ -626,14 +636,15 @@ def test_dmv_pair_marks_every_best_tree_as_the_fused_kernel(cuda, kind):
 
 def test_dmv_totals_on_the_card_take_the_kernels_by_what_is_needed(cuda, monkeypatch):
     from vlgae_tpu_torch.ops import dmv_cuda
-    from vlgae_tpu_torch.struct import DMV1o, distributions, dmv_total_fast
+    from vlgae_tpu_torch.struct import DMV1o, dmv_total_fast
 
     def refuse(*_):
         raise AssertionError("a plain version ran for a CUDA tensor")
 
+    # the ops' CPU implementations reach the plain versions through this module
     for name in ("dmv_total", "dmv_inside_charts_plain", "dmv_outside_plain",
                  "dmv_value_and_grads_plain"):
-        monkeypatch.setattr(distributions, name, refuse)
+        monkeypatch.setattr(dmv_cuda._plain, name, refuse)
     dec, attach, lens = _dmv_batch((8, 3, 0, 5), 9, 7, cuda)
     c0 = dmv_cuda.launch_counts()
     value = dmv_total_fast(dec.requires_grad_(True), attach, lens, "max")
@@ -711,7 +722,7 @@ def test_crf_on_the_card_takes_the_kernels_by_what_is_needed(cuda, monkeypatch):
     arcs; a labeled arc's tables reach its labels; multiroot: the plain
     fill, no kernel."""
     from vlgae_tpu_torch.ops import dmv_cuda
-    from vlgae_tpu_torch.struct import DependencyCRF, distributions
+    from vlgae_tpu_torch.struct import DependencyCRF
 
     rng = np.random.default_rng(7)
     lengths = torch.tensor([12, 0, 1, 7], dtype=torch.int32)
@@ -721,7 +732,7 @@ def test_crf_on_the_card_takes_the_kernels_by_what_is_needed(cuda, monkeypatch):
     want_table = DependencyCRF(arc, lengths).marginals
     for name in ("dmv_total", "dmv_inside_charts_plain", "dmv_outside_plain",
                  "dmv_value_and_grads_plain"):
-        monkeypatch.setattr(distributions, name, lambda *_: 1 / 0)
+        monkeypatch.setattr(dmv_cuda._plain, name, lambda *_: 1 / 0)
     a = arc.to(cuda).requires_grad_(True)
     c0 = dmv_cuda.launch_counts()
     DependencyCRF(a, lengths.to(cuda)).partition.sum().backward()

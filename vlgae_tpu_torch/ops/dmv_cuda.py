@@ -13,6 +13,11 @@ They replace the TPU launches of vlgae_tpu/ops/dmv_pallas.py reached from
   inside kernels and ``_outside_kernel``): the two-launch pair of a
   differentiable total, whose cotangent arrives later.
 
+K1 and the warp mapping run the two-barrier fills of
+``csrc/dmv_common.cuh``; the block mappings of the inside kernel and the
+outside kernel run the one-barrier fills, with the sentence's potentials
+staged in shared memory where they fit beside the charts.
+
 Each wrapper is a ``torch.library.custom_op`` (``vlgae::dmv_fused``,
 ``vlgae::dmv_inside``, ``vlgae::dmv_inside_save``, ``vlgae::dmv_outside``):
 its CUDA implementation launches the kernel and counts the launch, its CPU
@@ -20,10 +25,13 @@ implementation is the plain version of :mod:`vlgae_tpu_torch.struct.dmv`,
 and its fake implementation gives the outputs' shapes and dtypes, so that
 ``torch.export`` traces a forward that reaches them. What a wrapper decides
 before a launch (bytes of shared memory per sentence, charts in shared or
-in global memory, threads per block) is a pure function of ``n1`` and the
-card's opt-in shared memory: :func:`chart_pitch`, :func:`fused_smem_bytes`,
-:func:`inside_smem_bytes`, :func:`fused_uses_smem`, :func:`inside_mapping`,
-:func:`block_threads`, :func:`inside_threads`.
+in global memory, potentials staged or not, threads per block) is a pure
+function of ``n1`` and the card's opt-in shared memory: :func:`chart_pitch`,
+:func:`fused_smem_bytes`, :func:`inside_smem_bytes`, :func:`fused_uses_smem`,
+:func:`inside_mapping`, :func:`outside_smem_bytes`, :func:`outside_mapping`,
+:func:`potential_smem_bytes`, :func:`inside_plan`, :func:`outside_plan`,
+:func:`block_threads`, :func:`inside_threads` (K1),
+:func:`inside_block_threads`, :func:`outside_threads` (the pair).
 """
 
 from __future__ import annotations
@@ -39,20 +47,24 @@ from . import _build
 
 # launches in this process (chip_smoke resets and reads them): K1, and
 # those of it with charts in global scratch; the inside pass, value-only
-# and chart-saving, by mapping; the outside pass
+# and chart-saving, by mapping; the outside pass, and those of it with
+# charts in global memory
 n_launches = 0
 n_fused_global_launches = 0
 MAPPINGS = ("warp", "smem", "global")
 n_inside_launches = dict.fromkeys(MAPPINGS, 0)
 n_inside_save_launches = dict.fromkeys(MAPPINGS, 0)
 n_outside_launches = 0
+n_outside_global_launches = 0
 
 # bytes of one chart cell pair times the charts a kernel keeps per sentence
-# (see the .cu): nine for inside + outside, four for the inside alone, five
-# adjoint charts in the outside kernel's global scratch
+# (see the .cu): nine for K1, four for the inside alone, eight for the
+# outside kernel (the inside charts and four adjoint charts), of which the
+# four adjoint charts go to global scratch when the charts do not fit
 _FUSED_BYTES_PER_CELL = 72
 INSIDE_BYTES_PER_N1SQ = 32
-OUTSIDE_SCRATCH_PER_N1SQ = 40
+OUTSIDE_BYTES_PER_CELL = 64
+OUTSIDE_SCRATCH_PER_N1SQ = 32
 WARP_MAX_N1 = 9  # the warp mapping of dmv_inside.cu serves n1 <= 9
 MAX_THREADS = 1024  # csrc kMaxThreads
 _lib = None
@@ -63,7 +75,9 @@ _outside_lib = None
 
 def reset_launch_counts() -> None:
     global n_launches, n_fused_global_launches, n_outside_launches
+    global n_outside_global_launches
     n_launches = n_fused_global_launches = n_outside_launches = 0
+    n_outside_global_launches = 0
     for m in MAPPINGS:
         n_inside_launches[m] = n_inside_save_launches[m] = 0
 
@@ -72,7 +86,7 @@ def launch_counts() -> dict:
     return {"fused": n_launches, "fused_global": n_fused_global_launches,
             "inside": dict(n_inside_launches),
             "inside_save": dict(n_inside_save_launches),
-            "outside": n_outside_launches}
+            "outside": n_outside_launches, "outside_global": n_outside_global_launches}
 
 
 def chart_pitch(n1: int) -> int:
@@ -94,14 +108,71 @@ def inside_smem_bytes(n1: int) -> int:
 
 
 def fused_uses_smem(n1: int, smem_optin: int) -> bool:
-    """Whether K1 and the outside kernel keep their charts in shared memory
-    (else in a global scratch buffer), from ``n1`` and the card's opt-in
-    shared memory alone."""
+    """Whether K1 keeps its charts in shared memory (else in a global
+    scratch buffer), from ``n1`` and the card's opt-in shared memory
+    alone."""
     return fused_smem_bytes(n1) <= smem_optin
 
 
+def outside_smem_bytes(n1: int) -> int:
+    """Shared memory per sentence of the outside kernel's charts: the four
+    saved inside charts and four adjoint charts of ``[n1][pitch][2]``."""
+    return OUTSIDE_BYTES_PER_CELL * n1 * chart_pitch(n1)
+
+
+def potential_smem_bytes(n1: int) -> int:
+    """Shared memory of one sentence's potentials, staged beside the charts
+    of the inside and the outside kernel: attach ``[n1][n1][2]`` and dec
+    ``[n1][8]`` f32."""
+    return 8 * n1 * n1 + 32 * n1
+
+
+def outside_mapping(n1: int, smem_optin: int) -> str:
+    """Where the outside kernel keeps its charts: ``smem`` while its eight
+    charts fit the card's opt-in shared memory, else ``global`` (the inside
+    charts read in place, four adjoint charts in global scratch)."""
+    return "smem" if outside_smem_bytes(n1) <= smem_optin else "global"
+
+
+def _plan(chart_bytes: int, n1: int, smem_optin: int) -> Tuple[bool, int]:
+    """``(stage, smem bytes)``: the potentials are staged when they fit
+    beside the charts the block keeps in shared memory."""
+    stage = chart_bytes + potential_smem_bytes(n1) <= smem_optin
+    return stage, chart_bytes + (potential_smem_bytes(n1) if stage else 0)
+
+
+def inside_plan(n1: int, smem_optin: int) -> dict:
+    """What the inside kernel's wrapper launches for charts of ``n1``
+    positions: ``mapping`` (:func:`inside_mapping`), ``stage`` (the block
+    mappings copy the potentials into shared memory where they fit beside
+    the charts: n1 <= 75 with charts in shared memory on an H100), the
+    dynamic shared memory of a block, and its threads."""
+    mapping = inside_mapping(n1, smem_optin)
+    if mapping == "warp":
+        return {"mapping": mapping, "stage": False,
+                "smem_bytes": 4 * inside_smem_bytes(n1), "threads": 128}
+    charts = inside_smem_bytes(n1) if mapping == "smem" else 0
+    stage, smem = _plan(charts, n1, smem_optin)
+    return {"mapping": mapping, "stage": stage, "smem_bytes": smem,
+            "threads": inside_block_threads(n1, smem_optin)}
+
+
+def outside_plan(n1: int, smem_optin: int) -> dict:
+    """What the outside kernel's wrapper launches: ``mapping``
+    (:func:`outside_mapping`), ``stage`` (the potentials, and the gradient
+    of ``attach`` in their place, in shared memory: n1 <= 56 with charts in
+    shared memory on an H100, and with charts in global memory while the
+    potentials fit), the dynamic shared memory of a block, and its
+    threads."""
+    mapping = outside_mapping(n1, smem_optin)
+    charts = outside_smem_bytes(n1) if mapping == "smem" else 0
+    stage, smem = _plan(charts, n1, smem_optin)
+    return {"mapping": mapping, "stage": stage, "smem_bytes": smem,
+            "threads": outside_threads(n1, smem_optin)}
+
+
 def block_threads(n1: int) -> int:
-    """Threads per block of K1 and of the outside kernel: the power of two
+    """Threads per block of K1: the power of two
     that gives each of the up to ``2 * n1`` cells of a width step about four
     lanes, between one warp and ``MAX_THREADS`` (512 up to n1 = 64, where the
     charts are in or near shared memory; 1024 beyond, where every term is a
@@ -111,13 +182,34 @@ def block_threads(n1: int) -> int:
 
 
 def inside_threads(n1: int) -> int:
-    """Threads that run the inside fill of one sentence (the whole block of
-    the inside kernel, the first threads of K1's block): the power of two that
+    """Threads that run the two-barrier inside fill in K1's block (its
+    first threads): the power of two that
     gives each of the up to ``2 * n1`` cells of a width step one lane, between
     one warp and ``MAX_THREADS``. The inside fill has at most ``n1`` cheap
     terms a cell; more lanes a cell cost more in shuffles and barrier than
     they save."""
     return min(MAX_THREADS, max(32, 1 << (2 * n1 - 1).bit_length()))
+
+
+def inside_block_threads(n1: int, smem_optin: int) -> int:
+    """Threads per block of the inside kernel's block mappings (the
+    one-barrier fill: a task a start position, up to ``n1`` tasks a width):
+    with charts in shared memory the power of two at least ``2 * n1`` (about
+    two lanes a task: more lanes cost more in shuffles and barrier than they
+    save), with charts in global memory at least ``4 * n1`` (more lanes hide
+    more of each read), between one warp and ``MAX_THREADS``."""
+    per = 2 if inside_mapping(n1, smem_optin) != "global" else 4
+    return min(MAX_THREADS, max(32, 1 << (per * n1 - 1).bit_length()))
+
+
+def outside_threads(n1: int, smem_optin: int) -> int:
+    """Threads per block of the outside kernel (the one-barrier fill: a task
+    a start position, each walking the consumers of its two complete spans
+    and the wider terms of its two incomplete spans): with charts in shared
+    memory the power of two at least ``4 * n1``, in global memory at least
+    ``8 * n1``, between one warp and ``MAX_THREADS``."""
+    per = 4 if outside_mapping(n1, smem_optin) == "smem" else 8
+    return min(MAX_THREADS, max(32, 1 << (per * n1 - 1).bit_length()))
 
 
 def group_lanes(ntasks: int, nterms: int, threads: int) -> int:
@@ -137,6 +229,27 @@ def inside_group_widths(n1: int, threads: int) -> set:
     n = n1
     return {group_lanes(tasks * (n - w), w, threads)
             for w in range(1, n) for tasks in (1, 2)}
+
+
+def inside_1b_group_widths(n1: int, threads: int) -> set:
+    """Every group width the one-barrier inside fill uses on a sentence of
+    ``n1 - 1`` words with ``threads`` threads: a task per start ``i`` of a
+    width ``w``, ``w`` split points."""
+    n = n1
+    return {group_lanes(n - w, w, threads) for w in range(1, n)}
+
+
+def outside_1b_group_widths(n1: int, threads: int) -> set:
+    """Every group width the one-barrier outside fill uses on a sentence of
+    ``n1 - 1`` words with ``threads`` threads, a task per start ``i`` of a
+    width ``w``: log, ``len - w + 1`` terms (the consumers of the complete
+    spans, the seed at ``w = len``); max, the larger of ``w`` split points
+    and ``len - w + 1`` pulled marks; then the GO sums (a task per head,
+    direction and valence over ``n`` arcs)."""
+    n, length = n1, n1 - 1
+    log = {group_lanes(n - w, length - w + 1, threads) for w in range(0, n)}
+    mx = {group_lanes(n - w, max(w, length - w + 1), threads) for w in range(1, n)}
+    return log | mx | {group_lanes(4 * n, n, threads)}
 
 
 def _library():
@@ -244,7 +357,7 @@ def _inside_library():
     if _inside_lib is None:
         lib = _build.load("dmv_inside")
         lib.dmv_inside_launch.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.dmv_inside_launch.restype = ctypes.c_int
         _inside_lib, _smem_optin = lib, _query_optin(lib.dmv_inside_smem_optin)
     return _inside_lib
@@ -271,7 +384,8 @@ def _inside(dec, attach, lengths, kind, save):
                          dtype=torch.float32) if save else None
     if B == 0:
         return out, charts
-    mapping = inside_mapping(n1, _smem_optin)
+    plan = inside_plan(n1, _smem_optin)
+    mapping = plan["mapping"]
     scratch = torch.empty(B * INSIDE_BYTES_PER_N1SQ * n1 * n1, device=dec.device,
                           dtype=torch.uint8) if mapping == "global" and not save else None
     with torch.cuda.device(dec.device):
@@ -280,7 +394,7 @@ def _inside(dec, attach, lengths, kind, save):
             _build.ptr(out), None if charts is None else _build.ptr(charts),
             None if scratch is None else _build.ptr(scratch),
             B, n1, int(kind == "max"), int(save), MAPPINGS.index(mapping),
-            inside_threads(n1), _build.stream_ptr(dec.device))
+            plan["threads"], int(plan["stage"]), _build.stream_ptr(dec.device))
     _build.check(err, f"dmv_inside_launch ({what}, {mapping})")
     (n_inside_save_launches if save else n_inside_launches)[mapping] += 1
     return out, charts
@@ -337,7 +451,7 @@ def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz
     saved charts of :func:`dmv_inside_save` (K3b; on the CPU
     :func:`~vlgae_tpu_torch.struct.dmv.dmv_outside_plain`), already scaled by
     ``gout [B]``; ``logz [B]`` is that pass's total."""
-    global n_outside_launches, _outside_lib
+    global n_outside_launches, n_outside_global_launches, _outside_lib
     dec, attach, lengths, B, n1 = _checked("dmv_outside", dec, attach, lengths, kind)
     for name, t, shape in (("gout", gout, (B,)), ("logz", logz, (B,)),
                            ("charts", charts, (B, 4, n1, n1, 2))):
@@ -349,7 +463,7 @@ def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz
     if _outside_lib is None:
         lib = _build.load("dmv_outside")
         lib.dmv_outside_launch.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.dmv_outside_launch.restype = ctypes.c_int
         _outside_lib = lib
     _inside_library()  # the shared-memory limit is queried there
@@ -357,7 +471,8 @@ def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz
     g_attach = torch.empty_like(attach)
     if B == 0:
         return g_dec, g_attach
-    use_smem = fused_uses_smem(n1, _smem_optin)
+    plan = outside_plan(n1, _smem_optin)
+    use_smem = plan["mapping"] == "smem"
     scratch = None if use_smem else torch.empty(
         B * OUTSIDE_SCRATCH_PER_N1SQ * n1 * n1, device=dec.device, dtype=torch.uint8)
     with torch.cuda.device(dec.device):
@@ -366,10 +481,11 @@ def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz
             _build.ptr(gout), _build.ptr(logz), _build.ptr(charts),
             _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch),
-            B, n1, int(kind == "max"), int(use_smem), block_threads(n1),
-            _build.stream_ptr(dec.device))
-    _build.check(err, "dmv_outside_launch")
+            B, n1, int(kind == "max"), int(use_smem), int(plan["stage"]),
+            plan["threads"], _build.stream_ptr(dec.device))
+    _build.check(err, f"dmv_outside_launch ({plan['mapping']})")
     n_outside_launches += 1
+    n_outside_global_launches += int(not use_smem)
     return g_dec, g_attach
 
 

@@ -66,16 +66,16 @@ def _reduce(x, kind):
     return torch.amax(x, dim=0)
 
 
-def _inside_rows(dec, attach, lengths, kind):
-    """The inside pass: per-width lists ``(Cr, Cl, Ir, Il)`` of rows
-    ``[B, N1, 2]`` indexed by span start (``Ir[0]``/``Il[0]`` are None), and
-    the clamped lengths. Rows hold the semiring zero where the span runs
+def _inside_rows(dec, attach, lengths, kind, dtype=torch.float32):
+    """The inside pass in ``dtype``: per-width lists ``(Cr, Cl, Ir, Il)`` of
+    rows ``[B, N1, 2]`` indexed by span start (``Ir[0]``/``Il[0]`` are None),
+    and the clamped lengths. Rows hold the semiring zero where the span runs
     past position N1 - 1; past a shorter sentence's end they hold values
     nothing reads."""
     if kind not in ("log", "max"):
         raise ValueError(f"kind must be 'log' or 'max', got {kind!r}")
-    dec = dec.float()
-    attach = attach.float()
+    dec = dec.to(dtype)
+    attach = attach.to(dtype)
     B, N1 = dec.shape[:2]
     dev = dec.device
     lengths = lengths.to(device=dev, dtype=torch.long).clamp(0, N1 - 1)
@@ -129,14 +129,15 @@ def _inside_rows(dec, attach, lengths, kind):
     return Cr, Cl, Ir, Il, lengths
 
 
-def dmv_total(dec, attach, lengths, kind: str = "log"):
+def dmv_total(dec, attach, lengths, kind: str = "log", dtype=torch.float32):
     """Per-sentence semiring total ``[B]`` (log Z or the Viterbi score).
 
     ``dec [B, N1, 2, 2, 2]`` and ``attach [B, N1, N1, 2]`` are merged
-    (root at position 0) f32 log-potentials, ``lengths [B]`` word counts
-    (clamped to ``[0, N1 - 1]``).
+    (root at position 0) log-potentials, ``lengths [B]`` word counts
+    (clamped to ``[0, N1 - 1]``); the pass runs in ``dtype`` (f32, the
+    kernels' type; f64 gives a reference with less round-off).
     """
-    Cr, _, _, _, lengths = _inside_rows(dec, attach, lengths, kind)
+    Cr, _, _, _, lengths = _inside_rows(dec, attach, lengths, kind, dtype)
     root = torch.stack(Cr)[:, :, 0, NOCHILD]  # [w, B]
     return root.gather(0, lengths[None, :])[0]
 
@@ -159,22 +160,24 @@ def dmv_inside_charts_plain(dec, attach, lengths, kind: str = "log"):
     return total, charts
 
 
-def dmv_value_and_grads_plain(dec, attach, lengths, kind: str = "log"):
+def dmv_value_and_grads_plain(dec, attach, lengths, kind: str = "log",
+                              dtype=torch.float32):
     """``(per_sentence [B], d total/d dec, d total/d attach)``.
 
     Marginals (log) or Viterbi-tree indicators (max) through autograd
-    of :func:`dmv_total`; no graph is kept for the caller.
+    of :func:`dmv_total` in ``dtype``; no graph is kept for the caller.
     """
     with torch.enable_grad():
-        d = dec.detach().float().requires_grad_(True)
-        a = attach.detach().float().requires_grad_(True)
-        per = dmv_total(d, a, lengths, kind)
+        d = dec.detach().to(dtype).requires_grad_(True)
+        a = attach.detach().to(dtype).requires_grad_(True)
+        per = dmv_total(d, a, lengths, kind, dtype)
         # with n1 = 1 (no words) attach takes no part: its gradient is 0
         gd, ga = torch.autograd.grad(per.sum(), (d, a), allow_unused=True)
     return per.detach(), gd, torch.zeros_like(a) if ga is None else ga
 
 
-def dmv_outside_plain(dec, attach, lengths, gout, logz, charts, kind: str = "log"):
+def dmv_outside_plain(dec, attach, lengths, gout, logz, charts, kind: str = "log",
+                      dtype=torch.float32):
     """``(g_dec, g_attach)``: the gradient of ``sum(gout * total)`` with
     respect to the potentials, the contract of the outside kernel.
 
@@ -182,8 +185,9 @@ def dmv_outside_plain(dec, attach, lengths, gout, logz, charts, kind: str = "log
     ``logz`` and ``charts`` (the hand-off of the chart-saving inside pass)
     are not read here, so a comparison pins their layout from the kernel's
     side: the outside kernel is run on the saved charts and on the plain
-    charts, and the saved charts are compared with the plain ones."""
-    _, gd, ga = dmv_value_and_grads_plain(dec, attach, lengths, kind)
+    charts, and the saved charts are compared with the plain ones. ``dtype``
+    as :func:`dmv_total`'s."""
+    _, gd, ga = dmv_value_and_grads_plain(dec, attach, lengths, kind, dtype)
     gout = gout.to(gd.dtype)
     return gout.view(-1, 1, 1, 1, 1) * gd, gout.view(-1, 1, 1, 1) * ga
 
