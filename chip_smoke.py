@@ -55,13 +55,15 @@ Phases, each printing one JSON line:
                  ``vlgae::dmv_fused`` and ``vlgae::match_maxes``)
  10. k2        - the value-only inside kernel against ``dmv_total`` (log +
                  max) at B=64 with ragged lengths, in its three mappings: a
-                 warp per sentence (n1 = 2, 3, 5, 9), a block per sentence
+                 warp per sentence (n1 = 1..9, B = 65), a block per sentence
                  with charts in shared memory (n1 = 10, 17, 51, 56, 57, 59,
                  60, 75, 76: the word path's 57 and each side of the pair's
                  staging and shared/global boundaries) and in global memory
                  (n1 = 101); reruns bit-identical; exact in the max semiring
                  on quarter-integer potentials; its time, dependent width
-                 steps and ms a step at n1 = 9, 17, 51, 57, 59, 60, 101
+                 steps and ms a step at n1 = 9, 17, 51, 57, 59, 60, 101;
+                 the floor under the warp mapping (a one-block PyTorch
+                 kernel, and the warp kernel on zero-length rows at n1 = 1)
  11. k3        - the chart-saving inside kernel against the plain charts,
                  the outside kernel against its plain version under a
                  cotangent with zeros (on the kernel's charts and on the
@@ -69,11 +71,11 @@ Phases, each printing one JSON line:
                  names), the pair against K1 scaled by the cotangent, reruns
                  bit-identical; the same n1 groups; times as in ``k2``.
                  Phases ``k2`` and ``k3`` also time the parent commit's
-                 kernels in the same call when copies of its
-                 ``dmv_inside.cu``, ``dmv_outside.cu`` and ``dmv_common.cuh``
-                 sit in the gitignored ``_checkouts/parent_dmv/`` (built in
-                 phase ``build``, never imported by the port); their lines
-                 say whether that ran
+                 inside kernel in the same call when copies of its
+                 ``dmv_inside.cu`` and ``dmv_common.cuh`` sit in the
+                 gitignored ``_checkouts/parent_dmv/`` (built in phase
+                 ``build``, never imported by the port); their lines say
+                 whether that ran
  12. lang_only_reference - ``exp=lang_only`` at small widths and
                  precision=32: the card and the CPU write the same dev
                  predictions and take the same NLL train step
@@ -480,7 +482,7 @@ def phase_build(state):
             _build.build(name, verbose=True)
         return round(time.perf_counter() - t0, 3)
 
-    names = SOURCES + (("parent:dmv_inside", "parent:dmv_outside") if parent else ())
+    names = SOURCES + (("parent:dmv_inside",) if parent else ())
     t0 = time.perf_counter()
     if parent:
         state["parent_dmv"] = ParentDMV()
@@ -492,8 +494,8 @@ def phase_build(state):
                          else f"absent: no {os.path.relpath(PARENT_DMV, ROOT)}")})
 
 
-# Timing-only copies of the parent commit's dmv_inside.cu, dmv_outside.cu and
-# dmv_common.cuh, placed by hand in this gitignored directory (`git show
+# Timing-only copies of the parent commit's dmv_inside.cu and dmv_common.cuh,
+# placed by hand in this gitignored directory (`git show
 # <parent>:vlgae_tpu_torch/csrc/<file>`); phases k2 and k3 time them beside
 # this tree's kernels in the same call when it is present. The port never
 # imports them.
@@ -501,10 +503,11 @@ PARENT_DMV = os.path.join(ROOT, "_checkouts", "parent_dmv")
 
 
 class ParentDMV:
-    """The parent's inside and outside kernels, built by nvcc from
-    ``PARENT_DMV`` and launched by the parent's own rules (mapping, threads,
-    shared memory, scratch) through their C interface, which takes no
-    ``stage`` argument."""
+    """The parent's inside kernel, built by nvcc from ``PARENT_DMV`` and
+    launched through its C interface (this tree's) by the parent's rules:
+    mapping, threads and staging of the block mappings are this tree's
+    ``inside_plan``; its warp mapping takes neither (four sentences a block,
+    potentials read from global memory)."""
 
     def __init__(self):
         self.libs = {}
@@ -521,8 +524,7 @@ class ParentDMV:
             os.path.join(PARENT_DMV, "_build", f"lib{name}.so"), cmd,
             [os.path.join(PARENT_DMV, "dmv_common.cuh")]))
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 if name == "dmv_inside"
-                       else [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5) + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         self.libs[name] = fn
 
@@ -533,7 +535,8 @@ class ParentDMV:
 
         B, n1 = dec.shape[:2]
         dmv_cuda._inside_library()  # the card's shared-memory limit
-        mapping = dmv_cuda.inside_mapping(n1, dmv_cuda._smem_optin)
+        plan = dmv_cuda.inside_plan(n1, dmv_cuda._smem_optin)
+        mapping = plan["mapping"]
         out = torch.empty(B, device=dec.device)
         charts = torch.empty((B, 4, n1, n1, 2), device=dec.device) if save else None
         scratch = torch.empty(B * 32 * n1 * n1, device=dec.device, dtype=torch.uint8
@@ -542,28 +545,9 @@ class ParentDMV:
             _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(out),
             None if charts is None else _build.ptr(charts),
             None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
-            int(save), dmv_cuda.MAPPINGS.index(mapping), dmv_cuda.inside_threads(n1),
+            int(save), dmv_cuda.MAPPINGS.index(mapping), plan["threads"], int(plan["stage"]),
             _build.stream_ptr(dec.device)), "parent dmv_inside_launch")
         return out, charts
-
-    def outside(self, dec, attach, lens, gout, logz, charts, kind):
-        import torch
-
-        from vlgae_tpu_torch.ops import _build, dmv_cuda
-
-        B, n1 = dec.shape[:2]
-        dmv_cuda._inside_library()
-        use_smem = dmv_cuda.fused_uses_smem(n1, dmv_cuda._smem_optin)
-        g_dec, g_attach = torch.empty_like(dec), torch.empty_like(attach)
-        scratch = None if use_smem else torch.empty(
-            B * 40 * n1 * n1, device=dec.device, dtype=torch.uint8)
-        _build.check(self.libs["dmv_outside"](
-            _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(gout),
-            _build.ptr(logz), _build.ptr(charts), _build.ptr(g_dec), _build.ptr(g_attach),
-            None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
-            int(use_smem), dmv_cuda.block_threads(n1), _build.stream_ptr(dec.device)),
-            "parent dmv_outside_launch")
-        return g_dec, g_attach
 
 
 def phase_native_io(state):
@@ -1863,30 +1847,36 @@ def phase_export(state):
 # word path's; on an H100 (232,448 bytes of opt-in shared memory) 56/57 and
 # 59/60 lie each side of the outside kernel's staging and shared/global
 # boundaries, 75/76 each side of the inside kernel's staging boundary
-INSIDE_GROUPS = {"warp": (2, 3, 5, 9),
+INSIDE_GROUPS = {"warp": (1, 2, 3, 4, 5, 6, 7, 8, 9),
                  "smem": (10, 17, 51, 56, 57, 59, 60, 75, 76), "global": (101,)}
 TIMED_N1 = (9, 17, 51, 57, 59, 60, 101)
+# B of the warp mapping's checks: a ragged last block at two or four
+# sentences a block
+WARP_B = 65
 
 
 def dmv_pass_steps(n1, parent=False):
     """Dependent width steps of one pass over a sentence of ``n1 - 1`` words:
-    one a width in the one-barrier fills of the block mappings, two in the
-    warp mapping's fill and in the parent's kernels (the log outside pass
-    has one more, width 0, in both)."""
-    return 2 * (n1 - 1) if parent or n1 <= 9 else n1 - 1
+    one a width in the one-barrier fills of every inside mapping and of the
+    outside kernel (whose log pass has one more, width 0), two in the
+    parent's warp mapping (n1 <= 9), whose fill had two barriers a width."""
+    return 2 * (n1 - 1) if parent and n1 <= 9 else n1 - 1
 
 
 def _parent_note(state):
-    return ("ran: the parent commit's dmv_inside.cu, dmv_outside.cu and dmv_common.cuh "
+    return ("ran: the parent commit's dmv_inside.cu and dmv_common.cuh "
             f"from {os.path.relpath(PARENT_DMV, ROOT)}, in this call" if "parent_dmv" in state
             else f"not run: no {os.path.relpath(PARENT_DMV, ROOT)}")
 
 
 def _ragged(rng, n1, B=64):
     """B lengths in [1, n1-1] with the longest, a one-word sentence and a
-    zero-length filler among them (what fits)."""
+    zero-length filler among them (what fits; zero-length rows alone at
+    n1 = 1)."""
     import numpy as np
 
+    if n1 == 1:
+        return np.zeros(B, np.int64)
     lengths = rng.integers(1, n1, B) if n1 > 2 else np.ones(B, np.int64)
     lengths[:3] = (n1 - 1, 1, 0)
     if n1 > 86:  # every sentence beyond the shared-memory limit's length
@@ -1918,7 +1908,7 @@ def phase_k2(state):
     worst = dict.fromkeys(INSIDE_GROUPS, 0.0)
     for mapping, sizes in INSIDE_GROUPS.items():
         for n1 in sizes:
-            lengths = _ragged(rng, n1)
+            lengths = _ragged(rng, n1, WARP_B if mapping == "warp" else 64)
             for kind in ("log", "max"):
                 dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
                 before = dmv_cuda.n_inside_launches[mapping]
@@ -1974,6 +1964,18 @@ def phase_k2(state):
             "plan": dmv_cuda.inside_plan(n1, dmv_cuda._smem_optin),
             "dependent_steps": steps,
             "parent_dependent_steps": dmv_pass_steps(n1, parent=True)}
+    # the floor under the warp mapping's chain of widths: a one-block PyTorch
+    # kernel (a launch), and the warp kernel at n1 = 1 (zero-length rows: a
+    # launch, the lengths' and the staging's first reads, a store a row)
+    dec, attach, lens = _dmv_inputs(rng, _ragged(rng, 1), 1, dev)
+    floor = {"launch_ms": device_ms(torch.empty(64, device=dev).zero_)}
+    for what, fn in (("", lambda: dmv_inside(dec, attach, lens, "max")),
+                     ("save_", lambda: dmv_cuda.dmv_inside_save(dec, attach, lens, "max"))):
+        floor[f"warp_n1=1_{what}ms"] = device_ms(fn)
+        if parent is not None:
+            floor[f"parent_warp_n1=1_{what}ms"] = device_ms(
+                lambda: parent.inside(dec, attach, lens, "max", save=bool(what)))
+    result["floor_B64"] = floor
     result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL], "max": "exact"}
     emit(result)
     for name, mapping, n1 in (("dmv_inside", "smem", 51), ("dmv_inside_small", "warp", 9),
@@ -2007,7 +2009,7 @@ def phase_k3(state):
     bits = lambda t: t.view(torch.int32)  # noqa: E731
     for mapping, sizes in INSIDE_GROUPS.items():
         for n1 in sizes:
-            lengths = _ragged(rng, n1)
+            lengths = _ragged(rng, n1, WARP_B if mapping == "warp" else 64)
             gout = _gout(len(lengths), dev)
             for kind in ("log", "max"):
                 dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
@@ -2043,10 +2045,6 @@ def phase_k3(state):
                         float((g - w).abs().max()) for g, w in zip(on_plain, want)),
                     "pair_vs_fused": max(
                         float((g - f).abs().max()) for g, f in zip(got, fused))}
-                if parent is not None:  # the parent's error on the same charts
-                    p_got = parent.outside(dec, attach, lens, gout, total, charts, kind)
-                    errs["parent_outside"] = max(
-                        float((g - w).abs().max()) for g, w in zip(p_got, want))
                 result["cases"][f"n1={n1}/{kind}"] = errs
                 worst["charts"] = max(worst["charts"], errs["charts"])
                 worst["outside"] = max(worst["outside"], errs["outside"])
@@ -2113,20 +2111,13 @@ def phase_k3(state):
             t["outside_ms_per_step"] = t["outside_ms"] / steps
             if parent is not None:
                 p_total, p_charts = parent.inside(dec, attach, lens, kind, save=True)
-                p_grads = parent.outside(dec, attach, lens, gout, total, charts, kind)
-                grads = dmv_outside(dec, attach, lens, gout, total, charts, kind)
                 t["parent_save_ms"] = device_ms(
                     lambda: parent.inside(dec, attach, lens, kind, save=True))
-                t["parent_outside_ms"] = device_ms(
-                    lambda: parent.outside(dec, attach, lens, gout, total, charts, kind))
-                t["parent_pair_ms"] = t["parent_save_ms"] + t["parent_outside_ms"]
-                psteps = dmv_pass_steps(n1, parent=True)
-                t["parent_save_ms_per_step"] = t["parent_save_ms"] / psteps
-                t["parent_outside_ms_per_step"] = t["parent_outside_ms"] / psteps
+                t["parent_save_ms_per_step"] = (
+                    t["parent_save_ms"] / dmv_pass_steps(n1, parent=True))
                 t["parent_vs_new"] = {
                     "total": float((p_total - total).abs().max()),
-                    "charts": float((p_charts - charts).abs().max()),
-                    "grads": max(float((a - b).abs().max()) for a, b in zip(p_grads, grads))}
+                    "charts": float((p_charts - charts).abs().max())}
         result["timing_B64"][f"n1={n1}"] = {
             **timing, "save_bound": dmv_bound(lengths, n1, "save"),
             "outside_bound": dmv_bound(lengths, n1, "outside"),
@@ -2134,34 +2125,37 @@ def phase_k3(state):
             "save_plan": dmv_cuda.inside_plan(n1, dmv_cuda._smem_optin),
             "outside_plan": dmv_cuda.outside_plan(n1, dmv_cuda._smem_optin),
             "dependent_steps": {"save": steps, "outside": steps},
-            "parent_dependent_steps": {"save": dmv_pass_steps(n1, parent=True),
-                                       "outside": dmv_pass_steps(n1, parent=True)}}
+            "parent_dependent_steps": {"save": dmv_pass_steps(n1, parent=True)}}
     result["tolerance"] = {"total_and_charts": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
                            "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL], "max": "exact"}
     emit(result)
     t = result["timing_B64"]["n1=51"]
     keys = ("bound_ms", "bound_by", "bound_bytes", "bound_ops")
-    parent_keys = lambda what: ({  # noqa: E731
-        "parent_ms": t["max"][f"parent_{what}_ms"],
-        "parent_ms_log": t["log"][f"parent_{what}_ms"]} if parent is not None else {})
     state["dmv_inside_save"] = {
         "max_abs_err": worst["charts"], "ms": t["max"]["save_ms"],
         "plain_ms": t["max"]["save_plain_ms"], "library_ms": None,
         "ms_log": t["log"]["save_ms"], "timed_at": {"B": 64, "n1": 51, "kind": "max"},
         **{k: t["save_bound"][k] for k in keys},
         "dependent_steps": t["dependent_steps"]["save"],
-        "ms_per_step": t["max"]["save_ms_per_step"], **parent_keys("save")}
+        "ms_per_step": t["max"]["save_ms_per_step"],
+        **({"parent_ms": t["max"]["parent_save_ms"], "parent_ms_log": t["log"]["parent_save_ms"]}
+           if parent is not None else {})}
     state["dmv_outside"] = {
         "max_abs_err": worst["outside"], "ms": t["max"]["outside_ms"],
         "plain_ms": t["max"]["outside_plain_ms"], "library_ms": None,
         "ms_log": t["log"]["outside_ms"], "timed_at": {"B": 64, "n1": 51, "kind": "max"},
         **{k: t["outside_bound"][k] for k in keys},
         "dependent_steps": t["dependent_steps"]["outside"],
-        "ms_per_step": t["max"]["outside_ms_per_step"], **parent_keys("outside")}
+        "ms_per_step": t["max"]["outside_ms_per_step"]}
     # the warp and the global mapping serve both inside functions: their
     # rows keep the value-only time and add the chart-saving one
     for name, n1 in (("dmv_inside_small", 9), ("dmv_inside_long", 101)):
-        state[name]["save_ms"] = result["timing_B64"][f"n1={n1}"]["max"]["save_ms"]
+        ts = result["timing_B64"][f"n1={n1}"]
+        state[name].update({"save_ms": ts["max"]["save_ms"], "save_ms_log": ts["log"]["save_ms"],
+                            "save_ms_per_step": ts["max"]["save_ms_per_step"]})
+        if parent is not None:
+            state[name].update({"parent_save_ms": ts["max"]["parent_save_ms"],
+                                "parent_save_ms_log": ts["log"]["parent_save_ms"]})
 
 
 def _lang_overrides(root, small):

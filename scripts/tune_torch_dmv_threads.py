@@ -1,17 +1,19 @@
 """Threads per block of the two-launch DMV pair (``csrc/dmv_inside.cu``'s
-block mappings, K2/K3a, and ``csrc/dmv_outside.cu``, K3b), swept on one GPU
-at B = 64 with the ragged lengths of ``chip_smoke.py`` phases ``k2``/``k3``.
+block mappings, K2/K3a, and ``csrc/dmv_outside.cu``, K3b), and sentences per
+block of the inside kernel's warp mapping (K4, n1 <= 9), swept on one GPU
+with the ragged lengths of ``chip_smoke.py`` phases ``k2``/``k3``.
 
-    python scripts/tune_torch_dmv_threads.py [--n1 17,51,57,63,64,101]
+    python scripts/tune_torch_dmv_threads.py [--n1 9,17,51,57,63,64,101] [--B 64]
 
 Each kernel is launched through its C interface with every power of two from
-32 to 1024 threads (the wrapper's mapping and staging rules otherwise), its
+32 to 1024 threads (the warp mapping: 32, 64 and 128, one, two and four
+sentences a block; the wrapper's mapping and staging rules otherwise), its
 outputs held against the wrapper's own launch (bit-equal in the max
 semiring, the butterflies' order aside within 1e-4 in log), and timed as
 ``chip_smoke.device_ms`` times it (calls queued behind a busy device).
-Prints the card, then a JSON line per (kernel, n1, semiring) with the ms of
-each thread count and the count the wrapper's rule picks
-(``dmv_cuda.inside_block_threads`` / ``outside_threads``).
+Prints the card, then a JSON line per (n1, B, semiring) with the ms of each
+thread count by kernel and the count the wrapper's rule picks
+(``dmv_cuda.inside_plan`` / ``outside_threads``). ``--B`` takes a list.
 """
 
 import argparse
@@ -21,11 +23,13 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 THREADS = (32, 64, 128, 256, 512, 1024)
+WARP_THREADS = (32, 64, 128)  # one, two, four sentences a block
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--n1", default="17,51,57,63,64,101")
+    ap.add_argument("--n1", default="9,17,51,57,63,64,101")
+    ap.add_argument("--B", default="64")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import chip_smoke  # stdlib only at import
@@ -41,10 +45,11 @@ def main(argv=None):
     print(chip_smoke.nvidia_smi_line(), flush=True)
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
-    for n1 in (int(x) for x in args.n1.split(",")):
-        lengths = chip_smoke._ragged(rng, n1)
+    cases = [(n1, B) for n1 in (int(x) for x in args.n1.split(","))
+             for B in (int(x) for x in args.B.split(","))]
+    for n1, B in cases:
+        lengths = chip_smoke._ragged(rng, n1, B)
         dec, attach, lens = chip_smoke._dmv_inputs(rng, lengths, n1, dev)
-        B = len(lengths)
         gout = chip_smoke._gout(B, dev)
         for kind in ("log", "max"):
             want_total, want_charts = dmv_cuda.dmv_inside_save(dec, attach, lens, kind)
@@ -52,8 +57,7 @@ def main(argv=None):
                                               want_charts, kind)
             optin = dmv_cuda._smem_optin
             ip, op = dmv_cuda.inside_plan(n1, optin), dmv_cuda.outside_plan(n1, optin)
-            if ip["mapping"] == "warp":
-                continue
+            warp = ip["mapping"] == "warp"
             stream = _build.stream_ptr(dev)
 
             def inside(threads, save):
@@ -84,17 +88,19 @@ def main(argv=None):
                     "dmv_outside_launch")
                 return g_dec, g_attach
 
-            rows = {"inside": {}, "inside_save": {}, "outside": {}}
-            errs = {"inside": 0.0, "inside_save": 0.0, "outside": 0.0}
-            for threads in THREADS:
+            # the outside kernel has no warp mapping: its block threads are
+            # swept at larger n1
+            whats = ("inside", "inside_save") + (() if warp else ("outside",))
+            rows, errs = {w: {} for w in whats}, dict.fromkeys(whats, 0.0)
+            for threads in WARP_THREADS if warp else THREADS:
                 total, charts = inside(threads, True)
-                grads = outside(threads)
+                grads = None if warp else outside(threads)
                 value = inside(threads, False)[0]
                 torch.cuda.synchronize()
                 for what, got, want in (("inside", [value], [want_total]),
                                         ("inside_save", [total, charts],
                                          [want_total, want_charts]),
-                                        ("outside", grads, want_grads)):
+                                        ("outside", grads, want_grads))[:len(whats)]:
                     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
                     if (err != 0.0) if kind == "max" else not err <= 1e-4 * max(
                             1.0, max(float(w.abs().max()) for w in want)):
@@ -102,7 +108,8 @@ def main(argv=None):
                     errs[what] = max(errs[what], err)
                 rows["inside"][threads] = chip_smoke.device_ms(lambda: inside(threads, False))
                 rows["inside_save"][threads] = chip_smoke.device_ms(lambda: inside(threads, True))
-                rows["outside"][threads] = chip_smoke.device_ms(lambda: outside(threads))
+                if not warp:
+                    rows["outside"][threads] = chip_smoke.device_ms(lambda: outside(threads))
             print(json.dumps({
                 "n1": n1, "kind": kind, "B": B, "ms_by_threads": rows, "max_err": errs,
                 "rule": {"inside": ip["threads"], "outside": op["threads"]},

@@ -1,6 +1,6 @@
 """The one-barrier schedule of the two-launch DMV pair
-(``csrc/dmv_common.cuh``: ``inside_fill_1b`` for K2/K3a/K4's long charts,
-``outside_fill_1b`` for K3b), modelled on the CPU.
+(``csrc/dmv_common.cuh``: ``inside_fill_1b`` for every mapping of the
+inside kernel, K2/K3a/K4, ``outside_fill_1b`` for K3b), modelled on the CPU.
 
 1. An index model walks both passes, in both semirings, for every sentence
    length of n1 = 2..101: per width step, every chart cell each task (a start
@@ -20,12 +20,19 @@
    ``dmv_outside_plain``) on tie-free potentials: in the max semiring in
    f32, bit-equal charts and indicators (the fold changes no float sum); in
    log in f64, within 1e-5 of the f32 plain version (its round-off).
+3. A lane model of ``inside_fill_1b`` on one warp (the warp mapping of
+   ``csrc/dmv_inside.cu``, n1 <= 9, nt = 32): per width the groups of
+   ``group_lanes`` lanes, each lane's strided share of the split terms with
+   the same-width terms selected to -inf, the xor butterflies, and the fold
+   (``lse_get`` / ``lse_fold``) as the kernel computes them, against the
+   plain charts with the same tolerances as 2.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vlgae_tpu_torch.ops.dmv_cuda import group_lanes
 from vlgae_tpu_torch.struct import dmv_inside_charts_plain, dmv_merge, dmv_outside_plain
 
 HC, NC, LEFT, RIGHT, GO, STOP = 0, 1, 0, 1, 0, 1
@@ -403,3 +410,109 @@ def test_one_barrier_model_equals_the_plain_version(kind, lengths, n1):
             gd, ga = outside_log_model(d, a, Cp, L, go)
             np.testing.assert_allclose(gd, g_dec[b].numpy(), rtol=1e-5, atol=1e-5)
             np.testing.assert_allclose(ga, g_att[b].numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# 3. The lane model of the warp mapping
+
+def _butterfly(xs, op):
+    """The xor-butterfly of ``group_max`` / ``group_sum`` over one group's
+    lane values: every lane ends with the same value."""
+    xs = list(xs)
+    off = len(xs) >> 1
+    while off:
+        xs = [op(xs[g], xs[g ^ off]) for g in range(len(xs))]
+        off >>= 1
+    return xs[0]
+
+
+def _lse_get(m, s, dtype):
+    return m + np.log(s) if s > 0 else dtype(NEG)
+
+
+def _lse_fold(m, s, x):
+    mm = max(m, x)
+    r = 0.0 if mm == -np.inf else mm
+    return r + np.log((s * np.exp(m - r) if s > 0 else 0.0) + np.exp(x - r))
+
+
+def inside_lanes_model(dec, att, L, kind, dtype, nt=32):
+    """``inside_fill_1b`` lane by lane for one sentence on ``nt`` threads:
+    cells not yet written hold NaN (a read ahead of the barrier poisons the
+    result unless the kernel's select discards it, as it does the same-width
+    cells); writes land at the width's barrier."""
+    n1, n = dec.shape[0], L + 1
+    ninf = dtype(-np.inf)
+    C = {c: np.full((n1, n1, 2), np.nan, dtype) for c in ("Cr", "Cl", "Ir", "Il")}
+    C["Cr"][0, :n] = dec[:n, RIGHT, :, STOP]
+    C["Cl"][0, :n] = dec[:n, LEFT, :, STOP]
+    Cr, Cl, Ir, Il = (C[c] for c in ("Cr", "Cl", "Ir", "Il"))
+    for w in range(1, L + 1):
+        ncell = n - w
+        G = group_lanes(ncell, w, nt)
+        assert ncell * G <= nt
+        pending = []
+        for i in range(ncell):
+            def terms(t):
+                lo, hi = t > 0, t < w - 1
+                cl_nc, cr_nc = Cl[t, i, NC], Cr[w - 1 - t, i + 1 + t, NC]
+                il, ir = Il[w - t, i + t], Ir[t + 1, i]
+                return (Cr[t, i, NC] + Cl[w - 1 - t, i + 1 + t, HC],
+                        Cr[t, i, HC] + Cl[w - 1 - t, i + 1 + t, NC],
+                        *(il[v] + cl_nc if lo else ninf for v in (0, 1)),
+                        *(ir[v] + cr_nc if hi else ninf for v in (0, 1)))
+            lanes = [[terms(t) for t in range(gl, w, G)] for gl in range(G)]
+            # six reductions: Il and Ir (w terms each), Cl[v] and Cr[v] (the
+            # narrower terms)
+            # np.maximum keeps a NaN (a read ahead of its barrier); the
+            # kernel's fmaxf would drop it
+            m = [_butterfly([np.max([ninf] + [x[k] for x in lane]) for lane in lanes],
+                            np.maximum) for k in range(6)]
+            al, ar = m[0], m[1]
+            if kind == "log":
+                # the sums of exp(term - reference): an empty one keeps 0
+                ref = m[:2] + [dtype(0) if x == -np.inf else x for x in m[2:]]
+                s = [_butterfly([sum((np.exp(x[k] - ref[k]) for x in lane), dtype(0))
+                                 for lane in lanes], lambda a, b: a + b) for k in range(6)]
+                al, ar = _lse_get(m[0], s[0], dtype), _lse_get(m[1], s[1], dtype)
+            il = [al + (att[i + w, i, v] + dec[i + w, LEFT, v, GO]) for v in (0, 1)]
+            ir = [ar + (att[i, i + w, v] + dec[i, RIGHT, v, GO]) for v in (0, 1)]
+            # the same-width terms folded in last: Cl's split 0, Cr's split w - 1
+            xl = [il[v] + Cl[0, i, NC] for v in (0, 1)]
+            xr = [ir[v] + Cr[0, i + w, NC] for v in (0, 1)]
+            if kind == "max":
+                cl = [np.maximum(m[2 + v], xl[v]) for v in (0, 1)]
+                cr = [np.maximum(m[4 + v], xr[v]) for v in (0, 1)]
+            else:
+                cl = [_lse_fold(m[2 + v], s[2 + v], xl[v]) for v in (0, 1)]
+                cr = [_lse_fold(m[4 + v], s[4 + v], xr[v]) for v in (0, 1)]
+            if i == 0 and w != L:
+                cr = [NEG, NEG]  # single root
+            pending += [(Il, i, il), (Ir, i, ir), (Cl, i, cl), (Cr, i, cr)]
+        for X, i, val in pending:  # __syncwarp()
+            X[w, i] = val
+    return Cr[L, 0, NC], C
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("n1", range(2, 10))
+def test_warp_lane_model_equals_the_plain_version(kind, n1):
+    lengths = sorted({n1 - 1, 0, 1, (n1 - 1) // 2, n1 - 2}, reverse=True)
+    dec, attach, lens = _batch(lengths, n1, 100 + n1)
+    total, charts = dmv_inside_charts_plain(dec, attach, lens, kind)
+    dtype = np.float32 if kind == "max" else np.float64
+    for b, L in enumerate(lengths):
+        d, a = dec[b].numpy().astype(dtype), attach[b].numpy().astype(dtype)
+        got_total, C = inside_lanes_model(d, a, L, kind, dtype)
+        want = charts[b].numpy()
+        for c, name in enumerate(("Cr", "Cl", "Ir", "Il")):
+            tri = _triangle(n1, L, 1 if name[0] == "I" else 0)
+            assert not np.isnan(C[name][tri]).any(), name
+            if kind == "max":  # the fold changes no float sum: bit-equal
+                np.testing.assert_array_equal(C[name][tri], want[c][tri])
+            else:
+                np.testing.assert_allclose(C[name][tri], want[c][tri], rtol=1e-5, atol=1e-5)
+        if kind == "max":
+            assert got_total == total[b].numpy()
+        else:
+            np.testing.assert_allclose(got_total, float(total[b]), rtol=1e-5, atol=1e-5)

@@ -45,22 +45,24 @@ def test_the_pairs_shared_memory_bytes_per_sentence(n1, outside, potentials):
     assert dmv_cuda.potential_smem_bytes(n1) == potentials
     optin = H100_OPTIN
     ip, op = dmv_cuda.inside_plan(n1, optin), dmv_cuda.outside_plan(n1, optin)
-    charts = {"warp": 4 * dmv_cuda.inside_smem_bytes(n1), "smem": dmv_cuda.inside_smem_bytes(n1),
+    charts = {"warp": dmv_cuda.inside_smem_bytes(n1), "smem": dmv_cuda.inside_smem_bytes(n1),
               "global": 0}[ip["mapping"]]
-    assert ip["smem_bytes"] == charts + (potentials if ip["stage"] else 0) <= optin
+    # the warp mapping: a slice of charts and potentials per sentence (warp)
+    sentences = ip["threads"] // 32 if ip["mapping"] == "warp" else 1
+    assert ip["smem_bytes"] == sentences * (charts + (potentials if ip["stage"] else 0)) <= optin
     charts = outside if op["mapping"] == "smem" else 0
     assert op["smem_bytes"] == charts + (potentials if op["stage"] else 0) <= optin
 
 
 # the last n1 of each placement of the pair's kernels: (mapping, staged)
 @pytest.mark.parametrize("optin,inside,outside", [
-    (H100_OPTIN, {("warp", False): 9, ("smem", True): 75, ("smem", False): 85,
+    (H100_OPTIN, {("warp", True): 9, ("smem", True): 75, ("smem", False): 85,
                   ("global", True): 168},
      {("smem", True): 56, ("smem", False): 59, ("global", True): 168}),
-    (49152, {("warp", False): 9, ("smem", True): 34, ("smem", False): 39,
+    (49152, {("warp", True): 9, ("smem", True): 34, ("smem", False): 39,
              ("global", True): 76},
      {("smem", True): 25, ("smem", False): 27, ("global", True): 76}),
-    (101376, {("warp", False): 9, ("smem", True): 49, ("smem", False): 55,
+    (101376, {("warp", True): 9, ("smem", True): 49, ("smem", False): 55,
               ("global", True): 110},
      {("smem", True): 37, ("smem", False): 39, ("global", True): 110})])
 def test_the_pairs_placements_follow_the_cards_limit(optin, inside, outside):
@@ -86,6 +88,57 @@ def test_shared_or_global_thresholds_follow_the_cards_limit(optin, last_fused, l
         assert dmv_cuda.fused_uses_smem(n1, optin) == (n1 <= last_fused)
         want = "warp" if n1 <= 9 else "smem" if n1 <= last_inside else "global"
         assert dmv_cuda.inside_mapping(n1, optin) == want
+
+
+@pytest.mark.parametrize("n1", range(1, 10))
+def test_the_warp_plan_stages_each_sentence_in_its_own_slice(n1):
+    """The inside kernel's warp mapping (n1 <= 9): a warp a sentence, its
+    four charts at the odd pitch and its potentials staged in its own slice
+    (3,528 bytes at n1 = 9), ``WARP_SENTENCES_PER_BLOCK`` (one, two or four)
+    sentences a block, and even four slices inside the 48 KB a block gets
+    without an opt-in, on any card's limit."""
+    want = 32 * n1 * (n1 | 1) + 8 * n1 * n1 + 32 * n1
+    assert dmv_cuda.warp_smem_bytes(n1) == want
+    assert want % 8 == 0  # every slice stays 8-byte aligned for cp.async
+    assert dmv_cuda.warp_smem_bytes(9) == 3528
+    k = dmv_cuda.WARP_SENTENCES_PER_BLOCK
+    assert k in (1, 2, 4)
+    for optin in (H100_OPTIN, 101376, 49152):
+        assert dmv_cuda.inside_plan(n1, optin) == {
+            "mapping": "warp", "stage": True, "smem_bytes": k * want, "threads": 32 * k}
+    assert 4 * want <= 48 * 1024
+
+
+def test_the_warp_fill_holds_one_term_a_lane():
+    """``inside_fill_1b<IS_MAX, true>`` keeps a lane's term of a width in
+    registers, so every group of the warp mapping must be at least as wide
+    as its width's split points: it is for every sentence of n1 <= 9 on 32
+    lanes (the power of two at least w), and n1 = 10 would break it (csrc's
+    ``kWarpMaxN1``, the wrapper's ``WARP_MAX_N1``)."""
+    assert dmv_cuda.WARP_MAX_N1 == 9
+    for n in range(1, dmv_cuda.WARP_MAX_N1 + 1):  # positions of a sentence
+        for w in range(1, n):
+            assert dmv_cuda.group_lanes(n - w, w, 32) >= w, (n, w)
+    assert dmv_cuda.group_lanes(10 - 5, 5, 32) < 5
+
+
+@pytest.mark.parametrize("n1", range(1, 10))
+def test_the_warp_mapping_saves_every_cell_once_by_rows(n1):
+    """``save_chart_rows`` of csrc/dmv_inside.cu at nt = 32 with 1 << lg
+    lanes a row (lg = 32 - __clz(n1 - 1): the power of two at least n1), and
+    as the block mappings call it (lg = 5): every float pair of the four
+    saved charts is stored once."""
+    lg = (n1 - 1).bit_length()
+    assert 1 << lg >= n1 and (n1 == 1 or 1 << (lg - 1) < n1)
+    for lg_, nt in ((lg, 32), (5, 32), (5, 128)):
+        stores = []
+        for tid in range(nt):
+            lane = tid & ((1 << lg_) - 1)
+            for chart in range(4):
+                for w in range(tid >> lg_, n1, nt >> lg_):
+                    stores += [(chart, w, i) for i in range(lane, n1, 1 << lg_)]
+        assert sorted(stores) == [(c, w, i) for c in range(4) for w in range(n1)
+                                  for i in range(n1)]
 
 
 @pytest.mark.parametrize("n1,want", [
@@ -139,16 +192,18 @@ def test_group_lanes(ntasks, nterms, threads, want):
 def test_the_card_tests_reach_every_group_width():
     """The n1 of tests/test_torch_kernels_cuda.py's DMV cases, with the
     threads their mapping gives them, use every sub-warp width from one
-    lane to a whole warp: in the two-barrier inside fill (the warp mapping,
-    K1), and in the one-barrier fills of the inside kernel's block mappings
-    and of the outside kernel."""
+    lane to a whole warp: in K1's two-barrier inside fill, and in the
+    one-barrier fills of every mapping of the inside kernel (the warp
+    mapping's n1 at 32 lanes: widths 1 to 8) and of the outside kernel."""
     seen = set()
-    for n1 in (2, 3, 5, 9):
-        seen |= dmv_cuda.inside_group_widths(n1, 32)
-    for n1 in (10, 17, 51, 57, 101):
+    for n1 in (2, 3, 5, 9, 10, 17, 51, 57, 101):
         seen |= dmv_cuda.inside_group_widths(n1, dmv_cuda.inside_threads(n1))
     assert seen == {1, 2, 4, 8, 16, 32}
     inside, outside = set(), set()
+    for n1 in (1, 2, 3, 5, 9):
+        assert dmv_cuda.inside_plan(n1, H100_OPTIN)["mapping"] == "warp"
+        inside |= dmv_cuda.inside_1b_group_widths(n1, 32)
+    assert inside == {1, 2, 4, 8}
     for n1 in (10, 17, 51, 57, 85, 86, 100):
         threads = dmv_cuda.inside_block_threads(n1, H100_OPTIN)
         inside |= dmv_cuda.inside_1b_group_widths(n1, threads)

@@ -50,7 +50,9 @@ the plain charts on the span triangle (max exact) and exactly -1e12 off it;
 the outside pass, with a cotangent that has zeros, within K1's gradient
 tolerance of the plain version (max exact), on the kernel's charts and on
 the plain charts uploaded, equal in the max semiring to K1 scaled by the
-cotangent, and bit-identical on a rerun.
+cotangent, and bit-identical on a rerun. The warp mapping also at B = 63
+and 65 (a ragged last block) for n1 = 1, 2, 3, 5, 9, with lengths 0 and
+n1 - 1 at both ends of the batch.
 """
 
 import numpy as np
@@ -567,6 +569,45 @@ def test_dmv_inside_matches_plain(cuda, kind, lengths, n1):
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
         torch.testing.assert_close(got, fused, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("B", [63, 65])
+@pytest.mark.parametrize("n1", [1, 2, 3, 5, 9])
+def test_dmv_inside_warp_mapping_on_ragged_blocks(cuda, kind, B, n1):
+    """The warp mapping (a warp a sentence, its potentials staged, one
+    __syncwarp() a width) at B one below and one above a multiple of four,
+    so that at two or four sentences a block the last block is ragged: the
+    total and the saved charts against the plain versions (max exact), -1e12
+    off the triangle, reruns bit-identical, one warp launch a call."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+    from vlgae_tpu_torch.struct import dmv_inside_charts_plain
+
+    rng = np.random.default_rng(B * 10 + n1)
+    lengths = rng.integers(0, n1, B)
+    lengths[:2] = (0, n1 - 1)
+    lengths[-2:] = (n1 - 1, 0)
+    dec, attach, lens = _dmv_batch(tuple(lengths), n1, B + n1, cuda)
+    want_total, want_charts = dmv_inside_charts_plain(dec, attach, lens, kind)
+    off = want_charts == -1e12
+    tol = dict(rtol=0, atol=0) if kind == "max" else dict(rtol=1e-5, atol=1e-3)
+    for save in (False, True):
+        fn = dmv_cuda.dmv_inside_save if save else dmv_cuda.dmv_inside
+        key = "inside_save" if save else "inside"
+        before = dmv_cuda.launch_counts()[key]
+        got = fn(dec, attach, lens, kind)
+        again = fn(dec, attach, lens, kind)
+        after = dmv_cuda.launch_counts()[key]
+        assert after["warp"] == before["warp"] + 2
+        assert sum(after.values()) == sum(before.values()) + 2
+        got, again = (got, again) if save else ((got,), (again,))
+        for g, a in zip(got, again):
+            assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        torch.testing.assert_close(got[0], want_total, **tol)
+        if save:
+            charts = got[1]
+            assert bool((charts[off] == -1e12).all())
+            torch.testing.assert_close(charts[~off], want_charts[~off], **tol)
 
 
 @pytest.mark.parametrize("kind", ["log", "max"])

@@ -4,12 +4,12 @@
 //
 //  * `inside_fill` / `outside_fill`, two barriers per chart width (the
 //    incomplete spans of a width, then its complete spans): K1
-//    (dmv_fused.cu, `_fused_kernel`) and the warp mapping of dmv_inside.cu
-//    (`_inside_kernel_v2`, n1 <= 9) run them unchanged.
-//  * `inside_fill_1b` / `outside_fill_1b`, ONE barrier per chart width: the
-//    block mappings of dmv_inside.cu (K2 `_inside_kernel_v3`, K3a
-//    `_inside_kernel_v3_save`, K4 `_inside_kernel(_save)`) and dmv_outside.cu
-//    (K3b `_outside_kernel`).
+//    (dmv_fused.cu, `_fused_kernel`) runs them unchanged.
+//  * `inside_fill_1b` / `outside_fill_1b`, ONE barrier per chart width:
+//    every mapping of dmv_inside.cu (K2 `_inside_kernel_v3`, K3a
+//    `_inside_kernel_v3_save`, K4 `_inside_kernel_v2(_save)` on a warp a
+//    sentence and `_inside_kernel(_save)`) and dmv_outside.cu (K3b
+//    `_outside_kernel`).
 //
 // What bounds them is latency: a pass over a sentence of length L is a chain
 // of width steps, each ended by a barrier, and the bytes and operations are
@@ -30,10 +30,10 @@
 // the incomplete spans are pulled, not pushed: a group asks every complete
 // span that could mark its cell (the same-width one included, whose flag is
 // behind the last barrier) and learns the answer with a warp vote. A pass is
-// L dependent steps where the two-barrier fills take 2L. K1 and the warp
-// mapping keep the two-barrier fills so that their bits, and their measured
-// times, stay those of their own redesign PRs; whether K1 should take the new
-// fills is a measurement of its own.
+// L dependent steps where the two-barrier fills take 2L. K1 keeps the
+// two-barrier fills so that its bits, and its measured times, stay those of
+// its own redesign; whether K1 should take the new fills is a measurement of
+// its own.
 //
 // Work mapping. The threads of a sentence (a block, or a warp for tiny
 // charts) are cut into groups of G consecutive lanes, G a power of two
@@ -86,10 +86,11 @@ __device__ __forceinline__ float2 ld2(const float* X, int pitch, int w, int i) {
   return *reinterpret_cast<const float2*>(X + ix(pitch, w, i, 0));
 }
 
-// Barrier of the `nt` threads that fill one sentence's inside charts: a
-// warp, or the first nt threads (whole warps) of a block on a named barrier
-// of their own, so that a block may run the inside fill on fewer threads than
-// it has (the rest wait at the block's next __syncthreads()).
+// Barrier of the `nt` threads that fill one sentence's inside charts in the
+// two-barrier fill: a warp, or the first nt threads (whole warps) of a block
+// on a named barrier of their own, so that a block may run the inside fill
+// on fewer threads than it has (the rest wait at the block's next
+// __syncthreads()). K1 takes the block form.
 template <bool WARP>
 __device__ __forceinline__ void sync_group(int nt) {
   if (WARP) {
@@ -123,6 +124,26 @@ __device__ __forceinline__ float group_max(float x, int G) {
 __device__ __forceinline__ float group_sum(float x, int G) {
   for (int off = G >> 1; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
   return x;
+}
+
+// Six xor-butterflies over the G lanes of a group, level by level, so that a
+// level's six shuffles are in flight together where six calls of group_max
+// (MAX) or group_sum would wait on one tree after another. The same trees,
+// so the same bits.
+template <bool MAX>
+__device__ __forceinline__ void group_reduce6(float& a, float& b, float& c, float& d,
+                                              float& e, float& f, int G) {
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    const float a2 = __shfl_xor_sync(kFull, a, off), b2 = __shfl_xor_sync(kFull, b, off);
+    const float c2 = __shfl_xor_sync(kFull, c, off), d2 = __shfl_xor_sync(kFull, d, off);
+    const float e2 = __shfl_xor_sync(kFull, e, off), f2 = __shfl_xor_sync(kFull, f, off);
+    a = MAX ? fmaxf(a, a2) : a + a2;
+    b = MAX ? fmaxf(b, b2) : b + b2;
+    c = MAX ? fmaxf(c, c2) : c + c2;
+    d = MAX ? fmaxf(d, d2) : d + d2;
+    e = MAX ? fmaxf(e, e2) : e + e2;
+    f = MAX ? fmaxf(f, f2) : f + f2;
+  }
 }
 
 // log of a sum of exp(term - m) terms: s == 0 is the empty sum.
@@ -601,14 +622,18 @@ __device__ __forceinline__ bool group_any(bool pred, int G, int tid) {
   return (votes & mask) != 0u;
 }
 
-// The inside fill with one barrier per width, for the nt threads of a block
-// (a power of two, whole warps). Width 0 (Cr/Cl[0] = the STOP decisions) and
-// a barrier come first, from the caller. Per width w a group owns the start
-// i: Il/Ir[w][i] (w split points) and Cl/Cr[w][i] (w split points, of which
-// the same-width one, Il[w][i] or Ir[w][i], is folded in last). D = dec
-// [n1][2][2][2], AT = attach [n1][n1][2], in shared or global memory. Ends
-// with a barrier.
-template <bool IS_MAX>
+// The inside fill with one barrier per width, for the nt threads of a
+// sentence (a power of two, whole warps): a block, whose barrier is
+// __syncthreads(), or with WARP one warp (nt = 32) of a block whose other
+// warps fill other sentences, whose barrier is __syncwarp(), whose lanes
+// hold one term each (n1 <= 9) and whose six butterflies a reduction go level
+// by level (group_reduce6). Width 0 (Cr/Cl[0]
+// = the STOP decisions) and a barrier come first, from the caller. Per width
+// w a group owns the start i: Il/Ir[w][i] (w split points) and Cl/Cr[w][i]
+// (w split points, of which the same-width one, Il[w][i] or Ir[w][i], is
+// folded in last). D = dec [n1][2][2][2], AT = attach [n1][n1][2], in shared
+// or global memory. Ends with a barrier.
+template <bool IS_MAX, bool WARP = false>
 __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, float* Il,
                                                const float* D, const float* AT, int n1, int p,
                                                int len, int tid, int nt) {
@@ -639,35 +664,32 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
       float ml = -INFINITY, mr = -INFINITY;
       float mcl0 = -INFINITY, mcl1 = -INFINITY, mcr0 = -INFINITY, mcr1 = -INFINITY;
       const int nterm = active ? w : 0;
-#pragma unroll 4
-      for (int t = gl; t < nterm; t += G) {
-        const float2 cr = ld2(Cr, p, t, i);
-        const float2 cl = ld2(Cl, p, w - 1 - t, i + 1 + t);
-        const float2 il = ld2(Il, p, w - t, i + t);
-        const float2 ir = ld2(Ir, p, t + 1, i);
-        const float cl_nc = Cl[ix(p, t, i, NC)];
-        const float cr_nc = Cr[ix(p, w - 1 - t, i + 1 + t, NC)];
-        const bool lo = t > 0, hi = t < w - 1;
-        ml = fmaxf(ml, cr.y + cl.x);
-        mr = fmaxf(mr, cr.x + cl.y);
-        mcl0 = fmaxf(mcl0, lo ? il.x + cl_nc : -INFINITY);
-        mcl1 = fmaxf(mcl1, lo ? il.y + cl_nc : -INFINITY);
-        mcr0 = fmaxf(mcr0, hi ? ir.x + cr_nc : -INFINITY);
-        mcr1 = fmaxf(mcr1, hi ? ir.y + cr_nc : -INFINITY);
-      }
-      ml = group_max(ml, G);
-      mr = group_max(mr, G);
-      mcl0 = group_max(mcl0, G);
-      mcl1 = group_max(mcl1, G);
-      mcr0 = group_max(mcr0, G);
-      mcr1 = group_max(mcr1, G);
-      float sl = 0.f, sr = 0.f, scl0 = 0.f, scl1 = 0.f, scr0 = 0.f, scr1 = 0.f;
-      if (!IS_MAX) {
-        // a sum without any term keeps s = 0 (exp(-inf - 0) = 0)
-        const float rcl0 = mcl0 == -INFINITY ? 0.f : mcl0;
-        const float rcl1 = mcl1 == -INFINITY ? 0.f : mcl1;
-        const float rcr0 = mcr0 == -INFINITY ? 0.f : mcr0;
-        const float rcr1 = mcr1 == -INFINITY ? 0.f : mcr1;
+      // with WARP a lane holds at most one term, t = gl (n1 <= 9 on 32 lanes:
+      // G is the power of two at least w), and keeps it for the sums in t*
+      // instead of reading its cells again; a step is then a chain of one
+      // warp's instructions that no other warp hides, so its six trees go
+      // level by level. Both give the bits of the loops below
+      float tl, tr, tcl0, tcl1, tcr0, tcr1;
+      if constexpr (WARP) {
+        if (gl < nterm) {
+          const int t = gl;
+          const float2 cr = ld2(Cr, p, t, i);
+          const float2 cl = ld2(Cl, p, w - 1 - t, i + 1 + t);
+          const float2 il = ld2(Il, p, w - t, i + t);
+          const float2 ir = ld2(Ir, p, t + 1, i);
+          const float cl_nc = Cl[ix(p, t, i, NC)];
+          const float cr_nc = Cr[ix(p, w - 1 - t, i + 1 + t, NC)];
+          const bool lo = t > 0, hi = t < w - 1;
+          ml = fmaxf(ml, cr.y + cl.x);
+          mr = fmaxf(mr, cr.x + cl.y);
+          mcl0 = fmaxf(mcl0, lo ? il.x + cl_nc : -INFINITY);
+          mcl1 = fmaxf(mcl1, lo ? il.y + cl_nc : -INFINITY);
+          mcr0 = fmaxf(mcr0, hi ? ir.x + cr_nc : -INFINITY);
+          mcr1 = fmaxf(mcr1, hi ? ir.y + cr_nc : -INFINITY);
+        }
+        tl = ml, tr = mr, tcl0 = mcl0, tcl1 = mcl1, tcr0 = mcr0, tcr1 = mcr1;
+        group_reduce6<true>(ml, mr, mcl0, mcl1, mcr0, mcr1, G);
+      } else {
 #pragma unroll 4
         for (int t = gl; t < nterm; t += G) {
           const float2 cr = ld2(Cr, p, t, i);
@@ -677,19 +699,61 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
           const float cl_nc = Cl[ix(p, t, i, NC)];
           const float cr_nc = Cr[ix(p, w - 1 - t, i + 1 + t, NC)];
           const bool lo = t > 0, hi = t < w - 1;
-          sl += expf((cr.y + cl.x) - ml);
-          sr += expf((cr.x + cl.y) - mr);
-          scl0 += expf((lo ? il.x + cl_nc : -INFINITY) - rcl0);
-          scl1 += expf((lo ? il.y + cl_nc : -INFINITY) - rcl1);
-          scr0 += expf((hi ? ir.x + cr_nc : -INFINITY) - rcr0);
-          scr1 += expf((hi ? ir.y + cr_nc : -INFINITY) - rcr1);
+          ml = fmaxf(ml, cr.y + cl.x);
+          mr = fmaxf(mr, cr.x + cl.y);
+          mcl0 = fmaxf(mcl0, lo ? il.x + cl_nc : -INFINITY);
+          mcl1 = fmaxf(mcl1, lo ? il.y + cl_nc : -INFINITY);
+          mcr0 = fmaxf(mcr0, hi ? ir.x + cr_nc : -INFINITY);
+          mcr1 = fmaxf(mcr1, hi ? ir.y + cr_nc : -INFINITY);
         }
-        sl = group_sum(sl, G);
-        sr = group_sum(sr, G);
-        scl0 = group_sum(scl0, G);
-        scl1 = group_sum(scl1, G);
-        scr0 = group_sum(scr0, G);
-        scr1 = group_sum(scr1, G);
+        ml = group_max(ml, G);
+        mr = group_max(mr, G);
+        mcl0 = group_max(mcl0, G);
+        mcl1 = group_max(mcl1, G);
+        mcr0 = group_max(mcr0, G);
+        mcr1 = group_max(mcr1, G);
+      }
+      float sl = 0.f, sr = 0.f, scl0 = 0.f, scl1 = 0.f, scr0 = 0.f, scr1 = 0.f;
+      if (!IS_MAX) {
+        // a sum without any term keeps s = 0 (exp(-inf - 0) = 0)
+        const float rcl0 = mcl0 == -INFINITY ? 0.f : mcl0;
+        const float rcl1 = mcl1 == -INFINITY ? 0.f : mcl1;
+        const float rcr0 = mcr0 == -INFINITY ? 0.f : mcr0;
+        const float rcr1 = mcr1 == -INFINITY ? 0.f : mcr1;
+        if constexpr (WARP) {
+          if (gl < nterm) {
+            sl = expf(tl - ml);
+            sr = expf(tr - mr);
+            scl0 = expf(tcl0 - rcl0);
+            scl1 = expf(tcl1 - rcl1);
+            scr0 = expf(tcr0 - rcr0);
+            scr1 = expf(tcr1 - rcr1);
+          }
+          group_reduce6<false>(sl, sr, scl0, scl1, scr0, scr1, G);
+        } else {
+#pragma unroll 4
+          for (int t = gl; t < nterm; t += G) {
+            const float2 cr = ld2(Cr, p, t, i);
+            const float2 cl = ld2(Cl, p, w - 1 - t, i + 1 + t);
+            const float2 il = ld2(Il, p, w - t, i + t);
+            const float2 ir = ld2(Ir, p, t + 1, i);
+            const float cl_nc = Cl[ix(p, t, i, NC)];
+            const float cr_nc = Cr[ix(p, w - 1 - t, i + 1 + t, NC)];
+            const bool lo = t > 0, hi = t < w - 1;
+            sl += expf((cr.y + cl.x) - ml);
+            sr += expf((cr.x + cl.y) - mr);
+            scl0 += expf((lo ? il.x + cl_nc : -INFINITY) - rcl0);
+            scl1 += expf((lo ? il.y + cl_nc : -INFINITY) - rcl1);
+            scr0 += expf((hi ? ir.x + cr_nc : -INFINITY) - rcr0);
+            scr1 += expf((hi ? ir.y + cr_nc : -INFINITY) - rcr1);
+          }
+          sl = group_sum(sl, G);
+          sr = group_sum(sr, G);
+          scl0 = group_sum(scl0, G);
+          scl1 = group_sum(scl1, G);
+          scr0 = group_sum(scr0, G);
+          scr1 = group_sum(scr1, G);
+        }
       }
       if (active && gl == 0) {
         const float al = IS_MAX ? ml : lse_get(ml, sl);
@@ -709,7 +773,10 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
         st2(Cr, p, w, i, cr0, cr1);
       }
     }
-    __syncthreads();
+    if constexpr (WARP)
+      __syncwarp();
+    else
+      __syncthreads();
   }
 }
 

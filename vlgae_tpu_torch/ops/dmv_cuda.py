@@ -13,10 +13,11 @@ They replace the TPU launches of vlgae_tpu/ops/dmv_pallas.py reached from
   inside kernels and ``_outside_kernel``): the two-launch pair of a
   differentiable total, whose cotangent arrives later.
 
-K1 and the warp mapping run the two-barrier fills of
-``csrc/dmv_common.cuh``; the block mappings of the inside kernel and the
-outside kernel run the one-barrier fills, with the sentence's potentials
-staged in shared memory where they fit beside the charts.
+K1 runs the two-barrier fills of ``csrc/dmv_common.cuh``; every mapping of
+the inside kernel (the warp mapping on ``__syncwarp()``) and the outside
+kernel run the one-barrier fills, with the sentence's potentials staged in
+shared memory where they fit beside the charts (always, in the warp
+mapping).
 
 Each wrapper is a ``torch.library.custom_op`` (``vlgae::dmv_fused``,
 ``vlgae::dmv_inside``, ``vlgae::dmv_inside_save``, ``vlgae::dmv_outside``):
@@ -29,7 +30,8 @@ in global memory, potentials staged or not, threads per block) is a pure
 function of ``n1`` and the card's opt-in shared memory: :func:`chart_pitch`,
 :func:`fused_smem_bytes`, :func:`inside_smem_bytes`, :func:`fused_uses_smem`,
 :func:`inside_mapping`, :func:`outside_smem_bytes`, :func:`outside_mapping`,
-:func:`potential_smem_bytes`, :func:`inside_plan`, :func:`outside_plan`,
+:func:`potential_smem_bytes`, :func:`warp_smem_bytes`, :func:`inside_plan`,
+:func:`outside_plan`,
 :func:`block_threads`, :func:`inside_threads` (K1),
 :func:`inside_block_threads`, :func:`outside_threads` (the pair).
 """
@@ -66,6 +68,7 @@ INSIDE_BYTES_PER_N1SQ = 32
 OUTSIDE_BYTES_PER_CELL = 64
 OUTSIDE_SCRATCH_PER_N1SQ = 32
 WARP_MAX_N1 = 9  # the warp mapping of dmv_inside.cu serves n1 <= 9
+WARP_SENTENCES_PER_BLOCK = 1  # its warps (sentences) a block: see inside_plan
 MAX_THREADS = 1024  # csrc kMaxThreads
 _lib = None
 _smem_optin = None
@@ -127,6 +130,13 @@ def potential_smem_bytes(n1: int) -> int:
     return 8 * n1 * n1 + 32 * n1
 
 
+def warp_smem_bytes(n1: int) -> int:
+    """Shared memory of one sentence in the inside kernel's warp mapping:
+    its four charts and its staged potentials (``warp_slice_floats`` of
+    ``csrc/dmv_inside.cu``; 3,528 bytes at n1 = 9)."""
+    return inside_smem_bytes(n1) + potential_smem_bytes(n1)
+
+
 def outside_mapping(n1: int, smem_optin: int) -> str:
     """Where the outside kernel keeps its charts: ``smem`` while its eight
     charts fit the card's opt-in shared memory, else ``global`` (the inside
@@ -145,12 +155,24 @@ def inside_plan(n1: int, smem_optin: int) -> dict:
     """What the inside kernel's wrapper launches for charts of ``n1``
     positions: ``mapping`` (:func:`inside_mapping`), ``stage`` (the block
     mappings copy the potentials into shared memory where they fit beside
-    the charts: n1 <= 75 with charts in shared memory on an H100), the
-    dynamic shared memory of a block, and its threads."""
+    the charts: n1 <= 75 with charts in shared memory on an H100; the warp
+    mapping always does), the dynamic shared memory of a block, and its
+    threads.
+
+    The warp mapping runs ``WARP_SENTENCES_PER_BLOCK`` sentences (warps) a
+    block, each on its own slice of :func:`warp_smem_bytes`; no block needs
+    more than the 48 KB every card gives without an opt-in (14,112 bytes
+    at four sentences and n1 = 9). One, two and four sentences a block ran
+    within 1% of each other on an H100 at n1 = 5 and 9, B = 16 to 512
+    (scripts/tune_torch_dmv_threads.py): each warp runs its own chain of
+    width steps and no block-wide barrier ties warps together. One a block
+    is the rule: the fewest resources a block, so blocks spread over the
+    most SMs."""
     mapping = inside_mapping(n1, smem_optin)
     if mapping == "warp":
-        return {"mapping": mapping, "stage": False,
-                "smem_bytes": 4 * inside_smem_bytes(n1), "threads": 128}
+        return {"mapping": mapping, "stage": True,
+                "smem_bytes": WARP_SENTENCES_PER_BLOCK * warp_smem_bytes(n1),
+                "threads": 32 * WARP_SENTENCES_PER_BLOCK}
     charts = inside_smem_bytes(n1) if mapping == "smem" else 0
     stage, smem = _plan(charts, n1, smem_optin)
     return {"mapping": mapping, "stage": stage, "smem_bytes": smem,
@@ -224,8 +246,8 @@ def group_lanes(ntasks: int, nterms: int, threads: int) -> int:
 
 
 def inside_group_widths(n1: int, threads: int) -> set:
-    """Every group width the inside fill uses on a sentence of ``n1 - 1``
-    words with ``threads`` threads (a warp in the warp mapping)."""
+    """Every group width K1's two-barrier inside fill uses on a sentence of
+    ``n1 - 1`` words with ``threads`` threads (:func:`inside_threads`)."""
     n = n1
     return {group_lanes(tasks * (n - w), w, threads)
             for w in range(1, n) for tasks in (1, 2)}
@@ -233,8 +255,8 @@ def inside_group_widths(n1: int, threads: int) -> set:
 
 def inside_1b_group_widths(n1: int, threads: int) -> set:
     """Every group width the one-barrier inside fill uses on a sentence of
-    ``n1 - 1`` words with ``threads`` threads: a task per start ``i`` of a
-    width ``w``, ``w`` split points."""
+    ``n1 - 1`` words with ``threads`` threads (a warp in the warp mapping):
+    a task per start ``i`` of a width ``w``, ``w`` split points."""
     n = n1
     return {group_lanes(n - w, w, threads) for w in range(1, n)}
 
