@@ -14,7 +14,14 @@ Phases, each printing one JSON line:
                  pack time of 64 images
   3. k1        - the fused DMV kernel against its plain version (log + max),
                  at B=64 with ragged lengths 1..50, a batch with lengths up
-                 to 80 and n1 < 10; reruns bit-identical
+                 to 80, n1 < 10, n1 = 65 and n1 = 101 with lengths 86..100
+                 (charts in global scratch; in log also against the plain
+                 version in f64, its worst error over the tolerance
+                 printed); reruns bit-identical; equal to the pair
+                 (inside with saved charts, then outside) at a cotangent of
+                 one, bit for bit in max; its time at n1 = 17, 51, 65 and
+                 101 beside the pair's and, when ``_checkouts/parent_dmv/``
+                 holds its sources, the parent commit's K1, in turns
   4. k5        - the matching-max kernel (bf16 tensor cores) against its
                  plain version at A=B=64, Q=102, D=128 and V=703 (eval) and
                  739 (train); exactly on quarter-integer operands at shapes
@@ -71,11 +78,11 @@ Phases, each printing one JSON line:
                  names), the pair against K1 scaled by the cotangent, reruns
                  bit-identical; the same n1 groups; times as in ``k2``.
                  Phases ``k2`` and ``k3`` also time the parent commit's
-                 inside kernel in the same call when copies of its
-                 ``dmv_inside.cu`` and ``dmv_common.cuh`` sit in the
-                 gitignored ``_checkouts/parent_dmv/`` (built in phase
-                 ``build``, never imported by the port); their lines say
-                 whether that ran
+                 inside kernel (and ``k1`` its K1) in the same call when
+                 copies of its ``dmv_inside.cu``, ``dmv_fused.cu`` and
+                 ``dmv_common.cuh`` sit in the gitignored
+                 ``_checkouts/parent_dmv/`` (built in phase ``build``, never
+                 imported by the port); their lines say whether that ran
  12. lang_only_reference - ``exp=lang_only`` at small widths and
                  precision=32: the card and the CPU write the same dev
                  predictions and take the same NLL train step
@@ -482,7 +489,8 @@ def phase_build(state):
             _build.build(name, verbose=True)
         return round(time.perf_counter() - t0, 3)
 
-    names = SOURCES + (("parent:dmv_inside",) if parent else ())
+    names = SOURCES + tuple(f"parent:{k}" for k in PARENT_KERNELS
+                            if parent and os.path.exists(os.path.join(PARENT_DMV, f"{k}.cu")))
     t0 = time.perf_counter()
     if parent:
         state["parent_dmv"] = ParentDMV()
@@ -494,20 +502,24 @@ def phase_build(state):
                          else f"absent: no {os.path.relpath(PARENT_DMV, ROOT)}")})
 
 
-# Timing-only copies of the parent commit's dmv_inside.cu and dmv_common.cuh,
-# placed by hand in this gitignored directory (`git show
-# <parent>:vlgae_tpu_torch/csrc/<file>`); phases k2 and k3 time them beside
-# this tree's kernels in the same call when it is present. The port never
-# imports them.
+# Timing-only copies of the parent commit's dmv_inside.cu, dmv_fused.cu and
+# dmv_common.cuh, placed by hand in this gitignored directory (`git show
+# <parent>:vlgae_tpu_torch/csrc/<file>`); phases k1, k2 and k3 time them
+# beside this tree's kernels in the same call when it is present. The port
+# never imports them.
 PARENT_DMV = os.path.join(ROOT, "_checkouts", "parent_dmv")
+# each parent kernel's C interface: pointers, then ints, then the stream
+PARENT_KERNELS = {"dmv_inside": (6, 7), "dmv_fused": (7, 6)}
 
 
 class ParentDMV:
-    """The parent's inside kernel, built by nvcc from ``PARENT_DMV`` and
-    launched through its C interface (this tree's) by the parent's rules:
-    mapping, threads and staging of the block mappings are this tree's
-    ``inside_plan``; its warp mapping takes neither (four sentences a block,
-    potentials read from global memory)."""
+    """The parent's inside kernel and K1, built by nvcc from ``PARENT_DMV``
+    and launched through their C interfaces by the parent's rules: for the
+    inside kernel (whose interface is this tree's) mapping, threads and
+    staging of the block mappings are this tree's ``inside_plan``; K1 (the
+    two-barrier fills) keeps its charts in shared memory while its nine
+    charts fit (``72*n1*(n1|1)`` bytes), runs ``8*n1`` threads a block and
+    ``2*n1`` of them for the inside fill (powers of two, 32 to 1024)."""
 
     def __init__(self):
         self.libs = {}
@@ -524,9 +536,31 @@ class ParentDMV:
             os.path.join(PARENT_DMV, "_build", f"lib{name}.so"), cmd,
             [os.path.join(PARENT_DMV, "dmv_common.cuh")]))
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        ptrs, ints = PARENT_KERNELS[name]
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         self.libs[name] = fn
+
+    def fused(self, dec, attach, lens, kind):
+        import torch
+
+        from vlgae_tpu_torch.ops import _build, dmv_cuda
+
+        B, n1 = dec.shape[:2]
+        dmv_cuda._library()  # the card's shared-memory limit
+        pow2 = lambda x: min(1024, max(32, 1 << (x - 1).bit_length()))  # noqa: E731
+        use_smem = 72 * n1 * (n1 | 1) <= dmv_cuda._smem_optin
+        out = torch.empty(B, device=dec.device)
+        g_dec, g_attach = torch.empty_like(dec), torch.empty_like(attach)
+        scratch = None if use_smem else torch.empty(B * 72 * n1 * n1, device=dec.device,
+                                                    dtype=torch.uint8)
+        _build.check(self.libs["dmv_fused"](
+            _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(out),
+            _build.ptr(g_dec), _build.ptr(g_attach),
+            None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
+            int(use_smem), pow2(8 * n1), pow2(2 * n1), _build.stream_ptr(dec.device)),
+            "parent dmv_fused_launch")
+        return out, g_dec, g_attach
 
     def inside(self, dec, attach, lens, kind, save):
         import torch
@@ -649,12 +683,56 @@ def _dmv_inputs(rng, lengths, n1, device, quarter=False):
             torch.tensor(np.asarray(lengths), dtype=torch.int32, device=device))
 
 
+def fused_steps(n1, kind, parent=False):
+    """Dependent width steps of K1 over a sentence of ``n1 - 1`` words: the
+    one-barrier inside pass (one a width) and outside pass (one a width, and
+    width 0 too in log); the parent's two-barrier fills took two a width in
+    each pass."""
+    L = n1 - 1
+    if parent:
+        return 4 * L
+    return 2 * L + (kind == "log")
+
+
+def _in_turns(fns):
+    """``device_ms`` of each of ``fns`` (a dict), timed in turns A B C ... C B
+    A and averaged over its two turns, so that a drift of the card's clock
+    during the run weighs on all alike."""
+    names = list(fns)
+    first = {k: device_ms(fns[k]) for k in names}
+    second = {k: device_ms(fns[k]) for k in reversed(names)}
+    return {k: (first[k] + second[k]) / 2 for k in names}
+
+
+def _k1_against_pair(dec, attach, lens, kind, got):
+    """K1's outputs ``got`` against the pair (``dmv_inside_save`` +
+    ``dmv_outside``) at a cotangent of one: bit-equal in the max semiring,
+    within K1's tolerances in log. Returns the largest difference."""
+    import torch
+
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_inside_save, dmv_outside
+
+    total, charts = dmv_inside_save(dec, attach, lens, kind)
+    ones = torch.ones_like(total)
+    pair = (total, *dmv_outside(dec, attach, lens, ones, total, charts, kind))
+    torch.cuda.synchronize()
+    if kind == "max":
+        ok = all(torch.equal(a, b) for a, b in zip(got, pair))
+    else:
+        ok = close(got[0], pair[0], K1_TOTAL_ATOL, K1_TOTAL_RTOL) and all(
+            close(a, b, K1_GRAD_ATOL, K1_GRAD_RTOL) for a, b in zip(got[1:], pair[1:]))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, pair))
+    if not ok:
+        raise AssertionError(f"K1 and the pair at gout = 1 differ ({kind}): {err}")
+    return err
+
+
 def phase_k1(state):
     import numpy as np
     import torch
 
     from vlgae_tpu_torch.ops import dmv_cuda
-    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused
+    from vlgae_tpu_torch.ops.dmv_cuda import dmv_fused, dmv_inside_save, dmv_outside
     from vlgae_tpu_torch.struct import dmv_value_and_grads_plain
 
     rng = np.random.default_rng(0)
@@ -665,11 +743,15 @@ def phase_k1(state):
     # shared-memory limit, so K1 keeps its charts in global scratch
     vit = rng.integers(1, 65, 64)
     vit[:3] = (64, 1, 0)
+    # exp=lang_only on captions of 86-100 words: n1 = 101, global scratch
+    long = rng.integers(86, 101, 64)
+    long[0] = 100
     cases = {
         "B64_len1-50": (recipe, 51),
         "B16_len-to-80": (np.r_[80, 0, 1, rng.integers(51, 81, 13)], 81),
         "B16_n1-lt-10": (np.r_[0, 1, 8, rng.integers(0, 9, 13)], 9),
         "B64_len1-64_global": (vit, 65),
+        "B64_len86-100_global": (long, 101),
     }
     worst = 0.0
     result = {"phase": "k1", "cases": {}}
@@ -692,55 +774,92 @@ def phase_k1(state):
                            for k, p in ((kd, pd), (ka, pa)))
             e_d = float((kd - pd).abs().max())
             e_a = float((ka - pa).abs().max())
-            errs = {"total": float(e_tot.max()), "g_dec": e_d, "g_attach": e_a}
+            errs = {"total": float(e_tot.max()), "g_dec": e_d, "g_attach": e_a,
+                    "vs_pair_at_gout_1": _k1_against_pair(dec, attach, lens, kind,
+                                                          (kt, kd, ka))}
+            if kind == "log" and n1 == 101:
+                # the long-caption path against the plain version in f64,
+                # whose round-off is far below the tolerance
+                want = [x.float() for x in dmv_value_and_grads_plain(
+                    dec, attach, lens, kind, torch.float64)]
+                excess = max(float(((k - w).abs() / (K1_GRAD_ATOL + K1_GRAD_RTOL * w.abs())).max())
+                             for k, w in ((kd, want[1]), (ka, want[2])))
+                errs["f64"] = {"total": float((kt - want[0]).abs().max()),
+                               "g_dec": float((kd - want[1]).abs().max()),
+                               "g_attach": float((ka - want[2]).abs().max()),
+                               "worst_err_over_tolerance": excess}
+                ok_grads = ok_grads and excess <= 1.0 and close(
+                    kt, want[0], K1_TOTAL_ATOL, K1_TOTAL_RTOL)
             result["cases"][f"{name}/{kind}"] = errs
             worst = max(worst, e_d, e_a)
             if not (ok_tot and ok_grads):
                 emit(result)
                 raise AssertionError(f"K1 {name}/{kind} disagrees: {errs}")
-    dec, attach, lens = _dmv_inputs(rng, recipe, 51, dev)
+    # the new K1, the parent's K1 and the pair at gout = 1 on the same draws,
+    # in one call; the plain version beside them
+    parent = state.get("parent_dmv")
+    parent_fused = parent is not None and "dmv_fused" in parent.libs
+    timed = {17: _ragged(rng, 17), 51: recipe, 65: vit, 101: long}
     timing = {}
-    for kind in ("log", "max"):
-        timing[kind] = {
-            # time_ms: one call per event pair; device_ms: launches queued
-            # behind a spinning device (no host time between them)
-            "ms": time_ms(lambda: dmv_fused(dec, attach, lens, kind)),
-            "device_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
-            "plain_ms": time_ms(
-                lambda: dmv_value_and_grads_plain(dec, attach, lens, kind),
-                reps=5, warmup=1),
-        }
-    result["timing_B64_len1-50"] = timing
-    dec, attach, lens = _dmv_inputs(rng, vit, 65, dev)
-    timing65 = {kind: {
-        "ms": time_ms(lambda: dmv_fused(dec, attach, lens, kind)),
-        "device_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
-        "plain_ms": time_ms(lambda: dmv_value_and_grads_plain(dec, attach, lens, kind),
-                            reps=5, warmup=1)} for kind in ("log", "max")}
-    result["timing_B64_n1-65_global"] = timing65
+    for n1, lengths in timed.items():
+        dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
+        row = {"plan": dmv_cuda.fused_plan(n1, dmv_cuda._smem_optin),
+               "dependent_steps": {k: fused_steps(n1, k) for k in ("max", "log")},
+               **dmv_bound(lengths, n1, "fused")}
+        if parent_fused:
+            row["parent_dependent_steps"] = fused_steps(n1, "max", parent=True)
+        for kind in ("log", "max"):
+            total, charts = dmv_inside_save(dec, attach, lens, kind)
+            ones = torch.ones_like(total)
+            fns = {"ms": lambda: dmv_fused(dec, attach, lens, kind),
+                   "save_ms": lambda: dmv_inside_save(dec, attach, lens, kind),
+                   "outside_ms": lambda: dmv_outside(dec, attach, lens, ones, total, charts,
+                                                     kind)}
+            if parent_fused:
+                fns = {"parent_ms": lambda: parent.fused(dec, attach, lens, kind), **fns}
+            t = _in_turns(fns)
+            t["pair_ms"] = t["save_ms"] + t["outside_ms"]
+            t["call_ms"] = time_ms(lambda: dmv_fused(dec, attach, lens, kind))
+            t["plain_ms"] = time_ms(lambda: dmv_value_and_grads_plain(dec, attach, lens, kind),
+                                    reps=3, warmup=1)
+            t["ms_per_step"] = t["ms"] / fused_steps(n1, kind)
+            if parent_fused:
+                new = dmv_fused(dec, attach, lens, kind)
+                old = parent.fused(dec, attach, lens, kind)
+                torch.cuda.synchronize()
+                t["parent_vs_new"] = max(float((a - b).abs().max()) for a, b in zip(new, old))
+            row[kind] = t
+        timing[f"n1={n1}"] = row
+    result["timing_B64"] = timing
+    result["parent"] = ("ran: the parent commit's dmv_fused.cu and dmv_common.cuh from "
+                        f"{os.path.relpath(PARENT_DMV, ROOT)}, in this call" if parent_fused
+                        else f"not run: no parent dmv_fused.cu in "
+                        f"{os.path.relpath(PARENT_DMV, ROOT)}")
     result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
-                           "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL]}
+                           "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL],
+                           "vs_pair_at_gout_1": {"max": "bit-equal", "log": "as grads"}}
     emit(result)
-    # one launch of each semiring, as the joint model's language factors run
-    both = dmv_bound(recipe, 51, "fused")
-    state["dmv_fused"] = {
-        "max_abs_err": worst,
-        "ms": timing["log"]["ms"] + timing["max"]["ms"],
-        "plain_ms": timing["log"]["plain_ms"] + timing["max"]["plain_ms"],
-        **both, "bound_ms": 2 * both["bound_ms"], "library_ms": None,
-        "ms_log": timing["log"]["ms"], "ms_max": timing["max"]["ms"],
-        "device_ms_log": timing["log"]["device_ms"],
-        "device_ms_max": timing["max"]["device_ms"],
-        "dependent_steps": 4 * 50,
-    }
-    both65 = dmv_bound(vit, 65, "fused")
-    state["dmv_fused"]["at_n1_65_global"] = {
-        "ms": timing65["log"]["ms"] + timing65["max"]["ms"],
-        "plain_ms": timing65["log"]["plain_ms"] + timing65["max"]["plain_ms"],
-        **both65, "bound_ms": 2 * both65["bound_ms"],
-        **{f"{k}_{kind}": timing65[kind][k] for kind in timing65
-           for k in ("ms", "device_ms", "plain_ms")},
-        "dependent_steps": 4 * 64}
+
+    def summary(n1, lengths):
+        t = timing[f"n1={n1}"]
+        b = dmv_bound(lengths, n1, "fused")
+        return {
+            # one launch of each semiring, as the joint model's language
+            # factors run; "ms" is one call between two events, "device_ms"
+            # launches queued behind a spinning device
+            "ms": t["log"]["call_ms"] + t["max"]["call_ms"],
+            "plain_ms": t["log"]["plain_ms"] + t["max"]["plain_ms"],
+            **b, "bound_ms": 2 * b["bound_ms"],
+            **{f"{k}_{kind}": t[kind][src] for kind in ("log", "max")
+               for k, src in (("ms", "call_ms"), ("device_ms", "ms"), ("plain_ms", "plain_ms"),
+                              ("pair_ms", "pair_ms"), ("parent_ms", "parent_ms"))
+               if src in t[kind]},
+            "dependent_steps": t["dependent_steps"], "mapping": t["plan"]["mapping"]}
+
+    state["dmv_fused"] = {"max_abs_err": worst, "library_ms": None, **summary(51, recipe),
+                          "at_n1_65_global": summary(65, vit),
+                          "at_n1_101_global": summary(101, long),
+                          "at_n1_17": summary(17, timed[17])}
 
 
 def _check_k5(args, exact, what):

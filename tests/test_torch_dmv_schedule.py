@@ -1,6 +1,7 @@
-"""The one-barrier schedule of the two-launch DMV pair
-(``csrc/dmv_common.cuh``: ``inside_fill_1b`` for every mapping of the
-inside kernel, K2/K3a/K4, ``outside_fill_1b`` for K3b), modelled on the CPU.
+"""The one-barrier schedule of the DMV kernels (``csrc/dmv_common.cuh``:
+``inside_fill_1b`` for every mapping of the inside kernel, K2/K3a/K4, and
+K1's inside pass; ``outside_fill_1b`` for K3b and K1's outside pass),
+modelled on the CPU.
 
 1. An index model walks both passes, in both semirings, for every sentence
    length of n1 = 2..101: per width step, every chart cell each task (a start
@@ -26,14 +27,26 @@ inside kernel, K2/K3a/K4, ``outside_fill_1b`` for K3b), modelled on the CPU.
    the same-width terms selected to -inf, the xor butterflies, and the fold
    (``lse_get`` / ``lse_fold``) as the kernel computes them, against the
    plain charts with the same tolerances as 2.
+4. K1 (``csrc/dmv_fused.cu``) composed as it runs: the value model's inside
+   pass, then its outside pass on the same charts at a cotangent of one,
+   held against ``vlgae_tpu``'s ``dmv_value_and_grads_fast`` (the JAX scan
+   on the CPU) on tie-free potentials with lengths 0 and 1 among them: in
+   log in f64 within 1e-5 + 1e-5|x| of JAX's f32, in max in f32 exactly.
+   And the log-marginal form's own round-off: the whole composition in f32
+   at n1 = 101 (captions of 86-100 words) against the plain version in f64,
+   within K1's tolerance on the card (5e-4 + 1e-4|x|, ``chip_smoke.py``'s
+   ``K1_GRAD_ATOL`` / ``K1_GRAD_RTOL``).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vlgae_tpu.struct.distributions import dmv_value_and_grads_fast
 from vlgae_tpu_torch.ops.dmv_cuda import group_lanes
-from vlgae_tpu_torch.struct import dmv_inside_charts_plain, dmv_merge, dmv_outside_plain
+from vlgae_tpu_torch.struct import (dmv_inside_charts_plain, dmv_merge, dmv_outside_plain,
+                                    dmv_value_and_grads_plain)
 
 HC, NC, LEFT, RIGHT, GO, STOP = 0, 1, 0, 1, 0, 1
 NEG = -1e12
@@ -252,19 +265,20 @@ def inside_model(dec, att, L, kind, dtype):
     return Cr[L, 0, NC], C
 
 
-def outside_log_model(dec, att, C, L, go):
+def outside_log_model(dec, att, C, L, go, dtype=np.float64):
     """The log-marginal form: every value inside + outside - log Z, a term
-    the consumer's log-marginal plus its split's log-weight."""
+    the consumer's log-marginal plus its split's log-weight; every value in
+    ``dtype`` (f32 as the kernels compute, f64 for the comparisons)."""
     n1, n = dec.shape[0], L + 1
     Cr, Cl, Ir, Il = (C[c] for c in ("Cr", "Cl", "Ir", "Il"))
-    OCr, OCl, OA, AS = (np.full((n1, n1, 2), np.nan) for _ in range(4))
-    GA, GD = np.zeros((n1, n1, 2)), np.zeros((n1, 2, 2, 2))
+    OCr, OCl, OA, AS = (np.full((n1, n1, 2), np.nan, dtype) for _ in range(4))
+    GA, GD = np.zeros((n1, n1, 2), dtype), np.zeros((n1, 2, 2, 2), dtype)
 
     def lse(xs):
-        xs = np.asarray(xs, np.float64)
+        xs = np.asarray(xs, dtype)
         if not len(xs) or (xs == -np.inf).all():
-            return -np.inf
-        return _red("log", xs, np.float64)
+            return dtype(-np.inf)
+        return _red("log", xs, dtype)
 
     for w in range(L, -1, -1):
         pending = []
@@ -289,7 +303,7 @@ def outside_log_model(dec, att, C, L, go):
                 for u in (0, 1):
                     ocr[NC].append(OCr[W, j, u] + ((Ir[i - j, j, u] + Cr[w, i, NC]) - Cr[W, j, u]))
             if w == L:
-                ocr[NC].append(0.0)  # the seed
+                ocr[NC].append(dtype(0))  # the seed
             vl, vr = [lse(x) for x in ocl], [lse(x) for x in ocr]
             if i == 0 and 1 <= w != L:
                 vr = [-np.inf, -np.inf]
@@ -516,3 +530,59 @@ def test_warp_lane_model_equals_the_plain_version(kind, n1):
             assert got_total == total[b].numpy()
         else:
             np.testing.assert_allclose(got_total, float(total[b]), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# 4. K1's composition
+
+def k1_model(dec, att, L, kind, dtype):
+    """K1 on one sentence: the inside pass, then the outside pass on the
+    same charts in place, at a cotangent of one; ``(total, g_dec,
+    g_attach)``."""
+    total, C = inside_model(dec, att, L, kind, dtype)
+    if kind == "max":
+        gd, ga = outside_max_model(C, L, np.float32(1))
+    else:
+        gd, ga = outside_log_model(dec, att, C, L, 1.0, dtype)
+    return total, gd, ga
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("lengths,n1", [((1, 0), 2), ((0, 2, 1), 3), ((4, 1, 0, 3), 5),
+                                        ((8, 0, 1, 5), 9), ((11, 1, 6, 0), 12),
+                                        ((16, 0, 1, 9), 17)])
+def test_k1_composition_equals_jax(kind, lengths, n1):
+    dec, attach, lens = _batch(lengths, n1, 7 * n1 + len(lengths))
+    want = [np.asarray(x) for x in dmv_value_and_grads_fast(
+        jnp.asarray(dec.numpy()), jnp.asarray(attach.numpy()),
+        jnp.asarray(lens.numpy(), jnp.int32), kind)]
+    dtype = np.float32 if kind == "max" else np.float64
+    for b, L in enumerate(lengths):
+        d, a = dec[b].numpy().astype(dtype), attach[b].numpy().astype(dtype)
+        got = k1_model(d, a, L, kind, dtype)
+        assert not any(np.isnan(g).any() for g in got)
+        for g, w in zip(got, (want[0][b], want[1][b], want[2][b])):
+            if kind == "max":  # f32 sums in the same order, 0/1 indicators
+                np.testing.assert_array_equal(np.asarray(g, np.float32), w)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_log_marginal_form_in_f32_at_n1_101_stays_within_k1s_tolerance():
+    """The round-off of K1's log outside pass on the long-caption path
+    (n1 = 101, 86-100 words): inside and outside in f32, the outside in its
+    log-marginal form, whose values stay near 0 where the outside scores of
+    the old form were as large as log Z; held against the plain version in
+    f64 at K1's gradient tolerance on the card, and its total at K1's total
+    tolerance."""
+    lengths, n1 = (100, 87), 101
+    dec, attach, lens = _batch(lengths, n1, 101)
+    want = [x.numpy() for x in dmv_value_and_grads_plain(dec, attach, lens, "log",
+                                                         torch.float64)]
+    for b, L in enumerate(lengths):
+        d, a = dec[b].numpy(), attach[b].numpy()
+        total, gd, ga = k1_model(d, a, L, "log", np.float32)
+        assert gd.dtype == ga.dtype == np.float32
+        assert abs(float(total) - want[0][b]) <= 1e-3 + 1e-5 * abs(want[0][b])
+        for g, w in ((gd, want[1][b]), (ga, want[2][b])):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=5e-4)

@@ -25,11 +25,17 @@ def test_chart_pitch_is_odd_and_spreads_rows_over_banks(n1):
 
 
 @pytest.mark.parametrize("n1,fused,inside", [
-    (1, 72, 32), (9, 72 * 81, 32 * 81), (10, 72 * 110, 32 * 110),
-    (51, 72 * 51 * 51, 32 * 51 * 51), (56, 72 * 56 * 57, 32 * 56 * 57)])
+    (1, 64 + 8 + 32, 32), (9, 64 * 81 + 8 * 81 + 32 * 9, 32 * 81),
+    (10, 64 * 110 + 800 + 320, 32 * 110),
+    (51, 64 * 51 * 51 + 8 * 51 * 51 + 32 * 51, 32 * 51 * 51),
+    (56, 64 * 56 * 57 + 8 * 56 * 56 + 32 * 56, 32 * 56 * 57)])
 def test_shared_memory_bytes_per_sentence(n1, fused, inside):
+    """K1 keeps eight charts at the odd pitch and the staged potentials
+    (231,168 bytes at n1 = 56, 1,280 under the H100's limit); the inside
+    kernel four charts."""
     assert dmv_cuda.fused_smem_bytes(n1) == fused
     assert dmv_cuda.inside_smem_bytes(n1) == inside
+    assert dmv_cuda.fused_smem_bytes(56) == 231168 == H100_OPTIN - 1280
 
 
 @pytest.mark.parametrize("n1,outside,potentials", [
@@ -84,10 +90,23 @@ def test_the_pairs_placements_follow_the_cards_limit(optin, inside, outside):
 @pytest.mark.parametrize("optin,last_fused,last_inside", [
     (H100_OPTIN, 56, 85), (49152, 25, 39), (101376, 37, 55)])
 def test_shared_or_global_thresholds_follow_the_cards_limit(optin, last_fused, last_inside):
-    for n1 in range(1, 130):
+    """K1's charts sit in shared memory, with the potentials staged beside
+    them, while both fit; beyond, the charts go to global scratch and the
+    potentials alone are staged while they fit (n1 <= 168 on an H100)."""
+    last_staged = max(n1 for n1 in range(1, 400)
+                      if dmv_cuda.potential_smem_bytes(n1) <= optin)
+    for n1 in range(1, 200):
         assert dmv_cuda.fused_uses_smem(n1, optin) == (n1 <= last_fused)
+        plan = dmv_cuda.fused_plan(n1, optin)
+        smem = n1 <= last_fused
+        assert plan["mapping"] == ("smem" if smem else "global")
+        assert plan["stage"] == (n1 <= last_staged)
+        assert plan["smem_bytes"] == (dmv_cuda.fused_smem_bytes(n1) if smem else
+                                      dmv_cuda.potential_smem_bytes(n1) if plan["stage"]
+                                      else 0) <= optin
         want = "warp" if n1 <= 9 else "smem" if n1 <= last_inside else "global"
         assert dmv_cuda.inside_mapping(n1, optin) == want
+    assert optin != H100_OPTIN or last_staged == 168
 
 
 @pytest.mark.parametrize("n1", range(1, 10))
@@ -142,23 +161,32 @@ def test_the_warp_mapping_saves_every_cell_once_by_rows(n1):
 
 
 @pytest.mark.parametrize("n1,want", [
-    (1, 32), (4, 32), (5, 64), (9, 128), (10, 128), (17, 256), (32, 256),
-    (33, 512), (51, 512), (57, 512), (64, 512), (65, 1024), (101, 1024), (400, 1024)])
+    (1, 32), (4, 32), (5, 32), (9, 64), (10, 64), (17, 128), (32, 128),
+    (33, 256), (51, 256), (57, 512), (64, 512), (65, 512), (101, 1024), (400, 1024)])
 def test_block_threads_is_a_power_of_two_by_n1(n1, want):
-    t = dmv_cuda.block_threads(n1)
+    """K1's block, all of which runs its outside pass: about four lanes a
+    start position with charts in shared memory, six in global scratch
+    (chosen on the card by scripts/tune_torch_dmv_threads.py)."""
+    t = dmv_cuda.block_threads(n1, H100_OPTIN)
     assert t == want and t & (t - 1) == 0 and 32 <= t <= dmv_cuda.MAX_THREADS
-    assert dmv_cuda.block_threads(n1 + 1) >= t
+    assert dmv_cuda.block_threads(n1 + 1, H100_OPTIN) >= t
+    assert dmv_cuda.fused_plan(n1, H100_OPTIN)["threads"] == t
 
 
 @pytest.mark.parametrize("n1,want", [
-    (1, 32), (10, 32), (16, 32), (17, 64), (32, 64), (33, 128), (51, 128),
-    (57, 128), (64, 128), (65, 256), (101, 256), (129, 512), (400, 1024)])
+    (1, 32), (10, 32), (16, 32), (17, 32), (32, 32), (33, 64), (51, 64),
+    (57, 128), (64, 128), (65, 128), (101, 256), (129, 256), (400, 256)])
 def test_inside_threads_is_one_lane_a_cell(n1, want):
-    t = dmv_cuda.inside_threads(n1)
+    """The first threads of K1's block, which run its inside pass on a named
+    barrier: a quarter of the block, at least a warp (one to three lanes a
+    start position at n1 = 17 to 101)."""
+    t = dmv_cuda.inside_threads(n1, H100_OPTIN)
     assert t == want and t & (t - 1) == 0 and 32 <= t <= dmv_cuda.MAX_THREADS
     # never more than K1's block, whose first threads run the inside fill
-    assert t <= dmv_cuda.block_threads(n1)
-    assert t >= min(2 * n1, dmv_cuda.MAX_THREADS)
+    block = dmv_cuda.block_threads(n1, H100_OPTIN)
+    assert t == max(32, block // 4) and t <= block
+    assert t >= min(n1, 256)
+    assert dmv_cuda.fused_plan(n1, H100_OPTIN)["inside_threads"] == t
 
 
 @pytest.mark.parametrize("n1,inside,outside", [
@@ -170,8 +198,9 @@ def test_the_pairs_threads_by_n1(n1, inside, outside):
     """Threads per block of the pair's one-barrier kernels on an H100 (chosen
     on the card by scripts/tune_torch_dmv_threads.py): the inside kernel
     about two lanes a task with charts in shared memory, four in global
-    memory; the outside kernel four and eight. K1's counts stay as they
-    were."""
+    memory; the outside kernel four and eight. K1's block takes four and six
+    (``block_threads``), its inside pass a quarter of it
+    (``inside_threads``)."""
     got = (dmv_cuda.inside_block_threads(n1, H100_OPTIN),
            dmv_cuda.outside_threads(n1, H100_OPTIN))
     assert got == (inside, outside)
@@ -192,13 +221,15 @@ def test_group_lanes(ntasks, nterms, threads, want):
 def test_the_card_tests_reach_every_group_width():
     """The n1 of tests/test_torch_kernels_cuda.py's DMV cases, with the
     threads their mapping gives them, use every sub-warp width from one
-    lane to a whole warp: in K1's two-barrier inside fill, and in the
+    lane to a whole warp: in K1's inside and outside passes, and in the
     one-barrier fills of every mapping of the inside kernel (the warp
     mapping's n1 at 32 lanes: widths 1 to 8) and of the outside kernel."""
-    seen = set()
+    k1_inside, k1_outside = set(), set()
     for n1 in (2, 3, 5, 9, 10, 17, 51, 57, 101):
-        seen |= dmv_cuda.inside_group_widths(n1, dmv_cuda.inside_threads(n1))
-    assert seen == {1, 2, 4, 8, 16, 32}
+        plan = dmv_cuda.fused_plan(n1, H100_OPTIN)
+        k1_inside |= dmv_cuda.inside_1b_group_widths(n1, plan["inside_threads"])
+        k1_outside |= dmv_cuda.outside_1b_group_widths(n1, plan["threads"])
+    assert k1_inside == k1_outside == {1, 2, 4, 8, 16, 32}
     inside, outside = set(), set()
     for n1 in (1, 2, 3, 5, 9):
         assert dmv_cuda.inside_plan(n1, H100_OPTIN)["mapping"] == "warp"
@@ -211,6 +242,31 @@ def test_the_card_tests_reach_every_group_width():
         threads = dmv_cuda.outside_threads(n1, H100_OPTIN)
         outside |= dmv_cuda.outside_1b_group_widths(n1, threads)
     assert inside == outside == {1, 2, 4, 8, 16, 32}
+
+
+def test_k1_runs_the_one_barrier_fills_alone():
+    """K1 (csrc/dmv_fused.cu) reaches the fills only through
+    ``inside_fill_1b`` and ``outside_fill_1b``, and csrc/dmv_common.cuh
+    defines no other fill: the two-barrier ``inside_fill`` / ``outside_fill``
+    (and ``OutsideCharts``, ``sync_group``, which served them alone) are
+    gone."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(dmv_cuda.__file__), os.pardir, "csrc")
+
+    def code(name):  # the source without its comments
+        text = open(os.path.join(csrc, name)).read()
+        return re.sub(r"//[^\n]*", "", text)
+
+    fused, common = code("dmv_fused.cu"), code("dmv_common.cuh")
+    assert set(re.findall(r"\b(\w+_fill\w*)\s*<", fused)) == {"inside_fill_1b",
+                                                              "outside_fill_1b"}
+    defined = set(re.findall(r"\b(\w+_fill\w*)\s*\(", common))
+    assert defined == {"inside_fill_1b", "outside_fill_1b"}
+    for gone in ("OutsideCharts", "sync_group", "complete_adjoint_step"):
+        assert not re.search(rf"\b{gone}\b", common + fused), gone
+    assert "log-marginal" in open(os.path.join(csrc, "dmv_fused.cu")).read()
 
 
 def test_match_fwd_plan_at_the_recipes_shapes():

@@ -25,7 +25,12 @@ with lengths 0, 1 and n1-1 at n1 = 9, 10, 17, 51, 57 and 101, which
 between them use every group width from one lane to a warp
 (tests/test_torch_kernel_rules.py), with reruns bit-identical and, on
 quarter-integer potentials full of ties, max totals equal to the inside
-kernel's bit for bit and tables equal to the pair's. K6
+kernel's bit for bit and tables equal to the pair's. K1 against the pair
+at a cotangent of one on tie-free potentials at n1 = 1 to 101 (56, the last
+n1 of its shared-memory mapping, and 57, the first of global scratch,
+among them): bit-equal in max, within its tolerance in log; and K1 in log
+at n1 = 101, B = 64, lengths 86-100 (the long-caption path) against the
+plain version in f64 at its gradient tolerance. K6
 (``match_bwd``): indices from a real K5 forward and quarter-integer
 cotangents, so every product and sum is exact and the gradients must be
 EQUAL to the plain version's, at Q > 128, D = 7 and 130 (the 2-byte
@@ -171,6 +176,52 @@ def test_dmv_fused_takes_global_scratch_at_the_vit_recipes_longest_captions(cuda
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
         for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("n1", [1, 2, 9, 17, 51, 56, 57, 65, 101])
+def test_dmv_fused_equals_the_pair_at_a_cotangent_of_one(cuda, kind, n1):
+    """K1 runs the pair's two fills in one launch: its total and tables
+    equal ``dmv_inside_save`` + ``dmv_outside`` at ``gout = 1``, bit for bit
+    in max, within K1's tolerance in log (the butterflies' order may
+    differ), zero-length rows and cells off the sentences' arcs included."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    rng = np.random.default_rng(200 + n1)
+    lengths = [0, min(1, n1 - 1), n1 - 1, *rng.integers(0, n1, 9).tolist()]
+    dec, attach, lens = _dmv_batch(lengths, n1, 300 + n1, cuda)
+    got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+    total, charts = dmv_cuda.dmv_inside_save(dec, attach, lens, kind)
+    ones = torch.ones_like(total)
+    pair = (total, *dmv_cuda.dmv_outside(dec, attach, lens, ones, total, charts, kind))
+    if kind == "max":
+        for g, w in zip(got, pair):
+            assert torch.equal(g, w)
+    else:
+        torch.testing.assert_close(got[0], pair[0], rtol=1e-5, atol=1e-3)
+        for g, w in zip(got[1:], pair[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
+    assert bool((got[1][lens == 0][:, 1:] == 0).all())
+    assert bool((got[2][lens == 0] == 0).all())
+
+
+def test_dmv_fused_log_at_n1_101_matches_the_plain_version_in_f64(cuda):
+    """The long-caption path (exp=lang_only on 86-100 words, n1 = 101, charts
+    in global scratch): K1's log gradients within 5e-4 + 1e-4|x| of the plain
+    version in f64, whose own round-off is far below that: the outside pass
+    carries log-marginals, near 0, where outside scores grow to log Z (that
+    form came out 1.4e-4 relative off here)."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    rng = np.random.default_rng(101)
+    lengths = [100, *rng.integers(86, 101, 63).tolist()]
+    dec, attach, lens = _dmv_batch(lengths, 101, 101, cuda)
+    got = dmv_cuda.dmv_fused(dec, attach, lens, "log")
+    want = [x.float() for x in dmv_value_and_grads_plain(dec, attach, lens, "log",
+                                                         torch.float64)]
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
 
 
 def test_dmv_dispatch_goes_to_the_kernel(cuda):

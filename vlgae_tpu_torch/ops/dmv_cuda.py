@@ -13,11 +13,11 @@ They replace the TPU launches of vlgae_tpu/ops/dmv_pallas.py reached from
   inside kernels and ``_outside_kernel``): the two-launch pair of a
   differentiable total, whose cotangent arrives later.
 
-K1 runs the two-barrier fills of ``csrc/dmv_common.cuh``; every mapping of
-the inside kernel (the warp mapping on ``__syncwarp()``) and the outside
-kernel run the one-barrier fills, with the sentence's potentials staged in
-shared memory where they fit beside the charts (always, in the warp
-mapping).
+Every kernel runs the one-barrier fills of ``csrc/dmv_common.cuh`` (the
+inside kernel's warp mapping on ``__syncwarp()``, K1's inside pass on a
+named barrier of its first threads), with the sentence's potentials staged
+in shared memory where they fit beside the charts (always, in the warp
+mapping and in K1 with its charts in shared memory).
 
 Each wrapper is a ``torch.library.custom_op`` (``vlgae::dmv_fused``,
 ``vlgae::dmv_inside``, ``vlgae::dmv_inside_save``, ``vlgae::dmv_outside``):
@@ -30,8 +30,8 @@ in global memory, potentials staged or not, threads per block) is a pure
 function of ``n1`` and the card's opt-in shared memory: :func:`chart_pitch`,
 :func:`fused_smem_bytes`, :func:`inside_smem_bytes`, :func:`fused_uses_smem`,
 :func:`inside_mapping`, :func:`outside_smem_bytes`, :func:`outside_mapping`,
-:func:`potential_smem_bytes`, :func:`warp_smem_bytes`, :func:`inside_plan`,
-:func:`outside_plan`,
+:func:`potential_smem_bytes`, :func:`warp_smem_bytes`, :func:`fused_plan`,
+:func:`inside_plan`, :func:`outside_plan`,
 :func:`block_threads`, :func:`inside_threads` (K1),
 :func:`inside_block_threads`, :func:`outside_threads` (the pair).
 """
@@ -60,10 +60,11 @@ n_outside_launches = 0
 n_outside_global_launches = 0
 
 # bytes of one chart cell pair times the charts a kernel keeps per sentence
-# (see the .cu): nine for K1, four for the inside alone, eight for the
-# outside kernel (the inside charts and four adjoint charts), of which the
-# four adjoint charts go to global scratch when the charts do not fit
-_FUSED_BYTES_PER_CELL = 72
+# (see the .cu): eight for K1 and for the outside kernel (the inside charts
+# and four adjoint charts), four for the inside alone; K1 keeps all eight in
+# global scratch when they do not fit beside the potentials, the outside
+# kernel the four adjoint charts
+_FUSED_BYTES_PER_CELL = 64
 INSIDE_BYTES_PER_N1SQ = 32
 OUTSIDE_BYTES_PER_CELL = 64
 OUTSIDE_SCRATCH_PER_N1SQ = 32
@@ -100,9 +101,10 @@ def chart_pitch(n1: int) -> int:
 
 
 def fused_smem_bytes(n1: int) -> int:
-    """Shared memory per sentence of K1 and of the outside kernel: nine
-    float charts of ``[n1][pitch][2]``."""
-    return _FUSED_BYTES_PER_CELL * n1 * chart_pitch(n1)
+    """Shared memory per sentence of K1 with its charts in shared memory:
+    eight float charts of ``[n1][pitch][2]`` and the staged potentials
+    (231,168 bytes at n1 = 56)."""
+    return _FUSED_BYTES_PER_CELL * n1 * chart_pitch(n1) + potential_smem_bytes(n1)
 
 
 def inside_smem_bytes(n1: int) -> int:
@@ -111,9 +113,9 @@ def inside_smem_bytes(n1: int) -> int:
 
 
 def fused_uses_smem(n1: int, smem_optin: int) -> bool:
-    """Whether K1 keeps its charts in shared memory (else in a global
-    scratch buffer), from ``n1`` and the card's opt-in shared memory
-    alone."""
+    """Whether K1 keeps its charts, with the potentials beside them, in
+    shared memory (else the charts in a global scratch buffer), from ``n1``
+    and the card's opt-in shared memory alone: n1 <= 56 on an H100."""
     return fused_smem_bytes(n1) <= smem_optin
 
 
@@ -179,6 +181,23 @@ def inside_plan(n1: int, smem_optin: int) -> dict:
             "threads": inside_block_threads(n1, smem_optin)}
 
 
+def fused_plan(n1: int, smem_optin: int) -> dict:
+    """What K1's wrapper launches for charts of ``n1`` positions:
+    ``mapping`` (``smem`` with charts and potentials in shared memory,
+    :func:`fused_uses_smem`, else ``global``: the charts in scratch),
+    ``stage`` (the potentials in shared memory: always with ``smem``, and
+    with ``global`` while they fit), the dynamic shared memory of a block,
+    its threads (:func:`block_threads`) and those of them that run the
+    inside pass (:func:`inside_threads`)."""
+    if fused_uses_smem(n1, smem_optin):
+        mapping, stage, smem = "smem", True, fused_smem_bytes(n1)
+    else:
+        mapping, (stage, smem) = "global", _plan(0, n1, smem_optin)
+    return {"mapping": mapping, "stage": stage, "smem_bytes": smem,
+            "threads": block_threads(n1, smem_optin),
+            "inside_threads": inside_threads(n1, smem_optin)}
+
+
 def outside_plan(n1: int, smem_optin: int) -> dict:
     """What the outside kernel's wrapper launches: ``mapping``
     (:func:`outside_mapping`), ``stage`` (the potentials, and the gradient
@@ -193,24 +212,28 @@ def outside_plan(n1: int, smem_optin: int) -> dict:
             "threads": outside_threads(n1, smem_optin)}
 
 
-def block_threads(n1: int) -> int:
-    """Threads per block of K1: the power of two
-    that gives each of the up to ``2 * n1`` cells of a width step about four
-    lanes, between one warp and ``MAX_THREADS`` (512 up to n1 = 64, where the
-    charts are in or near shared memory; 1024 beyond, where every term is a
-    read of global memory and more lanes hide more of it)."""
-    want = max(32, 8 * n1)
-    return min(MAX_THREADS, 1 << (want - 1).bit_length())
+def block_threads(n1: int, smem_optin: int) -> int:
+    """Threads per block of K1, all of which run its outside pass (the
+    one-barrier fill: a task a start position, up to ``n1`` tasks a width):
+    the power of two at least ``4 * n1`` with charts in shared memory and
+    ``6 * n1`` in global scratch, between one warp and ``MAX_THREADS``. On
+    an H100 at B = 64 (scripts/tune_torch_dmv_threads.py) that is the best
+    block, or within 2% of it, at n1 = 17, 51, 65 and 101 in both
+    semirings; 8 * n1 (the outside kernel's rule) would give 1024 at n1 = 65,
+    22% slower in log than 512."""
+    per = 4 if fused_uses_smem(n1, smem_optin) else 6
+    return min(MAX_THREADS, max(32, 1 << (per * n1 - 1).bit_length()))
 
 
-def inside_threads(n1: int) -> int:
-    """Threads that run the two-barrier inside fill in K1's block (its
-    first threads): the power of two that
-    gives each of the up to ``2 * n1`` cells of a width step one lane, between
-    one warp and ``MAX_THREADS``. The inside fill has at most ``n1`` cheap
-    terms a cell; more lanes a cell cost more in shuffles and barrier than
-    they save."""
-    return min(MAX_THREADS, max(32, 1 << (2 * n1 - 1).bit_length()))
+def inside_threads(n1: int, smem_optin: int) -> int:
+    """Threads of K1's block (its first ones) that run the inside pass, on
+    a named barrier of their own: a quarter of the block, at least one warp.
+    The inside pass has fewer terms a task than the outside pass, and more
+    lanes a task cost more in shuffles and barrier than they save: on an
+    H100 a quarter was the best count, or within 1.3% of it, at n1 = 17,
+    51, 65 and 101 in both semirings, and 4-15% faster than the best count
+    that runs both passes on the whole block."""
+    return max(32, block_threads(n1, smem_optin) // 4)
 
 
 def inside_block_threads(n1: int, smem_optin: int) -> int:
@@ -245,14 +268,6 @@ def group_lanes(ntasks: int, nterms: int, threads: int) -> int:
     return G
 
 
-def inside_group_widths(n1: int, threads: int) -> set:
-    """Every group width K1's two-barrier inside fill uses on a sentence of
-    ``n1 - 1`` words with ``threads`` threads (:func:`inside_threads`)."""
-    n = n1
-    return {group_lanes(tasks * (n - w), w, threads)
-            for w in range(1, n) for tasks in (1, 2)}
-
-
 def inside_1b_group_widths(n1: int, threads: int) -> set:
     """Every group width the one-barrier inside fill uses on a sentence of
     ``n1 - 1`` words with ``threads`` threads (a warp in the warp mapping):
@@ -279,7 +294,7 @@ def _library():
     if _lib is None:
         lib = _build.load("dmv_fused")
         lib.dmv_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.dmv_fused_launch.restype = ctypes.c_int
         _lib, _smem_optin = lib, _query_optin(lib.dmv_fused_smem_optin)
     return _lib
@@ -331,7 +346,8 @@ def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
     out = torch.empty(B, device=dec.device, dtype=torch.float32)
     g_dec = torch.empty_like(dec)
     g_attach = torch.empty_like(attach)
-    use_smem = fused_uses_smem(n1, _smem_optin)
+    plan = fused_plan(n1, _smem_optin)
+    use_smem = plan["mapping"] == "smem"
     scratch = None if use_smem else torch.empty(
         B * _FUSED_BYTES_PER_CELL * n1 * n1, device=dec.device, dtype=torch.uint8)
     if B == 0:
@@ -341,9 +357,9 @@ def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
             _build.ptr(dec), _build.ptr(attach), _build.ptr(lengths),
             _build.ptr(out), _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch),
-            B, n1, int(kind == "max"), int(use_smem), block_threads(n1),
-            inside_threads(n1), _build.stream_ptr(dec.device))
-    _build.check(err, "dmv_fused_launch")
+            B, n1, int(kind == "max"), int(use_smem), int(plan["stage"]),
+            plan["threads"], plan["inside_threads"], _build.stream_ptr(dec.device))
+    _build.check(err, f"dmv_fused_launch ({plan['mapping']})")
     n_launches += 1
     n_fused_global_launches += int(not use_smem)
     return out, g_dec, g_attach
