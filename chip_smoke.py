@@ -13,15 +13,19 @@ Phases, each printing one JSON line:
                  seed, the masks, the features in page-locked memory; the
                  pack time of 64 images
   3. k1        - the fused DMV kernel against its plain version (log + max),
-                 at B=64 with ragged lengths 1..50, a batch with lengths up
-                 to 80, n1 < 10, n1 = 65 and n1 = 101 with lengths 86..100
-                 (charts in global scratch; in log also against the plain
-                 version in f64, its worst error over the tolerance
-                 printed); reruns bit-identical; equal to the pair
-                 (inside with saved charts, then outside) at a cotangent of
-                 one, bit for bit in max; its time at n1 = 17, 51, 65 and
-                 101 beside the pair's and, when ``_checkouts/parent_dmv/``
-                 holds its sources, the parent commit's K1, in turns
+                 in each of its placements, each case's launches counted on
+                 the one its rule names: charts in shared memory at B=64
+                 with ragged lengths 1..50 and at n1 < 10; the inside charts
+                 alone there (split) at n1 = 57, 65, 74 and 75; charts in
+                 global scratch at lengths up to 80 and at n1 = 101 with
+                 lengths 86..100 (in log also against the plain version in
+                 f64, its worst error over the tolerance printed); reruns
+                 bit-identical; equal to the pair (inside with saved charts,
+                 then outside) at a cotangent of one, bit for bit in max;
+                 when ``_checkouts/parent_dmv/`` holds its sources, equal to
+                 the parent commit's K1 bit for bit on every case; its time
+                 at n1 = 17, 51, 57, 65, 75 and 101 beside the pair's and
+                 the parent's K1, in turns
   4. k5        - the matching-max kernel (bf16 tensor cores) against its
                  plain version at A=B=64, Q=102, D=128 and V=703 (eval) and
                  739 (train); exactly on quarter-integer operands at shapes
@@ -103,7 +107,7 @@ Phases, each printing one JSON line:
                  ``exp=vlgae_vit`` at the recipe's widths (224 px images, 32
                  px patches, ViT 192/4/4/384, captions up to 63 words) and
                  bf16: one warm-up and one joint epoch, K1 in its
-                 global-scratch mapping (n1 = 65), K5 in two q-chunks at
+                 split placement (n1 = 65), K5 in two q-chunks at
                  V = 1,324 and K6 at V = 1,324 on the path (launches counted,
                  each held against its plain version on the path's own
                  tensors), the frozen ViT bit-identical after training,
@@ -112,13 +116,14 @@ Phases, each printing one JSON line:
                  the pageable and the pinned upload of a B=64 batch's
                  pixels (38.5 MB);
                  one eval step with ``mbr_decoding`` on at n1 = 65 (three
-                 K1 launches in global scratch, heads held to the plain
+                 K1 launches on the split placement, heads held to the plain
                  Eisner fill)
  16. mbr       - MBR decoding: K1 on Eisner potentials (free decisions, the
                  arc in both valences) against the plain Eisner fill at B=64,
                  n1 = 51, 65 and 101 (log and max, device time beside the
-                 plain fill's); ``predict`` of ``exp=vlgae`` at the recipe's
-                 widths and precision=32 with MBR, the card against the CPU
+                 plain fill's and the parent commit's K1); ``predict`` of
+                 ``exp=vlgae`` at the recipe's widths and precision=32
+                 with MBR, the card against the CPU
                  on the dev set (arcs equal wherever the MBR tree wins by
                  ``MBR_MARGIN``, every head set a projective tree),
                  ``eval.py`` on it; the recipe's bf16 eval step with and
@@ -509,7 +514,7 @@ def phase_build(state):
 # never imports them.
 PARENT_DMV = os.path.join(ROOT, "_checkouts", "parent_dmv")
 # each parent kernel's C interface: pointers, then ints, then the stream
-PARENT_KERNELS = {"dmv_inside": (6, 7), "dmv_fused": (7, 6)}
+PARENT_KERNELS = {"dmv_inside": (6, 7), "dmv_fused": (7, 7)}
 
 
 class ParentDMV:
@@ -517,9 +522,13 @@ class ParentDMV:
     and launched through their C interfaces by the parent's rules: for the
     inside kernel (whose interface is this tree's) mapping, threads and
     staging of the block mappings are this tree's ``inside_plan``; K1 (the
-    two-barrier fills) keeps its charts in shared memory while its nine
-    charts fit (``72*n1*(n1|1)`` bytes), runs ``8*n1`` threads a block and
-    ``2*n1`` of them for the inside fill (powers of two, 32 to 1024)."""
+    one-barrier fills, its reductions one tree after another) keeps its
+    eight charts in shared memory beside the staged potentials while they
+    fit (``64*n1*(n1|1) + 8*n1*n1 + 32*n1`` bytes, n1 <= 56 on an H100),
+    else in global scratch (``64*n1*n1`` bytes a sentence) with the
+    potentials staged while they fit; it runs the power of two at least
+    ``4*n1`` (shared) or ``6*n1`` (global) threads a block, 32 to 1024, and
+    a quarter of them, at least 32, for the inside fill."""
 
     def __init__(self):
         self.libs = {}
@@ -548,18 +557,21 @@ class ParentDMV:
 
         B, n1 = dec.shape[:2]
         dmv_cuda._library()  # the card's shared-memory limit
-        pow2 = lambda x: min(1024, max(32, 1 << (x - 1).bit_length()))  # noqa: E731
-        use_smem = 72 * n1 * (n1 | 1) <= dmv_cuda._smem_optin
+        optin = dmv_cuda._smem_optin
+        pot = 8 * n1 * n1 + 32 * n1
+        use_smem = 64 * n1 * (n1 | 1) + pot <= optin
+        stage = use_smem or pot <= optin
+        threads = min(1024, max(32, 1 << ((4 if use_smem else 6) * n1 - 1).bit_length()))
         out = torch.empty(B, device=dec.device)
         g_dec, g_attach = torch.empty_like(dec), torch.empty_like(attach)
-        scratch = None if use_smem else torch.empty(B * 72 * n1 * n1, device=dec.device,
+        scratch = None if use_smem else torch.empty(B * 64 * n1 * n1, device=dec.device,
                                                     dtype=torch.uint8)
         _build.check(self.libs["dmv_fused"](
             _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(out),
             _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
-            int(use_smem), pow2(8 * n1), pow2(2 * n1), _build.stream_ptr(dec.device)),
-            "parent dmv_fused_launch")
+            int(use_smem), int(stage), threads, max(32, threads // 4),
+            _build.stream_ptr(dec.device)), "parent dmv_fused_launch")
         return out, g_dec, g_attach
 
     def inside(self, dec, attach, lens, kind, save):
@@ -683,15 +695,11 @@ def _dmv_inputs(rng, lengths, n1, device, quarter=False):
             torch.tensor(np.asarray(lengths), dtype=torch.int32, device=device))
 
 
-def fused_steps(n1, kind, parent=False):
+def fused_steps(n1, kind):
     """Dependent width steps of K1 over a sentence of ``n1 - 1`` words: the
     one-barrier inside pass (one a width) and outside pass (one a width, and
-    width 0 too in log); the parent's two-barrier fills took two a width in
-    each pass."""
-    L = n1 - 1
-    if parent:
-        return 4 * L
-    return 2 * L + (kind == "log")
+    width 0 too in log)."""
+    return 2 * (n1 - 1) + (kind == "log")
 
 
 def _in_turns(fns):
@@ -740,29 +748,56 @@ def phase_k1(state):
     recipe = rng.integers(1, 51, 64)
     recipe[:3] = (1, 50, 0)  # length 1, the longest, a zero-length filler
     # exp=vlgae_vit trains on captions of up to 63 words: n1 = 65, past the
-    # shared-memory limit, so K1 keeps its charts in global scratch
+    # shared-memory limit of K1's eight charts, so K1 keeps its inside
+    # charts in shared memory and its adjoint charts in global scratch
     vit = rng.integers(1, 65, 64)
     vit[:3] = (64, 1, 0)
     # exp=lang_only on captions of 86-100 words: n1 = 101, global scratch
     long = rng.integers(86, 101, 64)
     long[0] = 100
+    # the first and the last n1 of the split placement (57 and 75, odd: one
+    # pitch), and an even n1 between (pitch 75 in shared memory, 74 in scratch)
+    first, last = rng.integers(1, 57, 64), rng.integers(1, 75, 64)
+    first[:3], last[:3] = (56, 1, 0), (74, 1, 0)
     cases = {
-        "B64_len1-50": (recipe, 51),
-        "B16_len-to-80": (np.r_[80, 0, 1, rng.integers(51, 81, 13)], 81),
-        "B16_n1-lt-10": (np.r_[0, 1, 8, rng.integers(0, 9, 13)], 9),
-        "B64_len1-64_global": (vit, 65),
-        "B64_len86-100_global": (long, 101),
+        "B64_len1-50": (recipe, 51, "smem"),
+        "B16_len-to-80": (np.r_[80, 0, 1, rng.integers(51, 81, 13)], 81, "global"),
+        "B16_n1-lt-10": (np.r_[0, 1, 8, rng.integers(0, 9, 13)], 9, "smem"),
+        "B64_len1-64_split": (vit, 65, "split"),
+        "B64_len86-100_global": (long, 101, "global"),
+        "B64_len1-56_split": (first, 57, "split"),
+        "B16_len-to-73_split": (np.r_[73, 0, 1, rng.integers(1, 74, 13)], 74, "split"),
+        "B64_len1-74_split": (last, 75, "split"),
     }
+    parent = state.get("parent_dmv")
+    parent_fused = parent is not None and "dmv_fused" in parent.libs
+    dmv_cuda._library()  # the card's shared-memory limit, for the rule
+
+    def parent_vs_new(new, old):
+        """The largest difference of K1's three outputs from the parent's,
+        and whether every bit is the same."""
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(new, old))
+        return max(float((a - b).abs().max()) for a, b in zip(new, old)), same
+
     worst = 0.0
+    differ = []  # cases whose bits differ from the parent's K1
     result = {"phase": "k1", "cases": {}}
-    for name, (lengths, n1) in cases.items():
+    for name, (lengths, n1, mapping) in cases.items():
         dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
+        plan = dmv_cuda.fused_plan(n1, dmv_cuda._smem_optin)
+        if plan["mapping"] != mapping:
+            raise AssertionError(f"K1 {name}: the rule names {plan}, not {mapping}")
         for kind in ("log", "max"):
-            g0 = dmv_cuda.n_fused_global_launches
+            c0 = dmv_cuda.launch_counts()
             kt, kd, ka = dmv_fused(dec, attach, lens, kind)
             again = dmv_fused(dec, attach, lens, kind)
-            if name.endswith("_global") and dmv_cuda.n_fused_global_launches != g0 + 2:
-                raise AssertionError(f"K1 {name} did not take the global-scratch mapping")
+            c1 = dmv_cuda.launch_counts()
+            moved = {m: c1[f"fused_{m}"] - c0[f"fused_{m}"] for m in ("global", "split")}
+            moved["smem"] = c1["fused"] - c0["fused"] - sum(moved.values())
+            if moved != {m: 2 * (m == mapping) for m in moved}:
+                raise AssertionError(f"K1 {name}/{kind} did not take the {mapping} "
+                                     f"mapping: launches {moved}")
             pt, pd, pa = dmv_value_and_grads_plain(dec, attach, lens, kind)
             torch.cuda.synchronize()
             if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -774,9 +809,15 @@ def phase_k1(state):
                            for k, p in ((kd, pd), (ka, pa)))
             e_d = float((kd - pd).abs().max())
             e_a = float((ka - pa).abs().max())
-            errs = {"total": float(e_tot.max()), "g_dec": e_d, "g_attach": e_a,
+            errs = {"mapping": mapping, "total": float(e_tot.max()), "g_dec": e_d,
+                    "g_attach": e_a,
                     "vs_pair_at_gout_1": _k1_against_pair(dec, attach, lens, kind,
                                                           (kt, kd, ka))}
+            if parent_fused:
+                errs["parent_vs_new"], same = parent_vs_new(
+                    (kt, kd, ka), parent.fused(dec, attach, lens, kind))
+                if not same:
+                    differ.append(f"{name}/{kind}")
             if kind == "log" and n1 == 101:
                 # the long-caption path against the plain version in f64,
                 # whose round-off is far below the tolerance
@@ -797,17 +838,13 @@ def phase_k1(state):
                 raise AssertionError(f"K1 {name}/{kind} disagrees: {errs}")
     # the new K1, the parent's K1 and the pair at gout = 1 on the same draws,
     # in one call; the plain version beside them
-    parent = state.get("parent_dmv")
-    parent_fused = parent is not None and "dmv_fused" in parent.libs
-    timed = {17: _ragged(rng, 17), 51: recipe, 65: vit, 101: long}
+    timed = {17: _ragged(rng, 17), 51: recipe, 57: first, 65: vit, 75: last, 101: long}
     timing = {}
     for n1, lengths in timed.items():
         dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
         row = {"plan": dmv_cuda.fused_plan(n1, dmv_cuda._smem_optin),
                "dependent_steps": {k: fused_steps(n1, k) for k in ("max", "log")},
                **dmv_bound(lengths, n1, "fused")}
-        if parent_fused:
-            row["parent_dependent_steps"] = fused_steps(n1, "max", parent=True)
         for kind in ("log", "max"):
             total, charts = dmv_inside_save(dec, attach, lens, kind)
             ones = torch.ones_like(total)
@@ -824,10 +861,10 @@ def phase_k1(state):
                                     reps=3, warmup=1)
             t["ms_per_step"] = t["ms"] / fused_steps(n1, kind)
             if parent_fused:
-                new = dmv_fused(dec, attach, lens, kind)
-                old = parent.fused(dec, attach, lens, kind)
-                torch.cuda.synchronize()
-                t["parent_vs_new"] = max(float((a - b).abs().max()) for a, b in zip(new, old))
+                t["parent_vs_new"], same = parent_vs_new(
+                    dmv_fused(dec, attach, lens, kind), parent.fused(dec, attach, lens, kind))
+                if not same:
+                    differ.append(f"timed n1={n1}/{kind}")
             row[kind] = t
         timing[f"n1={n1}"] = row
     result["timing_B64"] = timing
@@ -837,8 +874,11 @@ def phase_k1(state):
                         f"{os.path.relpath(PARENT_DMV, ROOT)}")
     result["tolerance"] = {"total": [K1_TOTAL_ATOL, K1_TOTAL_RTOL],
                            "grads": [K1_GRAD_ATOL, K1_GRAD_RTOL],
-                           "vs_pair_at_gout_1": {"max": "bit-equal", "log": "as grads"}}
+                           "vs_pair_at_gout_1": {"max": "bit-equal", "log": "as grads"},
+                           "parent_vs_new": "bit-equal"}
     emit(result)
+    if differ:
+        raise AssertionError(f"K1's bits differ from the parent's K1 on {differ}")
 
     def summary(n1, lengths):
         t = timing[f"n1={n1}"]
@@ -857,9 +897,8 @@ def phase_k1(state):
             "dependent_steps": t["dependent_steps"], "mapping": t["plan"]["mapping"]}
 
     state["dmv_fused"] = {"max_abs_err": worst, "library_ms": None, **summary(51, recipe),
-                          "at_n1_65_global": summary(65, vit),
-                          "at_n1_101_global": summary(101, long),
-                          "at_n1_17": summary(17, timed[17])}
+                          **{f"at_n1_{n1}": summary(n1, timed[n1])
+                             for n1 in (17, 57, 65, 75, 101)}}
 
 
 def _check_k5(args, exact, what):
@@ -1011,8 +1050,10 @@ def phase_k5(state):
     for q in (34, 66, 114):
         args = _k5_inputs(rng, A, 739, B, q, D, dev, "random")
         _check_k5(args, False, f"at V=739, Q={q}")
+        x, y = args[1].reshape(B * q, D), args[0].reshape(A * 739, D)
         by_q[q] = {"device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
                    "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=3, warmup=1),
+                   "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
                    **bound(2 * (A * 739 + B * q) * D + 4 * (A * 739 + B * q)
                            + 8 * B * A * (q + 739), 2 * A * B * q * 739 * D, "bf16")}
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2764,8 +2805,9 @@ def phase_vit(state):
         match.n_launches_by_q_chunks.clear()
 
     def counts():
+        # the recipe's captions reach n1 = 65 at most: K1's split placement
         return {"dmv_fused": dmv_cuda.n_launches,
-                "dmv_fused_global": dmv_cuda.n_fused_global_launches,
+                "dmv_fused_split": dmv_cuda.n_fused_split_launches,
                 "match_fwd": match.n_launches,
                 "match_fwd_two_q_chunks": match.n_launches_by_q_chunks.get(2, 0),
                 "match_bwd": match.n_bwd_launches}
@@ -2874,11 +2916,11 @@ def phase_vit(state):
         x = next(b for b, _ in full if b["word"].shape[1] + 1 == 65)
         with torch.no_grad():
             inputs = shard_batch(x, pipe.dp)
-            g0 = dmv_cuda.n_fused_global_launches
+            g0 = dmv_cuda.n_fused_split_launches
             out = pipe.model.eval()(inputs)
             on_path["k1"] = _check_dmv_on_path(out, inputs["seq_len"])
-            if dmv_cuda.n_fused_global_launches != g0 + 2:
-                raise AssertionError("vit: K1 at n1 = 65 did not take global scratch")
+            if dmv_cuda.n_fused_split_launches != g0 + 2:
+                raise AssertionError("vit: K1 at n1 = 65 did not take the split placement")
             dec, attach, lens = out["merged_dec"], out["merged_attach"], inputs["seq_len"]
             on_path["k1_device_ms"] = {kind: device_ms(lambda: dmv_fused(dec, attach, lens, kind))
                                        for kind in ("log", "max")}
@@ -2898,7 +2940,7 @@ def phase_vit(state):
         per_eval_step = {k: v / len(pipe.step_times) for k, v in eval_counts.items()}
 
         # one MBR eval step on the n1 = 65 batch: K1 log and max reused, plus
-        # K1 max on the Eisner potentials, all three in global scratch
+        # K1 max on the Eisner potentials, all three on the split placement
         pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=True)
         reset()
         try:
@@ -2906,7 +2948,7 @@ def phase_vit(state):
         finally:
             pipe.dep_cfg = dataclasses.replace(pipe.dep_cfg, mbr_decoding=False)
         mbr_counts = counts()
-        if not (mbr_counts["dmv_fused"] == mbr_counts["dmv_fused_global"] == 3):
+        if not (mbr_counts["dmv_fused"] == mbr_counts["dmv_fused_split"] == 3):
             raise AssertionError(f"vit MBR eval step: launches {mbr_counts}")
         with torch.no_grad():
             inputs = shard_batch(x, pipe.dp)
@@ -2929,7 +2971,7 @@ def phase_vit(state):
         t_predict = time.perf_counter() - t0
         predict_launches = counts()
         predict_shapes = sorted(shapes)
-        if not (predict_launches["dmv_fused_global"] and predict_launches["match_fwd"]
+        if not (predict_launches["dmv_fused_split"] and predict_launches["match_fwd"]
                 and (VIT_V["eval"], VIT_Q) in shapes):
             raise AssertionError(f"vit predict: launches {predict_launches}, "
                                  f"K5 shapes {predict_shapes}")
@@ -2972,7 +3014,7 @@ def phase_vit(state):
 # gap to the best tree that differs in one arc or more); the card's and the
 # CPU's marginals differ by a few ulp, so near-ties may go either way
 MBR_MARGIN = 1e-3
-EISNER_N1 = {"B64_len1-50": 51, "B64_len1-64_global": 65, "B64_len86-100_global": 101}
+EISNER_N1 = {"B64_len1-50": 51, "B64_len1-64_split": 65, "B64_len86-100_global": 101}
 
 
 def eisner_lengths(rng, n1, B=64):
@@ -3073,7 +3115,8 @@ def check_mbr_heads(arc, lengths, got, what):
 def _k1_eisner(state, rng, dev):
     """K1 on Eisner potentials (``eisner_as_dmv``) against the plain Eisner
     fill on the card, at B = 64 and the n1 of the three recipes' eval paths;
-    its time beside the plain fill's."""
+    its time beside the plain fill's and, with ``_checkouts/parent_dmv/``,
+    the parent's K1 timed in turns with it."""
     import torch
 
     from vlgae_tpu_torch.ops import dmv_cuda
@@ -3081,6 +3124,7 @@ def _k1_eisner(state, rng, dev):
     from vlgae_tpu_torch.struct import (deptree_grads_fast, deptree_marginals,
                                         deptree_partition, eisner_as_dmv)
 
+    parent = state.get("parent_dmv")
     cases, rows = {}, {}
     for name, n1 in EISNER_N1.items():
         lengths = eisner_lengths(rng, n1)
@@ -3089,12 +3133,15 @@ def _k1_eisner(state, rng, dev):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         dec, attach = eisner_as_dmv(arc)
         case = {}
+        mapping = name.rsplit("_", 1)[1] if name.endswith(("_global", "_split")) else "smem"
         for kind in ("log", "max"):
-            g0 = dmv_cuda.n_fused_global_launches
+            c0 = dmv_cuda.launch_counts()
             total = dmv_fused(dec, attach, lens, kind)[0]
             table = deptree_grads_fast(arc, lens, kind)
-            if name.endswith("_global") and dmv_cuda.n_fused_global_launches != g0 + 2:
-                raise AssertionError(f"K1 Eisner {name} did not take global scratch")
+            c1 = dmv_cuda.launch_counts()
+            moved = {m: c1[f"fused_{m}"] - c0[f"fused_{m}"] for m in ("global", "split")}
+            if mapping != "smem" and moved[mapping] != 2:
+                raise AssertionError(f"K1 Eisner {name} did not take the {mapping} mapping")
             want_t = deptree_partition(arc, lens, kind)
             want_g = deptree_marginals(arc, lens, kind)
             errs = {"total": float((total - want_t).abs().max()),
@@ -3104,9 +3151,15 @@ def _k1_eisner(state, rng, dev):
                 else close(table, want_g, K1_GRAD_ATOL, K1_GRAD_RTOL))
             if not ok:
                 raise AssertionError(f"K1 on Eisner potentials {name}/{kind}: {errs}")
+            k1 = {"device_ms": lambda: dmv_fused(dec, attach, lens, kind)}
+            if parent is not None and "dmv_fused" in parent.libs:
+                # the parent's K1 in turns with this tree's, and its bits
+                k1["parent_ms"] = lambda: parent.fused(dec, attach, lens, kind)
+                new, old = dmv_fused(dec, attach, lens, kind), parent.fused(dec, attach,
+                                                                             lens, kind)
+                errs["parent_vs_new"] = max(float((a - b).abs().max()) for a, b in zip(new, old))
             case[kind] = {
-                **errs,
-                "device_ms": device_ms(lambda: dmv_fused(dec, attach, lens, kind)),
+                **errs, **_in_turns(k1),
                 "ms": time_ms(lambda: deptree_grads_fast(arc, lens, kind)),
                 "plain_ms": time_ms(lambda: deptree_marginals(arc, lens, kind),
                                     reps=3, warmup=1)}
@@ -3118,6 +3171,8 @@ def _k1_eisner(state, rng, dev):
             "device_ms_max": case["max"]["device_ms"],
             "plain_ms_log": case["log"]["plain_ms"], "plain_ms_max": case["max"]["plain_ms"],
             "max_abs_err": max(case["log"]["table"], case["max"]["table"]),
+            **{f"parent_ms_{k}": case[k]["parent_ms"] for k in ("log", "max")
+               if "parent_ms" in case[k]},
             **b, "library_ms": None}
     state.setdefault("dmv_fused", {})["on_eisner_potentials"] = rows
     return cases

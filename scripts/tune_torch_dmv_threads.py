@@ -10,7 +10,8 @@ inside pass), and sentences per block of the inside kernel's warp mapping
 
 Each kernel is launched through its C interface with every power of two from
 32 to 1024 threads (the warp mapping: 32, 64 and 128, one, two and four
-sentences a block; K1: every block size and every inside count up to it;
+sentences a block; K1: every block size, up to 512 with charts in shared
+memory, and every inside count up to it;
 the wrapper's mapping and staging rules otherwise), its outputs held
 against the wrapper's own launch (bit-equal in the max semiring, the
 butterflies' order aside within 1e-4 in log), and timed as
@@ -139,9 +140,9 @@ def _sweep_fused(chip_smoke, dec, attach, lens, kind):
     B, n1 = dec.shape[:2]
     want = dmv_cuda.dmv_fused(dec, attach, lens, kind)
     plan = dmv_cuda.fused_plan(n1, dmv_cuda._smem_optin)
-    smem = plan["mapping"] == "smem"
-    scratch = None if smem else torch.empty(
-        B * dmv_cuda._FUSED_BYTES_PER_CELL * n1 * n1, device=dec.device, dtype=torch.uint8)
+    charts = dmv_cuda.FUSED_SMEM_CHARTS[plan["mapping"]]
+    scratch = torch.empty(B * plan["scratch_bytes"], device=dec.device,
+                          dtype=torch.uint8) if plan["scratch_bytes"] else None
     stream = _build.stream_ptr(dec.device)
 
     def fused(threads, inside):
@@ -151,11 +152,12 @@ def _sweep_fused(chip_smoke, dec, attach, lens, kind):
             _build.ptr(dec), _build.ptr(attach), _build.ptr(lens), _build.ptr(out),
             _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch), B, n1, int(kind == "max"),
-            int(smem), int(plan["stage"]), threads, inside, stream), "dmv_fused_launch")
+            charts, int(plan["stage"]), threads, inside, stream), "dmv_fused_launch")
         return out, g_dec, g_attach
 
     rows, err = {}, 0.0
-    for threads in THREADS:
+    # with charts in shared memory the kernel takes at most 512 threads
+    for threads in (t for t in THREADS if not charts or t <= dmv_cuda.FUSED_SMEM_MAX_THREADS):
         for inside in (t for t in THREADS if t <= threads):
             got = fused(threads, inside)
             torch.cuda.synchronize()

@@ -87,26 +87,62 @@ def test_the_pairs_placements_follow_the_cards_limit(optin, inside, outside):
         assert dmv_cuda.inside_mapping(n1, optin) == dmv_cuda.inside_plan(n1, optin)["mapping"]
 
 
-@pytest.mark.parametrize("optin,last_fused,last_inside", [
-    (H100_OPTIN, 56, 85), (49152, 25, 39), (101376, 37, 55)])
-def test_shared_or_global_thresholds_follow_the_cards_limit(optin, last_fused, last_inside):
-    """K1's charts sit in shared memory, with the potentials staged beside
-    them, while both fit; beyond, the charts go to global scratch and the
-    potentials alone are staged while they fit (n1 <= 168 on an H100)."""
+@pytest.mark.parametrize("optin,last_fused,last_split,last_inside", [
+    (H100_OPTIN, 56, 75, 85), (49152, 25, 34, 39), (101376, 37, 49, 55)])
+def test_shared_or_global_thresholds_follow_the_cards_limit(optin, last_fused, last_split,
+                                                            last_inside):
+    """K1's eight charts sit in shared memory, with the potentials staged
+    beside them, while all fit; then its four inside charts alone (the
+    adjoint charts in global scratch) while they fit; beyond, all eight go
+    to global scratch and the potentials alone are staged while they fit
+    (n1 <= 168 on an H100)."""
     last_staged = max(n1 for n1 in range(1, 400)
                       if dmv_cuda.potential_smem_bytes(n1) <= optin)
     for n1 in range(1, 200):
-        assert dmv_cuda.fused_uses_smem(n1, optin) == (n1 <= last_fused)
         plan = dmv_cuda.fused_plan(n1, optin)
-        smem = n1 <= last_fused
-        assert plan["mapping"] == ("smem" if smem else "global")
+        want = "smem" if n1 <= last_fused else "split" if n1 <= last_split else "global"
+        assert plan["mapping"] == dmv_cuda.fused_mapping(n1, optin) == want
+        charts = dmv_cuda.FUSED_SMEM_CHARTS[want]
         assert plan["stage"] == (n1 <= last_staged)
-        assert plan["smem_bytes"] == (dmv_cuda.fused_smem_bytes(n1) if smem else
+        assert plan["smem_bytes"] == (dmv_cuda.fused_smem_bytes(n1, charts) if charts else
                                       dmv_cuda.potential_smem_bytes(n1) if plan["stage"]
                                       else 0) <= optin
+        # the charts not in shared memory: 8 bytes a cell pair each, pitch n1
+        assert plan["scratch_bytes"] == 8 * (8 - charts) * n1 * n1
         want = "warp" if n1 <= 9 else "smem" if n1 <= last_inside else "global"
         assert dmv_cuda.inside_mapping(n1, optin) == want
     assert optin != H100_OPTIN or last_staged == 168
+
+
+@pytest.mark.parametrize("optin", [H100_OPTIN, 101376])
+@pytest.mark.parametrize("n1", [55, 56, 57, 58, 64, 65, 74, 75, 76, 77, 101])
+def test_k1_split_placement_between_shared_and_global(optin, n1):
+    """The placement between K1's ``smem`` (eight charts) and ``global``:
+    the four inside charts at the odd pitch in shared memory beside the
+    staged potentials, the four adjoint charts in global scratch (32 * n1 *
+    n1 bytes a sentence, half of ``global``'s): n1 = 57 to 75 on an H100
+    (171,080 bytes at n1 = 65, 227,400 at 75; 235,904 at 76 does not fit),
+    38 to 49 on a card of 101,376. Its blocks take six lanes a start, at
+    most 512 threads (the kernel's bound with charts in shared memory), a
+    quarter of them for the inside pass."""
+    pitch = dmv_cuda.chart_pitch(n1)
+    four = 32 * n1 * pitch + 8 * n1 * n1 + 32 * n1
+    assert dmv_cuda.fused_smem_bytes(n1, 4) == four
+    eight = dmv_cuda.fused_smem_bytes(n1)
+    plan = dmv_cuda.fused_plan(n1, optin)
+    split = eight > optin >= four
+    assert (plan["mapping"] == "split") == split
+    if optin == H100_OPTIN:
+        assert split == (57 <= n1 <= 75)
+        assert {65: 171080, 75: 227400, 76: 235904}.get(n1, four) == four
+    if split:
+        assert plan["stage"] and plan["smem_bytes"] == four
+        assert plan["scratch_bytes"] == 32 * n1 * n1
+        want = min(dmv_cuda.FUSED_SMEM_MAX_THREADS, 1 << (6 * n1 - 1).bit_length())
+        assert plan["threads"] == dmv_cuda.block_threads(n1, optin) == want
+        assert plan["inside_threads"] == want // 4
+    if plan["mapping"] != "global":
+        assert plan["threads"] <= dmv_cuda.FUSED_SMEM_MAX_THREADS
 
 
 @pytest.mark.parametrize("n1", range(1, 10))
@@ -162,10 +198,12 @@ def test_the_warp_mapping_saves_every_cell_once_by_rows(n1):
 
 @pytest.mark.parametrize("n1,want", [
     (1, 32), (4, 32), (5, 32), (9, 64), (10, 64), (17, 128), (32, 128),
-    (33, 256), (51, 256), (57, 512), (64, 512), (65, 512), (101, 1024), (400, 1024)])
+    (33, 256), (51, 256), (57, 512), (64, 512), (65, 512), (75, 512), (76, 512),
+    (101, 1024), (400, 1024)])
 def test_block_threads_is_a_power_of_two_by_n1(n1, want):
     """K1's block, all of which runs its outside pass: about four lanes a
-    start position with charts in shared memory, six in global scratch
+    start position with all charts in shared memory, six with the adjoint
+    charts in global scratch (``split``) and with all in global scratch
     (chosen on the card by scripts/tune_torch_dmv_threads.py)."""
     t = dmv_cuda.block_threads(n1, H100_OPTIN)
     assert t == want and t & (t - 1) == 0 and 32 <= t <= dmv_cuda.MAX_THREADS
@@ -175,7 +213,7 @@ def test_block_threads_is_a_power_of_two_by_n1(n1, want):
 
 @pytest.mark.parametrize("n1,want", [
     (1, 32), (10, 32), (16, 32), (17, 32), (32, 32), (33, 64), (51, 64),
-    (57, 128), (64, 128), (65, 128), (101, 256), (129, 256), (400, 256)])
+    (57, 128), (64, 128), (65, 128), (75, 128), (101, 256), (129, 256), (400, 256)])
 def test_inside_threads_is_one_lane_a_cell(n1, want):
     """The first threads of K1's block, which run its inside pass on a named
     barrier: a quarter of the block, at least a warp (one to three lanes a
@@ -221,15 +259,20 @@ def test_group_lanes(ntasks, nterms, threads, want):
 def test_the_card_tests_reach_every_group_width():
     """The n1 of tests/test_torch_kernels_cuda.py's DMV cases, with the
     threads their mapping gives them, use every sub-warp width from one
-    lane to a whole warp: in K1's inside and outside passes, and in the
-    one-barrier fills of every mapping of the inside kernel (the warp
+    lane to a whole warp: in K1's inside and outside passes (in each of its
+    three placements: the split one's cases at n1 = 57, 58, 65, 74, 75;
+    the global one's at 81 and 101), and
+    in the one-barrier fills of every mapping of the inside kernel (the warp
     mapping's n1 at 32 lanes: widths 1 to 8) and of the outside kernel."""
-    k1_inside, k1_outside = set(), set()
-    for n1 in (2, 3, 5, 9, 10, 17, 51, 57, 101):
+    by_mapping = {}
+    for n1 in (2, 3, 5, 9, 10, 17, 51, 57, 58, 65, 74, 75, 81, 101):
         plan = dmv_cuda.fused_plan(n1, H100_OPTIN)
-        k1_inside |= dmv_cuda.inside_1b_group_widths(n1, plan["inside_threads"])
-        k1_outside |= dmv_cuda.outside_1b_group_widths(n1, plan["threads"])
-    assert k1_inside == k1_outside == {1, 2, 4, 8, 16, 32}
+        ins, outs = by_mapping.setdefault(plan["mapping"], (set(), set()))
+        ins |= dmv_cuda.inside_1b_group_widths(n1, plan["inside_threads"])
+        outs |= dmv_cuda.outside_1b_group_widths(n1, plan["threads"])
+    assert set(by_mapping) == {"smem", "split", "global"}
+    for mapping, (k1_inside, k1_outside) in by_mapping.items():
+        assert k1_inside == k1_outside == {1, 2, 4, 8, 16, 32}, mapping
     inside, outside = set(), set()
     for n1 in (1, 2, 3, 5, 9):
         assert dmv_cuda.inside_plan(n1, H100_OPTIN)["mapping"] == "warp"
@@ -396,3 +439,54 @@ def test_match_bwd_plan_refuses_what_the_kernel_does_not_take():
         match.match_bwd_plan(2, 12288, 3, 6, 16)
     with pytest.raises(ValueError, match="overflow"):
         match.match_bwd_plan(4096, 4096, 128, 100, 16)
+
+
+def test_k1_holds_a_lanes_terms_within_the_cap_and_the_card_tests_reach_both_paths():
+    """K1's log fills (the FUSED path of csrc/dmv_common.cuh) keep a lane's
+    terms of a task in registers for the sums, instead of reading their
+    cells again, when the block-uniform bound ceil(terms / G) is at most
+    ``kRegTerms``: w split points in the inside pass, and len - w for each
+    of the outside pass's two loops (len - i - w wider spans and i spans
+    from the left); half that with the adjoint charts in global scratch,
+    and none with all charts there (``kHold`` of csrc/dmv_fused.cu: what a
+    thread's registers take without a spill). Under that bound no lane of
+    any task has more terms than the cap; and the n1 of
+    tests/test_torch_kernels_cuda.py's K1 cases, at their longest sentence,
+    reach both the held and the re-read path in both passes where K1 holds
+    terms (``smem``, ``split``)."""
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(dmv_cuda.__file__), os.pardir, "csrc")
+    common = open(os.path.join(csrc, "dmv_common.cuh")).read()
+    regs = int(re.search(r"constexpr int kRegTerms = (\d+);", common).group(1))
+    assert regs == 4
+    fused = open(os.path.join(csrc, "dmv_fused.cu")).read()
+    hold = "constexpr int kHold = SMEM_CHARTS == 8 ? kRegTerms : SMEM_CHARTS == 4 ? kRegTerms / 2 : 0;"
+    assert hold in fused
+
+    def lanes_terms(count, G):  # terms of each lane of a group, strided by G
+        return [len(range(gl, count, G)) for gl in range(G)]
+
+    reached = {}
+    for n1 in (9, 10, 17, 51, 57, 58, 65, 74, 75, 81, 101):
+        plan = dmv_cuda.fused_plan(n1, H100_OPTIN)
+        paths = reached.setdefault(plan["mapping"], set())
+        cap = {"smem": regs, "split": regs // 2, "global": 0}[plan["mapping"]]
+        length = n1 - 1
+        n = length + 1
+        for w in range(1, n):
+            G = dmv_cuda.group_lanes(n - w, w, plan["inside_threads"])
+            held = cap > 0 and -(-w // G) <= cap
+            paths.add(("inside", held))
+            assert not held or max(lanes_terms(w, G)) <= cap
+        for w in range(length, -1, -1):
+            G = dmv_cuda.group_lanes(n - w, length - w + 1, plan["threads"])
+            held = cap > 0 and -(-(length - w) // G) <= cap
+            paths.add(("outside", held))
+            if held:
+                for i in range(n - w):
+                    assert max(lanes_terms(length - i - w, G) + lanes_terms(i, G)) <= cap
+    both = {(p, h) for p in ("inside", "outside") for h in (True, False)}
+    assert reached == {"smem": both, "split": both,
+                       "global": {("inside", False), ("outside", False)}}

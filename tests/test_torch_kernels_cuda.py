@@ -6,7 +6,10 @@ imports only torch, numpy and the port, so it runs where JAX is absent:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 K1 (``dmv_fused``): tie-free random potentials at n1 = 1, 2, 3, 5, 9, 51
-(shared memory) and 81 (global scratch), with zero-length filler rows; totals to
+(shared memory) and 81 (global scratch), with zero-length filler rows, and
+at n1 = 57, 58, 65, 74 and 75 (inside charts in shared memory, adjoint
+charts in global scratch) at B = 64, log also against the plain version in
+f64; totals to
 1e-3 + 1e-5|x|, gradients to 5e-4 + 1e-4|x| (log-domain sums of a few
 ulp of |log Z|); max-semiring totals and indicators exact. K5
 (``match_fwd``): bf16-exact quarter-integer operands with -1e9 masks, so
@@ -159,19 +162,21 @@ def test_dmv_fused_on_tied_potentials_equals_the_inside_and_the_pair(cuda, n1):
 
 def test_dmv_fused_takes_global_scratch_at_the_vit_recipes_longest_captions(cuda):
     """exp=vlgae_vit trains on captions of up to 63 words (n1 = 65): past
-    the shared-memory limit of K1, whose charts then live in global
-    scratch; both semirings there agree with the plain version."""
+    the shared-memory limit of K1's eight charts, so its four adjoint charts
+    live in global scratch and its inside charts in shared memory (the
+    ``split`` placement); both semirings there agree with the plain
+    version."""
     from vlgae_tpu_torch.ops import dmv_cuda
 
     dmv_cuda.dmv_fused(*_dmv_batch((1,), 2, 0, cuda), "max")  # loads the library
-    assert not dmv_cuda.fused_uses_smem(65, dmv_cuda._smem_optin)
+    assert dmv_cuda.fused_mapping(65, dmv_cuda._smem_optin) == "split"
     rng = np.random.default_rng(65)
     lengths = [64, 1, 0, *rng.integers(1, 65, 61).tolist()]
     dec, attach, lens = _dmv_batch(lengths, 65, 7, cuda)
     for kind in ("log", "max"):
-        before = dmv_cuda.n_fused_global_launches
+        before = dmv_cuda.n_fused_split_launches
         got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
-        assert dmv_cuda.n_fused_global_launches == before + 1
+        assert dmv_cuda.n_fused_split_launches == before + 1
         want = dmv_value_and_grads_plain(dec, attach, lens, kind)
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
         for g, w in zip(got[1:], want[1:]):
@@ -203,6 +208,38 @@ def test_dmv_fused_equals_the_pair_at_a_cotangent_of_one(cuda, kind, n1):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
     assert bool((got[1][lens == 0][:, 1:] == 0).all())
     assert bool((got[2][lens == 0] == 0).all())
+
+
+@pytest.mark.parametrize("kind", ["log", "max"])
+@pytest.mark.parametrize("n1", [57, 58, 65, 74, 75])
+def test_dmv_fused_split_placement_matches_plain(cuda, kind, n1):
+    """K1 with its inside charts in shared memory (pitch n1 | 1) and its
+    adjoint charts in global scratch (pitch n1), from the first n1 of that
+    placement to its last (57 and 75) and at even n1 between, where the
+    two pitches differ: B = 64 ragged batches with lengths 0, 1 and n1 - 1,
+    each launch counted on the placement; max exact, log within K1's
+    tolerance of the plain version and of the plain version in f64."""
+    from vlgae_tpu_torch.ops import dmv_cuda
+
+    dmv_cuda.dmv_fused(*_dmv_batch((1,), 2, 0, cuda), "max")  # loads the library
+    assert dmv_cuda.fused_mapping(n1, dmv_cuda._smem_optin) == "split"
+    rng = np.random.default_rng(400 + n1)
+    lengths = [n1 - 1, 1, 0, *rng.integers(1, n1, 61).tolist()]
+    dec, attach, lens = _dmv_batch(lengths, n1, 500 + n1, cuda)
+    before = dmv_cuda.n_fused_split_launches
+    got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
+    assert dmv_cuda.n_fused_split_launches == before + 1
+    wants = [dmv_value_and_grads_plain(dec, attach, lens, kind)]
+    if kind == "max":
+        for g, w in zip(got, wants[0]):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        return
+    wants.append([x.float() for x in dmv_value_and_grads_plain(dec, attach, lens, kind,
+                                                               torch.float64)])
+    for want in wants:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=5e-4)
 
 
 def test_dmv_fused_log_at_n1_101_matches_the_plain_version_in_f64(cuda):

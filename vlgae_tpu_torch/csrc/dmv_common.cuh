@@ -132,6 +132,26 @@ __device__ __forceinline__ void group_reduce6(float& a, float& b, float& c, floa
   }
 }
 
+// N xor-butterflies over the G lanes of a group, level by level, as
+// group_reduce6 (K1's reductions of the outside pass: eight in log, two in
+// max). The same trees, so the same bits.
+template <bool MAX, int N>
+__device__ __forceinline__ void group_reduce(float (&x)[N], int G) {
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    float y[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) y[q] = __shfl_xor_sync(kFull, x[q], off);
+#pragma unroll
+    for (int q = 0; q < N; ++q) x[q] = MAX ? fmaxf(x[q], y[q]) : x[q] + y[q];
+  }
+}
+
+// A lane of K1's block path keeps its terms of a task in registers for the
+// logsumexp's second pass, instead of reading their cells again, while they
+// number at most HOLD (ceil(terms / G), uniform over the block): the fills'
+// template argument, this many where a thread has the registers for them.
+constexpr int kRegTerms = 4;
+
 // log of a sum of exp(term - m) terms: s == 0 is the empty sum.
 __device__ __forceinline__ float lse_get(float m, float s) {
   return s > 0.f ? m + logf(s) : kNegInf;
@@ -183,12 +203,35 @@ __device__ __forceinline__ bool group_any(bool pred, int G, int tid) {
   return (votes & mask) != 0u;
 }
 
+// The six values of split point t of the inside task (w, i), as the loops of
+// inside_fill_1b compute them (its FUSED path): the split sums of Il and Ir,
+// then Cl's and Cr's terms for both valences, -inf for the same-width ones.
+__device__ __forceinline__ void inside_terms(const float* Cr, const float* Cl, const float* Ir,
+                                             const float* Il, int p, int w, int i, int t,
+                                             float (&v)[6]) {
+  const float2 cr = ld2(Cr, p, t, i);
+  const float2 cl = ld2(Cl, p, w - 1 - t, i + 1 + t);
+  const float2 il = ld2(Il, p, w - t, i + t);
+  const float2 ir = ld2(Ir, p, t + 1, i);
+  const float cl_nc = Cl[ix(p, t, i, NC)];
+  const float cr_nc = Cr[ix(p, w - 1 - t, i + 1 + t, NC)];
+  const bool lo = t > 0, hi = t < w - 1;
+  v[0] = cr.y + cl.x;
+  v[1] = cr.x + cl.y;
+  v[2] = lo ? il.x + cl_nc : -INFINITY;
+  v[3] = lo ? il.y + cl_nc : -INFINITY;
+  v[4] = hi ? ir.x + cr_nc : -INFINITY;
+  v[5] = hi ? ir.y + cr_nc : -INFINITY;
+}
+
 // The inside fill with one barrier per width, for the nt threads of a
 // sentence (a power of two, whole warps): a block, whose barrier is
-// __syncthreads(); with NAMED the first nt threads of a block, whose barrier
-// is the named barrier 1 of those threads alone (K1 runs its inside pass on
-// fewer threads than its outside pass; the others wait at the block's next
-// __syncthreads()); or with WARP one warp (nt = 32) of a block whose other
+// __syncthreads(); with FUSED (K1) the first nt threads of a block, whose
+// barrier is the named barrier 1 of those threads alone (K1 runs its inside
+// pass on fewer threads than its outside pass; the others wait at the
+// block's next __syncthreads()), whose six butterflies a reduction go level
+// by level and whose lanes hold their terms for the log sums while they
+// number at most HOLD; or with WARP one warp (nt = 32) of a block whose other
 // warps fill other sentences, whose barrier is __syncwarp(), whose lanes
 // hold one term each (n1 <= 9) and whose six butterflies a reduction go level
 // by level (group_reduce6). Width 0 (Cr/Cl[0]
@@ -197,7 +240,7 @@ __device__ __forceinline__ bool group_any(bool pred, int G, int tid) {
 // (w split points, of which the same-width one, Il[w][i] or Ir[w][i], is
 // folded in last). D = dec [n1][2][2][2], AT = attach [n1][n1][2], in shared
 // or global memory. Ends with a barrier.
-template <bool IS_MAX, bool WARP = false, bool NAMED = false>
+template <bool IS_MAX, bool WARP = false, bool FUSED = false, int HOLD = 0>
 __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, float* Il,
                                                const float* D, const float* AT, int n1, int p,
                                                int len, int tid, int nt) {
@@ -234,6 +277,9 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
       // warp's instructions that no other warp hides, so its six trees go
       // level by level. Both give the bits of the loops below
       float tl, tr, tcl0, tcl1, tcr0, tcr1;
+      // with FUSED, a lane's held terms (inside_terms)
+      [[maybe_unused]] bool held = false;
+      [[maybe_unused]] float x[HOLD > 0 ? HOLD : 1][6];
       if constexpr (WARP) {
         if (gl < nterm) {
           const int t = gl;
@@ -252,6 +298,36 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
           mcr1 = fmaxf(mcr1, hi ? ir.y + cr_nc : -INFINITY);
         }
         tl = ml, tr = mr, tcl0 = mcl0, tcl1 = mcl1, tcr0 = mcr0, tcr1 = mcr1;
+        group_reduce6<true>(ml, mr, mcl0, mcl1, mcr0, mcr1, G);
+      } else if constexpr (FUSED) {
+        // K1's block path: the terms of the loops below in the same order,
+        // in log held in registers while a lane has at most HOLD of
+        // them (ceil(w / G), uniform over the threads), and the six trees
+        // level by level; so the bits of the loops below
+        auto max6 = [&](const float (&v)[6]) {
+          ml = fmaxf(ml, v[0]);
+          mr = fmaxf(mr, v[1]);
+          mcl0 = fmaxf(mcl0, v[2]);
+          mcl1 = fmaxf(mcl1, v[3]);
+          mcr0 = fmaxf(mcr0, v[4]);
+          mcr1 = fmaxf(mcr1, v[5]);
+        };
+        held = HOLD > 0 && !IS_MAX && ((w + G - 1) >> lg) <= HOLD;
+        if (held) {
+#pragma unroll
+          for (int k = 0; k < HOLD; ++k)
+            if (gl + k * G < nterm) {
+              inside_terms(Cr, Cl, Ir, Il, p, w, i, gl + k * G, x[k]);
+              max6(x[k]);
+            }
+        } else {
+#pragma unroll 4
+          for (int t = gl; t < nterm; t += G) {
+            float y[6];
+            inside_terms(Cr, Cl, Ir, Il, p, w, i, t, y);
+            max6(y);
+          }
+        }
         group_reduce6<true>(ml, mr, mcl0, mcl1, mcr0, mcr1, G);
       } else {
 #pragma unroll 4
@@ -292,6 +368,28 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
             scl1 = expf(tcl1 - rcl1);
             scr0 = expf(tcr0 - rcr0);
             scr1 = expf(tcr1 - rcr1);
+          }
+          group_reduce6<false>(sl, sr, scl0, scl1, scr0, scr1, G);
+        } else if constexpr (FUSED) {
+          auto sum6 = [&](const float (&v)[6]) {
+            sl += expf(v[0] - ml);
+            sr += expf(v[1] - mr);
+            scl0 += expf(v[2] - rcl0);
+            scl1 += expf(v[3] - rcl1);
+            scr0 += expf(v[4] - rcr0);
+            scr1 += expf(v[5] - rcr1);
+          };
+          if (held) {
+#pragma unroll
+            for (int k = 0; k < HOLD; ++k)
+              if (gl + k * G < nterm) sum6(x[k]);
+          } else {
+#pragma unroll 4
+            for (int t = gl; t < nterm; t += G) {
+              float y[6];
+              inside_terms(Cr, Cl, Ir, Il, p, w, i, t, y);
+              sum6(y);
+            }
           }
           group_reduce6<false>(sl, sr, scl0, scl1, scr0, scr1, G);
         } else {
@@ -339,7 +437,7 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
     }
     if constexpr (WARP)
       __syncwarp();
-    else if constexpr (NAMED)
+    else if constexpr (FUSED)
       asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
     else
       __syncthreads();
@@ -353,10 +451,13 @@ __device__ __forceinline__ void inside_fill_1b(float* Cr, float* Cl, float* Ir, 
 // span's own log-marginal is stored (a group computes its own and nothing
 // else reads it). In the max semiring, on-best-tree flags: OCr, OCl of the
 // complete spans, OIr, OIl of the incomplete spans (in OA's and AS's place).
+// p is the inside charts' pitch; pa the four others' (read only with FUSED:
+// K1 keeps its inside charts in shared memory and the others in global
+// scratch at 57 <= n1 <= 75 on an H100; every other caller has one pitch).
 struct OutsideCharts1b {
   const float *Cr, *Cl, *Ir, *Il;
   float *OCr, *OCl, *OA, *OIr, *OIl, *AS;
-  int p;
+  int p, pa;
 };
 
 // The outside pass with one barrier per width over filled inside charts, by
@@ -384,12 +485,17 @@ struct OutsideCharts1b {
 //     on OIl/OIr[w][i] before the barrier, a marked incomplete span marks
 //     the parts of its best splits. Every stored mark goes to a narrower
 //     cell.
-template <bool IS_MAX>
+// With FUSED (K1) the adjoint charts have their own pitch c.pa, and the
+// reductions go level by level: eight trees in log (a lane's terms held
+// for the sums while they number at most HOLD), best_l and best_r
+// together in max. The same terms, trees and order, so the same bits.
+template <bool IS_MAX, bool FUSED = false, int HOLD = 0>
 __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
                                                 const float* D, const float* AT, float* GD,
                                                 float* GA, int n1, int len, float go, int tid,
                                                 int nt) {
   const int p = c.p;
+  const int pa = FUSED ? c.pa : p;
   const int n = len + 1;
   const float *Cr = c.Cr, *Cl = c.Cl, *Ir = c.Ir, *Il = c.Il;
   float *OCr = c.OCr, *OCl = c.OCl, *OA = c.OA;
@@ -408,8 +514,8 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
         bool ol0 = false, ol1 = false, or0 = false, or1 = false;
         float2 bl = make_float2(0.f, 0.f), br = bl;
         if (active) {
-          const float2 a = ld2(OCl, p, w, i), b = ld2(OCr, p, w, i);
-          const float2 d = ld2(OIl, p, w, i), e = ld2(OIr, p, w, i);
+          const float2 a = ld2(OCl, pa, w, i), b = ld2(OCr, pa, w, i);
+          const float2 d = ld2(OIl, pa, w, i), e = ld2(OIr, pa, w, i);
           fl0 = a.x > 0.f, fl1 = a.y > 0.f, fr0 = b.x > 0.f, fr1 = b.y > 0.f;
           ol0 = d.x > 0.f, ol1 = d.y > 0.f, or0 = e.x > 0.f, or1 = e.y > 0.f;
           bl = ld2(Cl, p, w, i), br = ld2(Cr, p, w, i);
@@ -425,23 +531,23 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
           const float cl_nc = Cl[ix(p, t, i, NC)];
           const bool hl0 = fl0 && sub_l.x + cl_nc == bl.x;
           const bool hl1 = fl1 && sub_l.y + cl_nc == bl.y;
-          if (hl0 || hl1) OCl[ix(p, t, i, NC)] = 1.f;
+          if (hl0 || hl1) OCl[ix(pa, t, i, NC)] = 1.f;
           if (t == 0) {
             sl0 = hl0, sl1 = hl1;
           } else {
-            if (hl0) OIl[ix(p, w - t, i + t, 0)] = 1.f;
-            if (hl1) OIl[ix(p, w - t, i + t, 1)] = 1.f;
+            if (hl0) OIl[ix(pa, w - t, i + t, 0)] = 1.f;
+            if (hl1) OIl[ix(pa, w - t, i + t, 1)] = 1.f;
           }
           const float2 sub_r = ld2(Ir, p, t + 1, i);
           const float cr_nc = Cr[ix(p, w - 1 - t, i + 1 + t, NC)];
           const bool hr0 = fr0 && sub_r.x + cr_nc == br.x;
           const bool hr1 = fr1 && sub_r.y + cr_nc == br.y;
-          if (hr0 || hr1) OCr[ix(p, w - 1 - t, i + 1 + t, NC)] = 1.f;
+          if (hr0 || hr1) OCr[ix(pa, w - 1 - t, i + 1 + t, NC)] = 1.f;
           if (t == w - 1) {
             sr0 = hr0, sr1 = hr1;
           } else {
-            if (hr0) OIr[ix(p, t + 1, i, 0)] = 1.f;
-            if (hr1) OIr[ix(p, t + 1, i, 1)] = 1.f;
+            if (hr0) OIr[ix(pa, t + 1, i, 0)] = 1.f;
+            if (hr1) OIr[ix(pa, t + 1, i, 1)] = 1.f;
           }
           // the split sums of the incomplete spans [i, i+w]
           const float2 cr = ld2(Cr, p, t, i);
@@ -453,8 +559,14 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
         const bool vl0 = group_any(sl0, G, tid), vl1 = group_any(sl1, G, tid);
         const bool vr0 = group_any(sr0, G, tid), vr1 = group_any(sr1, G, tid);
         const bool pl0 = ol0 || vl0, pl1 = ol1 || vl1, pr0 = or0 || vr0, pr1 = or1 || vr1;
-        best_l = group_max(best_l, G);
-        best_r = group_max(best_r, G);
+        if constexpr (FUSED) {
+          float best[2] = {best_l, best_r};
+          group_reduce<true, 2>(best, G);
+          best_l = best[0], best_r = best[1];
+        } else {
+          best_l = group_max(best_l, G);
+          best_r = group_max(best_r, G);
+        }
         if (active && gl == 0) {
           const int atl = ((i + w) * n1 + i) * 2, atr = (i * n1 + i + w) * 2;
           GA[atl] = go * (pl0 ? 1.f : 0.f);
@@ -467,22 +579,22 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
         if (active && (pl0 || pl1))
           for (int t = gl; t < w; t += G)
             if (Cr[ix(p, t, i, NC)] + Cl[ix(p, w - 1 - t, i + 1 + t, HC)] == best_l) {
-              OCr[ix(p, t, i, NC)] = 1.f;
-              OCl[ix(p, w - 1 - t, i + 1 + t, HC)] = 1.f;
+              OCr[ix(pa, t, i, NC)] = 1.f;
+              OCl[ix(pa, w - 1 - t, i + 1 + t, HC)] = 1.f;
             }
         if (active && (pr0 || pr1))
           for (int t = gl; t < w; t += G)
             if (Cr[ix(p, t, i, HC)] + Cl[ix(p, w - 1 - t, i + 1 + t, NC)] == best_r) {
-              OCr[ix(p, t, i, HC)] = 1.f;
-              OCl[ix(p, w - 1 - t, i + 1 + t, NC)] = 1.f;
+              OCr[ix(pa, t, i, HC)] = 1.f;
+              OCl[ix(pa, w - 1 - t, i + 1 + t, NC)] = 1.f;
             }
       }
       __syncthreads();
     }
     for (int k = tid; k < 2 * n; k += nt) {
       const int i = k >> 1, v = k & 1;
-      GD[dec_idx(i, RIGHT, v, STOP)] = go * OCr[ix(p, 0, i, v)];
-      GD[dec_idx(i, LEFT, v, STOP)] = go * OCl[ix(p, 0, i, v)];
+      GD[dec_idx(i, RIGHT, v, STOP)] = go * OCr[ix(pa, 0, i, v)];
+      GD[dec_idx(i, LEFT, v, STOP)] = go * OCl[ix(pa, 0, i, v)];
     }
   } else {
     // log-marginals: LCr/LCl (OCr/OCl) of the complete spans, LA (OA) of the
@@ -528,82 +640,203 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
 #pragma unroll
         for (int q = 0; q < 8; ++q) m[q] = -INFINITY, s[q] = 0.f;
         if (seed) m[3] = 0.f;
-#pragma unroll 2
-        for (int k = gl; k < nW; k += G) {
-          const int W = w + 1 + k;
-          const float2 lcl = ld2(OCl, p, W, i), clw = ld2(Cl, p, W, i), in = ld2(Il, p, W - w, i + w);
-          const float2 la = ld2(OA, p, W, i), a = ld2(AS, p, W, i);
-          const float2 cl = ld2(Cl, p, W - 1 - w, i + 1 + w);
-          const float2 lcr = ld2(OCr, p, W, i), crw = ld2(Cr, p, W, i);
-          const float cn = Cr[ix(p, k + 1, i + w, NC)];
-          m[1] = fmaxf(m[1], fmaxf(lcl.x + ((in.x + own_cl.y) - clw.x),
-                                   lcl.y + ((in.y + own_cl.y) - clw.y)));
-          m[2] = fmaxf(m[2], la.y + ((own_cr.x + cl.y) - a.y));
-          m[3] = fmaxf(m[3], la.x + ((own_cr.y + cl.x) - a.x));
-          m[6] = fmaxf(m[6], inc ? lcr.x + ((own_ir.x + cn) - crw.x) : -INFINITY);
-          m[7] = fmaxf(m[7], inc ? lcr.y + ((own_ir.y + cn) - crw.y) : -INFINITY);
-        }
-#pragma unroll 2
-        for (int j = gl; j < nj; j += G) {
-          const int W = w + i - j;
-          const float2 la = ld2(OA, p, W, j), a = ld2(AS, p, W, j), cr = ld2(Cr, p, i - 1 - j, j);
-          const float2 lcr = ld2(OCr, p, W, j), crw = ld2(Cr, p, W, j), in = ld2(Ir, p, i - j, j);
-          const float2 lcl = ld2(OCl, p, W, j), clw = ld2(Cl, p, W, j);
-          const float cn = Cl[ix(p, i - j, j, NC)];
-          m[0] = fmaxf(m[0], la.x + ((cr.y + own_cl.x) - a.x));
-          m[1] = fmaxf(m[1], la.y + ((cr.x + own_cl.y) - a.y));
-          m[3] = fmaxf(m[3], fmaxf(lcr.x + ((in.x + own_cr.y) - crw.x),
-                                   lcr.y + ((in.y + own_cr.y) - crw.y)));
-          m[4] = fmaxf(m[4], inc ? lcl.x + ((own_il.x + cn) - clw.x) : -INFINITY);
-          m[5] = fmaxf(m[5], inc ? lcl.y + ((own_il.y + cn) - clw.y) : -INFINITY);
-        }
-        float r[8];
+        if constexpr (FUSED) {
+          // K1: the terms of the loops below in the same order, held in
+          // registers while a lane has at most HOLD of either kind
+          // (ceil((len - w) / G) bounds both, uniform over the block), and
+          // the eight trees level by level; so the bits of the loops below
+          auto wide = [&](int k, float (&v)[6]) {
+            const int W = w + 1 + k;
+            const float2 lcl = ld2(OCl, pa, W, i), clw = ld2(Cl, p, W, i),
+                         in = ld2(Il, p, W - w, i + w);
+            const float2 la = ld2(OA, pa, W, i), a = ld2(AS, pa, W, i);
+            const float2 cl = ld2(Cl, p, W - 1 - w, i + 1 + w);
+            const float2 lcr = ld2(OCr, pa, W, i), crw = ld2(Cr, p, W, i);
+            const float cn = Cr[ix(p, k + 1, i + w, NC)];
+            v[0] = lcl.x + ((in.x + own_cl.y) - clw.x);
+            v[1] = lcl.y + ((in.y + own_cl.y) - clw.y);
+            v[2] = la.y + ((own_cr.x + cl.y) - a.y);
+            v[3] = la.x + ((own_cr.y + cl.x) - a.x);
+            v[4] = inc ? lcr.x + ((own_ir.x + cn) - crw.x) : -INFINITY;
+            v[5] = inc ? lcr.y + ((own_ir.y + cn) - crw.y) : -INFINITY;
+          };
+          auto near = [&](int j, float (&v)[6]) {
+            const int W = w + i - j;
+            const float2 la = ld2(OA, pa, W, j), a = ld2(AS, pa, W, j),
+                         cr = ld2(Cr, p, i - 1 - j, j);
+            const float2 lcr = ld2(OCr, pa, W, j), crw = ld2(Cr, p, W, j),
+                         in = ld2(Ir, p, i - j, j);
+            const float2 lcl = ld2(OCl, pa, W, j), clw = ld2(Cl, p, W, j);
+            const float cn = Cl[ix(p, i - j, j, NC)];
+            v[0] = la.x + ((cr.y + own_cl.x) - a.x);
+            v[1] = la.y + ((cr.x + own_cl.y) - a.y);
+            v[2] = lcr.x + ((in.x + own_cr.y) - crw.x);
+            v[3] = lcr.y + ((in.y + own_cr.y) - crw.y);
+            v[4] = inc ? lcl.x + ((own_il.x + cn) - clw.x) : -INFINITY;
+            v[5] = inc ? lcl.y + ((own_il.y + cn) - clw.y) : -INFINITY;
+          };
+          auto max_wide = [&](const float (&v)[6]) {
+            m[1] = fmaxf(m[1], fmaxf(v[0], v[1]));
+            m[2] = fmaxf(m[2], v[2]);
+            m[3] = fmaxf(m[3], v[3]);
+            m[6] = fmaxf(m[6], v[4]);
+            m[7] = fmaxf(m[7], v[5]);
+          };
+          auto max_near = [&](const float (&v)[6]) {
+            m[0] = fmaxf(m[0], v[0]);
+            m[1] = fmaxf(m[1], v[1]);
+            m[3] = fmaxf(m[3], fmaxf(v[2], v[3]));
+            m[4] = fmaxf(m[4], v[4]);
+            m[5] = fmaxf(m[5], v[5]);
+          };
+          const bool held = HOLD > 0 && ((len - w + G - 1) >> lg) <= HOLD;
+          float xw[HOLD > 0 ? HOLD : 1][6], xj[HOLD > 0 ? HOLD : 1][6];
+          if (held) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          m[q] = group_max(m[q], G);
-          // a sum without any term keeps s = 0 (exp(-inf - 0) = 0)
-          r[q] = m[q] == -INFINITY ? 0.f : m[q];
-        }
-        if (seed) s[3] = expf(0.f - r[3]);
-#pragma unroll 2
-        for (int k = gl; k < nW; k += G) {
-          const int W = w + 1 + k;
-          const float2 lcl = ld2(OCl, p, W, i), clw = ld2(Cl, p, W, i), in = ld2(Il, p, W - w, i + w);
-          const float2 la = ld2(OA, p, W, i), a = ld2(AS, p, W, i);
-          const float2 cl = ld2(Cl, p, W - 1 - w, i + 1 + w);
-          const float2 lcr = ld2(OCr, p, W, i), crw = ld2(Cr, p, W, i);
-          const float cn = Cr[ix(p, k + 1, i + w, NC)];
-          s[1] += expf((lcl.x + ((in.x + own_cl.y) - clw.x)) - r[1]) +
-                  expf((lcl.y + ((in.y + own_cl.y) - clw.y)) - r[1]);
-          s[2] += expf((la.y + ((own_cr.x + cl.y) - a.y)) - r[2]);
-          s[3] += expf((la.x + ((own_cr.y + cl.x) - a.x)) - r[3]);
-          s[6] += expf((inc ? lcr.x + ((own_ir.x + cn) - crw.x) : -INFINITY) - r[6]);
-          s[7] += expf((inc ? lcr.y + ((own_ir.y + cn) - crw.y) : -INFINITY) - r[7]);
-        }
-#pragma unroll 2
-        for (int j = gl; j < nj; j += G) {
-          const int W = w + i - j;
-          const float2 la = ld2(OA, p, W, j), a = ld2(AS, p, W, j), cr = ld2(Cr, p, i - 1 - j, j);
-          const float2 lcr = ld2(OCr, p, W, j), crw = ld2(Cr, p, W, j), in = ld2(Ir, p, i - j, j);
-          const float2 lcl = ld2(OCl, p, W, j), clw = ld2(Cl, p, W, j);
-          const float cn = Cl[ix(p, i - j, j, NC)];
-          s[0] += expf((la.x + ((cr.y + own_cl.x) - a.x)) - r[0]);
-          s[1] += expf((la.y + ((cr.x + own_cl.y) - a.y)) - r[1]);
-          s[3] += expf((lcr.x + ((in.x + own_cr.y) - crw.x)) - r[3]) +
-                  expf((lcr.y + ((in.y + own_cr.y) - crw.y)) - r[3]);
-          s[4] += expf((inc ? lcl.x + ((own_il.x + cn) - clw.x) : -INFINITY) - r[4]);
-          s[5] += expf((inc ? lcl.y + ((own_il.y + cn) - clw.y) : -INFINITY) - r[5]);
-        }
+            for (int u = 0; u < HOLD; ++u)
+              if (gl + u * G < nW) {
+                wide(gl + u * G, xw[u]);
+                max_wide(xw[u]);
+              }
 #pragma unroll
-        for (int q = 0; q < 8; ++q) s[q] = group_sum(s[q], G);
+            for (int u = 0; u < HOLD; ++u)
+              if (gl + u * G < nj) {
+                near(gl + u * G, xj[u]);
+                max_near(xj[u]);
+              }
+          } else {
+#pragma unroll 2
+            for (int k = gl; k < nW; k += G) {
+              float v[6];
+              wide(k, v);
+              max_wide(v);
+            }
+#pragma unroll 2
+            for (int j = gl; j < nj; j += G) {
+              float v[6];
+              near(j, v);
+              max_near(v);
+            }
+          }
+          group_reduce<true, 8>(m, G);
+          float r[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) r[q] = m[q] == -INFINITY ? 0.f : m[q];
+          if (seed) s[3] = expf(0.f - r[3]);
+          auto sum_wide = [&](const float (&v)[6]) {
+            s[1] += expf(v[0] - r[1]) + expf(v[1] - r[1]);
+            s[2] += expf(v[2] - r[2]);
+            s[3] += expf(v[3] - r[3]);
+            s[6] += expf(v[4] - r[6]);
+            s[7] += expf(v[5] - r[7]);
+          };
+          auto sum_near = [&](const float (&v)[6]) {
+            s[0] += expf(v[0] - r[0]);
+            s[1] += expf(v[1] - r[1]);
+            s[3] += expf(v[2] - r[3]) + expf(v[3] - r[3]);
+            s[4] += expf(v[4] - r[4]);
+            s[5] += expf(v[5] - r[5]);
+          };
+          if (held) {
+#pragma unroll
+            for (int u = 0; u < HOLD; ++u)
+              if (gl + u * G < nW) sum_wide(xw[u]);
+#pragma unroll
+            for (int u = 0; u < HOLD; ++u)
+              if (gl + u * G < nj) sum_near(xj[u]);
+          } else {
+#pragma unroll 2
+            for (int k = gl; k < nW; k += G) {
+              float v[6];
+              wide(k, v);
+              sum_wide(v);
+            }
+#pragma unroll 2
+            for (int j = gl; j < nj; j += G) {
+              float v[6];
+              near(j, v);
+              sum_near(v);
+            }
+          }
+          group_reduce<false, 8>(s, G);
+        } else {
+#pragma unroll 2
+          for (int k = gl; k < nW; k += G) {
+            const int W = w + 1 + k;
+            const float2 lcl = ld2(OCl, pa, W, i), clw = ld2(Cl, p, W, i), in = ld2(Il, p, W - w, i + w);
+            const float2 la = ld2(OA, pa, W, i), a = ld2(AS, pa, W, i);
+            const float2 cl = ld2(Cl, p, W - 1 - w, i + 1 + w);
+            const float2 lcr = ld2(OCr, pa, W, i), crw = ld2(Cr, p, W, i);
+            const float cn = Cr[ix(p, k + 1, i + w, NC)];
+            m[1] = fmaxf(m[1], fmaxf(lcl.x + ((in.x + own_cl.y) - clw.x),
+                                     lcl.y + ((in.y + own_cl.y) - clw.y)));
+            m[2] = fmaxf(m[2], la.y + ((own_cr.x + cl.y) - a.y));
+            m[3] = fmaxf(m[3], la.x + ((own_cr.y + cl.x) - a.x));
+            m[6] = fmaxf(m[6], inc ? lcr.x + ((own_ir.x + cn) - crw.x) : -INFINITY);
+            m[7] = fmaxf(m[7], inc ? lcr.y + ((own_ir.y + cn) - crw.y) : -INFINITY);
+          }
+#pragma unroll 2
+          for (int j = gl; j < nj; j += G) {
+            const int W = w + i - j;
+            const float2 la = ld2(OA, pa, W, j), a = ld2(AS, pa, W, j), cr = ld2(Cr, p, i - 1 - j, j);
+            const float2 lcr = ld2(OCr, pa, W, j), crw = ld2(Cr, p, W, j), in = ld2(Ir, p, i - j, j);
+            const float2 lcl = ld2(OCl, pa, W, j), clw = ld2(Cl, p, W, j);
+            const float cn = Cl[ix(p, i - j, j, NC)];
+            m[0] = fmaxf(m[0], la.x + ((cr.y + own_cl.x) - a.x));
+            m[1] = fmaxf(m[1], la.y + ((cr.x + own_cl.y) - a.y));
+            m[3] = fmaxf(m[3], fmaxf(lcr.x + ((in.x + own_cr.y) - crw.x),
+                                     lcr.y + ((in.y + own_cr.y) - crw.y)));
+            m[4] = fmaxf(m[4], inc ? lcl.x + ((own_il.x + cn) - clw.x) : -INFINITY);
+            m[5] = fmaxf(m[5], inc ? lcl.y + ((own_il.y + cn) - clw.y) : -INFINITY);
+          }
+          float r[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            m[q] = group_max(m[q], G);
+            // a sum without any term keeps s = 0 (exp(-inf - 0) = 0)
+            r[q] = m[q] == -INFINITY ? 0.f : m[q];
+          }
+          if (seed) s[3] = expf(0.f - r[3]);
+#pragma unroll 2
+          for (int k = gl; k < nW; k += G) {
+            const int W = w + 1 + k;
+            const float2 lcl = ld2(OCl, pa, W, i), clw = ld2(Cl, p, W, i), in = ld2(Il, p, W - w, i + w);
+            const float2 la = ld2(OA, pa, W, i), a = ld2(AS, pa, W, i);
+            const float2 cl = ld2(Cl, p, W - 1 - w, i + 1 + w);
+            const float2 lcr = ld2(OCr, pa, W, i), crw = ld2(Cr, p, W, i);
+            const float cn = Cr[ix(p, k + 1, i + w, NC)];
+            s[1] += expf((lcl.x + ((in.x + own_cl.y) - clw.x)) - r[1]) +
+                    expf((lcl.y + ((in.y + own_cl.y) - clw.y)) - r[1]);
+            s[2] += expf((la.y + ((own_cr.x + cl.y) - a.y)) - r[2]);
+            s[3] += expf((la.x + ((own_cr.y + cl.x) - a.x)) - r[3]);
+            s[6] += expf((inc ? lcr.x + ((own_ir.x + cn) - crw.x) : -INFINITY) - r[6]);
+            s[7] += expf((inc ? lcr.y + ((own_ir.y + cn) - crw.y) : -INFINITY) - r[7]);
+          }
+#pragma unroll 2
+          for (int j = gl; j < nj; j += G) {
+            const int W = w + i - j;
+            const float2 la = ld2(OA, pa, W, j), a = ld2(AS, pa, W, j), cr = ld2(Cr, p, i - 1 - j, j);
+            const float2 lcr = ld2(OCr, pa, W, j), crw = ld2(Cr, p, W, j), in = ld2(Ir, p, i - j, j);
+            const float2 lcl = ld2(OCl, pa, W, j), clw = ld2(Cl, p, W, j);
+            const float cn = Cl[ix(p, i - j, j, NC)];
+            s[0] += expf((la.x + ((cr.y + own_cl.x) - a.x)) - r[0]);
+            s[1] += expf((la.y + ((cr.x + own_cl.y) - a.y)) - r[1]);
+            s[3] += expf((lcr.x + ((in.x + own_cr.y) - crw.x)) - r[3]) +
+                    expf((lcr.y + ((in.y + own_cr.y) - crw.y)) - r[3]);
+            s[4] += expf((inc ? lcl.x + ((own_il.x + cn) - clw.x) : -INFINITY) - r[4]);
+            s[5] += expf((inc ? lcl.y + ((own_il.y + cn) - clw.y) : -INFINITY) - r[5]);
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) s[q] = group_sum(s[q], G);
+        }
         if (active && gl == 0) {
           const float lcl0 = lse_get_l(m[0], s[0]), lcl1 = lse_get_l(m[1], s[1]);
           // a root-headed span shorter than the sentence was masked forward
           const bool masked = i == 0 && w >= 1 && w != len;
           const float lcr0 = masked ? -INFINITY : lse_get_l(m[2], s[2]);
           const float lcr1 = masked ? -INFINITY : lse_get_l(m[3], s[3]);
-          st2(OCl, p, w, i, lcl0, lcl1);
-          st2(OCr, p, w, i, lcr0, lcr1);
+          st2(OCl, pa, w, i, lcl0, lcl1);
+          st2(OCr, pa, w, i, lcr0, lcr1);
           if (w >= 1) {
             // the same-width terms: LIl's t = i (Cl[w][i]), LIr's t = 0
             // (Cr[w][i])
@@ -618,10 +851,10 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
             // a split sum's log-marginal joins the two valences; its value is
             // the incomplete span's less the arc score, at the valence whose
             // arc score is the larger (a masked arc's is -1e12)
-            st2(OA, p, w, i, lse_fold(lil0, lil0 == -INFINITY ? 0.f : 1.f, lil1),
+            st2(OA, pa, w, i, lse_fold(lil0, lil0 == -INFINITY ? 0.f : 1.f, lil1),
                 lse_fold(lir0, lir0 == -INFINITY ? 0.f : 1.f, lir1));
             const int vl = arc_l[1] > arc_l[0], vr = arc_r[1] > arc_r[0];
-            st2(AS, p, w, i, (vl ? own_il.y : own_il.x) - arc_l[vl],
+            st2(AS, pa, w, i, (vl ? own_il.y : own_il.x) - arc_l[vl],
                 (vr ? own_ir.y : own_ir.x) - arc_r[vr]);
           }
         }
@@ -630,8 +863,8 @@ __device__ __forceinline__ void outside_fill_1b(const OutsideCharts1b& c,
     }
     for (int k = tid; k < 2 * n; k += nt) {
       const int i = k >> 1, v = k & 1;
-      GD[dec_idx(i, RIGHT, v, STOP)] = go * expf(OCr[ix(p, 0, i, v)]);
-      GD[dec_idx(i, LEFT, v, STOP)] = go * expf(OCl[ix(p, 0, i, v)]);
+      GD[dec_idx(i, RIGHT, v, STOP)] = go * expf(OCr[ix(pa, 0, i, v)]);
+      GD[dec_idx(i, LEFT, v, STOP)] = go * expf(OCl[ix(pa, 0, i, v)]);
     }
   }
   {

@@ -35,23 +35,33 @@
 // place). What a step costs is the longest dependent chain of operations in
 // it, so a cell's terms are spread over the lanes of a group and a
 // logsumexp is a lane-parallel max, independent exps and one log
-// (dmv_common.cuh). The inside pass runs on the first `inside_threads` of
-// the block behind a named barrier of their own; the outside pass on all of
-// them (the wrapper picks both from n1).
+// (dmv_common.cuh), whose butterflies go level by level (the fills' FUSED
+// path: a level's shuffles of every value of a task in flight together, and
+// in log a lane's few terms held in registers for the sums instead of read
+// twice). The inside pass runs on the first `inside_threads` of the block
+// behind a named barrier of their own; the outside pass on all of them (the
+// wrapper picks both from n1).
 //
-// Memory: eight float charts of [n1][pitch][2] a sentence: Cr, Cl, Ir, Il,
-// then OCr, OCl of the complete spans (log-marginals or on-best-tree flags)
-// and two charts that the semirings use differently (log: the split sums'
-// log-marginals OA and values AS; max: the incomplete spans' flags OIr,
-// OIl). With `use_smem` they live in dynamic shared memory at the odd pitch
-// n1 | 1 beside the sentence's potentials (attach [n1][n1][2], dec [n1][8]),
-// copied in by cp.async while width 0 is written: 64*n1*(n1|1) + 8*n1*n1 +
-// 32*n1 bytes, n1 <= 56 on an H100. Otherwise the charts live in `scratch`
-// (64*n1*n1 bytes a sentence, L2-resident at the eval batch) and, with
-// `stage`, the potentials alone are staged. The staged attach copy becomes
-// the gradient of attach in place (width w reads AT[at] and writes GA[at] on
-// the same cell; no other task touches it), written to g_attach once at the
-// end.
+// Memory: eight float charts of [n1][pitch][2] a sentence: the inside
+// charts Cr, Cl, Ir, Il, then four adjoint charts, OCr, OCl of the complete
+// spans (log-marginals or on-best-tree flags) and two that the semirings use
+// differently (log: the split sums' log-marginals OA and values AS; max: the
+// incomplete spans' flags OIr, OIl). `smem_charts` of them live in dynamic
+// shared memory at the odd pitch n1 | 1, beside the sentence's potentials
+// (attach [n1][n1][2], dec [n1][8]), copied in by cp.async while width 0 is
+// written, the rest in `scratch` at pitch n1 (L2-resident at the eval
+// batch):
+//   8: all of them, 64*n1*(n1|1) + 8*n1*n1 + 32*n1 bytes, n1 <= 56 on an
+//      H100;
+//   4: the inside charts, 32*n1*(n1|1) + 8*n1*n1 + 32*n1 bytes, and the
+//      adjoint charts in scratch (32*n1*n1 bytes a sentence), 57 <= n1 <=
+//      75: the log-marginal form reads eight chart values a term, and half
+//      of them are then shared-memory loads;
+//   0: none (64*n1*n1 bytes of scratch a sentence); with `stage` the
+//      potentials alone are staged.
+// The staged attach copy becomes the gradient of attach in place (width w
+// reads AT[at] and writes GA[at] on the same cell; no other task touches
+// it), written to g_attach once at the end.
 
 #include "dmv_common.cuh"
 
@@ -60,17 +70,29 @@ namespace {
 using namespace dmv;
 
 constexpr int kMaxThreads = 1024;
+// with charts in shared memory a block has at most this many threads (the
+// wrapper's rule gives at most 512 there), so a thread may hold more
+// registers
+constexpr int kMaxSmemThreads = 512;
 
-// SMEM and STAGE are template arguments, so that every chart and potential
-// pointer has a known address space (shared loads and stores, 32-bit
-// addresses) instead of generic ones. SMEM implies STAGE.
-template <bool IS_MAX, bool SMEM, bool STAGE>
-__global__ void __launch_bounds__(kMaxThreads)
+// SMEM_CHARTS (8, 4 or 0) and STAGE are template arguments, so that every
+// chart and potential pointer has a known address space (shared loads and
+// stores, 32-bit addresses) instead of generic ones. SMEM_CHARTS > 0
+// implies STAGE.
+template <bool IS_MAX, int SMEM_CHARTS, bool STAGE>
+__global__ void __launch_bounds__(SMEM_CHARTS ? kMaxSmemThreads : kMaxThreads)
 dmv_fused_kernel(const float* __restrict__ dec, const float* __restrict__ attach,
                  const int* __restrict__ lengths, float* __restrict__ out,
                  float* __restrict__ g_dec, float* __restrict__ g_attach,
                  float* __restrict__ scratch, int n1, int inside_threads) {
   extern __shared__ __align__(16) float smem_f[];
+  // the log fills' terms held a lane where a thread has the registers for
+  // them (ptxas -v, H100): four with all charts in shared memory (128
+  // registers, no spill); two with the adjoint charts in scratch, whose
+  // addresses take more registers (four spilled 40 bytes and ran 5-8%
+  // slower at n1 = 57-75); none at 1,024 threads a block, 64 registers a
+  // thread (four spilled 612 bytes and ran 15% slower at n1 = 101)
+  constexpr int kHold = SMEM_CHARTS == 8 ? kRegTerms : SMEM_CHARTS == 4 ? kRegTerms / 2 : 0;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -82,11 +104,16 @@ dmv_fused_kernel(const float* __restrict__ dec, const float* __restrict__ attach
   float* GAg = g_attach + (size_t)b * CG;
   const int len = clamp_len(lengths[b], n1);
   const int n = len + 1;
-  const int p = SMEM ? smem_pitch(n1) : n1;
-  const size_t C = (size_t)n1 * p * 2;
-  float* f = SMEM ? smem_f : scratch + (size_t)b * 8 * CG;
+  // pitch and chart size of the inside charts (f) and the adjoint ones (o)
+  const int p = SMEM_CHARTS ? smem_pitch(n1) : n1;
+  const int pa = SMEM_CHARTS == 8 ? p : n1;
+  const size_t C = (size_t)n1 * p * 2, CA = (size_t)n1 * pa * 2;
+  float* f = SMEM_CHARTS ? smem_f : scratch + (size_t)b * 8 * CG;
+  float* o = SMEM_CHARTS == 8 ? smem_f + 4 * C
+             : SMEM_CHARTS == 4 ? scratch + (size_t)b * 4 * CG
+                                : f + 4 * C;
   // the staged potentials follow the charts in shared memory
-  float* pot = smem_f + (SMEM ? 8 * C : 0);
+  float* pot = smem_f + SMEM_CHARTS * C;
   if (STAGE) {
     stage_pairs(pot, ATg, n1 * n1, tid, nt);
     stage_pairs(pot + CG, Dg, n1 * 4, tid, nt);
@@ -98,16 +125,16 @@ dmv_fused_kernel(const float* __restrict__ dec, const float* __restrict__ attach
     f[C + ix(p, 0, i, v)] = Dg[dec_idx(i, LEFT, v, STOP)];
   }
   // OA (log) and OIr (max) share a chart, AS (log) and OIl (max) another
-  const OutsideCharts1b c{f,         f + C,     f + 2 * C, f + 3 * C, f + 4 * C, f + 5 * C,
-                          f + 6 * C, f + 6 * C, f + 7 * C, f + 7 * C, p};
+  const OutsideCharts1b c{f,          f + C,      f + 2 * C,  f + 3 * C, o,  o + CA,
+                          o + 2 * CA, o + 2 * CA, o + 3 * CA, o + 3 * CA, p, pa};
   if (IS_MAX)
     // no flags but the seed: d total / d Cr[len, 0, NC] = 1
     for (int w = warp; w <= len; w += nwarps)
       for (int i = lane; i < n - w; i += 32) {
-        st2(c.OCr, p, w, i, 0.f, w == len ? 1.f : 0.f);
-        st2(c.OCl, p, w, i, 0.f, 0.f);
-        st2(c.OIr, p, w, i, 0.f, 0.f);
-        st2(c.OIl, p, w, i, 0.f, 0.f);
+        st2(c.OCr, pa, w, i, 0.f, w == len ? 1.f : 0.f);
+        st2(c.OCl, pa, w, i, 0.f, 0.f);
+        st2(c.OIr, pa, w, i, 0.f, 0.f);
+        st2(c.OIl, pa, w, i, 0.f, 0.f);
       }
   cp_async_wait_all();
   __syncthreads();
@@ -115,12 +142,12 @@ dmv_fused_kernel(const float* __restrict__ dec, const float* __restrict__ attach
   const float* AT = STAGE ? pot : ATg;
   const int nt_in = min(nt, inside_threads);
   if (tid < nt_in)
-    inside_fill_1b<IS_MAX, false, true>(f, f + C, f + 2 * C, f + 3 * C, D, AT, n1, p, len, tid,
-                                        nt_in);
+    inside_fill_1b<IS_MAX, false, true, kHold>(f, f + C, f + 2 * C, f + 3 * C, D, AT, n1, p,
+                                               len, tid, nt_in);
   __syncthreads();
   if (tid == 0) out[b] = f[ix(p, len, 0, NC)];
   float* GA = STAGE ? pot : GAg;
-  outside_fill_1b<IS_MAX>(c, D, AT, GD, GA, n1, len, 1.f, tid, nt);
+  outside_fill_1b<IS_MAX, true, kHold>(c, D, AT, GD, GA, n1, len, 1.f, tid, nt);
   // g_attach once, a warp a head row: the arcs of the sentence, zeros
   // elsewhere (in place when GA is g_attach itself)
   for (int h = warp; h < n1; h += nwarps)
@@ -136,13 +163,14 @@ dmv_fused_kernel(const float* __restrict__ dec, const float* __restrict__ attach
 
 template <bool IS_MAX>
 cudaError_t launch(const float* dec, const float* attach, const int* lengths, float* out,
-                   float* g_dec, float* g_attach, float* scratch, int B, int n1, int use_smem,
-                   int stage, int threads, int inside_threads, cudaStream_t s) {
-  const int smem =
-      (use_smem ? 64 * n1 * smem_pitch(n1) : 0) + (stage ? 8 * n1 * n1 + 32 * n1 : 0);
-  auto kernel = use_smem ? dmv_fused_kernel<IS_MAX, true, true>
-                         : (stage ? dmv_fused_kernel<IS_MAX, false, true>
-                                  : dmv_fused_kernel<IS_MAX, false, false>);
+                   float* g_dec, float* g_attach, float* scratch, int B, int n1,
+                   int smem_charts, int stage, int threads, int inside_threads,
+                   cudaStream_t s) {
+  const int smem = 8 * n1 * smem_pitch(n1) * smem_charts + (stage ? 8 * n1 * n1 + 32 * n1 : 0);
+  auto kernel = smem_charts == 8 ? dmv_fused_kernel<IS_MAX, 8, true>
+                : smem_charts == 4 ? dmv_fused_kernel<IS_MAX, 4, true>
+                : stage            ? dmv_fused_kernel<IS_MAX, 0, true>
+                                   : dmv_fused_kernel<IS_MAX, 0, false>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -168,26 +196,30 @@ int dmv_fused_smem_optin(int* bytes) {
 // dec [B,n1,2,2,2] f32, attach [B,n1,n1,2] f32, lengths [B] i32 (all
 // contiguous, on the device); out [B], g_dec, g_attach like the inputs.
 // `threads` per block and `inside_threads` of them for the inside pass:
-// powers of two in [32, 1024]. With use_smem (which needs `stage`) the
-// charts and the potentials live in dynamic shared memory (64*n1*(n1|1) +
-// 8*n1*n1 + 32*n1 bytes); otherwise the charts live in `scratch` (B*64*n1*n1
-// bytes) and `stage` copies the potentials alone into shared memory
-// (8*n1*n1 + 32*n1 bytes). Returns cudaGetLastError().
+// powers of two in [32, 1024] (512 with charts in shared memory).
+// `smem_charts` of the eight charts live in dynamic shared memory beside the
+// staged potentials (it needs `stage`): 8 (64*n1*(n1|1) + 8*n1*n1 + 32*n1
+// bytes), 4, the inside charts (32*n1*(n1|1) + 8*n1*n1 + 32*n1 bytes; the
+// adjoint charts in `scratch`, B*32*n1*n1 bytes), or 0 (the charts in
+// `scratch`, B*64*n1*n1 bytes; `stage` copies the potentials alone into
+// shared memory, 8*n1*n1 + 32*n1 bytes). Returns the error of the shared
+// memory opt-in or cudaGetLastError().
 int dmv_fused_launch(const float* dec, const float* attach, const int* lengths,
                      float* out, float* g_dec, float* g_attach, void* scratch,
-                     int B, int n1, int is_max, int use_smem, int stage, int threads,
+                     int B, int n1, int is_max, int smem_charts, int stage, int threads,
                      int inside_threads, void* stream) {
   if (B <= 0) return 0;
-  if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1)) ||
-      inside_threads < 32 || (inside_threads & (inside_threads - 1)) ||
-      (use_smem && !stage))
+  if (threads < 32 || threads > (smem_charts ? kMaxSmemThreads : kMaxThreads) ||
+      (threads & (threads - 1)) || inside_threads < 32 ||
+      (inside_threads & (inside_threads - 1)) ||
+      (smem_charts != 0 && smem_charts != 4 && smem_charts != 8) || (smem_charts && !stage))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* scr = reinterpret_cast<float*>(scratch);
   cudaError_t e = is_max ? launch<true>(dec, attach, lengths, out, g_dec, g_attach, scr, B,
-                                        n1, use_smem, stage, threads, inside_threads, s)
+                                        n1, smem_charts, stage, threads, inside_threads, s)
                          : launch<false>(dec, attach, lengths, out, g_dec, g_attach, scr, B,
-                                         n1, use_smem, stage, threads, inside_threads, s);
+                                         n1, smem_charts, stage, threads, inside_threads, s);
   return (int)e;
 }
 

@@ -17,7 +17,10 @@ Every kernel runs the one-barrier fills of ``csrc/dmv_common.cuh`` (the
 inside kernel's warp mapping on ``__syncwarp()``, K1's inside pass on a
 named barrier of its first threads), with the sentence's potentials staged
 in shared memory where they fit beside the charts (always, in the warp
-mapping and in K1 with its charts in shared memory).
+mapping and in K1 with its charts in shared memory). K1 keeps all eight of
+its charts in shared memory (``smem``), its four inside charts there and
+the four adjoint charts in global scratch (``split``), or all in scratch
+(``global``): :func:`fused_mapping`.
 
 Each wrapper is a ``torch.library.custom_op`` (``vlgae::dmv_fused``,
 ``vlgae::dmv_inside``, ``vlgae::dmv_inside_save``, ``vlgae::dmv_outside``):
@@ -28,7 +31,7 @@ and its fake implementation gives the outputs' shapes and dtypes, so that
 before a launch (bytes of shared memory per sentence, charts in shared or
 in global memory, potentials staged or not, threads per block) is a pure
 function of ``n1`` and the card's opt-in shared memory: :func:`chart_pitch`,
-:func:`fused_smem_bytes`, :func:`inside_smem_bytes`, :func:`fused_uses_smem`,
+:func:`fused_smem_bytes`, :func:`inside_smem_bytes`, :func:`fused_mapping`,
 :func:`inside_mapping`, :func:`outside_smem_bytes`, :func:`outside_mapping`,
 :func:`potential_smem_bytes`, :func:`warp_smem_bytes`, :func:`fused_plan`,
 :func:`inside_plan`, :func:`outside_plan`,
@@ -47,12 +50,13 @@ from torch import Tensor
 from ..struct import dmv as _plain
 from . import _build
 
-# launches in this process (chip_smoke resets and reads them): K1, and
-# those of it with charts in global scratch; the inside pass, value-only
-# and chart-saving, by mapping; the outside pass, and those of it with
-# charts in global memory
+# launches in this process (chip_smoke resets and reads them): K1, those of
+# it with all charts in global scratch and those with its adjoint charts
+# alone there; the inside pass, value-only and chart-saving, by mapping; the
+# outside pass, and those of it with charts in global memory
 n_launches = 0
 n_fused_global_launches = 0
+n_fused_split_launches = 0
 MAPPINGS = ("warp", "smem", "global")
 n_inside_launches = dict.fromkeys(MAPPINGS, 0)
 n_inside_save_launches = dict.fromkeys(MAPPINGS, 0)
@@ -61,16 +65,18 @@ n_outside_global_launches = 0
 
 # bytes of one chart cell pair times the charts a kernel keeps per sentence
 # (see the .cu): eight for K1 and for the outside kernel (the inside charts
-# and four adjoint charts), four for the inside alone; K1 keeps all eight in
-# global scratch when they do not fit beside the potentials, the outside
-# kernel the four adjoint charts
-_FUSED_BYTES_PER_CELL = 64
+# and four adjoint charts), four for the inside alone; K1 keeps in shared
+# memory the charts of FUSED_SMEM_CHARTS by mapping and the rest in global
+# scratch, the outside kernel the four adjoint charts
+_CELL_PAIR_BYTES = 8  # one cell of a chart, both valences (f32)
+FUSED_SMEM_CHARTS = {"smem": 8, "split": 4, "global": 0}
 INSIDE_BYTES_PER_N1SQ = 32
 OUTSIDE_BYTES_PER_CELL = 64
 OUTSIDE_SCRATCH_PER_N1SQ = 32
 WARP_MAX_N1 = 9  # the warp mapping of dmv_inside.cu serves n1 <= 9
 WARP_SENTENCES_PER_BLOCK = 1  # its warps (sentences) a block: see inside_plan
 MAX_THREADS = 1024  # csrc kMaxThreads
+FUSED_SMEM_MAX_THREADS = 512  # K1 with charts in shared memory: kMaxSmemThreads
 _lib = None
 _smem_optin = None
 _inside_lib = None
@@ -78,9 +84,9 @@ _outside_lib = None
 
 
 def reset_launch_counts() -> None:
-    global n_launches, n_fused_global_launches, n_outside_launches
+    global n_launches, n_fused_global_launches, n_fused_split_launches, n_outside_launches
     global n_outside_global_launches
-    n_launches = n_fused_global_launches = n_outside_launches = 0
+    n_launches = n_fused_global_launches = n_fused_split_launches = n_outside_launches = 0
     n_outside_global_launches = 0
     for m in MAPPINGS:
         n_inside_launches[m] = n_inside_save_launches[m] = 0
@@ -88,6 +94,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {"fused": n_launches, "fused_global": n_fused_global_launches,
+            "fused_split": n_fused_split_launches,
             "inside": dict(n_inside_launches),
             "inside_save": dict(n_inside_save_launches),
             "outside": n_outside_launches, "outside_global": n_outside_global_launches}
@@ -100,11 +107,12 @@ def chart_pitch(n1: int) -> int:
     return n1 | 1
 
 
-def fused_smem_bytes(n1: int) -> int:
-    """Shared memory per sentence of K1 with its charts in shared memory:
-    eight float charts of ``[n1][pitch][2]`` and the staged potentials
-    (231,168 bytes at n1 = 56)."""
-    return _FUSED_BYTES_PER_CELL * n1 * chart_pitch(n1) + potential_smem_bytes(n1)
+def fused_smem_bytes(n1: int, charts: int = 8) -> int:
+    """Shared memory per sentence of K1 with ``charts`` of its eight float
+    charts of ``[n1][pitch][2]`` in shared memory (8, or 4: the inside
+    charts) beside the staged potentials: 231,168 bytes at n1 = 56 with
+    eight, 171,080 at n1 = 65 with four."""
+    return _CELL_PAIR_BYTES * charts * n1 * chart_pitch(n1) + potential_smem_bytes(n1)
 
 
 def inside_smem_bytes(n1: int) -> int:
@@ -112,11 +120,16 @@ def inside_smem_bytes(n1: int) -> int:
     return INSIDE_BYTES_PER_N1SQ * n1 * chart_pitch(n1)
 
 
-def fused_uses_smem(n1: int, smem_optin: int) -> bool:
-    """Whether K1 keeps its charts, with the potentials beside them, in
-    shared memory (else the charts in a global scratch buffer), from ``n1``
-    and the card's opt-in shared memory alone: n1 <= 56 on an H100."""
-    return fused_smem_bytes(n1) <= smem_optin
+def fused_mapping(n1: int, smem_optin: int) -> str:
+    """Where K1 keeps its charts, from ``n1`` and the card's opt-in shared
+    memory alone: ``smem`` while all eight fit in shared memory beside the
+    potentials (n1 <= 56 on an H100), ``split`` while the four inside
+    charts do, the four adjoint charts then in global scratch (57 <= n1 <=
+    75), else ``global`` (all eight in scratch)."""
+    for mapping in ("smem", "split"):
+        if fused_smem_bytes(n1, FUSED_SMEM_CHARTS[mapping]) <= smem_optin:
+            return mapping
+    return "global"
 
 
 def outside_smem_bytes(n1: int) -> int:
@@ -183,17 +196,20 @@ def inside_plan(n1: int, smem_optin: int) -> dict:
 
 def fused_plan(n1: int, smem_optin: int) -> dict:
     """What K1's wrapper launches for charts of ``n1`` positions:
-    ``mapping`` (``smem`` with charts and potentials in shared memory,
-    :func:`fused_uses_smem`, else ``global``: the charts in scratch),
-    ``stage`` (the potentials in shared memory: always with ``smem``, and
-    with ``global`` while they fit), the dynamic shared memory of a block,
-    its threads (:func:`block_threads`) and those of them that run the
-    inside pass (:func:`inside_threads`)."""
-    if fused_uses_smem(n1, smem_optin):
-        mapping, stage, smem = "smem", True, fused_smem_bytes(n1)
+    ``mapping`` (:func:`fused_mapping`), ``stage`` (the potentials in shared
+    memory: always with ``smem`` and ``split``, and with ``global`` while
+    they fit), the dynamic shared memory of a block, the global scratch of
+    a sentence (the charts not in shared memory), its threads
+    (:func:`block_threads`) and those of them that run the inside pass
+    (:func:`inside_threads`)."""
+    mapping = fused_mapping(n1, smem_optin)
+    charts = FUSED_SMEM_CHARTS[mapping]
+    if charts:
+        stage, smem = True, fused_smem_bytes(n1, charts)
     else:
-        mapping, (stage, smem) = "global", _plan(0, n1, smem_optin)
+        stage, smem = _plan(0, n1, smem_optin)
     return {"mapping": mapping, "stage": stage, "smem_bytes": smem,
+            "scratch_bytes": _CELL_PAIR_BYTES * (8 - charts) * n1 * n1,
             "threads": block_threads(n1, smem_optin),
             "inside_threads": inside_threads(n1, smem_optin)}
 
@@ -215,14 +231,22 @@ def outside_plan(n1: int, smem_optin: int) -> dict:
 def block_threads(n1: int, smem_optin: int) -> int:
     """Threads per block of K1, all of which run its outside pass (the
     one-barrier fill: a task a start position, up to ``n1`` tasks a width):
-    the power of two at least ``4 * n1`` with charts in shared memory and
-    ``6 * n1`` in global scratch, between one warp and ``MAX_THREADS``. On
-    an H100 at B = 64 (scripts/tune_torch_dmv_threads.py) that is the best
-    block, or within 2% of it, at n1 = 17, 51, 65 and 101 in both
-    semirings; 8 * n1 (the outside kernel's rule) would give 1024 at n1 = 65,
-    22% slower in log than 512."""
-    per = 4 if fused_uses_smem(n1, smem_optin) else 6
-    return min(MAX_THREADS, max(32, 1 << (per * n1 - 1).bit_length()))
+    the power of two at least ``4 * n1`` with all charts in shared memory
+    and ``6 * n1`` with the adjoint charts (``split``) or all charts
+    (``global``) in global scratch, between one warp and ``MAX_THREADS``
+    (``FUSED_SMEM_MAX_THREADS`` with charts in shared memory). On an H100 at
+    B = 64 (scripts/tune_torch_dmv_threads.py) that was the best block, or
+    within 2% of it, at n1 = 17, 51, 65 and 101 in both semirings while the
+    fills reduced one tree after another. With their trees level by level
+    other counts run faster in one semiring (512 threads, 256 inside: max
+    12% faster at n1 = 51; 256/128: log 8% faster, max 9% slower at n1 =
+    65), but a lane count is part of the log sums' order, so the rule
+    stays and keeps K1's bits; in ``split`` its 512 threads are within
+    0.6-7.8% of the best block at n1 = 57, 65 and 75."""
+    mapping = fused_mapping(n1, smem_optin)
+    per = 4 if mapping == "smem" else 6
+    cap = MAX_THREADS if mapping == "global" else FUSED_SMEM_MAX_THREADS
+    return min(cap, max(32, 1 << (per * n1 - 1).bit_length()))
 
 
 def inside_threads(n1: int, smem_optin: int) -> int:
@@ -340,16 +364,16 @@ def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
     ``dec``/``attach`` are f32; ``lengths`` (int) is moved to the card as
     int32. Lengths are clamped to ``[0, N1-1]`` in the kernel.
     """
-    global n_launches, n_fused_global_launches
+    global n_launches, n_fused_global_launches, n_fused_split_launches
     dec, attach, lengths, B, n1 = _checked("dmv_fused", dec, attach, lengths, kind)
     lib = _library()
     out = torch.empty(B, device=dec.device, dtype=torch.float32)
     g_dec = torch.empty_like(dec)
     g_attach = torch.empty_like(attach)
     plan = fused_plan(n1, _smem_optin)
-    use_smem = plan["mapping"] == "smem"
-    scratch = None if use_smem else torch.empty(
-        B * _FUSED_BYTES_PER_CELL * n1 * n1, device=dec.device, dtype=torch.uint8)
+    mapping = plan["mapping"]
+    scratch = torch.empty(B * plan["scratch_bytes"], device=dec.device,
+                          dtype=torch.uint8) if plan["scratch_bytes"] else None
     if B == 0:
         return out, g_dec, g_attach
     with torch.cuda.device(dec.device):
@@ -357,11 +381,12 @@ def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
             _build.ptr(dec), _build.ptr(attach), _build.ptr(lengths),
             _build.ptr(out), _build.ptr(g_dec), _build.ptr(g_attach),
             None if scratch is None else _build.ptr(scratch),
-            B, n1, int(kind == "max"), int(use_smem), int(plan["stage"]),
+            B, n1, int(kind == "max"), FUSED_SMEM_CHARTS[mapping], int(plan["stage"]),
             plan["threads"], plan["inside_threads"], _build.stream_ptr(dec.device))
-    _build.check(err, f"dmv_fused_launch ({plan['mapping']})")
+    _build.check(err, f"dmv_fused_launch ({mapping})")
     n_launches += 1
-    n_fused_global_launches += int(not use_smem)
+    n_fused_global_launches += int(mapping == "global")
+    n_fused_split_launches += int(mapping == "split")
     return out, g_dec, g_attach
 
 
