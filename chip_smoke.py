@@ -28,13 +28,17 @@ Phases, each printing one JSON line:
                  the parent's K1, in turns
   4. k5        - the matching-max kernel (bf16 tensor cores) against its
                  plain version at A=B=64, Q=102, D=128 and V=703 (eval) and
-                 739 (train); exactly on quarter-integer operands at shapes
-                 that hit the edges of its tiles (104 words, 64 image rows,
-                 4 captions, blocks that serve unequal numbers of images,
-                 D = 8, 130, 384) and on operands full of ties with whole
-                 rows and columns masked; its time
-                 beside one bf16 ``torch.matmul`` of the same product, which
-                 stores the product and takes no maxes
+                 739 (train), Q = 34, 66, 114, the patch grid (Q = 130 in
+                 one q-chunk) and a rank's shard; exactly on quarter-integer
+                 operands at shapes that hit the edges of its tiles (104 and
+                 136 words, 64 image rows, 2 and 4 captions, blocks that
+                 serve unequal numbers of images, D = 8, 64, 130, 384) and on
+                 operands full of ties with whole rows and columns masked;
+                 when ``_checkouts/parent_match/`` holds the parent commit's
+                 match_fwd.cu, equal to the parent's K5 bit for bit on every
+                 case and timed in turns with it; its time beside one bf16
+                 ``torch.matmul`` of the same product, which stores the
+                 product and takes no maxes
   5. k6        - the matching backward against its plain version at the
                  training shape A=B=64, Q=102, V=739, D=128 (its K5 forward
                  held against the plain version too), exactly at a ragged
@@ -107,8 +111,8 @@ Phases, each printing one JSON line:
                  ``exp=vlgae_vit`` at the recipe's widths (224 px images, 32
                  px patches, ViT 192/4/4/384, captions up to 63 words) and
                  bf16: one warm-up and one joint epoch, K1 in its
-                 split placement (n1 = 65), K5 in two q-chunks at
-                 V = 1,324 and K6 at V = 1,324 on the path (launches counted,
+                 split placement (n1 = 65), K5 in one q-chunk of 136 words
+                 at V = 1,324 and K6 at V = 1,324 on the path (launches counted,
                  each held against its plain version on the path's own
                  tensors), the frozen ViT bit-identical after training,
                  ``eval.py`` on the predictions with the patch grid as
@@ -145,10 +149,12 @@ Phases, each printing one JSON line:
                  warm-up and one joint epoch) and ``predict``, ``eval.py`` on
                  each dev file; ``word`` by train and eval steps; each mode's
                  launches per step (K1, K2, the K3 pair, K5, K6) and step
-                 times at B=64; K5 (28 q-chunks) and K6 at word+alldep's
-                 widest Q and the K3 pair at n1 = 57 on the path's own
-                 tensors against their plain versions, with their times,
-                 bounds and matmul yardsticks; each mode at small widths and
+                 times at B=64; K5 (25 q-chunks of 136 words; bit for bit
+                 the parent's and timed in turns with it when
+                 ``_checkouts/parent_match/`` holds its source) and K6 at
+                 word+alldep's widest Q and the K3 pair at n1 = 57 on the
+                 path's own tensors against their plain versions, with their
+                 times, bounds and matmul yardsticks; each mode at small widths and
                  precision=32, the card against the CPU (dev predictions,
                  one train step's loss and gradients)
  19. struct    - the rest of the structured surface (the generic semiring
@@ -485,10 +491,15 @@ def phase_build(state):
     parent = os.path.isdir(PARENT_DMV)
     if parent:
         shutil.rmtree(os.path.join(PARENT_DMV, "_build"), ignore_errors=True)
+    parent_k5 = os.path.exists(os.path.join(PARENT_MATCH, "match_fwd.cu"))
+    if parent_k5:
+        shutil.rmtree(os.path.join(PARENT_MATCH, "_build"), ignore_errors=True)
 
     def one(name):
         t0 = time.perf_counter()
-        if name.startswith("parent:"):
+        if name == "parent:match_fwd":
+            state["parent_match"].build()
+        elif name.startswith("parent:"):
             state["parent_dmv"].build(name[7:])
         else:
             _build.build(name, verbose=True)
@@ -496,15 +507,20 @@ def phase_build(state):
 
     names = SOURCES + tuple(f"parent:{k}" for k in PARENT_KERNELS
                             if parent and os.path.exists(os.path.join(PARENT_DMV, f"{k}.cu")))
+    names += ("parent:match_fwd",) if parent_k5 else ()
     t0 = time.perf_counter()
     if parent:
         state["parent_dmv"] = ParentDMV()
+    if parent_k5:
+        state["parent_match"] = ParentMatch()
     with ThreadPoolExecutor(len(names)) as pool:
         out = dict(zip(names, pool.map(one, names)))
     emit({"phase": "build", "seconds": out,
           "wall_s": round(time.perf_counter() - t0, 3),
           "parent_dmv": (f"built from {os.path.relpath(PARENT_DMV, ROOT)}" if parent
-                         else f"absent: no {os.path.relpath(PARENT_DMV, ROOT)}")})
+                         else f"absent: no {os.path.relpath(PARENT_DMV, ROOT)}"),
+          "parent_match": (f"built from {os.path.relpath(PARENT_MATCH, ROOT)}" if parent_k5
+                           else f"absent: no {os.path.relpath(PARENT_MATCH, ROOT)}")})
 
 
 # Timing-only copies of the parent commit's dmv_inside.cu, dmv_fused.cu and
@@ -594,6 +610,93 @@ class ParentDMV:
             int(save), dmv_cuda.MAPPINGS.index(mapping), plan["threads"], int(plan["stage"]),
             _build.stream_ptr(dec.device)), "parent dmv_inside_launch")
         return out, charts
+
+
+# A timing-only copy of the parent commit's match_fwd.cu, placed by hand in
+# this gitignored directory (`git show <parent>:vlgae_tpu_torch/csrc/
+# match_fwd.cu`); phase k5 (and grounding_modes, at word+alldep's Q) holds
+# this tree's K5 to it bit for bit and times the two in turns when it is
+# present. The port never imports it.
+PARENT_MATCH = os.path.join(ROOT, "_checkouts", "parent_match")
+# the parent's K5 rules: captions a block, its q-chunk builds (8-word groups)
+PARENT_K5_CAP_TILE, PARENT_K5_Q_GROUPS = 4, (5, 9, 13, 15)
+
+
+class ParentMatch:
+    """The parent commit's K5, built by nvcc from ``PARENT_MATCH`` and launched
+    through its C interface by its rules: four captions a block, ``groups =
+    min(A, sms // ceil(B / 4))`` image groups, the fewest equal q-chunks of at
+    most 120 words in the narrowest of its builds, 16-byte ``cp.async``
+    staging when D % 8 == 0 and both operands are 16-byte aligned (else
+    2-byte loads)."""
+
+    def __init__(self):
+        self.fn = None
+
+    def build(self):
+        import ctypes
+
+        from vlgae_tpu_torch.ops import _build
+
+        cmd = [_build.nvcc_path(), "-gencode", _build.ARCH, "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC"]
+        fn = ctypes.CDLL(_build._compile(
+            os.path.join(PARENT_MATCH, "match_fwd.cu"),
+            os.path.join(PARENT_MATCH, "_build", "libmatch_fwd.so"), cmd)).match_fwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self.fn = fn
+
+    def __call__(self, vis, txt, vb, tb):
+        import torch
+
+        from vlgae_tpu_torch.ops import _build
+        from vlgae_tpu_torch.ops.match import match_fwd_q_tiling
+
+        A, V, D = vis.shape
+        B, Q, _ = txt.shape
+        sms = torch.cuda.get_device_properties(vis.device).multi_processor_count
+        groups = max(1, min(A, sms // -(-B // PARENT_K5_CAP_TILE)))
+        _, nt = match_fwd_q_tiling(Q, PARENT_K5_Q_GROUPS)
+        aligned = D % 8 == 0 and vis.data_ptr() % 16 == 0 and txt.data_ptr() % 16 == 0
+        out = (torch.empty((B, A, Q), device=vis.device), torch.empty(
+            (B, A, Q), device=vis.device, dtype=torch.int32),
+               torch.empty((B, A, V), device=vis.device), torch.empty(
+            (B, A, V), device=vis.device, dtype=torch.int32))
+        _build.check(self.fn(*(_build.ptr(t) for t in (vis, txt, vb, tb, *out)), A, V, D, B,
+                             Q, groups, nt, int(aligned), _build.stream_ptr(vis.device)),
+                     "parent match_fwd_launch")
+        return out
+
+
+def _k5_vs_parent(state, args, got, what):
+    """The parent's K5 on ``args`` against this tree's outputs ``got``:
+    "equal" when all four are bit for bit the same, "not run" without its
+    sources; raises when they differ."""
+    import torch
+
+    parent = state.get("parent_match")
+    if parent is None:
+        return "not run"
+    with torch.no_grad():
+        want = parent(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want)):
+        raise AssertionError(f"K5's outputs differ from the parent's K5 {what}")
+    return "equal"
+
+
+def _k5_times(state, args):
+    """``device_ms`` of this tree's K5 (``"new"``) and, when its sources are
+    there, the parent's K5 (``"parent"``) on ``args``, timed in turns."""
+    from vlgae_tpu_torch.ops.match import match_maxes_cuda
+
+    fns = {"new": lambda: match_maxes_cuda(*args)}
+    parent = state.get("parent_match")
+    if parent is not None:
+        fns["parent"] = lambda: parent(*args)
+    return _in_turns(fns)
 
 
 def phase_native_io(state):
@@ -958,16 +1061,19 @@ def _check_k5_indices(k, p, args, exact, what):
 
 
 # (A, V, B, Q, D) that hit the edges of K5's tiles: chunks of 104 words (the
-# wgmma's N), stages of 64 image rows (its M), 4 captions a block, k-steps of
-# 16 and stages of 128, 50 caption tiles, so that 2 blocks share 5 images,
-# and the other builds (one chunk of 40 words, of 72, of 120)
+# wgmma's N), stages of 64 image rows (its M), 2 and 4 captions a block,
+# k-steps of 16 and stages of 128, 50 caption tiles, so that 2 blocks share
+# 5 images, the other builds (one chunk of 40 words, of 72, of 120, of 136),
+# each side of the widest (136 and 137 words: one chunk and two), an odd
+# number of tiles a block, and the other kernel (D = 130 and 384)
 K5_EDGES = ((5, 65, 62, 202, 130), (2, 15, 1, 7, 8), (3, 63, 5, 103, 128),
             (3, 64, 4, 104, 128), (3, 65, 7, 105, 128), (2, 20, 3, 9, 384),
             (5, 70, 200, 9, 16), (3, 65, 6, 34, 128), (3, 65, 6, 66, 128),
-            (2, 70, 5, 114, 128), (3, 1324, 5, 130, 128))
+            (2, 70, 5, 114, 128), (3, 1324, 5, 130, 128), (3, 1275, 5, 129, 128),
+            (2, 130, 3, 136, 128), (2, 130, 3, 137, 128), (3, 193, 7, 130, 64))
 # the patch grid of exp=vlgae_vit (49 patches, their pairs, attributes and
 # the image): V in training (inclusive pair triangle) and in evaluation
-# (strict), beside its longest captions (63 words: Q = 130, two q-chunks)
+# (strict), beside its longest captions (63 words: Q = 130, one q-chunk of 136)
 VIT_V = {"train": 1324, "eval": 1275}
 VIT_Q = 130
 
@@ -1000,48 +1106,79 @@ def _k5_inputs(rng, A, V, B, Q, D, dev, kind):
     return vis, txt, vb, tb
 
 
+def _k5_bound(A, V, B, Q, D):
+    """K5's bound: bf16 operands and f32 masks read once, four [B, A, Q|V]
+    outputs written once, a multiply-add per (a, b, q, v, d) at the bf16
+    peak."""
+    return bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q) + 8 * B * A * (Q + V),
+                 2 * A * B * Q * V * D, "bf16")
+
+
+def _k5_row(state, args, what, errs=None, off=None, plain_reps=5):
+    """One timed K5 row on ``args``: the plan, this tree's and the parent's
+    K5 in turns (``device_ms``, ``parent_device_ms``), one call between two
+    events, the plain version, one bf16 ``torch.matmul`` of the product (it
+    stores ``[B*Q, A*V]`` and takes no maxes; the port never calls it) and
+    the bound."""
+    import torch
+
+    from vlgae_tpu_torch.ops.match import match_fwd_plan, match_maxes_cuda, match_maxes_plain
+
+    vis, txt = args[:2]
+    A, V, D = vis.shape
+    B, Q, _ = txt.shape
+    x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
+    turns = _k5_times(state, args)
+    row = {"A": A, "V": V, "B": B, "Q": Q, "D": D,
+           "plan": match_fwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr(),
+                                  torch.cuda.get_device_properties(vis.device)
+                                  .multi_processor_count),
+           "device_ms": turns["new"], "parent_device_ms": turns.get("parent"),
+           "ms": time_ms(lambda: match_maxes_cuda(*args)),
+           "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=plain_reps, warmup=1),
+           "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
+           **_k5_bound(A, V, B, Q, D)}
+    if errs is not None:
+        row.update({"max_abs_err": errs, "index_mismatch_within_tol": off})
+    return row
+
+
 def phase_k5(state):
     import numpy as np
     import torch
 
     from vlgae_tpu_torch.ops import match
-    from vlgae_tpu_torch.ops.match import (match_fwd_plan, match_maxes_cuda,
-                                           match_maxes_plain)
+    from vlgae_tpu_torch.ops.match import match_fwd_plan
 
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
     A = B = 64
     Q, D = 102, 128
+    vs_parent = {}
     # exact agreement, indices included, at the tiles' edges ...
     for shape in K5_EDGES:
-        _check_k5(_k5_inputs(rng, *shape, dev, "quarter"), True,
-                  "at A={}, V={}, B={}, Q={}, D={}".format(*shape))
+        what = "at A={}, V={}, B={}, Q={}, D={}".format(*shape)
+        args = _k5_inputs(rng, *shape, dev, "quarter")
+        got = _check_k5(args, True, what)[0]
+        vs_parent[what] = _k5_vs_parent(state, args, got, what)
     # ... and where nearly every maximum is tied and whole rows and columns
-    # are masked (index 0 on those)
-    tie_shape = (6, 130, 7, 110, 8)
-    (_, li, _, lvi), _, _ = _check_k5(_k5_inputs(rng, *tie_shape, dev, "ties"), True,
-                                      "on tied and wholly masked operands")
-    if int(li[:, 0].max()) != 0 or int(lvi[tie_shape[2] - 1].max()) != 0:
-        raise AssertionError("K5: a wholly masked row or column did not give index 0")
+    # are masked (index 0 on those), on both kernels, at the widest build too
+    tie_shapes = ((6, 130, 7, 110, 8), (6, 130, 7, 130, 128), (3, 70, 5, 110, 130))
+    for tie_shape in tie_shapes:
+        what = "on tied and wholly masked operands at A={}, V={}, B={}, Q={}, D={}".format(
+            *tie_shape)
+        args = _k5_inputs(rng, *tie_shape, dev, "ties")
+        got = _check_k5(args, True, what)[0]
+        _, li, _, lvi = got
+        if int(li[:, 0].max()) != 0 or int(lvi[tie_shape[2] - 1].max()) != 0:
+            raise AssertionError("K5: a wholly masked row or column did not give index 0")
+        vs_parent[what] = _k5_vs_parent(state, args, got, what)
     timing = {}
     for V in (703, 739):  # the eval and the training shape
         args = _k5_inputs(rng, A, V, B, Q, D, dev, "random")
-        _, errs, off = _check_k5(args, False, f"at V={V}")
-        vis, txt = args[:2]
-        x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
-        timing[V] = {
-            "max_abs_err": errs, "index_mismatch_within_tol": off,
-            "ms": time_ms(lambda: match_maxes_cuda(*args)),
-            "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
-            "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=5, warmup=1),
-            # one library call for the product alone: it stores [B*Q, A*V]
-            # and takes no maxes; the port never calls it
-            "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
-            # inputs read once (bf16 operands, f32 masks), four [B, A, Q|V]
-            # outputs written once; one multiply-add per (a, b, q, v, d) at
-            # the bf16 peak
-            **bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q)
-                    + 8 * B * A * (Q + V), 2 * A * B * Q * V * D, "bf16")}
+        got, errs, off = _check_k5(args, False, f"at V={V}")
+        vs_parent[f"at V={V}, Q={Q}"] = _k5_vs_parent(state, args, got, f"at V={V}")
+        timing[V] = _k5_row(state, args, f"V={V}", errs, off)
     # captions are padded to multiples of 8 words and Q = 2 * (length + 1): a
     # short batch (16 words), a middling one (32) and the longest of the
     # recipe (56 words: one chunk of 120) at the training V, beside the 51
@@ -1049,50 +1186,43 @@ def phase_k5(state):
     by_q = {}
     for q in (34, 66, 114):
         args = _k5_inputs(rng, A, 739, B, q, D, dev, "random")
-        _check_k5(args, False, f"at V=739, Q={q}")
-        x, y = args[1].reshape(B * q, D), args[0].reshape(A * 739, D)
-        by_q[q] = {"device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
-                   "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=3, warmup=1),
-                   "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
-                   **bound(2 * (A * 739 + B * q) * D + 4 * (A * 739 + B * q)
-                           + 8 * B * A * (q + 739), 2 * A * B * q * 739 * D, "bf16")}
+        got = _check_k5(args, False, f"at V=739, Q={q}")[0]
+        vs_parent[f"at V=739, Q={q}"] = _k5_vs_parent(state, args, got, f"at V=739, Q={q}")
+        by_q[q] = _k5_row(state, args, f"Q={q}", plain_reps=3)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     at_vit = {}
     for what, V in VIT_V.items():
         args = _k5_inputs(rng, A, V, B, VIT_Q, D, dev, "random")
-        two = match.n_launches_by_q_chunks.get(2, 0)
-        _, errs, off = _check_k5(args, False, f"at V={V}, Q={VIT_Q}")
-        if match.n_launches_by_q_chunks.get(2, 0) != two + 1:
-            raise AssertionError(f"K5 at V={V}, Q={VIT_Q} did not take two q-chunks")
-        vis, txt = args[:2]
-        x, y = txt.reshape(B * VIT_Q, D), vis.reshape(A * V, D)
-        at_vit[what] = {
-            "V": V, "Q": VIT_Q, "max_abs_err": errs, "index_mismatch_within_tol": off,
-            "plan": match_fwd_plan(A, V, B, VIT_Q, D, vis.data_ptr(), txt.data_ptr(),
-                                   sm_count),
-            "ms": time_ms(lambda: match_maxes_cuda(*args)),
-            "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
-            "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=5, warmup=1),
-            "product_only_library_ms": device_ms(lambda: torch.matmul(x, y.T), n=10),
-            **bound(2 * (A * V + B * VIT_Q) * D + 4 * (A * V + B * VIT_Q)
-                    + 8 * B * A * (VIT_Q + V), 2 * A * B * VIT_Q * V * D, "bf16")}
+        chunks = match_fwd_plan(A, V, B, VIT_Q, D, args[0].data_ptr(), args[1].data_ptr(),
+                                sm_count)["q_chunks"]
+        before = match.n_launches_by_q_chunks.get(chunks, 0)
+        got, errs, off = _check_k5(args, False, f"at V={V}, Q={VIT_Q}")
+        if match.n_launches_by_q_chunks.get(chunks, 0) != before + 1:
+            raise AssertionError(f"K5 at V={V}, Q={VIT_Q} did not take the plan's "
+                                 f"{chunks} q-chunk(s)")
+        vs_parent[f"at V={V}, Q={VIT_Q}"] = _k5_vs_parent(state, args, got,
+                                                          f"at V={V}, Q={VIT_Q}")
+        at_vit[what] = _k5_row(state, args, what, errs, off)
     plan = match_fwd_plan(A, 703, B, Q, D, sm_count=sm_count)
     emit({"phase": "k5", "shape": {"A": A, "B": B, "Q": Q, "V": [703, 739], "D": D},
-          "instruction": "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16",
+          "instruction": "wgmma.mma_async.sync.aligned.m64n{}k16.f32.bf16.bf16".format(
+              plan["q_chunk_words"]),
           "plan_V703": plan, "exact_at": [list(sh) for sh in K5_EDGES],
-          "exact_on_ties_at": list(tie_shape), "timing": timing,
+          "exact_on_ties_at": [list(sh) for sh in tie_shapes], "timing": timing,
           "timing_V739_by_Q": by_q, "timing_vit": at_vit,
-          "tolerance": [K5_ATOL, K5_RTOL]})
+          "parent_vs_new": vs_parent, "tolerance": [K5_ATOL, K5_RTOL]})
     _k5_shards(state, rng, dev)
     t = timing[703]
     state["match_fwd"] = {
         "max_abs_err": max(max(timing[V]["max_abs_err"].values()) for V in timing),
         "max_abs_err_unmasked": max(v for V in timing for k, v in
                                     timing[V]["max_abs_err"].items() if "unmasked" in k),
-        "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
-        "library_ms": None, "product_only_library_ms": t["product_only_library_ms"],
+        "ms": t["ms"], "device_ms": t["device_ms"], "parent_device_ms": t["parent_device_ms"],
+        "plain_ms": t["plain_ms"], "library_ms": None,
+        "product_only_library_ms": t["product_only_library_ms"],
         "ms_V739": timing[739]["ms"], "device_ms_V739": timing[739]["device_ms"],
         **{k: t[k] for k in ("bound_ms", "bound_by", "bound_bytes", "bound_ops")},
+        "parent_vs_new": sorted(set(vs_parent.values())),
         "at_vit_shapes": {what: {k: v for k, v in r.items() if k != "plan"}
                           for what, r in at_vit.items()}}
 
@@ -1103,25 +1233,19 @@ SHARD_A, SHARD_V, SHARD_Q, SHARD_D = 64, 739, 114, 128
 SHARD_BS = (32, 16, 8)
 
 
-def _shard_bound(A, V, B, Q, D):
-    """K5's bound at (A images, B captions): bf16 operands and f32 masks read
-    once, four [B, A, Q|V] outputs written once, a multiply-add per (a, b, q,
-    v, d) at the bf16 peak."""
-    return bound(2 * (A * V + B * Q) * D + 4 * (A * V + B * Q) + 8 * B * A * (Q + V),
-                 2 * A * B * Q * V * D, "bf16")
-
-
 def _k5_shards(state, rng, dev):
     """K5 at A != B: each rank's captions against all 64 images. The shards'
     outputs, concatenated over the ranks, equal K5 on the whole batch exactly
     (quarter-integer and normal operands); each shard is held against the
-    plain version; each shard's time beside its bound."""
+    plain version and the parent's K5 (bit for bit); each shard's time in
+    turns with the parent's, beside its bound and one bf16 matmul of its
+    product."""
     import torch
 
-    from vlgae_tpu_torch.ops.match import match_maxes_cuda, match_maxes_plain
+    from vlgae_tpu_torch.ops.match import match_maxes_cuda
 
     A, V, Q, D = SHARD_A, SHARD_V, SHARD_Q, SHARD_D
-    out = {}
+    out, vs_parent = {}, {}
     for kind in ("quarter", "random"):
         vis, txt, vb, tb = _k5_inputs(rng, A, V, A, Q, D, dev, kind)
         with torch.no_grad():
@@ -1131,8 +1255,9 @@ def _k5_shards(state, rng, dev):
             for r in range(A // Bl):
                 rows = slice(r * Bl, (r + 1) * Bl)
                 args = (vis, txt[rows].contiguous(), vb, tb[rows].contiguous())
-                k, err, _ = _check_k5(args, kind == "quarter",
-                                      f"on caption shard {r} of {A // Bl} ({kind})")
+                what = f"on caption shard {r} of {A // Bl} ({kind})"
+                k, err, _ = _check_k5(args, kind == "quarter", what)
+                vs_parent[what] = _k5_vs_parent(state, args, k, what)
                 parts.append(k)
                 errs = max(errs, err["logit_unmasked"], err["logit_v_unmasked"])
             for name, i in (("logit", 0), ("logit_idx", 1), ("logit_v", 2), ("logit_v_idx", 3)):
@@ -1141,18 +1266,17 @@ def _k5_shards(state, rng, dev):
                                          f"differs from the whole batch's ({kind})")
             if kind == "random":
                 args = (vis, txt[:Bl].contiguous(), vb, tb[:Bl].contiguous())
-                out[Bl] = {"world": A // Bl, "shape": {"A": A, "B": Bl, "Q": Q, "V": V, "D": D},
-                           "max_abs_err_unmasked": errs,
-                           "ms": time_ms(lambda: match_maxes_cuda(*args)),
-                           "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=10),
-                           "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=3,
-                                               warmup=1),
-                           **_shard_bound(A, V, Bl, Q, D)}
+                row = _k5_row(state, args, f"shard B={Bl}", plain_reps=3)
+                out[Bl] = {"world": A // Bl, "max_abs_err_unmasked": errs,
+                           **{k: v for k, v in row.items() if k != "plan"},
+                           "grid": row["plan"]["grid"]}
     emit({"phase": "k5", "shards": out, "concatenation_exact": True,
+          "parent_vs_new": vs_parent,
           "gathered_bytes_per_step": A * V * D * 2 + A * V * 4})
     state["match_maxes_sharded"] = {
         "k5_by_world": {out[b]["world"]: {k: out[b][k] for k in
-                                          ("ms", "device_ms", "plain_ms", "bound_ms")}
+                                          ("ms", "device_ms", "parent_device_ms", "plain_ms",
+                                           "product_only_library_ms", "bound_ms")}
                         for b in out}}
 
 
@@ -1198,11 +1322,14 @@ def _k6_shards(state, rng, dev):
                    "ms": time_ms(lambda: match_maxes_bwd_cuda(*args)),
                    "device_ms": device_ms(lambda: match_maxes_bwd_cuda(*args), n=10),
                    "plain_ms": time_ms(lambda: match_maxes_bwd_plain(*args), reps=3, warmup=1),
+                   # the two bf16 products over the dense winner weight
+                   "product_only_library_ms": k6_product_library_ms(*args),
                    **_k6_bound(*args)}
     emit({"phase": "k6", "shards": out, "shape": {"A": A, "Q": Q, "V": V, "D": D},
           "dtxt_concatenation_exact": True})
     state["match_maxes_sharded"]["k6_by_world"] = {
         out[b]["world"]: {k: out[b][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "product_only_library_ms",
                                                  "dvis_sum_max_gap")} for b in out}
 
 
@@ -1273,7 +1400,7 @@ def _sharded_wrapper(state, rng, dev):
     args = (vis, txt[:Bl].contiguous(), vb, tb[:Bl].contiguous(), dm[:Bl].contiguous(),
             dmv[:Bl].contiguous())
     out = match_maxes_plain(*args[:4])
-    k5 = _shard_bound(A, V, Bl, Q, D)
+    k5 = _k5_bound(A, V, Bl, Q, D)
     k6 = _k6_bound(args[0], args[1], out[1], out[3], args[4], args[5])
     state["match_maxes_sharded"].update({
         "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
@@ -2809,7 +2936,8 @@ def phase_vit(state):
         return {"dmv_fused": dmv_cuda.n_launches,
                 "dmv_fused_split": dmv_cuda.n_fused_split_launches,
                 "match_fwd": match.n_launches,
-                "match_fwd_two_q_chunks": match.n_launches_by_q_chunks.get(2, 0),
+                # captions of up to 63 words: Q <= 130, one pass over the images
+                "match_fwd_one_q_chunk": match.n_launches_by_q_chunks.get(1, 0),
                 "match_bwd": match.n_bwd_launches}
 
     # the (V, Q) of every K5 call, to show which shapes the path reached
@@ -2850,6 +2978,9 @@ def phase_vit(state):
         train_shapes = sorted(shapes)
         if not all(launches.values()):
             raise AssertionError(f"vit train: a kernel or mapping never launched: {launches}")
+        if launches["match_fwd_one_q_chunk"] != launches["match_fwd"]:
+            raise AssertionError(f"vit train: a K5 launch took more than one q-chunk: "
+                                 f"{launches}")
         if (VIT_V["train"], VIT_Q) not in shapes:
             raise AssertionError(f"vit train: K5 never ran at V={VIT_V['train']}, "
                                  f"Q={VIT_Q}: {train_shapes}")
@@ -3751,34 +3882,40 @@ def _check_k3_on_path(save_args, out_args):
     return errs, save, outside
 
 
-def _big_k5_timing(args):
-    """K5's times at a wide shape (word+alldep's Q), its plain version's and
-    the yardstick: one bf16 ``torch.matmul`` of the product (it stores all
-    ``B*Q x A*V`` of it; the port never calls it). The bound counts the
-    work of this run's masks: a masked (a, v) or (b, q) gives -INF whatever
-    its product, so only the live rows are read and multiplied. Beside it,
-    the share of K5's q-chunks (per caption, and per block's tile of
-    ``FWD_CAP_TILE`` captions) that hold no live word."""
+def _big_k5_timing(state, args):
+    """K5's times at a wide shape (word+alldep's Q), in turns with the
+    parent's K5 when its sources are there (and its outputs held to the
+    parent's bit for bit), its plain version's and the yardstick: one bf16
+    ``torch.matmul`` of the product (it stores all ``B*Q x A*V`` of it; the
+    port never calls it). The bound counts the work of this run's masks: a
+    masked (a, v) or (b, q) gives -INF whatever its product, so only the
+    live rows are read and multiplied. Beside it, the share of K5's q-chunks
+    (per caption, and per block's tile of captions) that hold no live
+    word."""
     import torch
     import torch.nn.functional as F
 
-    from vlgae_tpu_torch.ops.match import (FWD_CAP_TILE, match_fwd_plan, match_fwd_q_tiling,
-                                           match_maxes_cuda, match_maxes_plain)
+    from vlgae_tpu_torch.ops.match import match_fwd_plan, match_maxes_cuda, match_maxes_plain
 
     vis, txt, vb, tb = args
     A, V, D = vis.shape
     B, Q, _ = txt.shape
     # a live row's bias is 0, a masked one's -1e9
     n_v, n_q = int((vb == 0).sum()), int((tb == 0).sum())
-    q_chunks, nt = match_fwd_q_tiling(Q)
-    live = F.pad(tb == 0, (0, q_chunks * 8 * nt - Q)).view(B, q_chunks, 8 * nt).any(-1)
-    tiles = F.pad(live, (0, 0, 0, -B % FWD_CAP_TILE)).view(-1, FWD_CAP_TILE, q_chunks).any(1)
-    out = {"A": A, "V": V, "B": B, "Q": Q, "D": D,
-           "plan": match_fwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr(),
-                                  torch.cuda.get_device_properties(vis.device)
-                                  .multi_processor_count),
+    plan = match_fwd_plan(A, V, B, Q, D, vis.data_ptr(), txt.data_ptr(),
+                          torch.cuda.get_device_properties(vis.device).multi_processor_count)
+    q_chunks, words, cap = plan["q_chunks"], plan["q_chunk_words"], plan["cap_tile"]
+    live = F.pad(tb == 0, (0, q_chunks * words - Q)).view(B, q_chunks, words).any(-1)
+    tiles = F.pad(live, (0, 0, 0, -B % cap)).view(-1, cap, q_chunks).any(1)
+    with torch.no_grad():
+        got = match_maxes_cuda(*args)
+    vs_parent = _k5_vs_parent(state, args, got, "on a word+alldep step's tensors")
+    del got
+    turns = _k5_times(state, args)
+    out = {"A": A, "V": V, "B": B, "Q": Q, "D": D, "plan": plan,
+           "parent_vs_new": vs_parent,
            "ms": time_ms(lambda: match_maxes_cuda(*args), reps=5),
-           "device_ms": device_ms(lambda: match_maxes_cuda(*args), n=5, reps=3),
+           "device_ms": turns["new"], "parent_device_ms": turns.get("parent"),
            "plain_ms": time_ms(lambda: match_maxes_plain(*args), reps=2, warmup=1)}
     torch.cuda.empty_cache()
     x, y = txt.reshape(B * Q, D), vis.reshape(A * V, D)
@@ -4039,7 +4176,7 @@ def phase_grounding_modes(state):
         _, k5_err, k5_off = _check_k5(fwd, False, "on a word+alldep step's tensors")
         k5 = {"max_abs_err": k5_err, "index_mismatch_within_tol": k5_off,
               "q_chunks": match.match_fwd_q_tiling(int(fwd[1].shape[1])),
-              **_big_k5_timing(fwd)}
+              **_big_k5_timing(state, fwd)}
         k6_err = _check_k6(bwd, False, "on a word+alldep step's tensors")
         k6 = {"max_abs_err": k6_err, **k6_timing(bwd)}
         k3_errs, k3a, k3b = _check_k3_on_path(captured["save"], captured["outside"])

@@ -12,6 +12,7 @@ import pytest
 from vlgae_tpu_torch.ops import dmv_cuda, match
 
 H100_OPTIN = 232448
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("n1", [1, 2, 9, 10, 16, 17, 32, 48, 51, 56, 64, 85, 101])
@@ -315,62 +316,144 @@ def test_k1_runs_the_one_barrier_fills_alone():
 def test_match_fwd_plan_at_the_recipes_shapes():
     for V, tiles in ((703, 11), (739, 12)):
         plan = match.match_fwd_plan(64, V, 64, 102, 128)
-        # 16 tiles of 4 captions x 8 image groups: 128 blocks on 132
-        # multiprocessors, each serving 8 images
-        assert plan["grid"] == (8, 16) and plan["resident"] == "captions"
+        # one chunk of 104 words, on PR 4's kernel: 16 tiles of 4 captions x
+        # 8 image groups: 128 blocks on 132 multiprocessors, each serving 8
+        # images
+        assert plan["kernel"] == "generic" and plan["staging"] == "cp.async"
+        assert plan["grid"] == (8, 16) and plan["cap_tile"] == 4
+        assert plan["resident"] == "captions" and plan["work_items"] == 16 * 64
         assert (plan["q_chunks"], plan["v_tiles"], plan["k_chunks"]) == (1, tiles, 1)
         assert plan["q_chunk_words"] == 104
-        assert plan["staging"] == "cp.async"
         assert plan["smem_bytes"] == 185984 <= H100_OPTIN
         # every block streams its 8 images once and stages its four captions once
         assert plan["l2_to_smem_bytes"] == 2 * 128 * 16 * (64 * V + 8 * 4 * 102)
 
 
-@pytest.mark.parametrize("A,B,sms,want", [
-    (64, 64, 132, 8), (64, 64, 66, 4), (64, 64, 264, 16), (64, 4, 132, 64),
-    (5, 200, 132, 2), (3, 1000, 132, 1), (1, 1, 132, 1), (64, 61, 132, 8),
-    (7, 0, 132, 7), (0, 5, 132, 1)])
-def test_match_fwd_groups_fill_the_card_once(A, B, sms, want):
-    g = match.match_fwd_groups(A, B, sms)
+def test_match_fwd_plan_takes_the_patch_grid_in_one_pass():
+    for V, tiles in ((1324, 21), (1275, 20)):
+        plan = match.match_fwd_plan(64, V, 64, 130, 128)
+        # the TMA kernel: 32 tiles of 2 captions x 4 image groups, 16 images
+        # a block, each streamed once for all 130 words
+        assert plan["kernel"] == "tma" and plan["staging"] == "tma"
+        assert (plan["q_chunks"], plan["q_chunk_words"]) == (1, 136)
+        assert plan["grid"] == (4, 32) and plan["v_tiles"] == tiles
+        assert plan["smem_bytes"] == 180384 <= H100_OPTIN
+        assert plan["l2_to_smem_bytes"] == 2 * 128 * 32 * (64 * V + 4 * 2 * 130)
+    # exp=vlgae_vit's captions (up to 63 words, padded to 64: Q <= 130) all
+    # take one pass
+    for words in range(8, 65, 8):
+        assert match.match_fwd_q_tiling(2 * (words + 1))[0] == 1
+
+
+@pytest.mark.parametrize("Q,kernel,chunks,words", [
+    (34, "generic", 1, 40), (66, "generic", 1, 72), (102, "generic", 1, 104),
+    (104, "generic", 1, 104), (105, "tma", 1, 120), (114, "tma", 1, 120),
+    (120, "tma", 1, 120), (121, "tma", 1, 136), (130, "tma", 1, 136), (136, "tma", 1, 136),
+    (137, "generic", 2, 72), (208, "generic", 2, 104), (209, "tma", 2, 120),
+    (241, "tma", 2, 136), (3306, "tma", 25, 136)])
+def test_match_fwd_tma_kernel_takes_chunks_of_120_and_136_words(Q, kernel, chunks, words):
+    """Chunks of 120 and 136 words go to the TMA kernel; narrower ones to PR
+    4's kernel, which no TMA design timed at 40-104 words beat."""
+    plan = match.match_fwd_plan(64, 739, 64, Q, 128)
+    assert (plan["kernel"], plan["q_chunks"], plan["q_chunk_words"]) == (kernel, chunks, words)
+    assert plan["cap_tile"] == (2 if kernel == "tma" else 4)
+
+
+@pytest.mark.parametrize("A,B,sms,cap,want", [
+    (64, 64, 132, 4, 8), (64, 64, 66, 4, 4), (64, 64, 264, 4, 16), (64, 4, 132, 4, 64),
+    (5, 200, 132, 4, 2), (3, 1000, 132, 4, 1), (1, 1, 132, 4, 1), (64, 61, 132, 4, 8),
+    (7, 0, 132, 4, 7), (0, 5, 132, 4, 1),
+    (64, 64, 132, 2, 4), (64, 32, 132, 2, 8), (64, 16, 132, 2, 16), (64, 8, 132, 2, 33),
+    (64, 63, 132, 2, 4), (3, 5, 132, 2, 3)])
+def test_match_fwd_groups_fill_the_card_once(A, B, sms, cap, want):
+    g = match.match_fwd_groups(A, B, sms, cap)
     assert g == want and 1 <= g <= max(1, A)
     # about one block a multiprocessor, unless one block per image is fewer
-    if 0 < -(-B // match.FWD_CAP_TILE) <= sms and g < A:
-        assert sms // 2 < g * -(-B // match.FWD_CAP_TILE) <= sms
+    if 0 < -(-B // cap) <= sms and g < A:
+        assert sms // 2 < g * -(-B // cap) <= sms
+
+
+@pytest.mark.parametrize("B,V,Q", [
+    (64, 703, 102), (64, 739, 102), (64, 739, 114), (64, 1324, 130), (64, 1275, 130),
+    (64, 739, 34), (64, 739, 66), (64, 739, 3306),
+    (32, 739, 114), (16, 739, 114), (8, 739, 114)])
+def test_match_fwd_grid_gives_every_multiprocessor_work(B, V, Q):
+    """A = 64 images against the whole batch (the shapes K5 runs at) and a
+    rank's shard at world 2, 4 and 8 (B = 32, 16, 8 at the recipe's longest
+    captions): at least 132 work items (caption tile, image), and a grid of
+    one block a multiprocessor but for less than one column of caption
+    tiles, whose blocks serve numbers of images that differ by one at most."""
+    plan = match.match_fwd_plan(64, V, B, Q, 128, sm_count=H100_SMS)
+    groups, cap_tiles = plan["grid"]
+    assert plan["work_items"] == cap_tiles * 64 >= H100_SMS
+    assert H100_SMS - cap_tiles < groups * cap_tiles <= H100_SMS
+    per_block = [len(range(x, 64, groups)) for x in range(groups)]
+    assert max(per_block) - min(per_block) <= 1
 
 
 @pytest.mark.parametrize("Q,chunks,words", [
     (1, 1, 40), (18, 1, 40), (34, 1, 40), (40, 1, 40), (41, 1, 72), (50, 1, 72),
     (66, 1, 72), (72, 1, 72), (73, 1, 104), (82, 1, 104), (98, 1, 104),
     (102, 1, 104), (104, 1, 104), (105, 1, 120), (114, 1, 120), (120, 1, 120),
-    (121, 2, 72), (144, 2, 72), (145, 2, 104), (202, 2, 104), (208, 2, 104),
-    (209, 2, 120), (240, 2, 120), (241, 3, 104), (312, 3, 104), (313, 3, 120)])
+    (121, 1, 136), (129, 1, 136), (130, 1, 136), (136, 1, 136), (137, 2, 72),
+    (144, 2, 72), (145, 2, 104), (202, 2, 104), (208, 2, 104), (209, 2, 120),
+    (240, 2, 120), (241, 2, 136), (272, 2, 136), (273, 3, 104), (312, 3, 104),
+    (313, 3, 120), (408, 3, 136), (409, 4, 104), (3306, 25, 136)])
 def test_match_fwd_q_tiling_wastes_few_columns(Q, chunks, words):
     """Captions are padded to multiples of 8 words and Q = 2 * (length + 1):
-    18, 34, ..., 114 on the recipe, one chunk each. Beyond the widest build
-    equal chunks; never a wide chunk for a few words left over."""
+    18, 34, ..., 114 on exp=vlgae, 130 on exp=vlgae_vit, one chunk each (130
+    and the widest build's 136 in one pass, 137 in two); 3,306 (word+alldep)
+    in 25. Beyond the widest build equal chunks; never a wide chunk for a
+    few words left over."""
     got = match.match_fwd_q_tiling(Q)
     assert got == (chunks, words // 8) and words // 8 in match.FWD_Q_GROUPS
-    assert chunks == -(-Q // 120) and chunks * words >= Q
+    assert chunks == -(-Q // 136) and chunks * words >= Q
     # a chunk wastes less than the widest step between two builds plus a group
     assert chunks * words - Q < (32 + 8) * chunks
 
 
+@pytest.mark.parametrize("Q,chunks,words", [(114, 1, 120), (121, 2, 72), (130, 2, 72),
+                                            (3306, 28, 120)])
+def test_match_fwd_q_tiling_of_the_other_kernel(Q, chunks, words):
+    """Rows the TMA kernel does not take (D > 128, or not 16-byte aligned)
+    go to the other kernel, built up to 120 words."""
+    assert match.match_fwd_q_tiling(Q, match.FWD_GENERIC_Q_GROUPS) == (chunks, words // 8)
+    plan = match.match_fwd_plan(3, 70, 5, Q, 136)
+    assert (plan["kernel"], plan["q_chunks"], plan["q_chunk_words"]) == ("generic", chunks,
+                                                                         words)
+
+
 def test_match_fwd_smem_fits_the_card_at_every_chunk_width():
-    sizes = [match.match_fwd_smem_bytes(nt) for nt in match.FWD_Q_GROUPS]
+    # the TMA kernel: the ring of 6 image tiles and their image biases, the
+    # two resident captions and their word biases, 4 column candidates a
+    # word and consumer warpgroup, a full and an empty barrier a stage, the
+    # 1024-byte alignment
+    for nt in match.FWD_TMA_Q_GROUPS:
+        words = 8 * nt
+        parts = (6 * 64 * 256, 6 * 64 * 4, 2 * words * 256, 2 * words * 4,
+                 2 * 4 * words * 8, 2 * 6 * 8, 1024)
+        assert match.match_fwd_smem_bytes(nt) == sum(parts) <= H100_OPTIN
+        assert match.match_fwd_plan(2, 70, 5, words, 64)["smem_bytes"] == sum(parts)
+    assert match.match_fwd_smem_bytes(17) == 180384
+    # the other kernel
+    sizes = [match.match_fwd_smem_bytes(nt, "cp.async") for nt in match.FWD_GENERIC_Q_GROUPS]
     assert sizes == sorted(sizes) and sizes[-1] == 206720 <= H100_OPTIN
-    assert all(match.match_fwd_plan(2, 70, 5, 8 * nt, 64)["smem_bytes"] == s
-               for nt, s in zip(match.FWD_Q_GROUPS, sizes))
+    assert all(match.match_fwd_plan(2, 70, 5, 8 * nt, 136)["smem_bytes"] == s
+               for nt, s in zip(match.FWD_GENERIC_Q_GROUPS, sizes))
 
 
 @pytest.mark.parametrize("shape,want", [
-    # (A, V, B, Q, D): image groups, tiles of 4 captions, q-chunks of at most
-    # 120 words, image tiles of 64 rows, k-chunks of 128
+    # (A, V, B, Q, D): image groups, tiles of 2 captions (the TMA kernel,
+    # chunks of 120 or 136 words) or 4 (the other, up to 120), image tiles of
+    # 64 rows, k-chunks of 128
     ((5, 65, 62, 202, 130), (5, 16, 2, 2, 2)),
-    ((3, 64, 4, 104, 128), (3, 1, 1, 1, 1)),
+    ((3, 64, 4, 104, 128), (3, 1, 1, 1, 1)), ((3, 64, 7, 120, 128), (3, 4, 1, 1, 1)),
     ((3, 63, 5, 105, 129), (3, 2, 1, 1, 2)), ((3, 63, 5, 121, 129), (3, 2, 2, 1, 2)),
     ((1, 1, 1, 1, 8), (1, 1, 1, 1, 1)),
     ((2, 20, 3, 9, 384), (2, 1, 1, 1, 3)),
-    ((5, 70, 200, 9, 16), (2, 50, 1, 2, 1))])
+    ((5, 70, 200, 9, 16), (2, 50, 1, 2, 1)),
+    ((3, 1324, 5, 130, 128), (3, 3, 1, 21, 1)), ((64, 1324, 64, 130, 128), (4, 32, 1, 21, 1)),
+    ((2, 70, 5, 137, 128), (2, 2, 2, 2, 1))])
 def test_match_fwd_plan_counts_ragged_tiles(shape, want):
     plan = match.match_fwd_plan(*shape)
     got = (*plan["grid"], plan["q_chunks"], plan["v_tiles"], plan["k_chunks"])
@@ -378,12 +461,20 @@ def test_match_fwd_plan_counts_ragged_tiles(shape, want):
 
 
 @pytest.mark.parametrize("D,vis_ptr,txt_ptr,want", [
-    (128, 0, 0, "cp.async"), (8, 256, 512, "cp.async"), (384, 16, 32, "cp.async"),
-    (130, 0, 0, "scalar"), (7, 0, 0, "scalar"), (128, 8, 0, "scalar"),
-    (128, 0, 2, "scalar")])
+    (128, 0, 0, "tma"), (8, 256, 512, "tma"), (64, 16, 32, "tma"), (136, 0, 0, "cp.async"),
+    (384, 16, 32, "cp.async"), (130, 0, 0, "scalar"), (7, 0, 0, "scalar"),
+    (128, 8, 0, "scalar"), (128, 0, 2, "scalar")])
 def test_match_fwd_staging_needs_16_byte_rows(D, vis_ptr, txt_ptr, want):
-    plan = match.match_fwd_plan(4, 33, 6, 31, D, vis_ptr, txt_ptr)
+    plan = match.match_fwd_plan(4, 33, 6, 120, D, vis_ptr, txt_ptr)
     assert plan["staging"] == want
+    assert plan["kernel"] == ("tma" if want == "tma" else "generic")
+
+
+def test_match_fwd_tma_kernel_takes_rows_whose_index_fits_16_bits():
+    """The TMA kernel keeps a column's winning image row in 16 bits."""
+    assert match.match_fwd_plan(2, 65536, 3, 130, 128)["kernel"] == "tma"
+    plan = match.match_fwd_plan(2, 65537, 3, 130, 128)
+    assert (plan["kernel"], plan["staging"]) == ("generic", "cp.async")
 
 
 @pytest.mark.parametrize("V,Q", [(739, 102), (703, 102), (739, 114), (739, 34)])

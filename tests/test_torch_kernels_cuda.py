@@ -16,8 +16,9 @@ ulp of |log Z|); max-semiring totals and indicators exact. K5
 values and first-winner indices are exact, at shapes with ragged tiles
 (V, B, D not multiples of the tiles) and Q over one 104-word chunk; Q and V
 one below, at and one above the MMA tile sizes (the wgmma's N = 104 words
-and its 8-word column groups, the other builds of 40, 72 and 120 words,
-its M = 64 image rows and a warp's 16), B not
+and its 8-word column groups, the other builds of 40, 72, 120 and 136
+words, Q = 129, 130, 136 and 137 either side of the widest, its M = 64
+image rows and a warp's 16), B not
 a multiple of the 4-caption tile, more caption tiles than a block per image
 fills the card with (blocks then serve unequal numbers of images), D = 8,
 130 (rows not 16-byte aligned: the 2-byte staging path) and 384 (three
@@ -294,8 +295,8 @@ def test_match_fwd_matches_plain(cuda, A, V, B, Q, D):
 
 def test_match_fwd_and_bwd_at_word_alldeps_widest_q(cuda):
     """word+alldep's language factors at the recipe's longest captions (N =
-    57 positions: Q = N + N^2 = 3,306) at the training V = 739: K5 takes 28
-    q-chunks of 120 and equals its plain version, K6 too (8 captions and
+    57 positions: Q = N + N^2 = 3,306) at the training V = 739: K5 takes 25
+    q-chunks of 136 and equals its plain version, K6 too (8 captions and
     images, quarter-integer operands and 12-bit cotangents: exact)."""
     from vlgae_tpu_torch.ops import match
     from vlgae_tpu_torch.ops.match import (match_fwd_q_tiling, match_maxes,
@@ -303,11 +304,11 @@ def test_match_fwd_and_bwd_at_word_alldeps_widest_q(cuda):
                                            match_maxes_plain)
 
     A, V, B, Q, D = 8, 739, 8, 3306, 128
-    assert match_fwd_q_tiling(Q) == (28, 15)
+    assert match_fwd_q_tiling(Q) == (25, 17)
     vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda)
-    before = match.n_launches_by_q_chunks.get(28, 0)
+    before = match.n_launches_by_q_chunks.get(25, 0)
     got = match_maxes(vis, txt, vb, tb)
-    assert match.n_launches_by_q_chunks.get(28, 0) == before + 1
+    assert match.n_launches_by_q_chunks.get(25, 0) == before + 1
     for g, w in zip(got, match_maxes_plain(vis, txt, vb, tb)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     _, li, _, lvi = got
@@ -317,18 +318,19 @@ def test_match_fwd_and_bwd_at_word_alldeps_widest_q(cuda):
 
 
 @pytest.mark.parametrize("V", [1324, 1275])
-def test_match_fwd_takes_two_q_chunks_on_the_patch_grid(cuda, V):
+def test_match_fwd_takes_one_q_chunk_on_the_patch_grid(cuda, V):
     """The patch grid of exp=vlgae_vit (V = 1,324 in training, 1,275 in
-    evaluation) at its longest captions (Q = 130): two q-chunks of 72
-    words, exactly the plain version's outputs on quarter-integers."""
+    evaluation) at its longest captions (Q = 130): one q-chunk of 136
+    words, one pass over the images, exactly the plain version's outputs on
+    quarter-integers."""
     from vlgae_tpu_torch.ops import match
     from vlgae_tpu_torch.ops.match import match_fwd_q_tiling
 
-    assert match_fwd_q_tiling(130) == (2, 9)
+    assert match_fwd_q_tiling(130) == (1, 17)
     args = _quarter_match_inputs(np.random.default_rng(V), 64, V, 64, 130, 128, cuda)
-    before = match.n_launches_by_q_chunks.get(2, 0)
+    before = match.n_launches_by_q_chunks.get(1, 0)
     _assert_match_fwd_equals_plain(args)
-    assert match.n_launches_by_q_chunks.get(2, 0) == before + 1
+    assert match.n_launches_by_q_chunks.get(1, 0) == before + 1
 
 
 def _quarter_match_inputs(rng, A, V, B, Q, D, device, scale=8):
@@ -370,7 +372,11 @@ MATCH_EDGES = [
     (3, 65, 6, 41, 128), (2, 70, 5, 50, 128), (2, 70, 5, 66, 128), (2, 70, 5, 72, 128),
     (2, 70, 5, 73, 128), (2, 70, 5, 82, 128), (2, 70, 5, 98, 128), (3, 130, 9, 114, 128),
     (2, 70, 5, 119, 128), (2, 70, 5, 120, 128), (2, 70, 5, 121, 128),
-    (2, 66, 3, 160, 136), (2, 66, 3, 241, 64), (2, 66, 3, 313, 32)]
+    (2, 66, 3, 160, 136), (2, 66, 3, 241, 64), (2, 66, 3, 313, 32),
+    # each side of the widest build (136 words: the patch grid's Q = 130 in
+    # one chunk, 137 in two), with an odd number of image tiles a block
+    (2, 130, 5, 129, 128), (3, 130, 5, 130, 128), (2, 130, 5, 136, 128),
+    (2, 130, 5, 137, 128), (5, 193, 9, 130, 64)]
 
 
 @pytest.mark.parametrize("A,V,B,Q,D", MATCH_EDGES)
@@ -380,7 +386,7 @@ def test_match_fwd_tile_edges(cuda, A, V, B, Q, D):
 
 
 @pytest.mark.parametrize("A,V,B,Q,D", [(3, 70, 6, 110, 8), (4, 130, 5, 21, 3),
-                                       (2, 64, 4, 104, 128)])
+                                       (2, 64, 4, 104, 128), (3, 130, 5, 136, 128)])
 def test_match_fwd_ties_and_whole_masked_rows(cuda, A, V, B, Q, D):
     """Operands in {-1/4, 0, 1/4}: nearly every maximum is tied, so every
     merge (lanes, warps, image tiles, q-chunks) must prefer the smaller

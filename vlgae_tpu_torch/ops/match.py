@@ -64,74 +64,121 @@ def match_maxes_plain(vis, txt, vis_bias, txt_bias):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-# tiling of csrc/match_fwd.cu: captions per block (two per warpgroup; their
-# rows stay resident in shared memory), the q-chunks the kernel is built for
-# in 8-word column groups (the wgmma's N / 8: chunks of 40, 72, 104 and 120
-# words), image rows per streamed stage (the wgmma's M), contraction per
-# stage (8 wgmmas of k = 16), stages of the ring
-FWD_CAP_TILE, FWD_Q_GROUPS, FWD_V_TILE, FWD_K_CHUNK, FWD_STAGES = 4, (5, 9, 13, 15), 64, 128, 3
+# K5's tiling (csrc/match_fwd.cu). Both kernels stream image tiles of 64 rows
+# (the wgmma's M) by 128 features (8 wgmmas of k = 16) past captions resident
+# in shared memory, in q-chunks of 8 * nt words (nt the wgmma's N / 8).
+# The TMA kernel: chunks of 120 and 136 words (rows 16-byte aligned, D <=
+# 128, V <= 65536: a column's winning row in 16 bits), two consumer
+# warpgroups of one caption, a ring of 6 tiles, 4 column candidates a
+# warpgroup in its merge buffer. The other kernel (PR 4's design): chunks of
+# 40 to 104 words, where it was not beaten, and any chunk of rows the TMA
+# kernel does not take (builds up to 120 words), 4 captions a block, a ring
+# of 3 tiles.
+FWD_V_TILE, FWD_K_CHUNK, FWD_TMA_MAX_V = 64, 128, 65536
+FWD_Q_GROUPS, FWD_TMA_Q_GROUPS = (5, 9, 13, 15, 17), (15, 17)
+FWD_CAP_TILE, FWD_STAGES, FWD_MERGE_ROWS = 2, 6, 4
+FWD_GENERIC_Q_GROUPS, FWD_GENERIC_CAP_TILE, FWD_GENERIC_STAGES = (5, 9, 13, 15), 4, 3
+# the C interface's codes of the staging paths
+FWD_STAGING = ("scalar", "cp.async", "tma")
 H100_SMS = 132
 
 
-def match_fwd_groups(A: int, B: int, sm_count: int) -> int:
-    """Image groups of K5's grid: a block serves ``FWD_CAP_TILE`` captions and
-    every ``groups``-th image, so that ``groups * ceil(B / FWD_CAP_TILE)``
-    blocks are about one a multiprocessor (never more than one per image)."""
-    return max(1, min(A, sm_count // max(1, -(-B // FWD_CAP_TILE))))
+def match_fwd_staging(D: int, vis_ptr: int = 0, txt_ptr: int = 0, V: int = 0,
+                      Q: int = 1) -> str:
+    """How K5 stages rows: ``"tma"`` (the TMA kernel) when D <= 128, V <=
+    65536, both operands' rows are 16-byte aligned and the words go in
+    chunks of 120 or 136 (:func:`match_fwd_q_tiling`); otherwise the other
+    kernel, by 16-byte ``"cp.async"`` on aligned rows, else ``"scalar"``
+    2-byte loads."""
+    aligned = D % 8 == 0 and vis_ptr % 16 == 0 and txt_ptr % 16 == 0
+    if (aligned and D <= FWD_K_CHUNK and V <= FWD_TMA_MAX_V
+            and match_fwd_q_tiling(Q)[1] in FWD_TMA_Q_GROUPS):
+        return "tma"
+    return "cp.async" if aligned else "scalar"
 
 
-def match_fwd_q_tiling(Q: int):
+def match_fwd_builds(staging: str):
+    """The q-chunk widths, in 8-word groups, that path's kernel is built for."""
+    return FWD_TMA_Q_GROUPS if staging == "tma" else FWD_GENERIC_Q_GROUPS
+
+
+def match_fwd_cap_tile(nt: int, staging: str = "tma") -> int:
+    """Captions one K5 block serves: two (one a consumer warpgroup) on the
+    TMA kernel, four on the other."""
+    return FWD_CAP_TILE if staging == "tma" else FWD_GENERIC_CAP_TILE
+
+
+def match_fwd_groups(A: int, B: int, sm_count: int, cap_tile: int) -> int:
+    """Image groups of K5's grid. A work item is (a tile of ``cap_tile``
+    captions, an image); a block takes one caption tile (its rows stay
+    resident) and every ``groups``-th image, so that ``groups * ceil(B /
+    cap_tile)`` blocks are as many as fit one a multiprocessor (never more
+    than one block per image), and a block's images differ from another's
+    by at most one."""
+    return max(1, min(A, sm_count // max(1, -(-B // cap_tile))))
+
+
+def match_fwd_q_tiling(Q: int, builds=FWD_Q_GROUPS):
     """``(q_chunks, nt)``: the words of a caption go through K5 in
     ``q_chunks`` chunks of ``8 * nt`` words, each a pass over the images. The
-    fewest chunks of at most 120 words (the widest build), of equal width, in
-    the narrowest build that holds them. Captions are padded to multiples of 8
-    words and Q = 2 * (length + 1): Q = 34 is one chunk of 40, Q = 98 and 102
-    one of 104, Q = 114 (56 words, the recipe's longest) one of 120, Q = 202
-    two of 104."""
+    fewest chunks of at most the widest build (136 words; 120 on the other
+    kernel's builds), of equal width, in the narrowest build that holds
+    them. Captions are padded to multiples of 8 words and Q = 2 * (length +
+    1): Q = 34 is one chunk of 40, Q = 98 and 102 one of 104, Q = 114 (56
+    words, exp=vlgae's longest) one of 120, Q = 130 (64 words,
+    exp=vlgae_vit's) one of 136, Q = 202 two of 104."""
     groups8 = max(1, -(-Q // 8))
-    per_chunk = -(-groups8 // -(-groups8 // FWD_Q_GROUPS[-1]))
-    nt = next(n for n in FWD_Q_GROUPS if n >= per_chunk)
+    per_chunk = -(-groups8 // -(-groups8 // builds[-1]))
+    nt = next(n for n in builds if n >= per_chunk)
     return -(-groups8 // nt), nt
 
 
-def match_fwd_smem_bytes(nt: int) -> int:
-    """Dynamic shared memory of a K5 block with q-chunks of ``8 * nt`` words:
-    the resident captions, the ring of image tiles, both biases (the tiles'
-    in a ring one deeper), the merge buffer of the column maxes (16
-    candidates a word and warpgroup), and room to start the swizzled tiles on
-    a 1024-byte boundary."""
+def match_fwd_smem_bytes(nt: int, staging: str = "tma") -> int:
+    """Dynamic shared memory of a K5 block with q-chunks of ``8 * nt``
+    words. TMA kernel: the ring of image tiles and of their image biases,
+    the resident captions, their word biases, the merge buffer of the column
+    maxes (4 candidates a word and warpgroup), a full and an empty barrier a
+    stage, and room to start the swizzled tiles on a 1024-byte boundary. The
+    other kernel: the
+    captions, its ring, both biases (the tiles' in a ring one deeper), 16
+    candidates a word and warpgroup, the same room."""
     row, chunk = 2 * FWD_K_CHUNK, 8 * nt
-    return (FWD_CAP_TILE * chunk * row + FWD_STAGES * FWD_V_TILE * row
-            + FWD_CAP_TILE * chunk * 4 + (FWD_STAGES + 1) * FWD_V_TILE * 4
+    if staging == "tma":
+        return (FWD_STAGES * FWD_V_TILE * (row + 4) + FWD_CAP_TILE * chunk * (row + 4)
+                + FWD_CAP_TILE * FWD_MERGE_ROWS * chunk * 8 + 2 * FWD_STAGES * 8 + 1024)
+    return (FWD_GENERIC_CAP_TILE * chunk * row + FWD_GENERIC_STAGES * FWD_V_TILE * row
+            + FWD_GENERIC_CAP_TILE * chunk * 4 + (FWD_GENERIC_STAGES + 1) * FWD_V_TILE * 4
             + 2 * 16 * chunk * 8 + 1024)
 
 
 def match_fwd_plan(A, V, B, Q, D, vis_ptr=0, txt_ptr=0, sm_count=H100_SMS):
     """What one launch of K5 does at these shapes, from the shapes, the
-    operands' addresses and the card's multiprocessor count alone: the grid
-    (``groups`` x tiles of ``FWD_CAP_TILE`` captions, whose rows are the
-    resident side), the q-chunks (how many, of how many words), the streamed
-    image tiles and k-chunks a block walks per image, how rows are staged
-    (``"cp.async"`` 16 bytes at a time when they are 16-byte aligned, else
-    ``"scalar"`` 2-byte loads inside the same kernel), the dynamic shared
-    memory of a block and the bytes all blocks copy from L2."""
-    cap_tiles = -(-B // FWD_CAP_TILE)
-    groups = match_fwd_groups(A, B, sm_count)
-    q_chunks, nt = match_fwd_q_tiling(Q)
+    operands' addresses and the card's multiprocessor count alone: the
+    kernel and how it stages rows (:func:`match_fwd_staging`), the grid
+    (``groups`` x tiles of ``cap_tile`` captions, whose rows are the
+    resident side), the work items (caption tile, image) it walks, the
+    q-chunks (how many, of how many words), the streamed image tiles and
+    k-chunks a block walks per image, the dynamic shared memory of a block
+    and the bytes all blocks copy from L2."""
+    staging = match_fwd_staging(D, vis_ptr, txt_ptr, V, Q)
+    q_chunks, nt = match_fwd_q_tiling(Q, match_fwd_builds(staging))
+    cap_tile = match_fwd_cap_tile(nt, staging)
+    cap_tiles = -(-B // cap_tile)
+    groups = match_fwd_groups(A, B, sm_count, cap_tile)
     v_tiles = -(-V // FWD_V_TILE)
     k_chunks = -(-D // FWD_K_CHUNK)
-    aligned = D % 8 == 0 and vis_ptr % 16 == 0 and txt_ptr % 16 == 0
     # every block streams its images once per q-chunk and stages its captions
-    # once; when D takes k-chunks both are staged again for every (image tile,
-    # caption of a warpgroup)
+    # once a q-chunk; when D takes k-chunks both are staged again for every
+    # (image tile, caption of a warpgroup)
     if k_chunks == 1:
-        l2_bytes = 2 * D * cap_tiles * (q_chunks * A * V + groups * FWD_CAP_TILE * Q)
+        l2_bytes = 2 * D * cap_tiles * (q_chunks * A * V + groups * cap_tile * Q)
     else:
-        l2_bytes = 2 * D * cap_tiles * 2 * A * (q_chunks * V + v_tiles * FWD_CAP_TILE * Q)
-    return {"grid": (groups, cap_tiles), "resident": "captions", "q_chunks": q_chunks,
-            "q_chunk_words": 8 * nt, "v_tiles": v_tiles, "k_chunks": k_chunks,
-            "staging": "cp.async" if aligned else "scalar",
-            "smem_bytes": match_fwd_smem_bytes(nt), "l2_to_smem_bytes": l2_bytes}
+        l2_bytes = 2 * D * cap_tiles * 2 * A * (q_chunks * V + v_tiles * cap_tile * Q)
+    return {"kernel": "tma" if staging == "tma" else "generic", "staging": staging,
+            "grid": (groups, cap_tiles), "cap_tile": cap_tile, "resident": "captions",
+            "work_items": cap_tiles * A, "q_chunks": q_chunks, "q_chunk_words": 8 * nt,
+            "v_tiles": v_tiles, "k_chunks": k_chunks,
+            "smem_bytes": match_fwd_smem_bytes(nt, staging), "l2_to_smem_bytes": l2_bytes}
 
 
 def _library():
@@ -141,14 +188,18 @@ def _library():
         lib.match_fwd_launch.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.match_fwd_launch.restype = ctypes.c_int
-        lib.match_fwd_smem_bytes.argtypes = [ctypes.c_int]
-        lib.match_fwd_smem_bytes.restype = ctypes.c_int
-        for nt in FWD_Q_GROUPS:
-            if lib.match_fwd_smem_bytes(nt) != match_fwd_smem_bytes(nt):
-                raise RuntimeError(
-                    f"match_fwd.cu keeps {lib.match_fwd_smem_bytes(nt)} bytes of shared "
-                    f"memory at nt = {nt}, match_fwd_smem_bytes says "
-                    f"{match_fwd_smem_bytes(nt)}")
+        for name in ("match_fwd_smem_bytes", "match_fwd_cap_tile"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
+        for staging in ("tma", "cp.async"):
+            code = FWD_STAGING.index(staging)
+            for nt in match_fwd_builds(staging):
+                got = (lib.match_fwd_smem_bytes(nt, code), lib.match_fwd_cap_tile(nt, code))
+                want = (match_fwd_smem_bytes(nt, staging), match_fwd_cap_tile(nt, staging))
+                if got != want:
+                    raise RuntimeError(
+                        f"match_fwd.cu keeps (shared bytes, captions a block) {got} at "
+                        f"nt = {nt} ({staging}), ops/match.py says {want}")
         _lib = lib
     return _lib
 
@@ -186,8 +237,7 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
             _build.ptr(txt_bias), _build.ptr(logit), _build.ptr(logit_idx),
             _build.ptr(logit_v), _build.ptr(logit_v_idx),
             A, V, D, B, Q, plan["grid"][0], plan["q_chunk_words"] // 8,
-            int(plan["staging"] == "cp.async"),
-            _build.stream_ptr(dev))
+            FWD_STAGING.index(plan["staging"]), _build.stream_ptr(dev))
     _build.check(err, "match_fwd_launch")
     n_launches += 1
     chunks = plan["q_chunks"]
