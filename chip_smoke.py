@@ -1195,9 +1195,9 @@ def phase_k5(state):
         args = _k5_inputs(rng, A, V, B, VIT_Q, D, dev, "random")
         chunks = match_fwd_plan(A, V, B, VIT_Q, D, args[0].data_ptr(), args[1].data_ptr(),
                                 sm_count)["q_chunks"]
-        before = match.n_launches_by_q_chunks.get(chunks, 0)
+        before = match.launch_counts()["fwd_by_q_chunks"].get(chunks, 0)
         got, errs, off = _check_k5(args, False, f"at V={V}, Q={VIT_Q}")
-        if match.n_launches_by_q_chunks.get(chunks, 0) != before + 1:
+        if match.launch_counts()["fwd_by_q_chunks"].get(chunks, 0) != before + 1:
             raise AssertionError(f"K5 at V={V}, Q={VIT_Q} did not take the plan's "
                                  f"{chunks} q-chunk(s)")
         vs_parent[f"at V={V}, Q={VIT_Q}"] = _k5_vs_parent(state, args, got,
@@ -1773,14 +1773,14 @@ def phase_slice(state):
         overrides = _corpus_overrides(tmp) + [
             f"datamodule.{s}_dataloader.num_bucket=1"
             for s in ("train", "dev", "test")] + ["init_seed=0", "device=cuda"]
-        dmv_cuda.n_launches = 0
-        match.n_launches = 0
+        dmv_cuda.reset_launch_counts()
+        match.reset_launch_counts()
         t0 = time.perf_counter()
         pipe, results = _run_predict(tmp, overrides)
         torch.cuda.synchronize()
         t_predict = time.perf_counter() - t0
-        launches = {"dmv_fused": dmv_cuda.n_launches,
-                    "match_fwd": match.n_launches}
+        launches = {"dmv_fused": dmv_cuda.launch_counts()["fused"],
+                    "match_fwd": match.launch_counts()["fwd"]}
         if not all(launches.values()):
             raise AssertionError(f"a kernel of the path never launched: {launches}")
         for split, res in results.items():
@@ -1963,7 +1963,8 @@ def phase_train(state):
             for s in ("train", "dev", "test")] + [
             "trainer.max_epochs=2", "model.init_epoch=1", f"workdir={run}",
             "init_seed=0", "device=cuda"]
-        dmv_cuda.n_launches = match.n_launches = match.n_bwd_launches = 0
+        dmv_cuda.reset_launch_counts()
+        match.reset_launch_counts()
         cwd = os.getcwd()
         os.chdir(tmp)
         t0 = time.perf_counter()
@@ -1973,8 +1974,9 @@ def phase_train(state):
             os.chdir(cwd)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        launches = {"dmv_fused": dmv_cuda.n_launches, "match_fwd": match.n_launches,
-                    "match_bwd": match.n_bwd_launches}
+        m = match.launch_counts()
+        launches = {"dmv_fused": dmv_cuda.launch_counts()["fused"], "match_fwd": m["fwd"],
+                    "match_bwd": m["bwd"]}
         if not all(launches.values()):
             raise AssertionError(f"a kernel of the path never launched: {launches}")
         with open(os.path.join(run, "metrics.jsonl")) as f:
@@ -2073,7 +2075,8 @@ def phase_export(state):
     from vlgae_tpu_torch.training.pipeline import pad_batch_pow2
 
     def counts():
-        return {"dmv_fused": dmv_cuda.n_launches, "match_fwd": match.n_launches}
+        return {"dmv_fused": dmv_cuda.launch_counts()["fused"],
+                "match_fwd": match.launch_counts()["fwd"]}
 
     def host_ms(fn, reps=7):
         times = []
@@ -2198,9 +2201,9 @@ def phase_k2(state):
             lengths = _ragged(rng, n1, WARP_B if mapping == "warp" else 64)
             for kind in ("log", "max"):
                 dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
-                before = dmv_cuda.n_inside_launches[mapping]
+                before = dmv_cuda.launch_counts()["inside"][mapping]
                 got = dmv_inside(dec, attach, lens, kind)
-                if dmv_cuda.n_inside_launches[mapping] != before + 1:
+                if dmv_cuda.launch_counts()["inside"][mapping] != before + 1:
                     raise AssertionError(f"K2 n1={n1} did not take the {mapping} mapping")
                 want = dmv_total(dec, attach, lens, kind)
                 fused = dmv_fused(dec, attach, lens, kind)[0]
@@ -2300,16 +2303,17 @@ def phase_k3(state):
             gout = _gout(len(lengths), dev)
             for kind in ("log", "max"):
                 dec, attach, lens = _dmv_inputs(rng, lengths, n1, dev)
-                before = dmv_cuda.n_inside_save_launches[mapping]
+                before = dmv_cuda.launch_counts()["inside_save"][mapping]
                 total, charts = dmv_inside_save(dec, attach, lens, kind)
-                if dmv_cuda.n_inside_save_launches[mapping] != before + 1:
+                if dmv_cuda.launch_counts()["inside_save"][mapping] != before + 1:
                     raise AssertionError(f"K3a n1={n1} did not take the {mapping} mapping")
                 p_total, p_charts = dmv_inside_charts_plain(dec, attach, lens, kind)
                 off = p_charts == -1e12
-                out_global = dmv_cuda.n_outside_global_launches
+                out_global = dmv_cuda.launch_counts()["outside_global"]
                 got = dmv_outside(dec, attach, lens, gout, total, charts, kind)
                 out_mapping = dmv_cuda.outside_mapping(n1, dmv_cuda._smem_optin)
-                if dmv_cuda.n_outside_global_launches != out_global + (out_mapping == "global"):
+                if (dmv_cuda.launch_counts()["outside_global"]
+                        != out_global + (out_mapping == "global")):
                     raise AssertionError(f"K3b n1={n1} did not take the {out_mapping} mapping")
                 again = dmv_outside(dec, attach, lens, gout, total, charts, kind)
                 on_plain = dmv_outside(dec, attach, lens, gout, p_total,
@@ -2928,17 +2932,16 @@ def phase_vit(state):
 
     def reset():
         dmv_cuda.reset_launch_counts()
-        match.n_launches = match.n_bwd_launches = 0
-        match.n_launches_by_q_chunks.clear()
+        match.reset_launch_counts()
 
     def counts():
         # the recipe's captions reach n1 = 65 at most: K1's split placement
-        return {"dmv_fused": dmv_cuda.n_launches,
-                "dmv_fused_split": dmv_cuda.n_fused_split_launches,
-                "match_fwd": match.n_launches,
+        c, m = dmv_cuda.launch_counts(), match.launch_counts()
+        return {"dmv_fused": c["fused"], "dmv_fused_split": c["fused_split"],
+                "match_fwd": m["fwd"],
                 # captions of up to 63 words: Q <= 130, one pass over the images
-                "match_fwd_one_q_chunk": match.n_launches_by_q_chunks.get(1, 0),
-                "match_bwd": match.n_bwd_launches}
+                "match_fwd_one_q_chunk": m["fwd_by_q_chunks"].get(1, 0),
+                "match_bwd": m["bwd"]}
 
     # the (V, Q) of every K5 call, to show which shapes the path reached
     shapes = set()
@@ -3047,10 +3050,10 @@ def phase_vit(state):
         x = next(b for b, _ in full if b["word"].shape[1] + 1 == 65)
         with torch.no_grad():
             inputs = shard_batch(x, pipe.dp)
-            g0 = dmv_cuda.n_fused_split_launches
+            g0 = dmv_cuda.launch_counts()["fused_split"]
             out = pipe.model.eval()(inputs)
             on_path["k1"] = _check_dmv_on_path(out, inputs["seq_len"])
-            if dmv_cuda.n_fused_split_launches != g0 + 2:
+            if dmv_cuda.launch_counts()["fused_split"] != g0 + 2:
                 raise AssertionError("vit: K1 at n1 = 65 did not take the split placement")
             dec, attach, lens = out["merged_dec"], out["merged_attach"], inputs["seq_len"]
             on_path["k1_device_ms"] = {kind: device_ms(lambda: dmv_fused(dec, attach, lens, kind))
@@ -3415,7 +3418,7 @@ def phase_mbr(state):
 
     def reset():
         dmv_cuda.reset_launch_counts()
-        match.n_launches = match.n_bwd_launches = 0
+        match.reset_launch_counts()
 
     def counts():
         c = dmv_cuda.launch_counts()
@@ -3423,7 +3426,7 @@ def phase_mbr(state):
                 "dmv_inside": c["inside"]["smem"], "dmv_inside_small": c["inside"]["warp"],
                 "dmv_inside_long": c["inside"]["global"],
                 "dmv_inside_save": sum(c["inside_save"].values()),
-                "dmv_outside": c["outside"], "match_fwd": match.n_launches}
+                "dmv_outside": c["outside"], "match_fwd": match.launch_counts()["fwd"]}
 
     def value_only(c):
         return c["dmv_inside"] + c["dmv_inside_small"] + c["dmv_inside_long"]
@@ -3785,20 +3788,19 @@ def kernel_counts():
     """Every wrapper's launch count, by the rows of the ``kernels`` line."""
     from vlgae_tpu_torch.ops import dmv_cuda, match
 
-    c = dmv_cuda.launch_counts()
+    c, m = dmv_cuda.launch_counts(), match.launch_counts()
     return {"dmv_fused": c["fused"], "dmv_inside": c["inside"]["smem"],
             "dmv_inside_save": c["inside_save"]["smem"], "dmv_outside": c["outside"],
             "dmv_inside_small": c["inside"]["warp"] + c["inside_save"]["warp"],
             "dmv_inside_long": c["inside"]["global"] + c["inside_save"]["global"],
-            "match_fwd": match.n_launches, "match_bwd": match.n_bwd_launches}
+            "match_fwd": m["fwd"], "match_bwd": m["bwd"]}
 
 
 def reset_kernel_counts():
     from vlgae_tpu_torch.ops import dmv_cuda, match
 
     dmv_cuda.reset_launch_counts()
-    match.n_launches = match.n_bwd_launches = 0
-    match.n_launches_by_q_chunks.clear()
+    match.reset_launch_counts()
 
 
 # K1, K2, the K3 pair, K5 and K6 of each step, by mode (the exp=vlgae
@@ -5019,9 +5021,9 @@ def torchrun_worker(out_path, module, args):
     from vlgae_tpu_torch.training.pipeline import Pipeline
 
     def counts():
-        return {"dmv_fused": dmv_cuda.n_launches, "match_fwd": match.n_launches,
-                "match_bwd": match.n_bwd_launches,
-                "match_maxes_sharded": match.n_sharded_launches}
+        m = match.launch_counts()
+        return {"dmv_fused": dmv_cuda.launch_counts()["fused"], "match_fwd": m["fwd"],
+                "match_bwd": m["bwd"], "match_maxes_sharded": m["sharded"]}
 
     steps, losses = [], []
 

@@ -98,9 +98,9 @@ def test_dmv_fused_matches_plain(cuda, kind, lengths, n1):
     from vlgae_tpu_torch.ops import dmv_cuda
 
     dec, attach, lens = _dmv_batch(lengths, n1, sum(lengths), cuda)
-    before = dmv_cuda.n_launches
+    before = dmv_cuda.launch_counts()["fused"]
     got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
-    assert dmv_cuda.n_launches == before + 1
+    assert dmv_cuda.launch_counts()["fused"] == before + 1
     want = dmv_value_and_grads_plain(dec, attach, lens, kind)
     if kind == "max":
         for g, w in zip(got, want):
@@ -175,9 +175,9 @@ def test_dmv_fused_takes_global_scratch_at_the_vit_recipes_longest_captions(cuda
     lengths = [64, 1, 0, *rng.integers(1, 65, 61).tolist()]
     dec, attach, lens = _dmv_batch(lengths, 65, 7, cuda)
     for kind in ("log", "max"):
-        before = dmv_cuda.n_fused_split_launches
+        before = dmv_cuda.launch_counts()["fused_split"]
         got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
-        assert dmv_cuda.n_fused_split_launches == before + 1
+        assert dmv_cuda.launch_counts()["fused_split"] == before + 1
         want = dmv_value_and_grads_plain(dec, attach, lens, kind)
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
         for g, w in zip(got[1:], want[1:]):
@@ -227,9 +227,9 @@ def test_dmv_fused_split_placement_matches_plain(cuda, kind, n1):
     rng = np.random.default_rng(400 + n1)
     lengths = [n1 - 1, 1, 0, *rng.integers(1, n1, 61).tolist()]
     dec, attach, lens = _dmv_batch(lengths, n1, 500 + n1, cuda)
-    before = dmv_cuda.n_fused_split_launches
+    before = dmv_cuda.launch_counts()["fused_split"]
     got = dmv_cuda.dmv_fused(dec, attach, lens, kind)
-    assert dmv_cuda.n_fused_split_launches == before + 1
+    assert dmv_cuda.launch_counts()["fused_split"] == before + 1
     wants = [dmv_value_and_grads_plain(dec, attach, lens, kind)]
     if kind == "max":
         for g, w in zip(got, wants[0]):
@@ -266,9 +266,9 @@ def test_dmv_dispatch_goes_to_the_kernel(cuda):
     from vlgae_tpu_torch.ops import dmv_cuda
     from vlgae_tpu_torch.struct import dmv_value_and_grads
 
-    before = dmv_cuda.n_launches
+    before = dmv_cuda.launch_counts()["fused"]
     dmv_value_and_grads(*_dmv_batch((3, 2), 4, 0, cuda), "log")
-    assert dmv_cuda.n_launches == before + 1
+    assert dmv_cuda.launch_counts()["fused"] == before + 1
 
 
 @pytest.mark.parametrize("A,V,B,Q,D", [
@@ -285,9 +285,9 @@ def test_match_fwd_matches_plain(cuda, A, V, B, Q, D):
                       dtype=torch.float32, device=cuda)
     tb = torch.tensor(np.where(rng.random((B, Q)) < 0.3, -1e9, 0.0),
                       dtype=torch.float32, device=cuda)
-    before = match.n_launches
+    before = match.launch_counts()["fwd"]
     got = match_maxes(vis, txt, vb, tb)
-    assert match.n_launches == before + 1
+    assert match.launch_counts()["fwd"] == before + 1
     want = match_maxes_plain(vis, txt, vb, tb)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -306,9 +306,9 @@ def test_match_fwd_and_bwd_at_word_alldeps_widest_q(cuda):
     A, V, B, Q, D = 8, 739, 8, 3306, 128
     assert match_fwd_q_tiling(Q) == (25, 17)
     vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda)
-    before = match.n_launches_by_q_chunks.get(25, 0)
+    before = match.launch_counts()["fwd_by_q_chunks"].get(25, 0)
     got = match_maxes(vis, txt, vb, tb)
-    assert match.n_launches_by_q_chunks.get(25, 0) == before + 1
+    assert match.launch_counts()["fwd_by_q_chunks"].get(25, 0) == before + 1
     for g, w in zip(got, match_maxes_plain(vis, txt, vb, tb)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     _, li, _, lvi = got
@@ -328,9 +328,9 @@ def test_match_fwd_takes_one_q_chunk_on_the_patch_grid(cuda, V):
 
     assert match_fwd_q_tiling(130) == (1, 17)
     args = _quarter_match_inputs(np.random.default_rng(V), 64, V, 64, 130, 128, cuda)
-    before = match.n_launches_by_q_chunks.get(1, 0)
+    before = match.launch_counts()["fwd_by_q_chunks"].get(1, 0)
     _assert_match_fwd_equals_plain(args)
-    assert match.n_launches_by_q_chunks.get(1, 0) == before + 1
+    assert match.launch_counts()["fwd_by_q_chunks"].get(1, 0) == before + 1
 
 
 def _quarter_match_inputs(rng, A, V, B, Q, D, device, scale=8):
@@ -471,10 +471,10 @@ def test_match_bwd_matches_plain_and_is_deterministic(cuda, A, V, B, Q, D):
 
     vis, txt, vb, tb, dm, dmv = _match_case(A, V, B, Q, D, cuda)
     _, li, _, lvi = match_maxes(vis, txt, vb, tb)
-    before = match.n_bwd_launches
+    before = match.launch_counts()["bwd"]
     got = match_maxes_bwd(vis, txt, li, lvi, dm, dmv)
     again = match_maxes_bwd(vis, txt, li, lvi, dm, dmv)
-    assert match.n_bwd_launches == before + 2
+    assert match.launch_counts()["bwd"] == before + 2
     want = match_maxes_bwd_plain(vis, txt, li, lvi, dm, dmv)
     for g, a, w in zip(got, again, want):
         assert g.dtype == torch.bfloat16
@@ -589,10 +589,11 @@ def test_match_autograd_on_the_card_launches_k5_and_k6(cuda, monkeypatch):
     vis, txt, vb, tb, dm, dmv = _match_case(4, 37, 8, 21, 16, cuda)
     vf = vis.float().requires_grad_(True)
     tf = txt.float().requires_grad_(True)
-    f0, b0 = match.n_launches, match.n_bwd_launches
+    c0 = match.launch_counts()
     m, _, mv, _ = MatchMaxesFn.apply(vf.bfloat16(), tf.bfloat16(), vb, tb)
     ((m * dm).sum() + (mv * dmv).sum()).backward()
-    assert (match.n_launches, match.n_bwd_launches) == (f0 + 1, b0 + 1)
+    c1 = match.launch_counts()
+    assert (c1["fwd"], c1["bwd"]) == (c0["fwd"] + 1, c0["bwd"] + 1)
     assert vf.grad is not None and tf.grad is not None
 
 
@@ -726,9 +727,9 @@ def test_dmv_inside_save_and_outside_match_plain_and_fused(cuda, kind, lengths, 
 
     gout = _cotangent(B, cuda)
     got = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
-    assert dmv_cuda.n_outside_launches == after["outside"] + 1
+    assert dmv_cuda.launch_counts()["outside"] == after["outside"] + 1
     out_global = dmv_cuda.outside_mapping(n1, dmv_cuda._smem_optin) == "global"
-    assert dmv_cuda.n_outside_global_launches == after["outside_global"] + out_global
+    assert dmv_cuda.launch_counts()["outside_global"] == after["outside_global"] + out_global
     again = dmv_cuda.dmv_outside(dec, attach, lens, gout, total, charts, kind)
     on_plain = dmv_cuda.dmv_outside(dec, attach, lens, gout, want_total,
                                     want_charts.contiguous(), kind)
@@ -912,12 +913,12 @@ def test_classic_dmv_on_the_card_matches_the_cpu(cuda):
     want = dmv_model.expected_counts(cpu, token, lengths)
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4, atol=1e-4)
-    before = dmv_cuda.n_launches
+    before = dmv_cuda.launch_counts()["fused"]
     viterbi = dmv_model.decode(card, tok, lens, mbr=False)
-    assert dmv_cuda.n_launches == before + 1
+    assert dmv_cuda.launch_counts()["fused"] == before + 1
     assert torch.equal(viterbi.cpu(), dmv_model.decode(cpu, token, lengths, mbr=False))
     mbr = dmv_model.decode(card, tok, lens, mbr=True).cpu()
-    assert dmv_cuda.n_launches == before + 3
+    assert dmv_cuda.launch_counts()["fused"] == before + 3
     want_mbr = dmv_model.decode(cpu, token, lengths, mbr=True)
     arc = DMV1o(dmv_model.forward(cpu, token), lengths).marginals.sum(-1)
 

@@ -63,11 +63,11 @@ def test_plain_and_autograd_match_pallas_interpret(shape):
     # the autograd function, as the model calls it (f32 features cast to bf16)
     vf = torch.from_numpy(vis).requires_grad_(True)
     tf = torch.from_numpy(txt).requires_grad_(True)
-    before = match.n_bwd_launches
+    before = match.launch_counts()["bwd"]
     m, _, mv, _ = MatchMaxesFn.apply(vf.bfloat16(), tf.bfloat16(),
                                      torch.from_numpy(vb), torch.from_numpy(tb))
     (m * torch.from_numpy(wm)).sum().add((mv * torch.from_numpy(wmv)).sum()).backward()
-    assert match.n_bwd_launches == before  # the CPU takes the plain version
+    assert match.launch_counts()["bwd"] == before  # the CPU takes the plain version
     np.testing.assert_array_equal(vf.grad.numpy(), want_dvis)
     np.testing.assert_array_equal(tf.grad.numpy(), want_dtxt)
 

@@ -33,6 +33,7 @@ from .features import DetFeatureLoader, PixelLoader
 from .sampler import BasicSampler, ConstantTokenNumSampler
 from .vocab import UNK, TokenVocabulary, Vocabulary
 from ..struct.alg import isprojective
+from ..utils.trace import count, span
 
 _BRACKETS = {
     "-LRB-": "(", "-RRB-": ")", "-LCB-": "{", "-RCB-": "}",
@@ -193,8 +194,10 @@ class DataModule:
         sampler = self.sampler(name, shuffle)
         ds = self.datasets[name]
         for batch_idx in sampler:
-            yield self.collate(name, [ds[i] for i in batch_idx],
-                               sampler.pad_len(batch_idx))
+            with span("vlgae.data.collate"):
+                batch = self.collate(name, [ds[i] for i in batch_idx],
+                                     sampler.pad_len(batch_idx))
+            yield batch
 
     def train_state(self) -> dict:
         """The host RNG state of the training splits: sampler epochs (they
@@ -539,7 +542,10 @@ class VLParseDataModule(DepDataModule):
             y["sg_box"][b, :n] = inst["sg_box"]
             y["sg_mask"][b, :n] = inst["sg_mask"]
         if self.load_vis:
-            vis = self._feat_loaders[name]([i["img_id"] for i in insts])
+            with span("vlgae.data.pack"):
+                vis = self._feat_loaders[name]([i["img_id"] for i in insts])
+            count("data.pack_images", len(insts))
+            count("data.pack_bytes", sum(v.nbytes for v in vis.values()))
             y["vis_box"] = vis.pop("vis_box")
             x.update(vis)
         x["img_id"] = np.array([i["img_id"] for i in insts], np.int64)

@@ -52,6 +52,7 @@ from ..ops.topk import exact_top_k
 from ..parallel.mesh import (DataGroup, ModelGroup, gather_from_model, gather_rows,
                              global_sum, log_softmax_across, reduce_from_model)
 from ..struct import dmv_value_and_grads
+from ..utils.trace import span
 from .ldndmv import DiscriminativeNDMV, LDNDMVConfig
 from .nn import MLP
 
@@ -471,26 +472,30 @@ class DependencyBoxRel(nn.Module):
         if compact:
             rel_pairs = self._rel_incl_pairs(inputs["vis_box_mask"].shape[1],
                                              token.device)
-        vis_encoded = self.vis_encoder(inputs, rel_pairs=rel_pairs)
-        emb, aux = self.dependency.embedding(inputs)
-        encoded = self.dependency.encoder(emb, mask)
+        with span("vlgae.forward.visual"):
+            vis_encoded = self.vis_encoder(inputs, rel_pairs=rel_pairs)
+        with span("vlgae.forward.text"):
+            emb, aux = self.dependency.embedding(inputs)
+            encoded = self.dependency.encoder(emb, mask)
         if cfg.feat_fuse_mode == "attention" and cfg.fuse_aug_with_matching:
             encoded = self.fuse_with_matching(inputs, vis_encoded, encoded, mask,
                                               compact=compact)
-        out = dict(self.dependency(inputs, encoded, (emb, aux)))
+        with span("vlgae.forward.dmv"):
+            out = dict(self.dependency(inputs, encoded, (emb, aux)))
         if not with_grounding:
             return out
-        vis = self.vis_feat(inputs, vis_encoded)
-        *txt, dep_reuse = self.lang_feat(inputs, encoded, out, mask)
-        txt = tuple(txt)
-        out.update({"vis_packed": vis, "txt_packed": txt})
-        if dep_reuse is not None:
-            out["dep_reuse"] = dep_reuse
-        if cfg.gather_logit_mode == "simple" and cfg.loss_grounding_mode == "factor|ce":
-            out["match_reduced"] = self.gather_logit_train(vis, txt)
-            out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
-        else:
-            out["match_logit"] = self.gather_logit(vis, txt)
+        with span("vlgae.forward.grounding"):
+            vis = self.vis_feat(inputs, vis_encoded)
+            *txt, dep_reuse = self.lang_feat(inputs, encoded, out, mask)
+            txt = tuple(txt)
+            out.update({"vis_packed": vis, "txt_packed": txt})
+            if dep_reuse is not None:
+                out["dep_reuse"] = dep_reuse
+            if cfg.gather_logit_mode == "simple" and cfg.loss_grounding_mode == "factor|ce":
+                out["match_reduced"] = self.gather_logit_train(vis, txt)
+                out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
+            else:
+                out["match_logit"] = self.gather_logit(vis, txt)
         return out
 
     # -- grounding loss -----------------------------------------------------

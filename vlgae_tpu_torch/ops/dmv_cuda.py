@@ -48,20 +48,10 @@ import torch
 from torch import Tensor
 
 from ..struct import dmv as _plain
+from ..utils import trace
 from . import _build
 
-# launches in this process (chip_smoke resets and reads them): K1, those of
-# it with all charts in global scratch and those with its adjoint charts
-# alone there; the inside pass, value-only and chart-saving, by mapping; the
-# outside pass, and those of it with charts in global memory
-n_launches = 0
-n_fused_global_launches = 0
-n_fused_split_launches = 0
 MAPPINGS = ("warp", "smem", "global")
-n_inside_launches = dict.fromkeys(MAPPINGS, 0)
-n_inside_save_launches = dict.fromkeys(MAPPINGS, 0)
-n_outside_launches = 0
-n_outside_global_launches = 0
 
 # bytes of one chart cell pair times the charts a kernel keeps per sentence
 # (see the .cu): eight for K1 and for the outside kernel (the inside charts
@@ -84,20 +74,23 @@ _outside_lib = None
 
 
 def reset_launch_counts() -> None:
-    global n_launches, n_fused_global_launches, n_fused_split_launches, n_outside_launches
-    global n_outside_global_launches
-    n_launches = n_fused_global_launches = n_fused_split_launches = n_outside_launches = 0
-    n_outside_global_launches = 0
-    for m in MAPPINGS:
-        n_inside_launches[m] = n_inside_save_launches[m] = 0
+    """Drop the ``dmv.*`` launch counters of :mod:`..utils.trace` (back to 0)."""
+    trace.reset("dmv.")
 
 
 def launch_counts() -> dict:
-    return {"fused": n_launches, "fused_global": n_fused_global_launches,
-            "fused_split": n_fused_split_launches,
-            "inside": dict(n_inside_launches),
-            "inside_save": dict(n_inside_save_launches),
-            "outside": n_outside_launches, "outside_global": n_outside_global_launches}
+    """This process's launches, read from the ``dmv.*`` counters of
+    :mod:`..utils.trace`: K1 (``fused``), those of it with all charts in
+    global scratch and those with its adjoint charts alone there; the inside
+    pass, value-only and chart-saving, by mapping; the outside pass, and
+    those of it with charts in global memory."""
+    c = trace.counters()
+    return {"fused": c.get("dmv.fused", 0), "fused_global": c.get("dmv.fused_global", 0),
+            "fused_split": c.get("dmv.fused_split", 0),
+            "inside": {m: c.get(f"dmv.inside.{m}", 0) for m in MAPPINGS},
+            "inside_save": {m: c.get(f"dmv.inside_save.{m}", 0) for m in MAPPINGS},
+            "outside": c.get("dmv.outside", 0),
+            "outside_global": c.get("dmv.outside_global", 0)}
 
 
 def chart_pitch(n1: int) -> int:
@@ -364,7 +357,6 @@ def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
     ``dec``/``attach`` are f32; ``lengths`` (int) is moved to the card as
     int32. Lengths are clamped to ``[0, N1-1]`` in the kernel.
     """
-    global n_launches, n_fused_global_launches, n_fused_split_launches
     dec, attach, lengths, B, n1 = _checked("dmv_fused", dec, attach, lengths, kind)
     lib = _library()
     out = torch.empty(B, device=dec.device, dtype=torch.float32)
@@ -384,9 +376,9 @@ def dmv_fused(dec: Tensor, attach: Tensor, lengths: Tensor,
             B, n1, int(kind == "max"), FUSED_SMEM_CHARTS[mapping], int(plan["stage"]),
             plan["threads"], plan["inside_threads"], _build.stream_ptr(dec.device))
     _build.check(err, f"dmv_fused_launch ({mapping})")
-    n_launches += 1
-    n_fused_global_launches += int(mapping == "global")
-    n_fused_split_launches += int(mapping == "split")
+    trace.count("dmv.fused")
+    if mapping in ("global", "split"):
+        trace.count(f"dmv.fused_{mapping}")
     return out, g_dec, g_attach
 
 
@@ -459,7 +451,7 @@ def _inside(dec, attach, lengths, kind, save):
             B, n1, int(kind == "max"), int(save), MAPPINGS.index(mapping),
             plan["threads"], int(plan["stage"]), _build.stream_ptr(dec.device))
     _build.check(err, f"dmv_inside_launch ({what}, {mapping})")
-    (n_inside_save_launches if save else n_inside_launches)[mapping] += 1
+    trace.count(f"dmv.{'inside_save' if save else 'inside'}.{mapping}")
     return out, charts
 
 
@@ -514,7 +506,7 @@ def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz
     saved charts of :func:`dmv_inside_save` (K3b; on the CPU
     :func:`~vlgae_tpu_torch.struct.dmv.dmv_outside_plain`), already scaled by
     ``gout [B]``; ``logz [B]`` is that pass's total."""
-    global n_outside_launches, n_outside_global_launches, _outside_lib
+    global _outside_lib
     dec, attach, lengths, B, n1 = _checked("dmv_outside", dec, attach, lengths, kind)
     for name, t, shape in (("gout", gout, (B,)), ("logz", logz, (B,)),
                            ("charts", charts, (B, 4, n1, n1, 2))):
@@ -547,8 +539,9 @@ def dmv_outside(dec: Tensor, attach: Tensor, lengths: Tensor, gout: Tensor, logz
             B, n1, int(kind == "max"), int(use_smem), int(plan["stage"]),
             plan["threads"], _build.stream_ptr(dec.device))
     _build.check(err, f"dmv_outside_launch ({plan['mapping']})")
-    n_outside_launches += 1
-    n_outside_global_launches += int(not use_smem)
+    trace.count("dmv.outside")
+    if not use_smem:
+        trace.count("dmv.outside_global")
     return g_dec, g_attach
 
 

@@ -31,20 +31,31 @@ import torch
 from torch import Tensor
 
 from ..parallel.mesh import gather_rows
+from ..utils import trace
 from . import _build
-
-# launches of K5 / K6 in this process (chip_smoke resets and reads them),
-# of K5 by the number of q-chunks it took, and the calls of the sharded
-# wrapper that sent CUDA tensors to K5
-n_launches = 0
-n_launches_by_q_chunks = {}
-n_bwd_launches = 0
-n_sharded_launches = 0
 
 _lib = None
 _bwd_lib = None
 # elements of one plain-version [B, a-chunk, Q, V] f32 block
 _PLAIN_BLOCK = 1 << 26
+
+
+def reset_launch_counts() -> None:
+    """Drop the ``match.*`` launch counters of :mod:`..utils.trace` (back to 0)."""
+    trace.reset("match.")
+
+
+def launch_counts() -> dict:
+    """This process's launches, read from the ``match.*`` counters of
+    :mod:`..utils.trace`: K5 (``fwd``), K5 by the number of q-chunks it
+    took, K6 (``bwd``), and the calls of the sharded wrapper that sent CUDA
+    tensors to K5."""
+    c = trace.counters()
+    prefix = "match.fwd_q_chunks."
+    return {"fwd": c.get("match.fwd", 0),
+            "fwd_by_q_chunks": {int(k[len(prefix):]): v for k, v in c.items()
+                                if k.startswith(prefix)},
+            "bwd": c.get("match.bwd", 0), "sharded": c.get("match.sharded", 0)}
 
 
 def match_maxes_plain(vis, txt, vis_bias, txt_bias):
@@ -206,7 +217,6 @@ def _library():
 
 def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
     """Launch K5. Same outputs as :func:`match_maxes_plain`."""
-    global n_launches
     A, V, D = vis.shape
     B, Q, D2 = txt.shape
     tensors = (vis, txt, vis_bias, txt_bias)
@@ -239,9 +249,8 @@ def match_maxes_cuda(vis, txt, vis_bias, txt_bias):
             A, V, D, B, Q, plan["grid"][0], plan["q_chunk_words"] // 8,
             FWD_STAGING.index(plan["staging"]), _build.stream_ptr(dev))
     _build.check(err, "match_fwd_launch")
-    n_launches += 1
-    chunks = plan["q_chunks"]
-    n_launches_by_q_chunks[chunks] = n_launches_by_q_chunks.get(chunks, 0) + 1
+    trace.count("match.fwd")
+    trace.count(f"match.fwd_q_chunks.{plan['q_chunks']}")
     return logit, logit_idx, logit_v, logit_v_idx
 
 
@@ -437,7 +446,6 @@ def match_bwd_launch(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
     """Launch K6 (three CUDA kernels, one count): ``(dvis, dtxt, scratch)``,
     ``scratch`` the views of the int32 buffer named in
     :func:`match_bwd_plan`'s layout, as this call left them."""
-    global n_bwd_launches
     plan = _check_bwd_args(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v)
     A, V, D = vis.shape
     B, Q, _ = txt.shape
@@ -458,7 +466,7 @@ def match_bwd_launch(vis, txt, logit_idx, logit_v_idx, dlogit, dlogit_v):
             int(plan["features"] == "vec4"), *plan["build_warps"], plan["build_smem"],
             _build.stream_ptr(vis.device))
     _build.check(err, "match_bwd_launch")
-    n_bwd_launches += 1
+    trace.count("match.bwd")
     return dvis, dtxt, scratch
 
 
@@ -530,10 +538,9 @@ def match_maxes_sharded(vis, txt, vis_bias, txt_bias, dp):
     captions): outputs ``[B_local, A, Q]`` and ``[B_local, A, V]``. At world
     1, or without a group (``dp`` None), it is :class:`MatchMaxesFn`
     itself. CPU tensors take the plain versions under the same wrapper."""
-    global n_sharded_launches
     if dp is not None and dp.sharded:
         vis, vis_bias = gather_rows(vis, dp), gather_rows(vis_bias.detach(), dp)
     out = MatchMaxesFn.apply(vis, txt, vis_bias, txt_bias)
     if vis.is_cuda:
-        n_sharded_launches += 1
+        trace.count("match.sharded")
     return out

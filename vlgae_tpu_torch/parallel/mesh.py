@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from ..utils.pinned import host_empty, is_pinned, pinned_rows
 
 
@@ -176,16 +177,17 @@ def pad_batch_to_devices(batch: dict, n_devices: int, pow2: bool = False,
     if pad == 0:
         return batch, B
     out = {}
-    for k, v in batch.items():
-        filler = np.repeat(np.asarray(v[:1]), pad, axis=0)
-        if k == "seq_len":
-            filler = np.zeros_like(filler)
-        if is_pinned(v):
-            padded = host_empty((target,) + v.shape[1:], v.dtype)
-            padded[:B], padded[B:] = v, filler
-            out[k] = padded
-        else:
-            out[k] = np.concatenate([np.asarray(v), filler], axis=0)
+    with trace.span("vlgae.data.pad"):
+        for k, v in batch.items():
+            filler = np.repeat(np.asarray(v[:1]), pad, axis=0)
+            if k == "seq_len":
+                filler = np.zeros_like(filler)
+            if is_pinned(v):
+                padded = host_empty((target,) + v.shape[1:], v.dtype)
+                padded[:B], padded[B:] = v, filler
+                out[k] = padded
+            else:
+                out[k] = np.concatenate([np.asarray(v), filler], axis=0)
     return out, B
 
 
@@ -195,16 +197,20 @@ def shard_batch(batch: Dict[str, np.ndarray], dp: DataGroup) -> Dict[str, torch.
     current stream: rows in page-locked memory are copied asynchronously
     from a view of their pinned tensor (the caching host allocator keeps
     the block until the copy is done), pageable ones are staged by CUDA
-    into its own buffer before the call returns."""
+    into its own buffer before the call returns. Counts ``upload.bytes``
+    and, of them, ``upload.pageable_bytes``."""
     B = next(iter(batch.values())).shape[0]
     start, stop = dp.rows(B)
     out = {}
-    for k, v in batch.items():
-        rows = np.asarray(v)[start:stop]
-        src = pinned_rows(rows)
-        if src is None:
-            src = torch.as_tensor(rows)
-        out[k] = src.to(dp.device, non_blocking=True)
+    with trace.span("vlgae.upload"):
+        for k, v in batch.items():
+            rows = np.asarray(v)[start:stop]
+            src = pinned_rows(rows)
+            if src is None:
+                src = torch.as_tensor(rows)
+                trace.count("upload.pageable_bytes", rows.nbytes)
+            trace.count("upload.bytes", rows.nbytes)
+            out[k] = src.to(dp.device, non_blocking=True)
     return out
 
 

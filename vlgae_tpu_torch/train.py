@@ -25,7 +25,13 @@ JSON object) adds its items as overrides, and ``VLGAE_SEARCH_RESULT`` names
 a file that receives ``{"best", "test"}`` at the end. ``wandb=true`` logs to
 wandb as well when the package is importable (and goes inert without it);
 ``profile=true`` writes a ``torch.profiler`` trace of updates 3-5 to
-``<workdir>/profile/``.
+``<workdir>/profile/``: a Chrome trace whose host rows carry the port's
+``vlgae.*`` spans (:mod:`vlgae_tpu_torch.utils.trace`: the upload, the
+forward and its stages, the loss, the backward, the optimizer, the
+collate, the feature loader and the padding) above the card's stream; a
+gap in the stream belongs to the innermost span the host was in at the
+time (the backward's work is on autograd's own thread, inside
+``vlgae.backward``).
 
 Data-parallel over N devices, one process each, unchanged otherwise:
 

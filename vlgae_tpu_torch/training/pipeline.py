@@ -44,6 +44,7 @@ from ..parallel.mesh import (barrier, full_shapes, full_state_dict, full_tensor,
                              shard_batch, shard_like, shard_params, split_mesh,
                              sum_across_processes, tensor_parallel)
 from ..utils.fn import coeff_at, parse_coeff_schedule, reduce_loss
+from ..utils.trace import span
 from . import metrics as metrics_mod
 from .optim import Optimizer
 
@@ -276,21 +277,26 @@ class Pipeline:
         against the rule counts, else the NLL, interpolated with the
         grounding loss in the joint model."""
         model = self.model
-        out = (model(inputs, with_grounding=not init_phase) if self.is_joint
-               else model(inputs))
+        with span("vlgae.forward"):
+            out = (model(inputs, with_grounding=not init_phase) if self.is_joint
+                   else model(inputs))
         lengths = inputs["seq_len"]
-        if init_phase:
-            total, aux = loss_init_rules(out, gold)
-        else:
-            total, aux = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
-            if self.is_joint:
-                total, aux = model.loss(out, inputs, total, aux, alpha)
-        # the counts of the global batch: each rank's loss is its share
-        num_token = torch.clamp_min(global_sum(lengths.sum(), self.dp), 1)
-        n_sent = torch.clamp_min(global_sum((lengths > 0).sum(), self.dp), 1)
-        mode = self.loss_reduction_mode
-        total = reduce_loss(total, num_token, n_sent, mode)
-        aux = {k: reduce_loss(v, num_token, n_sent, mode) for k, v in aux.items()}
+        with span("vlgae.loss"):
+            if init_phase:
+                total, aux = loss_init_rules(out, gold)
+            else:
+                with span("vlgae.loss.dmv"):
+                    total, aux = loss_nll(out, lengths,
+                                          viterbi=self.dep_cfg.viterbi_training)
+                if self.is_joint:
+                    with span("vlgae.loss.grounding"):
+                        total, aux = model.loss(out, inputs, total, aux, alpha)
+            # the counts of the global batch: each rank's loss is its share
+            num_token = torch.clamp_min(global_sum(lengths.sum(), self.dp), 1)
+            n_sent = torch.clamp_min(global_sum((lengths > 0).sum(), self.dp), 1)
+            mode = self.loss_reduction_mode
+            total = reduce_loss(total, num_token, n_sent, mode)
+            aux = {k: reduce_loss(v, num_token, n_sent, mode) for k, v in aux.items()}
         return total, aux
 
     def grad_step(self, x, y, init_phase: bool, alpha: float):
@@ -303,26 +309,28 @@ class Pipeline:
         B = len(x["seq_len"])
         set_batch_rows(self.model, (*self.dp.rows(B), B) if self.dp.sharded else None)
         loss, aux = self.compute_loss(inputs, gold, init_phase, alpha)
-        loss.backward()
+        with span("vlgae.backward"):
+            loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def apply_step(self, n_accumulated: int = 1) -> None:
         """Average the accumulated gradients, sum them over the ranks,
         clip, update, clear."""
-        if n_accumulated > 1:
-            for p in self.optimizer.params:
-                if p.grad is not None:
-                    local(p.grad).mul_(1.0 / n_accumulated)
-        self.optimizer.sum_grads()
-        if self.watcher is not None and self.watcher.should_log(self.step):
-            # this update's global gradients, at the parameters before it;
-            # every rank gathers the sharded leaves, the writer logs them
-            self.watcher.log_trees(self.step, (
-                (n, full_tensor(p.detach(), p),
-                 None if p.grad is None else full_tensor(p.grad, p))
-                for n, p in self.model.named_parameters()))
-        self.optimizer.update(self.step)
-        self.optimizer.zero_grad()
+        with span("vlgae.optimizer"):
+            if n_accumulated > 1:
+                for p in self.optimizer.params:
+                    if p.grad is not None:
+                        local(p.grad).mul_(1.0 / n_accumulated)
+            self.optimizer.sum_grads()
+            if self.watcher is not None and self.watcher.should_log(self.step):
+                # this update's global gradients, at the parameters before it;
+                # every rank gathers the sharded leaves, the writer logs them
+                self.watcher.log_trees(self.step, (
+                    (n, full_tensor(p.detach(), p),
+                     None if p.grad is None else full_tensor(p.grad, p))
+                    for n, p in self.model.named_parameters()))
+            self.optimizer.update(self.step)
+            self.optimizer.zero_grad()
         self.step += 1
         if self.profiler is not None:
             self.profiler.step()
@@ -330,8 +338,9 @@ class Pipeline:
     def train_step(self, x, y, init_phase: bool, alpha: float):
         """One update on one padded batch; returns the loss and terms as
         device tensors (no host sync)."""
-        loss, aux = self.grad_step(x, y, init_phase, alpha)
-        self.apply_step()
+        with span("vlgae.train_step"):
+            loss, aux = self.grad_step(x, y, init_phase, alpha)
+            self.apply_step()
         return loss, aux
 
     def train_epoch(self, epoch: int, val_fn: Optional[Callable] = None,
