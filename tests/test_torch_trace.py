@@ -107,12 +107,14 @@ def test_train_step_and_one_batch_emit_every_span_nested_by_layer(pipe):
 
 def test_pack_counters_read_the_loaders_arrays(pipe):
     trace.reset("data.")
-    x, y = next(pipe.dm.batches("train"))
+    # one collate (through batches() a producer thread may collate more ahead)
+    x, y = next(pipe.dm._collated("train", pipe.dm.sampler("train")))
     c = trace.counters()
     B = len(x["seq_len"])
     want = sum(x[k].nbytes for k in LOADER_KEYS) + y["vis_box"].nbytes
     assert c["data.pack_images"] == B
     assert c["data.pack_bytes"] == want
+    assert c["data.pack_us"] > 0
     again = pipe.dm._feat_loaders["train"](list(x["img_id"]))
     assert sum(v.nbytes for v in again.values()) == want
 

@@ -15,25 +15,39 @@ out of the ``num_lex`` lexicalised words when the corpus is installed,
 nothing otherwise; nothing is downloaded) and, for VLParse,
 ``use_gold_scene_graph`` and ``use_img`` (``<split>.npy`` whole-image
 features, one row an image, batched as ``vis_img``) are those of the JAX
-package.
+package. Where a split has a feature loader, a producer thread collates its
+batches ahead of the caller (``DataModule.batches``).
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import queue
 import re
+import sys
+import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .conll import read_conll
 from .features import DetFeatureLoader, PixelLoader
 from .sampler import BasicSampler, ConstantTokenNumSampler
 from .vocab import UNK, TokenVocabulary, Vocabulary
 from ..struct.alg import isprojective
+from ..utils.pinned import pinning
 from ..utils.trace import count, span
+
+# batches a producer thread keeps finished ahead of its consumer
+PREFETCH = 2
+_DONE = object()
+# the producer threads alive, each with its stop event
+_running: Dict[threading.Thread, threading.Event] = {}
 
 _BRACKETS = {
     "-LRB-": "(", "-RRB-": ")", "-LCB-": "{", "-RCB-": "}",
@@ -71,6 +85,9 @@ class DataModule:
         self.datasets: Dict[str, List[dict]] = {}
         self.vocabs: Dict[str, Optional[Vocabulary]] = {}
         self._has_setup = False
+        # a split's feature-loader state after the last batch taken, while
+        # its producer thread runs ahead (_prefetched)
+        self._taken_rng: Dict[str, list] = {}
 
     # -- override points -----------------------------------------------------
     def _load(self, path, name) -> List[dict]:
@@ -186,18 +203,90 @@ class DataModule:
         return sampler
 
     def batches(self, name, shuffle=None):
-        """Yield (x, y) padded NumPy batch dicts.
+        """Yield (x, y) NumPy batch dicts, each padded to its sampler's
+        ``pad_len`` (the rows are the batch's captions; padding the batch
+        to a power of two is the caller's).
 
         Samplers are cached per (split, shuffle) so the epoch-seeded
-        reshuffle advances across epochs (ref: sampler.py:89-95).
+        reshuffle advances across epochs (ref: sampler.py:89-95). Where the
+        split has a feature loader (VLParse with ``load_vis``: file reads
+        outside the interpreter lock), a producer thread collates the
+        batches after the first while the caller works on the ones it has
+        (:meth:`_prefetched`); elsewhere the collate is Python alone, which
+        a thread slows, and each batch is collated when asked for.
         """
         sampler = self.sampler(name, shuffle)
+        collated = self._collated(name, sampler)
+        loader = getattr(self, "_feat_loaders", {}).get(name)
+        if loader is None:
+            yield from collated
+        else:
+            yield from self._prefetched(name, collated, getattr(loader, "rng", None))
+
+    def _collated(self, name, sampler):
         ds = self.datasets[name]
         for batch_idx in sampler:
             with span("vlgae.data.collate"):
                 batch = self.collate(name, [ds[i] for i in batch_idx],
                                      sampler.pad_len(batch_idx))
             yield batch
+
+    def _prefetched(self, name, collated, rng=None):
+        """The batches of ``collated``: the first collated here, then a
+        producer thread (:func:`_produce`) keeps up to ``PREFETCH`` more
+        ready. Counted per batch taken: ``data.prefetch_ready`` (queued
+        when asked for) or ``data.prefetch_waited`` (the first, and any the
+        caller blocked for, inside ``vlgae.data.wait``).
+
+        ``rng``, the feature loader's random generator, follows the caller:
+        :meth:`train_state` reads its state after the last batch taken, and
+        when this generator is closed or dropped early the thread is
+        stopped and the generator put back to that state, so that later
+        draws are those of batches collated when asked for.
+        """
+        first = next(collated, _DONE)
+        if first is _DONE:
+            return
+        count("data.prefetch_waited")
+        # the state after the last batch taken, read by train_state
+        taken = [_rng_state(rng)]
+        self._taken_rng[name] = taken
+        q = queue.Queue(PREFETCH)
+        stop = threading.Event()
+        # pinned batches are allocated on the caller's card
+        device = torch.cuda.current_device() if pinning() else None
+        thread = threading.Thread(
+            target=_produce, args=(collated, rng, taken, self._taken_rng, name, q, stop, device),
+            name=f"vlgae-prefetch-{name}", daemon=True)
+        _running[thread] = stop
+        thread.start()
+        try:
+            yield first
+            while True:
+                try:
+                    item, ready = q.get_nowait(), True
+                except queue.Empty:
+                    with span("vlgae.data.wait"):
+                        item, ready = q.get(), False
+                if item is _DONE:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                batch, taken[0] = item
+                count("data.prefetch_ready" if ready else "data.prefetch_waited")
+                yield batch
+        finally:
+            stop.set()
+            try:  # unblock a producer waiting to put
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            # collected on the producer's own thread, the producer puts the
+            # draws back as it stops; at exit there is nothing to put back
+            if thread is not threading.current_thread() and not sys.is_finalizing():
+                thread.join()
+                _put_back(rng, taken, self._taken_rng, name)
 
     def train_state(self) -> dict:
         """The host RNG state of the training splits: sampler epochs (they
@@ -211,7 +300,9 @@ class DataModule:
             state["sampler_epoch"][name] = self.sampler(name).epoch
             loader = getattr(self, "_feat_loaders", {}).get(name)
             if hasattr(loader, "rng"):
-                state["loader_rng"][name] = loader.rng.bit_generator.state
+                taken = self._taken_rng.get(name)
+                state["loader_rng"][name] = (
+                    loader.rng.bit_generator.state if taken is None else taken[0])
         return state
 
     def load_train_state(self, state: dict) -> None:
@@ -219,6 +310,7 @@ class DataModule:
             self.sampler(name).set_epoch(epoch)
         for name, rng_state in state.get("loader_rng", {}).items():
             self._feat_loaders[name].rng.bit_generator.state = rng_state
+            self._taken_rng.pop(name, None)
 
     def collate(self, name, insts, pad_len):
         raise NotImplementedError
@@ -542,8 +634,11 @@ class VLParseDataModule(DepDataModule):
             y["sg_box"][b, :n] = inst["sg_box"]
             y["sg_mask"][b, :n] = inst["sg_mask"]
         if self.load_vis:
+            t0 = time.perf_counter_ns()
             with span("vlgae.data.pack"):
                 vis = self._feat_loaders[name]([i["img_id"] for i in insts])
+            # host time on whichever thread collates, which the profiler may not record
+            count("data.pack_us", (time.perf_counter_ns() - t0) // 1000)
             count("data.pack_images", len(insts))
             count("data.pack_bytes", sum(v.nbytes for v in vis.values()))
             y["vis_box"] = vis.pop("vis_box")
@@ -552,6 +647,67 @@ class VLParseDataModule(DepDataModule):
         if "vis_img" in insts[0]:
             x["vis_img"] = np.stack([i["vis_img"] for i in insts]).astype(np.float32)
         return x, y
+
+
+def _rng_state(rng) -> Optional[dict]:
+    return None if rng is None else rng.bit_generator.state
+
+
+def _put(q, item, stop) -> None:
+    """``q.put(item)``, given up once ``stop`` is set."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return
+        except queue.Full:
+            pass
+
+
+def _produce(collated, rng, taken, cells, name, q, stop, device) -> None:
+    """The producer thread of :meth:`DataModule._prefetched`: puts each
+    batch of ``collated`` into ``q`` with the loader generator's state
+    after it, then ``_DONE``, until ``stop`` is set, and when stopped puts
+    the generator back to the batches taken. An exception goes into ``q``
+    in place of its batch, for the consumer to raise."""
+    # what the consumer raises if something other than an Exception ends the thread
+    item = RuntimeError("the batch producer thread stopped")
+    try:
+        if device is not None:
+            torch.cuda.set_device(device)
+        while not stop.is_set():
+            batch = next(collated, _DONE)
+            if batch is _DONE:
+                item = _DONE
+                break
+            _put(q, (batch, _rng_state(rng)), stop)
+    except Exception as e:  # raised again by the consumer's next()
+        item = e
+    finally:
+        collated.close()
+        _put(q, item, stop)
+        if stop.is_set():
+            _put_back(rng, taken, cells, name)
+        _running.pop(threading.current_thread(), None)
+
+
+@atexit.register
+def _stop_running() -> None:
+    """Stop and join the producers still alive at exit, while threads can
+    still run: a daemon thread that is inside C++ code (a pinned
+    allocation) when the interpreter finalizes aborts the process."""
+    for stop in list(_running.values()):
+        stop.set()
+    for thread in list(_running):
+        thread.join()
+
+
+def _put_back(rng, taken, cells, name) -> None:
+    """Set ``rng`` to the state after the last batch taken, ``taken[0]``,
+    and drop the split's entry ``cells[name]`` if it is still ``taken``."""
+    if rng is not None:
+        rng.bit_generator.state = taken[0]
+    if cells.get(name) is taken:
+        cells.pop(name, None)
 
 
 def _get_box(obj):

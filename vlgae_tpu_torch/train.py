@@ -28,9 +28,11 @@ wandb as well when the package is importable (and goes inert without it);
 ``<workdir>/profile/``: a Chrome trace whose host rows carry the port's
 ``vlgae.*`` spans (:mod:`vlgae_tpu_torch.utils.trace`: the upload, the
 forward and its stages, the loss, the backward, the optimizer, the
-collate, the feature loader and the padding) above the card's stream; a
-gap in the stream belongs to the innermost span the host was in at the
-time (the backward's work is on autograd's own thread, inside
+wait for a batch and the padding; the collate and the feature loader of
+an epoch's first batch, the others being collated on the data module's
+producer thread, which the profiler does not record) above the card's
+stream; a gap in the stream belongs to the innermost span the host was in
+at the time (the backward's work is on autograd's own thread, inside
 ``vlgae.backward``).
 
 Data-parallel over N devices, one process each, unchanged otherwise:

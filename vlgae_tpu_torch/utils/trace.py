@@ -9,20 +9,24 @@ no-op context: ``record_function`` costs about 12 us to enter and leave even
 when nothing records it, the check below about 0.1 us.
 
 The counters are plain ints in one dict of this process, always on:
-:func:`count` adds to one, :func:`counters` returns a copy of all,
-:func:`reset` drops them (a dropped counter is absent, read as 0). Their
-names say the layer first (``data.``, ``upload.``, ``dmv.``, ``match.``).
+:func:`count` adds to one under a lock (threads add to them: the data
+module's batch producer and its consumer), :func:`counters` returns a copy
+of all, :func:`reset` drops them (a dropped counter is absent, read as 0).
+Their names say the layer first (``data.``, ``upload.``, ``dmv.``,
+``match.``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict
 
 import torch
 
 _NOOP = contextlib.nullcontext()
 _counts: Dict[str, int] = {}
+_lock = threading.Lock()
 
 
 def span(name: str):
@@ -35,16 +39,19 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (created at 0)."""
-    _counts[name] = _counts.get(name, 0) + int(n)
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
 
 
 def counters() -> Dict[str, int]:
     """A snapshot of every counter."""
-    return dict(_counts)
+    with _lock:
+        return dict(_counts)
 
 
 def reset(prefix: str = "") -> None:
     """Drop the counters whose names start with ``prefix`` (all of them by
     default)."""
-    for name in [k for k in _counts if k.startswith(prefix)]:
-        del _counts[name]
+    with _lock:
+        for name in [k for k in _counts if k.startswith(prefix)]:
+            del _counts[name]
