@@ -6,7 +6,10 @@ against those the reference read from the corpus files."""
 
 from __future__ import annotations
 
+import math
 import statistics
+
+import numpy as np
 
 
 def _gap(p: float, r: float, floor: float) -> float:
@@ -19,7 +22,8 @@ def train_readings(prog: dict, ref: dict) -> dict:
     leaf of the change after the steps, leaves whose reference gradient is
     under a thousandth of the median leaf's left out: they move by round-off
     alone) and ``input_diff`` (entries of the program's batches that differ
-    from the reference's inputs)."""
+    from the reference's inputs); and the family's further numbers, from
+    the ``extra`` of each side (:func:`extra_readings`)."""
     rel = [abs(p - r) / max(abs(r), 1e-30) for p, r in zip(prog["loss"], ref["loss"])]
     g_med = statistics.median(ref["grad"].values())
     grad = {n: _gap(prog["grad"][n], r, g_med) for n, r in ref["grad"].items()}
@@ -28,18 +32,35 @@ def train_readings(prog: dict, ref: dict) -> dict:
     change = {n: _gap(prog["change"][n], ref["change"][n], c_med) for n in counted}
     worst_g = max(grad, key=grad.get)
     worst_c = max(change, key=change.get)
-    return {"loss1_rel": rel[0], "loss_rel": max(rel), "grad_gap": grad[worst_g],
-            "grad_gap_median": statistics.median(grad.values()),
-            "change_gap": change[worst_c],
-            "change_gap_median": statistics.median(change.values()),
-            "input_diff": float(ref.get("input_diff", 0)),
-            "_worst": {"grad": worst_g, "change": worst_c,
-                       "left_out": sorted(set(ref["grad"]) - set(counted))}}
+    out = {"loss1_rel": rel[0], "loss_rel": max(rel), "grad_gap": grad[worst_g],
+           "grad_gap_median": statistics.median(grad.values()),
+           "change_gap": change[worst_c],
+           "change_gap_median": statistics.median(change.values()),
+           "input_diff": float(ref.get("input_diff", 0)),
+           "_worst": {"grad": worst_g, "change": worst_c,
+                      "left_out": sorted(set(ref["grad"]) - set(counted))}}
+    return out | extra_readings(prog.get("extra", {}), ref.get("extra", {}))
+
+
+def extra_readings(prog: dict, ref: dict) -> dict:
+    """A family's further numbers: for each name of the reference's
+    ``extra`` that the program also gave, the largest entry of the gap
+    between the two (numbers or host arrays) over the largest entry of the
+    reference's; infinite where their shapes differ. A name the program did
+    not give has no reading."""
+    out = {}
+    for k, r in ref.items():
+        if k in prog:
+            p, r = np.asarray(prog[k], np.float64), np.asarray(r, np.float64)
+            out[k] = (float(np.abs(p - r).max() / max(np.abs(r).max(), 1e-30))
+                      if p.shape == r.shape else math.inf)
+    return out
 
 
 def judge(readings: dict, limits: dict) -> tuple:
     """``(correct, checks)``: each number beside its limit; correct when
-    every number is at most its limit."""
-    checks = {k: {"value": readings[k], "limit": limits[k]} for k in limits}
-    ok = all(v["value"] <= v["limit"] for v in checks.values())
+    every number is at most its limit. A limit with no reading is not
+    correct (its value is None)."""
+    checks = {k: {"value": readings.get(k), "limit": limits[k]} for k in limits}
+    ok = all(v["value"] is not None and v["value"] <= v["limit"] for v in checks.values())
     return ok, checks

@@ -13,7 +13,8 @@ import sys
 import tempfile
 import time
 
-from . import compare, guard, manifest, program, record, trace
+from .. import families
+from . import compare, guard, manifest, program, record, spans, trace
 
 TRACE_LEAD_S = 2.0
 TRACE_STEPS = 12
@@ -89,22 +90,27 @@ def train_window(torch, pipe, it, alpha, seconds):
     return {"train_sent_per_s": n / window_s}, len(ends), int(bad)
 
 
-def traced(torch, run_step, it, span_steps=TRACE_STEPS):
-    """Profile ``span_steps`` steps: the device timeline, the kernels'
-    bounds and each step's real sizes."""
+def traced(torch, family, run_step, it, span_steps=TRACE_STEPS):
+    """Profile ``span_steps`` steps: the device timeline, the bounds of the
+    family's kernels, each step's real sizes, and the reduction of the
+    program's spans and counters (``spans.reduce``), taken after the
+    profile."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     sizes = []
-    with record.launches() as rec, upload_span(record_function), profile(
+    before = spans.counters()
+    with record.launches(family.KERNELS) as rec, upload_span(record_function), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(span_steps):
             x, y, real = program.next_batch(it, record_function)
-            sizes.append(program.step_sizes(x, real))
+            sizes.append(family.step_sizes(x, real))
             with record_function("bench.step"):
                 run_step(x, y, real)
         torch.cuda.synchronize()
-    tl = trace.timeline(trace.read_profile(prof))
-    return tl, record.bounds(rec), sizes
+    after = spans.counters()
+    t = trace.read_profile(prof)
+    reduced = spans.reduce(t, spans.read_events(prof), before, after)
+    return trace.timeline(t), record.bounds(family.KERNELS, rec), sizes, reduced
 
 
 def per_layer(cell, ctx) -> dict:
@@ -120,6 +126,7 @@ def per_layer(cell, ctx) -> dict:
 
 def run_train(torch, cell, pipe, args, t0, fault=None):
     c, traffic = cell["config"], cell["traffic"]
+    family = families.load(c)
     n_tag = len(program.tag_names(pipe))
     alpha = float(traffic["alpha"])
     it = program.epochs(pipe, traffic["split"])
@@ -137,12 +144,14 @@ def run_train(torch, cell, pipe, args, t0, fault=None):
         while time.perf_counter() < t_lead:
             x, y, _ = program.next_batch(it, program.nospan)
             pipe.train_step(x, y, False, alpha)
-        tl, bounds, sizes = traced(
-            torch, lambda x, y, real: pipe.train_step(x, y, False, alpha), it)
-        ctx = {"loop": "train", "timeline": tl, "bounds": bounds, "steps": sizes,
-               "widths": widths(c, n_tag)}
+        tl, bounds, sizes, reduced = traced(
+            torch, family, lambda x, y, real: pipe.train_step(x, y, False, alpha), it)
+        w = family.widths(c, n_tag)
+        ctx = {"loop": "train", "timeline": tl, "bounds": bounds, "widths": w,
+               "step_ops": family.step_ops(w, sizes, bounds, True), "program": reduced}
         metrics, attempted, failed = per_layer(cell, ctx), tl["n_steps"], 0
-        extra = {"trace": tl, "bounds_s": {k: bounds[k] for k in ("k1_s", "k5_s", "k6_s")}}
+        extra = {"trace": tl, "program": reduced,
+                 "bounds_s": {k: v for k, v in bounds.items() if k.endswith("_s")}}
     else:
         e2e, attempted, failed = train_window(torch, pipe, it, alpha, args.seconds)
         metrics = {m["name"]: {"value": (e2e | res)[m["name"]], "unit": m["unit"]}
@@ -152,34 +161,37 @@ def run_train(torch, cell, pipe, args, t0, fault=None):
     return first, metrics, attempted, failed, device, extra
 
 
-def widths(c: dict, n_tag: int) -> dict:
-    return dict(c["widths"], bert=c["bert"], n_token=n_tag)
-
-
 def reference_train(torch, cell, seed, first, workdir, tf32=False, device="cuda"):
-    """The reference's first steps on its own inputs, read from the corpus
-    files in ``workdir`` for the rows of the program's batches (the program
-    is freed by now); its readings, with ``input_diff``: the entries in
-    which the program's batches differ from those inputs."""
-    from ..reference import inputs, model, train
+    """The reference's first steps on its own inputs, read by the family
+    from the files in ``workdir`` for the rows of the program's batches (the
+    program is freed by now); its readings, with ``input_diff``: the
+    entries in which the program's batches differ from those inputs."""
     from .weights import make_weights
 
     c = cell["config"]
-    corpus = inputs.Corpus(os.path.join(workdir, "vlparse"), os.path.join(workdir, "bert"),
-                           cell["traffic"]["split"], c["vision"])
-    built = [corpus.batch(b, real) for b, real in zip(first["batches"], first["real"])]
-    W = make_weights(model.param_shapes(c, len(corpus.tag_names)).items(), seed,
-                     torch.device(device))
+    family = families.load(c)
+    reader = family.reference_inputs(c, workdir, cell["traffic"]["split"])
+    built = [reader.batch(b, real) for b, real in zip(first["batches"], first["real"])]
+    W = make_weights(family.param_shapes(c, len(reader.tag_names)).items(), seed,
+                     torch.device(device), family.weight_rule)
     batches = [{k: torch.as_tensor(v).to(device) for k, v in x.items()} for x, _ in built]
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
-        ref = train.first_steps(W, c, batches, corpus.tag_names, seed,
-                                float(cell["traffic"]["alpha"]))
+        ref = family.first_steps(W, c, batches, reader.tag_names, seed,
+                                 float(cell["traffic"]["alpha"]))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     ref["input_diff"] = sum(d for _, d in built)
     return ref
+
+
+def program_extra(family, pipe, first) -> dict:
+    """The program's side of the family's ``extra`` readings, from the
+    pipeline after the window and the first batch as the program fed it;
+    empty for a family without them."""
+    hook = getattr(family, "program_extra", None)
+    return {} if hook is None else hook(pipe, first["batches"][0])
 
 
 def finite_or_inf(readings: dict) -> dict:
@@ -203,23 +215,24 @@ def main(args, t0, fault=None) -> int:
     if cell["traffic"]["loop"] != "train":
         raise ValueError(f"no loop {cell['traffic']['loop']!r} in this harness")
     c = cell["config"]
-    from ..reference.model import param_shapes
+    family = families.load(c)
 
     with tempfile.TemporaryDirectory(prefix="perfbench-") as tmp:
-        program.write_inputs(c, cell["traffic"], args.seed, tmp)
-        pipe = program.build(c, args.seed, tmp, lambda n_tag: param_shapes(c, n_tag))
+        family.write_inputs(c, cell["traffic"], args.seed, tmp)
+        pipe = program.build(c, args.seed, tmp)
         names = program.tag_names(pipe)
         if list(pipe.dm.token2tag or []) != list(range(len(names))) or pipe.dm.token2word:
             raise RuntimeError("the recipe's tokens are expected to be its tags")
         first, metrics, attempted, failed, device, extra = run_train(
             torch, cell, pipe, args, t0, fault)
+        first["extra"] = program_extra(family, pipe, first)
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
         ref = reference_train(torch, cell, args.seed, first, tmp)
         readings = compare.train_readings(first, ref)
         detail = {"loss": {"program": first["loss"], "reference": ref["loss"]},
-                  "viterbi_tied_sentences": ref["tied"]}
+                  "viterbi_tied_sentences": ref.get("tied")}
     readings = finite_or_inf(readings)
     correct, checks = compare.judge(readings, cell["limits"])
     correct = correct and failed == 0
@@ -239,6 +252,7 @@ def main(args, t0, fault=None) -> int:
         detail["kernels"] = {n: v for n, v in extra["trace"]["kernel_s"].items()
                              if "dmv" in n or "match" in n}
         detail["bounds"] = extra.get("bounds_s")
+        detail["program"] = extra["program"]
     print(json.dumps(detail), file=sys.stderr)
     for k, v in checks.items():
         print(f"check {k}: {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
@@ -256,11 +270,10 @@ def control_readings(cell_name: str, seed: int) -> dict:
 
     cell = manifest.cell(manifest.load(), cell_name)
     c = cell["config"]
-    from ..reference.model import param_shapes
 
     with tempfile.TemporaryDirectory(prefix="perfbench-") as tmp:
-        program.write_inputs(c, cell["traffic"], seed, tmp)
-        pipe = program.build(c, seed, tmp, lambda n: param_shapes(c, n))
+        families.load(c).write_inputs(c, cell["traffic"], seed, tmp)
+        pipe = program.build(c, seed, tmp)
         it = program.epochs(pipe, cell["traffic"]["split"])
         first = {"batches": [], "real": []}
         for _ in range(3):

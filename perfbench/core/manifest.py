@@ -1,11 +1,14 @@
-"""``BENCHMARK.json`` and the files it names: each configuration's file,
-each traffic mix's file under ``perfbench/traffic/<mix>.json`` and each
-cell's limits under ``perfbench/limits/<cell>.json``."""
+"""``BENCHMARK.json`` and the files it names: each configuration's file
+(which names its family, ``perfbench/families/<family>.py``), each traffic
+mix's file under ``perfbench/traffic/<mix>.json`` and each cell's limits
+under ``perfbench/limits/<cell>.json``."""
 
 from __future__ import annotations
 
 import json
 import os
+
+from .. import families
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BENCH = os.path.join(ROOT, "perfbench")
@@ -32,8 +35,10 @@ def cell(manifest: dict, name: str) -> dict:
     def reports(m):
         return name in m.get("workloads", [name])
 
+    config = _json(os.path.join(ROOT, conf["file"]))
+    families.load(config)
     return {"workload": w,
-            "config": _json(os.path.join(ROOT, conf["file"])),
+            "config": config,
             "traffic": _json(os.path.join(BENCH, "traffic", w["traffic"] + ".json")),
             "limits": _json(os.path.join(BENCH, "limits", name + ".json")),
             "end_to_end": [m for m in manifest["end_to_end"] if reports(m)],

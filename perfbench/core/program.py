@@ -1,56 +1,37 @@
-"""The system under test: the port's ``Pipeline`` of a configuration, on a
-corpus written from the seed, with the weights made from the seed, and the
-loops that drive it."""
+"""The system under test: the port's ``Pipeline`` of a configuration, on the
+inputs its family wrote from the seed, with the weights made from the seed,
+and the loops that drive it."""
 
 from __future__ import annotations
 
 import contextlib
-import os
 
 import numpy as np
 import torch
 
-from . import corpus
+from .. import families
 from .weights import make_weights
 
 
-def compose_overrides(c: dict, workdir: str, bert_dir: str) -> list:
-    root = os.path.join(workdir, "vlparse")
-    return [c["recipe"], f"root={workdir}",
-            f"datamodule.train_path={root}/train",
-            f"datamodule.train_init_path={root}/init",
-            f"datamodule.dev_path={root}/val",
-            f"datamodule.test_path={root}/test",
-            f"datamodule.sg_path={root}/vlparse.json",
-            f"embedding.transformer.args.model={bert_dir}",
-            *c["overrides"]]
-
-
-def write_inputs(c: dict, traffic: dict, seed: int, workdir: str) -> str:
-    """The corpus and the BERT directory; returns the corpus root."""
-    root = os.path.join(workdir, "vlparse")
-    corpus.make_corpus(root, seed, traffic["images"], traffic["length"],
-                       int(c["max_len_train"]), c["vision"])
-    corpus.write_bert_dir(os.path.join(workdir, "bert"), corpus.corpus_words(root), c["bert"])
-    return root
-
-
-def build(c: dict, seed: int, workdir: str, expect_shapes, device="cuda"):
-    """The pipeline on the card with the seed's weights and Adam set up."""
+def build(c: dict, seed: int, workdir: str, device="cuda"):
+    """The pipeline of configuration ``c`` on the card, on the inputs its
+    family wrote under ``workdir``, with the seed's weights and Adam set
+    up."""
     from vlgae_tpu_torch.predict import build_datamodule, compose
     from vlgae_tpu_torch.training.factory import build_model
     from vlgae_tpu_torch.training.pipeline import Pipeline
 
-    cfg = compose(compose_overrides(c, workdir, os.path.join(workdir, "bert")))
+    family = families.load(c)
+    cfg = compose(family.overrides(c, workdir))
     dm = build_datamodule(cfg)
     model = build_model(cfg, dm)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    want = expect_shapes(len(dm.vocabs["tag"]))
+    want = family.param_shapes(c, len(dm.vocabs["tag"]))
     if shapes != want:
         diff = sorted(set(shapes.items()) ^ set(want.items()))[:8]
         raise RuntimeError(f"the program's weights differ from the configuration's: {diff}")
     pipe = Pipeline(model, dm, cfg, device=device, workdir=workdir, seed=seed)
-    W = make_weights(want.items(), seed, pipe.device)
+    W = make_weights(want.items(), seed, pipe.device, family.weight_rule)
     with torch.no_grad():
         for n, p in model.named_parameters():
             p.copy_(W[n])
@@ -94,14 +75,6 @@ def next_batch(it, span):
 
 def host_copy(x: dict) -> dict:
     return {k: np.array(v) for k, v in x.items()}
-
-
-def step_sizes(x: dict, real: int) -> dict:
-    """The real sizes the model count reads."""
-    n = real
-    return {"seq_len": [int(v) for v in x["seq_len"][:n]],
-            "subword_len": [int(v) for v in np.asarray(x["subword_mask"])[:n].sum(1)],
-            "boxes": [int(v) for v in np.asarray(x["vis_box_mask"])[:n].sum(1)]}
 
 
 def train_first_steps(pipe, it, alpha, span):

@@ -92,6 +92,17 @@ def innermost(spans: list, at: float) -> str:
     return min(inside, key=lambda sp: sp[2] - sp[1])[0] if inside else UNATTRIBUTED
 
 
+def idle_under(reduced, roots) -> float | None:
+    """Device idle ms a step put down to the spans ``roots`` and their stage
+    spans (``<root>.*``), from :func:`reduce`'s ``idle_ms``; None where the
+    stretch recorded none of them."""
+    if not reduced:
+        return None
+    hit = [v for k, v in reduced["idle_ms"].items()
+           if any(k == r or k.startswith(r + ".") for r in roots)]
+    return sum(hit) if hit else None
+
+
 def reduce(t: dict, ev: dict, before: dict, after: dict) -> dict:
     """Per step of the stretch: ``self_ms`` and ``idle_ms`` by span name,
     ``launches`` by span name (runtime calls), their totals, and

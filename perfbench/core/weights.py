@@ -2,39 +2,21 @@
 
 One draw of standard normals for every random leaf together, from a
 ``torch.Generator`` on the card, cut into the leaves in the order of their
-names and scaled by a rule on the name: biases, ``*_bias`` leaves and mixing
-weights 0; norm scales 1; BERT leaves N(0, 0.02); the static
-embedding tables N(0, 1); other matrices N(0, 1/fan_in). The program and
-the reference are handed the same tensors.
+names and scaled by the family's rule on the name (``weight_rule``). The
+program and the reference are handed the same tensors.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
-TABLES = ("embedding", "root_emb", "dec_emb")
-
-
-def rule(name: str, shape: Tuple[int, ...]):
-    """``("zero" | "one" | "normal", scale)`` of a leaf."""
-    leaf = name.rsplit(".", 1)[-1]
-    if leaf == "bias" or leaf.endswith("_bias") or leaf == "weights":
-        return "zero", 0.0
-    if leaf == "gamma" or (leaf == "weight" and len(shape) == 1):
-        return "one", 1.0
-    if ".bert." in f".{name}":
-        return "normal", 0.02
-    if leaf in TABLES:
-        return "normal", 1.0
-    fan_in = shape[-1] if len(shape) == 2 else shape[0]
-    return "normal", fan_in ** -0.5
-
 
 def make_weights(shapes: Iterable[Tuple[str, Tuple[int, ...]]], seed: int,
-                 device) -> Dict[str, torch.Tensor]:
-    """``{name: f32 tensor}`` on ``device`` for ``(name, shape)`` pairs."""
+                 device, rule: Callable) -> Dict[str, torch.Tensor]:
+    """``{name: f32 tensor}`` on ``device`` for ``(name, shape)`` pairs;
+    ``rule(name, shape) -> ("zero" | "one" | "normal", scale)``."""
     shapes = sorted((n, tuple(s)) for n, s in shapes)
     rules = [rule(n, s) for n, s in shapes]
     sizes = [torch.Size(s).numel() for s in (s for _, s in shapes)]

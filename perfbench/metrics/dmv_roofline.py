@@ -6,6 +6,7 @@ def read(ctx, part):
     if ctx["loop"] != part:
         return None
     t = sum(v for n, v in ctx["timeline"]["kernel_s"].items() if "dmv_" in n)
-    if not t or not ctx["bounds"]["k1_s"]:
+    b = ctx["bounds"].get("k1_s", 0.0)
+    if not t or not b:
         return None
-    return 100.0 * ctx["bounds"]["k1_s"] / t
+    return 100.0 * b / t

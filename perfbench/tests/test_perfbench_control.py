@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from perfbench import families
 from perfbench.core import compare, harness, manifest, program
-from perfbench.reference import model
 
 from .tiny import TRAFFIC, config
 
@@ -42,9 +42,8 @@ def halve(x):
 def _train_readings(tmp_path, fault):
     c = config()
     seed = 2**31 + 101
-    program.write_inputs(c, TRAFFIC, seed, str(tmp_path))
-    pipe = program.build(c, seed, str(tmp_path), lambda n: model.param_shapes(c, n),
-                         device="cpu")
+    families.load(c).write_inputs(c, TRAFFIC, seed, str(tmp_path))
+    pipe = program.build(c, seed, str(tmp_path), device="cpu")
     fault(pipe)
     first = program.train_first_steps(pipe, program.epochs(pipe, "train"), 0.5, program.nospan)
     ref = harness.reference_train(torch, {"config": c, "traffic": TRAFFIC}, seed, first,

@@ -28,11 +28,14 @@ def test_names_are_compared_whole():
 
 def test_a_run_loads_no_jax():
     """Everything a run imports: the harness, the metric readers, the
-    reference and the port's modules the pipeline builds from."""
+    family, the reference and the port's modules the pipeline builds
+    from."""
     mods = modules_after(
         "import runpy; from perfbench.core import harness, program, record, trace\n"
         "from perfbench import metrics\n"
         "import perfbench.metrics.mfu, perfbench.metrics.match_roofline\n"
+        "import perfbench.metrics.forward_idle_ms, perfbench.metrics.backward_idle_ms\n"
+        "import perfbench.metrics.optimizer_idle_ms, perfbench.families.vlgae\n"
         "from perfbench.reference import model, train\n"
         "from vlgae_tpu_torch.predict import build_datamodule, compose\n"
         "from vlgae_tpu_torch.training.factory import build_model\n"

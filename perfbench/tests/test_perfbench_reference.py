@@ -6,8 +6,9 @@ its own inputs read from the corpus files."""
 import numpy as np
 import torch
 
+from perfbench import families
 from perfbench.core import compare, harness, program
-from perfbench.reference import inputs, model, train
+from perfbench.reference import inputs, train
 
 from .tiny import TRAFFIC, config
 
@@ -15,9 +16,8 @@ from .tiny import TRAFFIC, config
 def test_reference_follows_the_port_on_cpu(tmp_path):
     c = config()
     seed = 2**31 + 17
-    program.write_inputs(c, TRAFFIC, seed, str(tmp_path))
-    pipe = program.build(c, seed, str(tmp_path), lambda n: model.param_shapes(c, n),
-                         device="cpu")
+    families.load(c).write_inputs(c, TRAFFIC, seed, str(tmp_path))
+    pipe = program.build(c, seed, str(tmp_path), device="cpu")
     first = program.train_first_steps(pipe, program.epochs(pipe, "train"), 0.5, program.nospan)
     assert [pipe.optimizer.lr_at(k) for k in range(3)] == [train.lr_at(k) for k in range(3)]
     ref = harness.reference_train(torch, {"config": c, "traffic": TRAFFIC}, seed, first,
@@ -36,9 +36,8 @@ def test_reference_inputs_are_the_programs_batches(tmp_path):
     the port's data path packed; an altered feature does not."""
     c = config()
     seed = 2**31 + 29
-    program.write_inputs(c, TRAFFIC, seed, str(tmp_path))
-    pipe = program.build(c, seed, str(tmp_path), lambda n: model.param_shapes(c, n),
-                         device="cpu")
+    families.load(c).write_inputs(c, TRAFFIC, seed, str(tmp_path))
+    pipe = program.build(c, seed, str(tmp_path), device="cpu")
     corpus = inputs.Corpus(str(tmp_path / "vlparse"), str(tmp_path / "bert"), "train",
                            c["vision"])
     assert corpus.tag_names == program.tag_names(pipe)
