@@ -223,7 +223,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("dmv_fused", "dmv_inside", "dmv_outside", "match_fwd", "match_bwd")
+SOURCES = ("dmv_fused", "dmv_inside", "dmv_outside", "match_fwd", "match_bwd", "moe_experts")
 # each kernel's wrapper, and the torch.library custom op it is called through
 KERNELS = {
     "dmv_fused": {
@@ -276,6 +276,14 @@ KERNELS = {
         "op": "vlgae::match_maxes_bwd",
         "source": "vlgae_tpu_torch/csrc/match_bwd.cu",
         "replaces": "vlgae_tpu/ops/match_pallas.py:267",
+    },
+    # K7: the held experts of a granite MoE layer (no TPU kernel: the JAX
+    # package has no routed encoder)
+    "moe_experts": {
+        "route": "cuda",
+        "op": "vlgae::moe_experts",
+        "source": "vlgae_tpu_torch/csrc/moe_experts.cu",
+        "replaces": None,
     },
     # the data-parallel wrapper of K5/K6: a rank's captions against the
     # all-gathered images
@@ -5251,6 +5259,97 @@ def phase_parallel(state):
         raise AssertionError("match_maxes_sharded was never launched on the parallel path")
 
 
+GRANITE_SMALL = {
+    "model_type": "granitemoehybrid", "vocab_size": 1000, "hidden_size": 256,
+    "num_hidden_layers": 2, "layer_types": ["mamba", "attention"], "num_attention_heads": 4,
+    "num_key_value_heads": 2, "attention_multiplier": 0.0078125, "mamba_n_heads": 8,
+    "mamba_d_head": 64, "mamba_d_state": 128, "mamba_n_groups": 1, "mamba_d_conv": 4,
+    "mamba_expand": 2, "mamba_chunk_size": 256, "num_local_experts": 72,
+    "num_experts_per_tok": 10, "experts_held": 9, "intermediate_size": 128,
+    "shared_intermediate_size": 256, "embedding_multiplier": 12, "residual_multiplier": 0.22,
+    "rms_norm_eps": 1e-5, "position_embedding_type": "nope", "hidden_act": "silu"}
+
+
+def phase_granite(state):
+    """(a) K7 (``vlgae::moe_experts``) at the granite cell's layer: 64
+    captions of 40 subword positions (2,560, of which 1,600 real), hidden
+    4,096, experts of 768, top-10 of 72 drawn uniformly, experts 0-8 held;
+    against the plain version, its device time, the plain version's, the
+    bound (``perfbench/flops/granite.py``'s count); no PyTorch call computes
+    it (library null). (b) ``exp=vlgae`` with a granite directory
+    (``GRANITE_SMALL``: a Mamba2 and an attention layer, 72 experts, 9
+    held) through the train CLI (one epoch) and ``predict`` on the card:
+    K7 launched once a layer per encoder call."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch import predict, train
+    from vlgae_tpu_torch.ops import moe
+    from vlgae_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    T, H, inter, E, k, nh = 2560, 4096, 768, 72, 10, 9
+    x = torch.randn(T, H, generator=g).to(torch.bfloat16).to(dev)
+    sel = torch.rand(T, E, generator=g).argsort(-1)[:, :k].to(dev)
+    gates = torch.softmax(torch.randn(T, k, generator=g), -1).to(dev)
+    mask = (torch.arange(T) % 40 < 25).to(dev)
+    w_in = (0.02 * torch.randn(nh, 2 * inter, H, generator=g)).to(torch.bfloat16).to(dev)
+    w_out = (0.02 * torch.randn(nh, H, inter, generator=g)).to(torch.bfloat16).to(dev)
+    args = (x, sel, gates, 0, nh, mask, w_in, w_out)
+    got = moe.moe_experts(*args)
+    want = moe.moe_experts_plain(*args)
+    err = float((got - want).abs().max())
+    if err > 2e-3 * float(want.abs().max()):
+        raise AssertionError(f"K7 against its plain version: {err}")
+    held = (sel < nh) & mask[:, None]
+    pairs, rows, live = int(held.sum()), int(held.any(1).sum()), int(mask.sum())
+    hit = int(torch.unique(sel[held]).numel())
+    row = {"max_abs_err": err, "ms": device_ms(lambda: moe.moe_experts(*args)),
+           "plain_ms": device_ms(lambda: moe.moe_experts_plain(*args), n=3, reps=3),
+           "library_ms": None, "pairs": pairs,
+           **bound(hit * 3 * H * inter * 2 + rows * H * 2 + live * H * 4 + live * k * 12,
+                   2 * 3 * H * inter * pairs, "bf16")}
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=16, feat_dim=2048, n_box=36, len_range=(3, 20), seed=0)
+        gdir = write_bert_dir(os.path.join(tmp, "granite"), corpus_words(root), GRANITE_SMALL)
+        ovs = _corpus_overrides(tmp) + [f"embedding.transformer.args.model={gdir}",
+                                        "trainer.max_epochs=1", "model.init_epoch=0",
+                                        "device=cuda", "init_seed=0",
+                                        f"workdir={os.path.join(tmp, 'run')}"]
+        c0 = trace.counters()
+        pipe, _ = train.main(ovs)
+        enc = pipe.model.dependency.embedding.transformer.bert
+        n_layers = len(enc.layers)
+        c1 = trace.counters()
+        calls = (c1.get("moe.k7", 0) - c0.get("moe.k7", 0))
+        if type(enc).__name__ != "GraniteHybrid" or calls == 0 or calls % n_layers:
+            raise AssertionError(f"granite train: {type(enc).__name__}, K7 launches {calls}")
+        by_path["granite_train"] = calls
+        del pipe
+        cwd = os.getcwd()
+        os.chdir(tmp)  # predict writes <name>_<split>.conll here
+        try:
+            predict.main([f"checkpoint={os.path.join(tmp, 'run', 'checkpoint', 'last.pt')}",
+                          "device=cuda", "name=granite"])
+        finally:
+            os.chdir(cwd)
+        if not os.path.exists(os.path.join(tmp, "granite_dev.conll")):
+            raise AssertionError("granite predict wrote no dev predictions")
+        c2 = trace.counters()
+        calls = c2.get("moe.k7", 0) - c1.get("moe.k7", 0)
+        if calls == 0 or calls % n_layers:
+            raise AssertionError(f"granite predict: K7 launches {calls}")
+        by_path["granite_predict"] = calls
+    row["launches_by_path"] = by_path
+    state["moe_experts"] = row
+    emit({"phase": "granite", **row})
+
+
 PHASES = {"env": phase_env, "build": phase_build, "native_io": phase_native_io,
           "k1": phase_k1, "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
@@ -5260,7 +5359,7 @@ PHASES = {"env": phase_env, "build": phase_build, "native_io": phase_native_io,
           "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
           "grounding_modes": phase_grounding_modes, "struct": phase_struct,
           "variational": phase_variational, "data_options": phase_data_options,
-          "parallel": phase_parallel}
+          "parallel": phase_parallel, "granite": phase_granite}
 
 
 def main():

@@ -929,3 +929,45 @@ def test_classic_dmv_on_the_card_matches_the_cpu(cuda):
     for h, n in zip(mbr, lengths.tolist()):
         assert n == 0 or istree(h[:n].tolist(), proj=True)
     assert bool((score(mbr) >= score(want_mbr) - 1e-4).all())
+
+
+def _moe_inputs(T, H, inter, E, k, e0, e1, device, seed=0, live=0.8):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, H, generator=g).to(torch.bfloat16)
+    sel = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(T)])
+    gates = torch.softmax(torch.randn(T, k, generator=g), -1)
+    mask = torch.rand(T, generator=g) < live
+    w_in = (0.02 * torch.randn(e1 - e0, 2 * inter, H, generator=g)).to(torch.bfloat16)
+    w_out = (0.02 * torch.randn(e1 - e0, H, inter, generator=g)).to(torch.bfloat16)
+    return [t.to(device) for t in (x, sel, gates)] + [e0, e1] + [
+        t.to(device) for t in (mask, w_in, w_out)]
+
+
+@pytest.mark.parametrize("T,H,inter,E,k,e0,e1,live", [
+    (2560, 4096, 768, 72, 10, 0, 9, 0.8),    # the granite cell's layer
+    (37, 128, 64, 8, 3, 2, 6, 0.8),          # a ragged route block and tile
+    (300, 256, 128, 72, 10, 63, 72, 0.9),    # the last experts' slice
+    (200, 128, 64, 64, 10, 0, 64, 1.0),      # 64 held: every bit of the mask
+    (130, 128, 64, 8, 2, 0, 8, 0.0),         # no live position: zeros
+])
+def test_moe_experts_matches_plain(cuda, T, H, inter, E, k, e0, e1, live):
+    """K7 against its plain version on the card: the same f32 sums of
+    bf16-exact products in other orders (and now and then another bf16
+    rounding of an activation), so within 2e-3 of the largest entry;
+    reruns bit-identical; one ``moe.k7`` count a call."""
+    from vlgae_tpu_torch.ops import moe
+    from vlgae_tpu_torch.utils import trace
+
+    args = _moe_inputs(T, H, inter, E, k, e0, e1, cuda, seed=T + e0, live=live)
+    before = trace.counters().get("moe.k7", 0)
+    got = moe.moe_experts(*args)
+    again = moe.moe_experts(*args)
+    torch.cuda.synchronize()
+    assert trace.counters()["moe.k7"] == before + 2
+    want = moe.moe_experts_plain(*args)
+    assert torch.equal(got, again)
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) <= 2e-3 * scale
+    mask = args[5]
+    if (~mask).any():
+        assert float(got[~mask].abs().max()) == 0

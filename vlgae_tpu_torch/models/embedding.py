@@ -16,7 +16,10 @@ and softmax. A frozen BERT (``requires_grad: false``, the recipe) runs
 under ``torch.no_grad()``, as the JAX package stops its gradient, and its
 parameters stay out of the optimizer. Its shape is the JAX package's
 fallback (:class:`BertConfig`) or a local directory's ``config.json``
-(:meth:`BertConfig.from_dir`, read with ``json``: no ``transformers``).
+(:func:`encoder_config_from_dir`, read with ``json``: no ``transformers``),
+whose ``model_type`` picks the encoder: ``bert`` (or none) the BERT here,
+``granitemoehybrid`` the granite-4.0-h stack of
+:mod:`.granite_hybrid` (same item, pooling and stride windows).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .granite_hybrid import GraniteConfig, GraniteHybrid
 from .nn import Dropping, ScalarMix, independent_dropout, variational_kl
 
 
@@ -110,6 +114,17 @@ class BertConfig:
             raise ValueError(f"{path}/config.json: hidden_size {c.hidden_size} is not a "
                              f"multiple of num_attention_heads {c.num_attention_heads}")
         return c
+
+
+def encoder_config_from_dir(path: str):
+    """The text encoder's shape in ``<path>/config.json``: a
+    :class:`GraniteConfig` for ``model_type: granitemoehybrid``, else a
+    :class:`BertConfig` (which raises for any other ``model_type``)."""
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        kind = json.load(f).get("model_type", "bert")
+    if kind == GraniteConfig.model_type:
+        return GraniteConfig.from_dir(path)
+    return BertConfig.from_dir(path)
 
 
 class StaticItem(Dropping):
@@ -306,14 +321,17 @@ class Bert(nn.Module):
 
 
 class TransformerItem(nn.Module):
-    """BERT subword encoder (frozen unless ``requires_grad``) with ScalarMix, stride windows for
-    inputs longer than the position limit, and pooling of each word's
-    subword span [first, last]."""
+    """Subword encoder (frozen unless ``requires_grad``): BERT, or the
+    granite stack for a :class:`GraniteConfig` (held as ``bert`` too, so
+    the frozen pattern and the spans are the same), with ScalarMix, stride
+    windows for inputs longer than the position limit, and pooling of each
+    word's subword span [first, last]."""
 
-    def __init__(self, cfg: EmbeddingItemCfg, bert_config: BertConfig):
+    def __init__(self, cfg: EmbeddingItemCfg, bert_config):
         super().__init__()
         self.cfg = cfg
-        self.bert = Bert(bert_config)
+        self.bert = (GraniteHybrid(bert_config) if isinstance(bert_config, GraniteConfig)
+                     else Bert(bert_config))
         if cfg.n_layers > 1:
             self.scalar_mix = ScalarMix(cfg.n_layers, cfg.layer_dropout)
         if cfg.n_out:

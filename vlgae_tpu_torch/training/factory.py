@@ -11,7 +11,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models.embedding import (BertConfig, CompositeEmbedding, EmbeddingItemCfg,
-                                glove_row_map, load_glove)
+                                encoder_config_from_dir, glove_row_map, load_glove)
 from ..models.joint import (ATTR_POS, OBJ_POS, REL_POS, DependencyBoxRel,
                             DependencyBoxRelConfig)
 from ..models.ldndmv import FUNCTION_POS, DiscriminativeNDMV, LDNDMVConfig
@@ -52,8 +52,9 @@ def build_embedding(emb_cfg: Dict[str, Any], dm) -> CompositeEmbedding:
     if emb_cfg.get("use_subword", False):
         args = (emb_cfg.get("transformer", {}) or {}).get("args", {}) or {}
         model_name = args.get("model", "bert-base-cased")
-        # a local directory gives the shape (still random-init); else the fallback
-        bert_config = (BertConfig.from_dir(model_name) if os.path.isdir(str(model_name))
+        # a local directory gives the encoder and its shape (still random-init);
+        # else the fallback BERT
+        bert_config = (encoder_config_from_dir(model_name) if os.path.isdir(str(model_name))
                        else BertConfig())
         items.append(EmbeddingItemCfg(
             "transformer", "subword", "transformer",
