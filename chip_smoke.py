@@ -200,6 +200,20 @@ Phases, each printing one JSON line:
                  (2, 2) grid with FSDP, each against a plain run
                  (``TP_BF16_RTOL``, ``TP_F32_RTOL``; on one card it prints
                  why not)
+ 23. granite   - K7 at the granite cell's layer against its plain version,
+                 and ``exp=vlgae`` with a small granite directory through
+                 ``train`` and ``predict`` (K7 once a layer per encoder call)
+ 24. graphs    - the joint phase's step as CUDA graphs
+                 (``training/graphs.py``) at the bertbase cell's
+                 configuration (``exp=vlgae``, bf16, a bert-base-cased
+                 directory, B = 64): 12 steps over two batch shapes (each
+                 key's eager step and capture, then replays) against the
+                 same 12 steps through the same stretches run eagerly, from
+                 the same weights and dropout seed: losses, terms,
+                 gradients and parameters bit for bit; every K1, K5 and K6
+                 argument of every step still holds its value after the
+                 later replays; the graph counters; the two sides' step
+                 times on the host clock
 Phases ``k1``, ``k5`` and ``k6`` also hold K1 at n1 = 65 and K5 and K6 at
 the patch grid's V (1,324 in training, 1,275 in evaluation) and Q = 130.
 Then each phase's seconds, the card's name and power limit, the per-kernel
@@ -5350,6 +5364,141 @@ def phase_granite(state):
     emit({"phase": "granite", **row})
 
 
+def graphs_against_eager(make, batches, steps=12):
+    """``steps`` joint-phase train steps (``Pipeline.grad_step`` then
+    ``apply_step``, alpha 0.5) over ``batches`` in turn, of a fresh pipeline
+    ``make()`` whose step runs as CUDA graphs against a second one whose
+    ``StepGraphs`` never capture (the same stretches, eagerly), both from
+    ``make``'s weights and dropout seed. Raises unless every step's loss,
+    terms, gradients and updated parameters are bit-equal and every tensor
+    argument of the graphed side's K1, K5 and K6 calls still holds its
+    value after all steps; returns the readings. Both run under
+    ``torch.use_deterministic_algorithms``: the backward's scatter and
+    index-add kernels otherwise sum by atomics in an order that differs
+    from run to run (two eager runs differ as much), and cuBLAS takes a
+    fixed workspace (``CUBLAS_WORKSPACE_CONFIG``, where cuBLAS is not yet
+    set up in the process)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _graphs_against_eager(make, batches, steps)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _graphs_against_eager(make, batches, steps):
+    import torch
+
+    from vlgae_tpu_torch.ops import dmv_cuda, match
+    from vlgae_tpu_torch.training.graphs import StepGraphs
+    from vlgae_tpu_torch.utils import trace
+
+    graphed, eager = make(), make()
+    eager._graphable, eager.graphs = True, StepGraphs(eager)
+    eager.graphs.capturing = False
+    calls = []
+    entries = [(dmv_cuda, "dmv_fused"), (match, "match_maxes"), (match, "match_maxes_bwd")]
+    orig = [getattr(m, n) for m, n in entries]
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            calls.append((name, [(a, a.detach().clone()) for a in args if torch.is_tensor(a)]))
+            return fn(*args, **kw)
+        return call
+
+    def step(pipe, x, y):
+        t0 = time.perf_counter()
+        loss, terms = pipe.grad_step(x, y, False, 0.5)
+        grads = [p.grad.clone() for p in pipe.optimizer.params]
+        pipe.apply_step()
+        params = [p.detach().clone() for p in pipe.optimizer.params]
+        torch.cuda.synchronize()
+        return (loss, terms, grads, params), time.perf_counter() - t0
+
+    gaps, times = [], {"graphed": [], "eager": []}
+    names = ("graph.capture", "graph.replay", "graph.eager")
+    counters = dict.fromkeys(names, 0)
+    for i in range(steps):
+        x, y = batches[i % len(batches)]
+        for m, n in entries:
+            setattr(m, n, recording(n, getattr(m, n)))
+        c0 = trace.counters()
+        try:
+            got, t = step(graphed, x, y)
+        finally:
+            for (m, n), fn in zip(entries, orig):
+                setattr(m, n, fn)
+        c1 = trace.counters()
+        for k in names:
+            counters[k] += c1.get(k, 0) - c0.get(k, 0)
+        want, t_eager = step(eager, x, y)
+        times["graphed"].append(t * 1e3)
+        times["eager"].append(t_eager * 1e3)
+        pairs = ([(got[0], want[0])] + [(got[1][k], want[1][k]) for k in want[1]]
+                 + list(zip(got[2], want[2])) + list(zip(got[3], want[3])))
+        gaps.append(max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"graphed step {i} differs from the eager one: "
+                                 f"largest gap {gaps[-1]}")
+    changed = [(n, i) for i, (n, args) in enumerate(calls)
+               for a, then in args if not torch.equal(a, then)]
+    if changed:
+        raise AssertionError(f"kernel arguments overwritten after their step: {changed[:8]}")
+    kinds = {n: sum(1 for c, _ in calls if c == n) for _, n in entries}
+    if kinds != {"dmv_fused": 2 * steps, "match_maxes": steps, "match_maxes_bwd": steps}:
+        raise AssertionError(f"kernel calls on the graphed side: {kinds}")
+    return {"steps": steps, "bit_equal": True, "largest_gap": max(gaps),
+            "kernel_calls": kinds, "arguments_kept": True, "counters": counters,
+            "step_ms_graphed": [round(t, 3) for t in times["graphed"]],
+            "step_ms_eager": [round(t, 3) for t in times["eager"]]}
+
+
+def phase_graphs(state):
+    """The graphed joint step against the same stretches run eagerly at the
+    bertbase cell's configuration (``graphs_against_eager``), on two batch
+    shapes of B = 64."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth_data import make_corpus
+
+    from vlgae_tpu_torch.predict import build_datamodule, compose
+    from vlgae_tpu_torch.training.factory import build_model
+    from vlgae_tpu_torch.training.pipeline import Pipeline, init_params, pad_batch_pow2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vlparse")
+        make_corpus(root, n_imgs=40, feat_dim=2048, n_box=36, len_range=(3, 30), seed=0)
+        bert = write_bert_dir(os.path.join(tmp, "bert-base"), corpus_words(root), BERT_BASE)
+        ovs = _corpus_overrides(tmp) + [f"embedding.transformer.args.model={bert}",
+                                        "datamodule.train_dataloader.num_bucket=2",
+                                        "model.init_epoch=0"]
+        cfg = compose(ovs)
+        dm = build_datamodule(cfg)
+
+        def make():
+            model = build_model(cfg, dm)
+            init_params(model, 7)
+            pipe = Pipeline(model, dm, cfg, device="cuda", workdir=tmp, seed=11)
+            pipe.setup_optimizer()
+            return pipe
+
+        shapes = {}
+        for x, y in dm.batches("train", shuffle=False):
+            xp, yp = pad_batch_pow2(x)[0], pad_batch_pow2(y)[0]
+            shapes.setdefault(xp["token"].shape, (xp, yp))
+        batches = [b for (B, _), b in sorted(shapes.items()) if B == 64][:2]
+        if len(batches) < 2:
+            raise AssertionError(f"two batch shapes of B = 64 wanted: {sorted(shapes)}")
+        out = graphs_against_eager(make, batches)
+        torch.cuda.synchronize()
+    emit({"phase": "graphs", "shapes": [list(b[0]["token"].shape) for b in batches], **out})
+
+
 PHASES = {"env": phase_env, "build": phase_build, "native_io": phase_native_io,
           "k1": phase_k1, "k5": phase_k5, "k6": phase_k6, "reference": phase_reference,
           "train_reference": phase_train_reference, "slice": phase_slice,
@@ -5359,7 +5508,7 @@ PHASES = {"env": phase_env, "build": phase_build, "native_io": phase_native_io,
           "vit": phase_vit, "mbr": phase_mbr, "em": phase_em,
           "grounding_modes": phase_grounding_modes, "struct": phase_struct,
           "variational": phase_variational, "data_options": phase_data_options,
-          "parallel": phase_parallel, "granite": phase_granite}
+          "parallel": phase_parallel, "granite": phase_granite, "graphs": phase_graphs}
 
 
 def main():

@@ -344,9 +344,25 @@ class TransformerItem(nn.Module):
         return layers[-1]
 
     def forward(self, subword, subword_mask, subword_first, subword_last=None):
+        return self.project(self.words(subword, subword_mask, subword_first, subword_last))
+
+    def words(self, subword, subword_mask, subword_first, subword_last=None):
+        """Each word's pooled states ``[B, L, H]``, before the projection
+        (all of the item that a frozen encoder computes without gradient)."""
         with torch.set_grad_enabled(self.cfg.requires_grad and torch.is_grad_enabled()):
             h = self._hidden(subword, subword_mask)
         return self._pool(h, subword_first, subword_last)
+
+    def project(self, h_words):
+        """The trainable projection of the pooled words (``n_out``), if any."""
+        return self.projection(h_words) if self.cfg.n_out else h_words
+
+    @property
+    def frozen(self) -> bool:
+        """Whether :meth:`words` takes no gradient and draws nothing: a
+        frozen encoder whose layer mix, if any, drops no layer."""
+        return not self.cfg.requires_grad and (self.cfg.n_layers == 1
+                                               or self.cfg.layer_dropout == 0)
 
     def _hidden(self, subword, subword_mask):
         """Mixed BERT states of every subword position [B, S, H]."""
@@ -377,7 +393,7 @@ class TransformerItem(nn.Module):
         return h
 
     def _pool(self, h, subword_first, subword_last):
-        """Pool each word's subword span [first, last]; project."""
+        """Pool each word's subword span [first, last]."""
         cfg = self.cfg
         first = subword_first.long()
         last = first if subword_last is None else subword_last.long()
@@ -394,8 +410,6 @@ class TransformerItem(nn.Module):
             h_words = tot / n_sub[..., None]
         else:
             raise ValueError(f"unknown pooling: {cfg.pooling!r}")
-        if cfg.n_out:
-            h_words = self.projection(h_words)
         return h_words
 
 
@@ -432,13 +446,28 @@ class CompositeEmbedding(Dropping):
         mod = getattr(self, name)
         return mod.embed(ids, sample=False)[0] if isinstance(mod, StaticItem) else mod(ids)
 
-    def forward(self, inputs):
+    # the batch fields a transformer item reads
+    SUBWORD_FIELDS = ("subword", "subword_mask", "subword_first", "subword_last")
+
+    def frozen(self, inputs):
+        """``{name: words}`` of the frozen transformer items
+        (:attr:`TransformerItem.frozen`): what :meth:`forward` takes as
+        ``frozen`` so that those encoders can run ahead of the rest."""
+        return {cfg.name: getattr(self, cfg.name).words(
+                    *(inputs.get(k) for k in self.SUBWORD_FIELDS))
+                for cfg in self.items
+                if cfg.kind == "transformer" and getattr(self, cfg.name).frozen}
+
+    def forward(self, inputs, frozen=None):
+        """``(embedding, aux)``; ``frozen``: the words of
+        :meth:`frozen`, computed beforehand (``None``: computed here)."""
         embs, aux = [], {}
         for cfg in self.items:
             mod = getattr(self, cfg.name)
-            if cfg.kind == "transformer":
-                h = mod(inputs["subword"], inputs["subword_mask"],
-                        inputs["subword_first"], inputs.get("subword_last"))
+            if cfg.kind == "transformer" and frozen is not None and cfg.name in frozen:
+                h = mod.project(frozen[cfg.name])
+            elif cfg.kind == "transformer":
+                h = mod(*(inputs.get(k) for k in self.SUBWORD_FIELDS))
             else:
                 h, kl = mod.embed(inputs[cfg.field])
                 if kl is not None:

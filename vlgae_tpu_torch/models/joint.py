@@ -244,33 +244,45 @@ class DependencyBoxRel(nn.Module):
                 / torch.clamp_min(seq_len, 1)[:, None])[:, None]
         return torch.cat([root, x], 1)
 
-    def lang_feat_word_only(self, inputs, encoded, lang_score, mask):
+    def lang_feat_word_only(self, inputs, encoded, lang_score, mask, tables=None):
         """The words alone: ``(word_repr, q_mask, q_mask as f32, None)``."""
         B = mask.shape[0]
         q_mask = torch.cat([mask.new_zeros(B, 1), mask], 1)
         x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
         return self.word_encoder(x), q_mask, q_mask.float(), None
 
-    def _arc_common(self, inputs, encoded, lang_score, mask):
-        """What both arc modes share: the word mask with the root slot, one
-        K1 pass in log on the detached potentials (the arc marginals), the
+    def arc_tables(self, inputs, lang_score):
+        """The DP passes the arc factors read, on the detached merged
+        potentials of ``lang_score`` (K1 on the card): ``(log, max)``, each
+        ``(per-sentence total, d/d dec, d/d attach)``; ``max`` is None where
+        only the marginals are read (``word+alldep`` in training); None for
+        the words alone."""
+        mode = self.cfg.language_factor_mode
+        if mode == "word":
+            return None
+        dec = lang_score["merged_dec"].detach()
+        attach = lang_score["merged_attach"].detach()
+        log = dmv_value_and_grads(dec, attach, inputs["seq_len"], "log")
+        if mode == "word+alldep" and self.training:
+            return log, None
+        return log, dmv_value_and_grads(dec, attach, inputs["seq_len"], "max")
+
+    def _arc_common(self, inputs, encoded, mask):
+        """What both arc modes share: the word mask with the root slot, the
         root-prepended words and their word and child encodings."""
         q_mask = torch.cat([mask.new_zeros(mask.shape[0], 1), mask], 1)
-        log = dmv_value_and_grads(lang_score["merged_dec"].detach(),
-                                  lang_score["merged_attach"].detach(),
-                                  inputs["seq_len"], "log")
         x = self._root_prepended(encoded["x"], mask, inputs["seq_len"])
-        return q_mask, log, x, self.word_encoder(x), self.child_encoder(x)
+        return q_mask, x, self.word_encoder(x), self.child_encoder(x)
 
-    def lang_feat_max_tree(self, inputs, encoded, lang_score, mask):
-        """Words + arcs of the Viterbi tree."""
+    def lang_feat_max_tree(self, inputs, encoded, lang_score, mask, tables=None):
+        """Words + arcs of the Viterbi tree; ``tables``: the passes of
+        :meth:`arc_tables` (run here on ``lang_score`` when None)."""
         B = mask.shape[0]
-        q_mask, log, x, word_repr, child_repr = self._arc_common(
-            inputs, encoded, lang_score, mask)
+        if tables is None:
+            tables = self.arc_tables(inputs, lang_score)
+        log, (vmax, gd_max, ga_max) = tables
+        q_mask, x, word_repr, child_repr = self._arc_common(inputs, encoded, mask)
         arc_margin = log[2].sum(-1)  # [B, L+1, L+1]
-        vmax, gd_max, ga_max = dmv_value_and_grads(
-            lang_score["merged_dec"].detach(), lang_score["merged_attach"].detach(),
-            inputs["seq_len"], "max")
         dep_reuse = {"log": log, "max": (vmax, gd_max, ga_max)}
         ind = ga_max.sum(-1)
         predicted = torch.cat(
@@ -295,18 +307,18 @@ class DependencyBoxRel(nn.Module):
         txt = torch.cat([word_repr, arc_repr], 1)
         return txt, torch.cat([q_mask, q_mask], 1), txt_marginal, dep_reuse
 
-    def lang_feat_all_arc(self, inputs, encoded, lang_score, mask):
+    def lang_feat_all_arc(self, inputs, encoded, lang_score, mask, tables=None):
         """Words + every (head, dep) pair, head-major, weighted by the
         pair's arc marginal (the K1 log tables go to ``dep_reuse['log']``);
         words weigh 1, the root 0. The factorized bilinear of
         :meth:`lang_feat_max_tree` over all pairs, with its parameters. At
         eval the Viterbi-tree factors."""
         if not self.training:
-            return self.lang_feat_max_tree(inputs, encoded, lang_score, mask)
+            return self.lang_feat_max_tree(inputs, encoded, lang_score, mask, tables)
         B, L = mask.shape
         N = L + 1
-        q_mask, log, x, word_repr, child_repr = self._arc_common(
-            inputs, encoded, lang_score, mask)
+        log = (tables if tables is not None else self.arc_tables(inputs, lang_score))[0]
+        q_mask, x, word_repr, child_repr = self._arc_common(inputs, encoded, mask)
         pair_mask = (q_mask[:, :, None] & q_mask[:, None, :]).reshape(B, -1)
         arc_margin = log[2].sum(-1).reshape(B, -1)  # [B, N*N]
         txt_marginal = torch.cat([q_mask.to(arc_margin.dtype), arc_margin], 1)
@@ -323,13 +335,21 @@ class DependencyBoxRel(nn.Module):
         txt = torch.cat([word_repr, arc_repr], 1)
         return txt, torch.cat([q_mask, pair_mask], 1), txt_marginal, {"log": log}
 
-    def lang_feat(self, inputs, encoded, lang_score, mask):
+    def lang_feat(self, inputs, encoded, lang_score, mask, tables=None):
         """``(txt, txt_mask, txt_marginal, dep_reuse)`` of the configured
-        language factors."""
+        language factors (``tables``: those of :meth:`arc_tables`)."""
         fn = {"word": self.lang_feat_word_only,
               "word+alldep": self.lang_feat_all_arc,
               }.get(self.cfg.language_factor_mode, self.lang_feat_max_tree)
-        return fn(inputs, encoded, lang_score, mask)
+        return fn(inputs, encoded, lang_score, mask, tables)
+
+    def factors(self, inputs, encoded, vis_encoded, mask, tables):
+        """The grounding's factors, from the parser's DP tables on:
+        ``(vis, txt, dep_reuse)``, ``vis`` and ``txt`` as
+        :meth:`vis_feat` and :meth:`lang_feat` pack them."""
+        vis = self.vis_feat(inputs, vis_encoded)
+        *txt, dep_reuse = self.lang_feat(inputs, encoded, None, mask, tables)
+        return vis, tuple(txt), dep_reuse
 
     # -- reduced matching ----------------------------------------------------
     def gather_logit_train(self, vis, txt):
@@ -344,28 +364,37 @@ class DependencyBoxRel(nn.Module):
         a data group the captions are this rank's and the images every
         rank's: ``[B_local, A, *]``.
         """
-        maps = self._rel_tri_maps(vis[2], vis[0].device)
-        vis_feat, vis_mask = vis[0], vis[1]
-        if maps is not None:
-            vis_feat, vis_mask = vis_feat[:, maps[0]], vis_mask[:, maps[0]]
-        txt_feat, txt_mask = txt[0], txt[1]
-        B, V = vis_mask.shape
-        Q = txt_mask.shape[1]
-        vb = -INF * (1.0 - vis_mask.float())
-        tb = -INF * (1.0 - txt_mask.float())
         dp = self.data_group
         if self.cfg.bf16_matmul:
-            args = (vis_feat.to(torch.bfloat16).contiguous(),
-                    txt_feat.to(torch.bfloat16).contiguous(),
-                    vb.contiguous(), tb.contiguous())
+            args, maps = self.match_operands(vis, txt)
             logit, _, logit_v, _ = match_maxes_sharded(*args, dp)
         else:
+            (vis_feat, txt_feat, vb, tb), maps = self.match_operands(vis, txt, dtype=None)
+            (B, V), Q = vb.shape, tb.shape[1]
             chunk = min(V, self.cfg.eval_match_chunk)
             _check_match_budget(B, B * dp.world, Q, chunk, self.cfg)
             logit, logit_v = self._match_maxes_chunked(
                 gather_rows(vis_feat.float(), dp), txt_feat.float(),
                 gather_rows(vb, dp), tb, chunk)
         return logit, self._expand_rel_tri(logit_v, maps)
+
+    def match_operands(self, vis, txt, dtype=torch.bfloat16):
+        """``((vis, txt, vis_bias, txt_bias), maps)``: the matching
+        maxes' operands (cast to ``dtype`` and contiguous, K5's inputs under
+        bf16; as they are with ``dtype`` None), their f32 visibility biases
+        (-INF off the masks) and the relation group's compaction maps of
+        :meth:`_rel_tri_maps`."""
+        maps = self._rel_tri_maps(vis[2], vis[0].device)
+        vis_feat, vis_mask = vis[0], vis[1]
+        if maps is not None:
+            vis_feat, vis_mask = vis_feat[:, maps[0]], vis_mask[:, maps[0]]
+        txt_feat, txt_mask = txt[0], txt[1]
+        vb = -INF * (1.0 - vis_mask.float())
+        tb = -INF * (1.0 - txt_mask.float())
+        if dtype is None:
+            return (vis_feat, txt_feat, vb, tb), maps
+        return (vis_feat.to(dtype).contiguous(), txt_feat.to(dtype).contiguous(),
+                vb.contiguous(), tb.contiguous()), maps
 
     @staticmethod
     def _match_maxes_chunked(vis, txt, vb, tb, chunk):
@@ -462,7 +491,34 @@ class DependencyBoxRel(nn.Module):
     # -- forward --------------------------------------------------------------
     def forward(self, inputs: Dict[str, Any], with_grounding: bool = True):
         """The score dict; ``with_grounding=False`` stops after the
-        dependency scores (the warm-up loss reads nothing else)."""
+        dependency scores (the warm-up loss reads nothing else). It runs
+        in the stretches that the pipeline's CUDA graphs replay in training
+        (``training/graphs.py``): :meth:`potentials`, the DP passes of
+        :meth:`arc_tables` (K1), :meth:`factors` and
+        :meth:`match_operands`, the matching maxes (K5)."""
+        cfg = self.cfg
+        out, encoded, vis_encoded, mask = self.potentials(inputs)
+        if not with_grounding:
+            return out
+        with span("vlgae.forward.grounding"):
+            tables = self.arc_tables(inputs, out)
+            vis, txt, dep_reuse = self.factors(inputs, encoded, vis_encoded, mask, tables)
+            out.update({"vis_packed": vis, "txt_packed": txt})
+            if dep_reuse is not None:
+                out["dep_reuse"] = dep_reuse
+            if cfg.gather_logit_mode == "simple" and cfg.loss_grounding_mode == "factor|ce":
+                out["match_reduced"] = self.gather_logit_train(vis, txt)
+                out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
+            else:
+                out["match_logit"] = self.gather_logit(vis, txt)
+        return out
+
+    def potentials(self, inputs: Dict[str, Any], frozen=None):
+        """The forward up to the parser's scores and merged potentials:
+        the visual factor heads, the text side, the fusion and the parser;
+        ``frozen``: the frozen embedding items' words
+        (``CompositeEmbedding.frozen``), computed beforehand. Returns
+        ``(scores, encoded, vis_encoded, mask)``."""
         cfg = self.cfg
         token = inputs["token"]
         mask = (torch.arange(token.shape[1], device=token.device)[None, :]
@@ -475,28 +531,14 @@ class DependencyBoxRel(nn.Module):
         with span("vlgae.forward.visual"):
             vis_encoded = self.vis_encoder(inputs, rel_pairs=rel_pairs)
         with span("vlgae.forward.text"):
-            emb, aux = self.dependency.embedding(inputs)
+            emb, aux = self.dependency.embedding(inputs, frozen)
             encoded = self.dependency.encoder(emb, mask)
         if cfg.feat_fuse_mode == "attention" and cfg.fuse_aug_with_matching:
             encoded = self.fuse_with_matching(inputs, vis_encoded, encoded, mask,
                                               compact=compact)
         with span("vlgae.forward.dmv"):
             out = dict(self.dependency(inputs, encoded, (emb, aux)))
-        if not with_grounding:
-            return out
-        with span("vlgae.forward.grounding"):
-            vis = self.vis_feat(inputs, vis_encoded)
-            *txt, dep_reuse = self.lang_feat(inputs, encoded, out, mask)
-            txt = tuple(txt)
-            out.update({"vis_packed": vis, "txt_packed": txt})
-            if dep_reuse is not None:
-                out["dep_reuse"] = dep_reuse
-            if cfg.gather_logit_mode == "simple" and cfg.loss_grounding_mode == "factor|ce":
-                out["match_reduced"] = self.gather_logit_train(vis, txt)
-                out["match_logit"] = out["match_reduced"][0]  # [B, A, Q]
-            else:
-                out["match_logit"] = self.gather_logit(vis, txt)
-        return out
+        return out, encoded, vis_encoded, mask
 
     # -- grounding loss -----------------------------------------------------
     def _pos_prior_mask(self, attmap, tag, vis_split, scale: float = 100.0):
@@ -511,7 +553,10 @@ class DependencyBoxRel(nn.Module):
             if name == "img":
                 offset += width
                 continue
-            in_prior = torch.isin(tag, getattr(self, f"pos_for_{name}").to(tag.dtype))
+            # torch.isin by one comparison a set member: isin sorts (and
+            # syncs with the host) when the set is large beside the batch
+            ids = getattr(self, f"pos_for_{name}").to(tag.dtype)
+            in_prior = (tag[..., None] == ids).any(-1)
             outside = (v_pos < offset) | (v_pos >= offset + width)  # [V]
             token_in_prior = torch.zeros(tag.shape[0], Q, dtype=torch.bool,
                                          device=tag.device)

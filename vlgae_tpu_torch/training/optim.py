@@ -152,6 +152,35 @@ def clip_by_global_norm_(params, max_norm: float, dp: DataGroup = DataGroup()
     return norm
 
 
+def adam_(params, grads, exp_avgs, exp_avg_sqs, steps, lr, beta1: float, beta2: float,
+          eps: float) -> None:
+    """One Adam update of ``params`` in place from device tensors alone:
+    ``lr`` a 0-dim tensor, ``steps`` each parameter's update count as a
+    0-dim f32 tensor (counted up here), nothing read on the host, so that
+    a CUDA graph can hold it. The arithmetic of ``torch.optim.Adam`` with
+    ``capturable=True`` (bias corrections on the device), which takes no
+    CPU tensors; the float learning rate of :meth:`Optimizer.update`
+    rounds the same quantities in another order."""
+    with torch.no_grad():
+        torch._foreach_add_(steps, 1)
+        torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
+        torch._foreach_mul_(exp_avg_sqs, beta2)
+        torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - beta2)
+        step_size = torch._foreach_pow(beta1, steps)
+        bc2_sqrt = torch._foreach_pow(beta2, steps)
+        torch._foreach_sub_(step_size, 1)
+        torch._foreach_sub_(bc2_sqrt, 1)
+        torch._foreach_neg_(bc2_sqrt)
+        torch._foreach_div_(step_size, lr)
+        torch._foreach_reciprocal_(step_size)  # -lr / (1 - beta1^t)
+        torch._foreach_sqrt_(bc2_sqrt)  # sqrt(1 - beta2^t)
+        denom = torch._foreach_sqrt(exp_avg_sqs)
+        torch._foreach_div_(denom, bc2_sqrt)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_div_(denom, step_size)
+        torch._foreach_addcdiv_(params, exp_avgs, denom)
+
+
 class Optimizer:
     """``torch.optim.Adam`` (``AdamW`` with weight decay) over regex
     groups, each with its own schedule, a global-norm clip before the
@@ -206,6 +235,8 @@ class Optimizer:
         kw = {"weight_decay": wd} if wd > 0 else {}
         self.opt = cls(param_groups, betas=(float(betas[0]), float(betas[1])),
                        eps=eps, **kw)
+        # a learning-rate tensor a group, for update_on_device
+        self._lrs = None
 
     def lr_at(self, step: int) -> float:
         """The learning rate of the default group at update ``step``."""
@@ -242,6 +273,48 @@ class Optimizer:
         for group, sched in zip(self.opt.param_groups, self._sched_of_group):
             group["lr"] = float(sched(step)) * scale
         self.opt.step()
+
+    def on_device(self) -> None:
+        """Ready :meth:`update_on_device`: each parameter's Adam state on
+        its device (moments zero before its first update, the update count
+        a 0-dim f32 tensor) and a learning-rate tensor a group. Only for
+        whole parameters (world 1) and Adam without weight decay."""
+        for group in self.opt.param_groups:
+            for p in group["params"]:
+                st = self.opt.state[p]
+                if not st:
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                elif st["step"].device != p.device:
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+        if self._lrs is None:
+            self._lrs = [torch.zeros((), dtype=torch.float32, device=g["params"][0].device)
+                         for g in self.opt.param_groups]
+
+    def set_lr_on_device(self, step: int) -> None:
+        """Write each group's learning rate of update ``step`` (the
+        schedule times the plateau scale) into its tensor: a fill a group,
+        outside any graph."""
+        scale = self.plateau.scale if self.plateau is not None else 1.0
+        for lr, sched in zip(self._lrs, self._sched_of_group):
+            lr.fill_(float(sched(step)) * scale)
+
+    def update_on_device(self) -> None:
+        """Clip, Adam (:func:`adam_`, at the rates of
+        :meth:`set_lr_on_device`) and the gradients zeroed in place (their
+        storage kept): device work alone, which a CUDA graph can hold.
+        After :meth:`on_device`."""
+        if self.clip > 0:
+            clip_by_global_norm_(self.params, self.clip, self.dp)
+        for group, lr in zip(self.opt.param_groups, self._lrs):
+            ps = group["params"]
+            st = [self.opt.state[p] for p in ps]
+            beta1, beta2 = group["betas"]
+            adam_(ps, [p.grad for p in ps], [s["exp_avg"] for s in st],
+                  [s["exp_avg_sq"] for s in st], [s["step"] for s in st], lr,
+                  beta1, beta2, group["eps"])
+        torch._foreach_zero_([p.grad for p in self.params])
 
     def _moments(self, adam, convert):
         """``adam`` (an Adam state dict) with each sharded or

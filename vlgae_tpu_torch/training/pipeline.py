@@ -46,6 +46,7 @@ from ..parallel.mesh import (barrier, full_shapes, full_state_dict, full_tensor,
 from ..utils.fn import coeff_at, parse_coeff_schedule, reduce_loss
 from ..utils.trace import span
 from . import metrics as metrics_mod
+from .graphs import StepGraphs, graphs_apply
 from .optim import Optimizer
 
 
@@ -178,6 +179,10 @@ class Pipeline:
         # torch.profiler stepped once an update (train.py sets them)
         self.watcher = None
         self.profiler = None
+        # the joint phase's step as CUDA graphs (training/graphs.py): whether
+        # they apply (decided at the first joint step), and the graphs
+        self._graphable: Optional[bool] = None
+        self.graphs = None
 
     def _build_metric_node(self, node):
         """Instantiate a metric from a config node (``_target_`` matched by
@@ -218,6 +223,7 @@ class Pipeline:
             self.cfg.get("scheduler"), steps_per_epoch=n_batches,
             gradient_clip_val=self.cfg.get("trainer", {}).get("gradient_clip_val", 0.0),
             frozen_patterns=frozen, dp=self.dp)
+        self.graphs = None  # captured on the previous optimizer's state
         return self.optimizer
 
     def normalize_embeddings(self, when: str) -> None:
@@ -280,34 +286,47 @@ class Pipeline:
         with span("vlgae.forward"):
             out = (model(inputs, with_grounding=not init_phase) if self.is_joint
                    else model(inputs))
-        lengths = inputs["seq_len"]
         with span("vlgae.loss"):
             if init_phase:
                 total, aux = loss_init_rules(out, gold)
-            else:
-                with span("vlgae.loss.dmv"):
-                    total, aux = loss_nll(out, lengths,
-                                          viterbi=self.dep_cfg.viterbi_training)
-                if self.is_joint:
-                    with span("vlgae.loss.grounding"):
-                        total, aux = model.loss(out, inputs, total, aux, alpha)
-            # the counts of the global batch: each rank's loss is its share
-            num_token = torch.clamp_min(global_sum(lengths.sum(), self.dp), 1)
-            n_sent = torch.clamp_min(global_sum((lengths > 0).sum(), self.dp), 1)
-            mode = self.loss_reduction_mode
-            total = reduce_loss(total, num_token, n_sent, mode)
-            aux = {k: reduce_loss(v, num_token, n_sent, mode) for k, v in aux.items()}
+                return self.reduce(total, aux, inputs["seq_len"])
+            return self.loss_terms(out, inputs, alpha)
+
+    def loss_terms(self, out, inputs, alpha: float):
+        """The joint phase's objective from the forward's scores: the NLL,
+        interpolated with the grounding loss in the joint model, reduced;
+        ``(total, per-term dict)``."""
+        lengths = inputs["seq_len"]
+        with span("vlgae.loss.dmv"):
+            total, aux = loss_nll(out, lengths, viterbi=self.dep_cfg.viterbi_training)
+        if self.is_joint:
+            with span("vlgae.loss.grounding"):
+                total, aux = self.model.loss(out, inputs, total, aux, alpha)
+        return self.reduce(total, aux, lengths)
+
+    def reduce(self, total, aux, lengths):
+        """``(total, aux)`` reduced per the configured mode over the counts
+        of the global batch: each rank's loss is its share."""
+        num_token = torch.clamp_min(global_sum(lengths.sum(), self.dp), 1)
+        n_sent = torch.clamp_min(global_sum((lengths > 0).sum(), self.dp), 1)
+        mode = self.loss_reduction_mode
+        total = reduce_loss(total, num_token, n_sent, mode)
+        aux = {k: reduce_loss(v, num_token, n_sent, mode) for k, v in aux.items()}
         return total, aux
 
     def grad_step(self, x, y, init_phase: bool, alpha: float):
         """Upload this rank's rows of a padded batch, run forward and
-        backward (gradients add into ``.grad``). Returns the detached loss
+        backward (gradients add into ``.grad``), through the step's CUDA
+        graphs where they apply (:attr:`graphs`). Returns the detached loss
         and terms (this rank's shares) on the device."""
         self.model.train()
         inputs = shard_batch(x, self.dp)
         gold = shard_batch(y, self.dp)
         B = len(x["seq_len"])
         set_batch_rows(self.model, (*self.dp.rows(B), B) if self.dp.sharded else None)
+        graphs = self._step_graphs(init_phase)
+        if graphs is not None:
+            return graphs.grad_step(inputs, alpha)
         loss, aux = self.compute_loss(inputs, gold, init_phase, alpha)
         with span("vlgae.backward"):
             loss.backward()
@@ -317,23 +336,49 @@ class Pipeline:
         """Average the accumulated gradients, sum them over the ranks,
         clip, update, clear."""
         with span("vlgae.optimizer"):
+            if self.graphs is not None and self.graphs.holds_grads:
+                if self.watcher is not None and self.watcher.should_log(self.step):
+                    self._log_trees()
+                self.graphs.apply_step(self.step)
+                self._stepped()
+                return
             if n_accumulated > 1:
                 for p in self.optimizer.params:
                     if p.grad is not None:
                         local(p.grad).mul_(1.0 / n_accumulated)
             self.optimizer.sum_grads()
             if self.watcher is not None and self.watcher.should_log(self.step):
-                # this update's global gradients, at the parameters before it;
-                # every rank gathers the sharded leaves, the writer logs them
-                self.watcher.log_trees(self.step, (
-                    (n, full_tensor(p.detach(), p),
-                     None if p.grad is None else full_tensor(p.grad, p))
-                    for n, p in self.model.named_parameters()))
+                self._log_trees()
             self.optimizer.update(self.step)
             self.optimizer.zero_grad()
+        self._stepped()
+
+    def _log_trees(self) -> None:
+        """This update's global gradients, at the parameters before it;
+        every rank gathers the sharded leaves, the writer logs them."""
+        self.watcher.log_trees(self.step, (
+            (n, full_tensor(p.detach(), p),
+             None if p.grad is None else full_tensor(p.grad, p))
+            for n, p in self.model.named_parameters()))
+
+    def _stepped(self) -> None:
         self.step += 1
         if self.profiler is not None:
             self.profiler.step()
+
+    def _step_graphs(self, init_phase: bool):
+        """The step's CUDA graphs (:class:`~.graphs.StepGraphs`, built at
+        their first step) where they apply to this pipeline and phase, else
+        None (the eager step)."""
+        if init_phase:
+            return None
+        if self._graphable is None:
+            self._graphable = graphs_apply(self)
+        if not self._graphable:
+            return None
+        if self.graphs is None:
+            self.graphs = StepGraphs(self)
+        return self.graphs
 
     def train_step(self, x, y, init_phase: bool, alpha: float):
         """One update on one padded batch; returns the loss and terms as
@@ -466,6 +511,7 @@ class Pipeline:
             self.setup_optimizer()
         if state.get("optimizer") is not None:
             self.optimizer.load_state_dict(state["optimizer"])
+            self.graphs = None  # captured on the replaced Adam state
         self.generator.set_state(state["generator"])
         self.step, self.epoch, self.best = state["step"], state["epoch"], state["best"]
         self.dm.load_train_state(state["data"])

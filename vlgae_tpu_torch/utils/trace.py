@@ -13,7 +13,8 @@ The counters are plain ints in one dict of this process, always on:
 module's batch producer and its consumer), :func:`counters` returns a copy
 of all, :func:`reset` drops them (a dropped counter is absent, read as 0).
 Their names say the layer first (``data.``, ``upload.``, ``dmv.``,
-``match.``).
+``match.``, ``graph.``: the train step's CUDA graphs,
+``training/graphs.py``).
 """
 
 from __future__ import annotations
